@@ -21,7 +21,17 @@ run.  Phases:
 5. backends — ``impl="kernel"`` vs ``impl="plain"`` on the card at two
    layers (full width and vocab), same seed and schedule;
 6. timing   — each kernel and its plain version at the main path's
-   shape, median of CUDA-event times, beside the bandwidth bound.
+   shape, median of CUDA-event times, beside the bandwidth bound;
+7. flash kernels — the flash forward, dq and dk/dv kernels against their
+   plain twins on the card at small odd cases (D 32/48/64/128, GQA 1/4/5,
+   causal / full / window, Sq != Sk, ragged S, fp32 and bf16);
+8. flash path — the flash attention op and its autograd function at full
+   attention width (llama3-8b, hymba-1.5b, rfast-100m; fp32, and bf16
+   for llama3-8b), forward and forward+backward, against the plain
+   twins, with the launch counters zeroed just before and read after;
+9. flash timing — each flash kernel, its plain twin and PyTorch's
+   ``scaled_dot_product_attention`` (forward, and its backward through
+   autograd) at the llama3-8b and hymba-1.5b shapes, beside the bound.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -44,6 +54,28 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 FP32_TOL = 1e-5              # tests/test_kernels.py's commit_grid tolerance
 BF16_TOL = 3e-2              # tests/test_kernels.py's bf16 tolerance
+BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, fp32 accumulate
+FLASH_FWD_TOL = 2e-5         # tests/test_kernels.py's flash tolerances:
+FLASH_GRAD_TOL = 2e-4        # fp32 forward, fp32 gradients,
+FLASH_BF16_TOL = 2e-2        # and bf16
+# (B, H, KV, Sq, Sk, D, causal, window); bq = bk = 8 divides every S
+FLASH_SMALL = [
+    (1, 4, 4, 128, 128, 32, True, None),
+    (2, 8, 2, 256, 256, 64, False, None),
+    (1, 5, 1, 192, 192, 128, True, 128),
+    (1, 10, 2, 128, 256, 64, True, None),     # Sq < Sk, GQA 5
+    (1, 4, 1, 256, 128, 32, True, None),      # Sq > Sk
+    (1, 5, 5, 200, 200, 64, True, 5),         # window below one tile
+    (2, 4, 4, 200, 200, 48, True, 100),       # ragged window, D = 48
+]
+# attention widths of src/repro/configs/{llama3_8b,hymba_1_5b,rfast_100m}.py
+# (hymba's attn_window 1024); rfast-100m at the train phase's batch and
+# sequence
+FLASH_FULL = [
+    ("llama3-8b", dict(B=1, S=4096, H=32, KV=8, D=128, window=None)),
+    ("hymba-1.5b", dict(B=1, S=4096, H=25, KV=5, D=64, window=1024)),
+    ("rfast-100m", dict(B=4, S=128, H=12, KV=4, D=64, window=None)),
+]
 TRAIN_ARGS = ["--arch", "rfast-100m", "--nodes", "4", "--topology",
               "binary_tree", "--scenario", "uniform", "--steps", "4",
               "--batch-per-node", "4", "--seq", "128", "--seed", "0"]
@@ -185,6 +217,228 @@ def compare_grid(kw, tol) -> float:
 
 
 # --------------------------------------------------------------------- #
+# flash attention cases
+# --------------------------------------------------------------------- #
+def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
+    """q (B,H,Sq,D), k, v (B,KV,Sk,D) in ``dtype`` and an fp32 cotangent
+    of q's shape, random on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return (a(B, H, Sq, D).to(dtype), a(B, KV, Sk, D).to(dtype),
+            a(B, KV, Sk, D).to(dtype), a(B, H, Sq, D))
+
+
+def held(got, want, tol, what) -> float:
+    """Max abs error of ``got`` against ``want``; raises unless finite,
+    of the same shape and dtype, and within ``tol`` (atol = rtol)."""
+    import torch
+    got = got.detach()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: layout {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{what}: finite output")
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"{what} within {tol}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def attn_pairs(Sq, Sk, causal, window) -> int:
+    """Unmasked (q, k) pairs of one (b, h) under the kernels' mask."""
+    import numpy as np
+    if not causal:
+        return Sq * Sk
+    i = np.arange(Sq)
+    hi = np.minimum(i, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(B, H, KV, S, D, window, dtype):
+    """Operations and bytes each flash kernel's function needs: the
+    forward does 2 products per pair (4·D flops), dq 3 (6·D), dk/dv 4
+    (8·D); the whole backward at least 5 (10·D).  Bytes count each input
+    once (k/v at KV heads for the forward, repeated to H for the
+    backward kernels) and each output once."""
+    import torch
+    it = torch.tensor([], dtype=dtype).element_size()
+    pairs = attn_pairs(S, S, True, window) * B * H
+    q_el, kv_el, row = B * H * S * D, B * KV * S * D, B * H * S
+    bwd_in = it * (3 * q_el) + 4 * (q_el + 2 * row)   # q, k, v; dO, lse, δ
+    return {"flash_fwd": (4 * D * pairs, it * (2 * q_el + 2 * kv_el)
+                          + 4 * row),
+            "flash_dq": (6 * D * pairs, bwd_in + 4 * q_el),
+            "flash_dkv": (8 * D * pairs, bwd_in + 8 * q_el),
+            "backward": (10 * D * pairs, bwd_in + 12 * q_el)}
+
+
+def bound(flops, nbytes, dtype):
+    import torch
+    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_small_case(case, dtype, fwd_tol, grad_tol):
+    """Each flash kernel against its plain twin on one small case."""
+    import torch
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, H, KV, Sq, Sk, D, causal, window = case
+    q, k, v, do = flash_inputs(B, H, KV, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, bq=8, bk=8)
+    o, lse = fk.flash_fwd(q, k, v, **kw)
+    o_w, lse_w = fk.flash_fwd_plain(q, k, v, **kw)
+    err = {"flash_fwd": held(o, o_w, fwd_tol, f"flash_fwd {case}"),
+           "lse": held(lse, lse_w, FLASH_FWD_TOL, f"flash_fwd lse {case}")}
+    rep = H // KV
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    o32, _ = fk.flash_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
+    delta = (do * o32).sum(-1)
+    bkw = dict(kw, scale=D ** -0.5)
+    err["flash_dq"] = held(fb.flash_dq(q, kr, vr, do, lse_w, delta, **bkw),
+                           fb.flash_dq_plain(q, kr, vr, do, lse_w, delta,
+                                             **bkw), grad_tol,
+                           f"flash_dq {case}")
+    got = fb.flash_dkv(q, kr, vr, do, lse_w, delta, **bkw)
+    want = fb.flash_dkv_plain(q, kr, vr, do, lse_w, delta, **bkw)
+    err["flash_dkv"] = max(held(g, w, grad_tol, f"flash_dkv {case}")
+                           for g, w in zip(got, want))
+    return err
+
+
+def flash_full_run(cfg, dtype, seed=0):
+    """The flash path at one full width: the op forward, then forward +
+    backward through the autograd function (k/v repeated to H heads in
+    the graph), each held against the plain twins.  Returns the errors
+    and the launches each step made."""
+    import torch
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rfast_update import dispatch
+    B, S, H, KV, D, window = (cfg[x] for x in ("B", "S", "H", "KV", "D",
+                                                "window"))
+    fwd_tol = FLASH_FWD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    grad_tol = FLASH_GRAD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed)
+    steps = {}
+    before = dict(dispatch.stats()["by_kernel"])
+    delta_of = lambda: {n: c - before.get(n, 0) for n, c in
+                        dispatch.stats()["by_kernel"].items()
+                        if c != before.get(n, 0)}
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=window,
+                        impl="kernel").transpose(1, 2)
+    torch.cuda.synchronize()
+    steps["forward"] = delta_of()
+    o_w, lse_w = fk.flash_fwd_plain(q, k, v, causal=True, window=window)
+    err = {"flash_fwd": held(o, o_w, fwd_tol, "flash path forward")}
+    del o, o_w
+
+    before = dict(dispatch.stats()["by_kernel"])
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    rep = H // KV
+    out = fb.flash_attention_vjp(leaves[0],
+                                 leaves[1].repeat_interleave(rep, 1),
+                                 leaves[2].repeat_interleave(rep, 1),
+                                 True, window)
+    out.backward(do.to(dtype))
+    torch.cuda.synchronize()
+    steps["forward+backward"] = delta_of()
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    o32, _ = fk.flash_fwd_plain(q, kr, vr, causal=True, window=window,
+                                out_dtype=torch.float32)
+    err["flash_fwd"] = max(err["flash_fwd"],
+                           held(out, o32.to(dtype), fwd_tol,
+                                "flash path forward (autograd)"))
+    dof = do.to(dtype).float()
+    delta = (dof * o32).sum(-1)
+    kw = dict(scale=D ** -0.5, causal=True, window=window)
+    dq = fb.flash_dq_plain(q, kr, vr, dof, lse_w, delta, **kw)
+    err["flash_dq"] = held(leaves[0].grad, dq.to(dtype), grad_tol,
+                           "flash path dq")
+    del dq
+    dk, dv = fb.flash_dkv_plain(q, kr, vr, dof, lse_w, delta, **kw)
+    group = lambda t: t.view(B, KV, rep, S, D).sum(2).to(dtype)
+    err["flash_dkv"] = max(held(leaves[1].grad, group(dk), grad_tol,
+                                "flash path dk"),
+                           held(leaves[2].grad, group(dv), grad_tol,
+                                "flash path dv"))
+    return err, steps
+
+
+def flash_timing(name, cfg, dtype, smi, device):
+    """CUDA-event medians of each flash kernel, its plain twin and the
+    PyTorch library call at one full width, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, S, H, KV, D, window = (cfg[x] for x in ("B", "S", "H", "KV", "D",
+                                                "window"))
+    q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed=2)
+    kw = dict(causal=True, window=window)
+    if window:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa_kw = dict(attn_mask=mask, is_causal=False)
+    else:
+        mask, sdpa_kw = None, dict(is_causal=True)
+    backend = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, mask, 0.0, sdpa_kw["is_causal"], enable_gqa=True)).name
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, enable_gqa=True, **sdpa_kw)
+    rows = {"flash_fwd": dict(
+        ms=cuda_ms(lambda: fk.flash_fwd(q, k, v, **kw), reps=10),
+        plain_ms=cuda_ms(lambda: fk.flash_fwd_plain(q, k, v, **kw), reps=5),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), reps=10))}
+
+    rep = H // KV
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    o32, lse = fk.flash_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    delta = (do * o32).sum(-1)
+    bkw = dict(kw, scale=D ** -0.5)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = sdpa(*leaves)
+    do_t = do.to(dtype)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do_t,
+                                                  retain_graph=True),
+                      reps=10)
+    rows["flash_dq"] = dict(
+        ms=cuda_ms(lambda: fb.flash_dq(q, kr, vr, do, lse, delta, **bkw),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: fb.flash_dq_plain(q, kr, vr, do, lse,
+                                                   delta, **bkw), reps=5),
+        library_ms=lib_bwd)
+    rows["flash_dkv"] = dict(
+        ms=cuda_ms(lambda: fb.flash_dkv(q, kr, vr, do, lse, delta, **bkw),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: fb.flash_dkv_plain(q, kr, vr, do, lse,
+                                                    delta, **bkw), reps=5),
+        library_ms=lib_bwd)
+    work = flash_work(B, H, KV, S, D, window, dtype)
+    for kname, row in rows.items():
+        flops, nbytes = work[kname]
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        emit("flash_timing", kernel=kname, config=name, dtype=str(dtype),
+             flops=flops, bytes=nbytes, bound_share=row["bound_ms"]
+             / row["ms"], tflop_s=flops / row["ms"] / 1e9,
+             sdpa_backend=backend, library="scaled_dot_product_attention"
+             + (" backward (dq, dk, dv)" if kname != "flash_fwd" else ""),
+             device=device, nvidia_smi=smi, **row)
+    flops, nbytes = work["backward"]
+    bwd_bound, bwd_by = bound(flops, nbytes, dtype)
+    emit("flash_timing", kernel="backward (flash_dq + flash_dkv)",
+         config=name, dtype=str(dtype),
+         ms=rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
+         library_ms=lib_bwd, bound_ms=bwd_bound, bound_by=bwd_by,
+         sdpa_backend=backend, device=device, nvidia_smi=smi)
+    return rows
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -198,7 +452,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import backward as fa_bwd
+    from repro_torch.kernels.flash_attention import kernel as fa_fwd
     from repro_torch.kernels.rfast_update import dispatch, grid
+    sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE]
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -211,10 +468,11 @@ def main() -> int:
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build([grid.KERNEL_SOURCE])
+    libs = _build.build(sources)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log(grid.KERNEL_SOURCE)
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = [ln.strip() for src in sources
+             for ln in _build.build_log(src).splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     emit("build", seconds=build_s, libraries=[str(p.relative_to(ROOT))
                                               if p.is_relative_to(ROOT)
                                               else str(p)
@@ -311,15 +569,76 @@ def main() -> int:
          bound_share=bound_ms / ms, library_ms=None, device=name,
          nvidia_smi=smi, **{k: shape[k] for k in ("B", "ka", "ko", "Pf")})
     del kw
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
+    # 7. flash kernels vs plain at small odd cases --------------------------
+    for case in FLASH_SMALL:
+        for dt, fwd_tol, grad_tol in ((torch.float32, FLASH_FWD_TOL,
+                                       FLASH_GRAD_TOL),
+                                      (torch.bfloat16, FLASH_BF16_TOL,
+                                       FLASH_BF16_TOL)):
+            err = flash_small_case(case, dt, fwd_tol, grad_tol)
+            emit("flash_kernels", case=dict(zip(
+                ("B", "H", "KV", "Sq", "Sk", "D", "causal", "window"),
+                case)), dtype=str(dt), max_abs_err=err, fwd_tol=fwd_tol,
+                grad_tol=grad_tol)
+
+    # 8. the flash path at full attention width -----------------------------
+    dispatch.clear()
+    flash_err, runs = {}, 0
+    for cfg_name, cfg in FLASH_FULL:
+        dts = (torch.float32, torch.bfloat16) if cfg_name == "llama3-8b" \
+            else (torch.float32,)
+        for dt in dts:
+            err, steps = flash_full_run(cfg, dt)
+            runs += 1
+            emit("flash_path", config=cfg_name, dtype=str(dt), **cfg,
+                 max_abs_err=err, launches=steps)
+            check(steps == {"forward": {"flash_fwd": 1},
+                            "forward+backward": {"flash_fwd": 1,
+                                                 "flash_dq": 1,
+                                                 "flash_dkv": 1}},
+                  f"flash launches per step at {cfg_name} {dt}: {steps}")
+            if cfg_name == "llama3-8b" and dt == torch.float32:
+                flash_err = err
+            torch.cuda.empty_cache()
+    flash_launches = dispatch.stats()["by_kernel"]
+    emit("flash_path", runs=runs, launches=flash_launches)
+    check(flash_launches == {"flash_fwd": 2 * runs, "flash_dq": runs,
+                             "flash_dkv": runs}, "flash path launches")
+
+    # 9. flash timing at the llama3-8b and hymba-1.5b widths ----------------
+    flash_rows = {}
+    for cfg_name, cfg in FLASH_FULL[:2]:
+        dts = (torch.float32, torch.bfloat16) if cfg_name == "llama3-8b" \
+            else (torch.float32,)
+        for dt in dts:
+            rows = flash_timing(cfg_name, cfg, dt, smi, name)
+            if cfg_name == "llama3-8b" and dt == torch.float32:
+                flash_rows = rows
+            torch.cuda.empty_cache()
+
+    kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/rfast_update/grid.py:192",
         "launches": launches.get("commit_grid", 0),
         "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}),
-        flush=True)
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+    for kname, src, rep in (
+            ("flash_fwd", fa_fwd.KERNEL_SOURCE,
+             "src/repro/kernels/flash_attention/kernel.py:85"),
+            ("flash_dq", fa_bwd.KERNEL_SOURCE,
+             "src/repro/kernels/flash_attention/backward.py:135"),
+            ("flash_dkv", fa_bwd.KERNEL_SOURCE,
+             "src/repro/kernels/flash_attention/backward.py:156")):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": str(src.relative_to(ROOT)),
+                        "replaces": rep,
+                        "launches": flash_launches.get(kname, 0),
+                        "max_abs_err": flash_err[kname],
+                        **flash_rows[kname]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into a
 ``.so`` that :mod:`ctypes` loads.  Builds happen at first use, on the
 machine with the card, into ``build/kernels/`` at the repository root
-(``.gitignore`` lists ``build/``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+(``.gitignore`` lists ``build/``).  A library's file name carries a hash
+of its source, the ``*.cuh`` headers beside it and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 
 :func:`build` starts one ``nvcc`` per missing source, all at once, and
 waits for them together; :func:`load` builds (if needed) and opens one.
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library built from ``source`` lives (hash-named)."""
+    """Where the library built from ``source`` lives (hash-named over the
+    source, the ``*.cuh`` headers beside it and the flags)."""
     source = Path(source)
-    h = hashlib.sha256(source.read_bytes()
+    headers = sorted(source.parent.glob("*.cuh"))
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in [source, *headers])
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{source.stem}-{h}.so"
 

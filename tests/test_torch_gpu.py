@@ -8,7 +8,12 @@ port's dependencies:
 The CUDA ``commit_grid`` is held to its plain PyTorch version on the
 same card tensors (fp32 at 1e-5, the reference's own tolerance; bf16 at
 3e-2, its bf16 tolerance), and the engine's two commit backends are
-held to each other.
+held to each other.  The three flash attention kernels are held to their
+plain twins at the tolerances of tests/test_kernels.py (2e-5 for the fp32
+forward, 2e-4 for fp32 gradients, 2e-2 for bf16), on odd shapes: head
+dims 32, 48, 64 and 128, GQA ratios 1, 4 and 5, causal, full and
+windowed (a window below the 64-row tile and a ragged one), Sq != Sk, and
+sequence lengths that are not a multiple of the tile.
 """
 import numpy as np
 import pytest
@@ -17,6 +22,12 @@ import torch
 from repro_torch.core.scenario import get_scenario
 from repro_torch.core.simulator import run_rfast, tracked_mass
 from repro_torch.core.topology import get_topology
+from repro_torch.kernels.flash_attention.backward import (
+    flash_attention_vjp, flash_dkv, flash_dkv_plain, flash_dq,
+    flash_dq_plain)
+from repro_torch.kernels.flash_attention.kernel import (flash_fwd,
+                                                        flash_fwd_plain)
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.kernels.rfast_update.grid import (commit_grid,
                                                    commit_grid_plain)
@@ -110,3 +121,128 @@ def test_train_runs_on_the_card_by_default(cuda):
     assert all(np.isfinite(res["losses"]))
     assert dispatch.launches("commit_grid") == res["waves"] > 0
     assert res["mass_rel"] < 1e-4
+
+
+# (B, H, KV, Sq, Sk, D, causal, window); bq = bk = 8 divides every S
+# (or is cut to it)
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 32, True, None),
+    (2, 8, 2, 256, 256, 64, False, None),
+    (1, 5, 1, 192, 192, 128, True, 128),
+    (1, 10, 2, 128, 256, 64, True, None),     # Sq < Sk, GQA 5
+    (1, 4, 1, 256, 128, 32, True, None),      # Sq > Sk
+    (1, 5, 5, 200, 200, 64, True, 5),         # window below one tile
+    (2, 4, 4, 200, 200, 48, True, 100),       # ragged window, D = 48
+    (1, 8, 2, 1, 1, 64, True, None),          # one query, one key
+    (1, 2, 1, 64, 296, 100, False, None),     # D = 100, ragged Sk
+    (3, 3, 3, 8, 72, 16, True, 7),            # D = 16, Sq < Sk, window
+]
+FLASH_DTYPES = [(torch.float32, 2e-5, 2e-4), (torch.bfloat16, 2e-2, 2e-2)]
+
+
+def _flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
+    r = np.random.default_rng(seed)
+    a = lambda *s: torch.from_numpy(r.normal(0, 1, s).astype(np.float32)
+                                    ).cuda()
+    return (a(B, H, Sq, D).to(dtype), a(B, KV, Sk, D).to(dtype),
+            a(B, KV, Sk, D).to(dtype), a(B, H, Sq, D))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype,tol,_", FLASH_DTYPES)
+def test_flash_fwd_kernel_matches_plain(cuda, case, dtype, tol, _):
+    B, H, KV, Sq, Sk, D, causal, window = case
+    q, k, v, _do = _flash_inputs(B, H, KV, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, bq=8, bk=8)
+    o, lse = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launches("flash_fwd") == 1
+    o_w, lse_w = flash_fwd_plain(q, k, v, **kw)
+    assert dispatch.launches("flash_fwd") == 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), o_w.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_w, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype,_,tol", FLASH_DTYPES)
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype, _, tol):
+    B, H, KV, Sq, Sk, D, causal, window = case
+    q, k, v, do = _flash_inputs(B, H, KV, Sq, Sk, D, dtype)
+    k, v = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, bq=8, bk=8)
+    o, lse = flash_fwd_plain(q, k, v, causal=causal, window=window, bq=8,
+                             bk=8, out_dtype=torch.float32)
+    delta = (do * o).sum(-1)
+    got = (flash_dq(q, k, v, do, lse, delta, **kw),
+           *flash_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert dispatch.launches("flash_dq") == dispatch.launches("flash_dkv") \
+        == 1
+    want = (flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_vjp_through_kernels_with_gqa_repeat(cuda, dtype, tol):
+    """Autograd through the three kernels; the GQA repeat is the caller's
+    and its gradient sums over each group."""
+    B, H, KV, S, D = 2, 8, 2, 192, 64
+    q, k, v, w = _flash_inputs(B, H, KV, S, S, D, dtype, seed=1)
+    grads = {}
+    for path in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        qq, kk, vv = leaves
+        kk, vv = kk.repeat_interleave(4, 1), vv.repeat_interleave(4, 1)
+        if path == "kernel":
+            dispatch.clear()
+            o = flash_attention_vjp(qq, kk, vv, True, 64, None, 64, 64)
+        else:
+            o = flash_fwd_plain(qq, kk, vv, window=64, bq=64, bk=64)[0]
+        (o.float() * w).sum().backward()
+        grads[path] = [t.grad for t in leaves]
+        if path == "kernel":
+            assert dispatch.stats()["by_kernel"] == {
+                "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for g, p in zip(grads["kernel"], grads["plain"]):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol)
+
+
+def test_flash_op_kernel_matches_ref_on_card(cuda):
+    q, k, v, _ = _flash_inputs(2, 8, 2, 256, 256, 64, torch.float32)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    for window in (None, 100):
+        got = flash_attention(q, k, v, window=window, impl="kernel")
+        want = flash_attention(q, k, v, window=window, impl="ref")
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert dispatch.launches("flash_fwd") == 2
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _flash_inputs(1, 2, 2, 128, 128, 64, torch.float32)
+    wide = torch.zeros(1, 2, 128, 160, device="cuda")
+    with pytest.raises(ValueError):
+        flash_fwd(wide, wide, wide)                          # D > 128
+    with pytest.raises(ValueError):
+        flash_fwd(q, k.to(torch.bfloat16), v)                # mixed dtypes
+    with pytest.raises(ValueError):
+        flash_fwd(q[:, :, :120], k, v, bq=64)                # 120 % 64
+    with pytest.raises(TypeError):
+        flash_fwd(q.double(), k.double(), v.double())
+    lse = torch.zeros(1, 2, 128, device="cuda")
+    kw = dict(scale=0.125)
+    for fn in (flash_dq, flash_dkv):
+        with pytest.raises(ValueError):
+            fn(wide, wide, wide, wide, lse, lse, **kw)
+        with pytest.raises(ValueError):
+            fn(q, k.to(torch.bfloat16), v, do, lse, lse, **kw)
+        with pytest.raises(ValueError):
+            fn(q, k, v, do, lse, lse, bk=96, **kw)           # 128 % 96
+        with pytest.raises(ValueError):
+            fn(q, k, v, do.to(torch.bfloat16), lse, lse, **kw)
+    assert dispatch.stats()["launches"] == 0
