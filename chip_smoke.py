@@ -31,7 +31,25 @@ run.  Phases:
    twins, with the launch counters zeroed just before and read after;
 9. flash timing — each flash kernel, its plain twin and PyTorch's
    ``scaled_dot_product_attention`` (forward, and its backward through
-   autograd) at the llama3-8b and hymba-1.5b shapes, beside the bound.
+   autograd) at the llama3-8b and hymba-1.5b shapes, beside the bound;
+10. node kernels — ``rfast_update_node`` and ``rfast_commit_node``
+   against their plain twins (P 1, 37, 4097, 100,001 in fp32 and bf16,
+   slot counts (Kw, Ka, Ko) (1, 2, 1) and (2, 3, 2), random weights and
+   0/1 masks), then the ops ``rfast_update(outputs="full")`` and
+   ``rfast_commit(oracle=True)`` at full width (P = p of rfast-100m,
+   fp32) with the launch counters zeroed just before and read after;
+11. sync train — ``launch.train.main`` with no ``--scenario`` at full
+   width rfast-100m (4 nodes, binary tree, ``--impl kernel``), 3 rounds
+   with no loss, then 3 rounds with ``--loss-prob 0.2 --momentum 0.9``,
+   the counters zeroed before each and read after, and the allocator
+   read before each call, after its init and after its first round;
+12. round routes — the protocol round's ``kernel``, ``kernel`` with
+   ``oracle=True`` and ``plain`` routes from one state at two layers of
+   full width, 4 lossy rounds each, with their launches;
+13. node timing — each node kernel and its plain twin at full width,
+   and ``commit_grid`` at the round's shape (B = 4 nodes; its bound
+   counts the rows the round keeps, not the pad slots it drops), median
+   of CUDA-event times, beside the bandwidth bound.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -79,6 +97,14 @@ FLASH_FULL = [
 TRAIN_ARGS = ["--arch", "rfast-100m", "--nodes", "4", "--topology",
               "binary_tree", "--scenario", "uniform", "--steps", "4",
               "--batch-per-node", "4", "--seq", "128", "--seed", "0"]
+SYNC_ARGS = ["--arch", "rfast-100m", "--nodes", "4", "--topology",
+             "binary_tree", "--steps", "3", "--batch-per-node", "4",
+             "--seq", "128", "--seed", "0", "--log-every", "1"]
+SYNC_RUNS = [("sync", []),
+             ("lossy+momentum", ["--loss-prob", "0.2", "--momentum", "0.9"])]
+# (Kw, Ka, Ko): the binary tree's slot counts, and wider ones
+NODE_SLOTS = [(1, 2, 1), (2, 3, 2)]
+ROUTE_TOL = 1e-5             # the round routes agree to this, relative
 
 
 def emit(phase: str, **kw) -> None:
@@ -439,6 +465,89 @@ def flash_timing(name, cfg, dtype, smi, device):
 
 
 # --------------------------------------------------------------------- #
+# per-node kernels and the protocol round
+# --------------------------------------------------------------------- #
+def node_case(P, dtype, kw, ka, ko, *, seed=0, dev="cuda"):
+    """Random operands of the full update on ``dev``: sources in
+    ``dtype``, weights in [0, 1), 0/1 masks, device scalars."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)
+    return dict(x=a(P), z=a(P), g_new=a(P), g_old=a(P), v_in=a(kw, P),
+                w_in=u(kw), rho_in=a(ka, P), rho_buf=a(ka, P),
+                mask=(u(ka) < 0.5).float(), rho_out=a(ko, P), a_out=u(ko),
+                gamma=u(()) * 0.1, w_self=u(()), a_self=u(()))
+
+
+def node_flops(kw, ka, ko, *, full) -> int:
+    """fp32 operations per element: recv and the ρ̃ blend 7 per in-slot,
+    z½ and z' 4, ρ_out 2 per out-slot; the full update adds v (2), the
+    self weight (1) and 2 per consensus slot."""
+    return 7 * ka + 4 + 2 * ko + (3 + 2 * kw if full else 0)
+
+
+COMMIT_KEYS = ("z", "g_new", "g_old", "rho_in", "rho_buf", "mask",
+               "rho_out", "a_out", "a_self")
+
+
+def compare_node(case, tol):
+    """Both node kernels against their plain twins on ``case``: the max
+    abs error of each; raises unless finite and within ``tol``."""
+    from repro_torch.kernels.rfast_update import kernel as nk
+    commit = {k: case[k] for k in COMMIT_KEYS}
+    return {
+        "rfast_update_node": max(
+            held(g, w, tol, "rfast_update_node") for g, w in
+            zip(nk.rfast_update_node(**case),
+                nk.rfast_update_node_plain(**case))),
+        "rfast_commit_node": max(
+            held(g, w, tol, "rfast_commit_node") for g, w in
+            zip(nk.rfast_commit_node(**commit),
+                nk.rfast_commit_node_plain(**commit)))}
+
+
+def round_grid_case(spec, p, *, seed=0, dev="cuda"):
+    """``commit_grid``'s arguments at the protocol round's shape, wired
+    by :func:`~repro_torch.core.protocol.round_commit_args` (the plan's
+    node tables, B = N lanes, all delivered) over random (N, p) and
+    (E_pad, p) state; and the bytes and operations the round needs of
+    it: each distinct source row of a real edge read once, and the rows
+    the round keeps (z' of every node, ρ_out'/ρ̃' of real edges) written
+    once.  The pad slots' outputs, which the round drops, are not
+    counted."""
+    import numpy as np
+    import torch
+    from repro_torch.core.protocol import (ProtocolState, device_tables,
+                                           round_commit_args)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = lambda r: torch.randn(r, p, generator=g, device=dev)
+    n, e = spec.n, spec.e_pad
+    t = device_tables(spec)(torch.device(dev))
+    state = ProtocolState(step=0, x=None, z=rows(n), g_prev=rows(n),
+                          rho=rows(e), rho_buf=rows(e), mail_v=None, m=None)
+    kw = round_commit_args(t, state, rows(n), t.ones)
+    real_in = spec.in_a_epos[spec.in_a_val > 0]
+    real_out = spec.out_a_epos[spec.out_a_val > 0]
+    read = (3 * n + len(np.unique(np.concatenate([real_in, real_out])))
+            + len(np.unique(real_in)))
+    written = n + len(real_in) + len(real_out)
+    nbytes = (read + written) * p * 4
+    return kw, dict(B=n, ka=spec.ka, ko=spec.ko, Pf=p, bytes=nbytes,
+                    rows_read=read, rows_written=written,
+                    flops=p * (4 * n + 4 * len(real_in)
+                               + 2 * len(real_out)))
+
+
+def state_rel(a, b) -> float:
+    """Largest norm-relative difference over x, z, ρ and ρ̃."""
+    import torch
+    return max(float(torch.linalg.vector_norm(u - w)
+                     / torch.linalg.vector_norm(w).clamp_min(1e-30))
+               for u, w in zip(a, b))
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -455,7 +564,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import backward as fa_bwd
     from repro_torch.kernels.flash_attention import kernel as fa_fwd
     from repro_torch.kernels.rfast_update import dispatch, grid
-    sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE]
+    from repro_torch.kernels.rfast_update import kernel as node_k
+    sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE,
+               node_k.KERNEL_SOURCE]
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -618,13 +729,167 @@ def main() -> int:
                 flash_rows = rows
             torch.cuda.empty_cache()
 
+    # 10. node kernels vs plain, then their ops at full width --------------
+    for P in (1, 37, 4097, 100_001):
+        for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16,
+                                                    BF16_TOL)):
+            for slots in NODE_SLOTS:
+                err = compare_node(node_case(P, dt, *slots), tol)
+                emit("node_kernels", P=P, dtype=str(dt),
+                     kw_ka_ko=list(slots), max_abs_err=err, tol=tol)
+    node_case_full = node_case(p_run, torch.float32, *NODE_SLOTS[0], seed=1)
+    node_err = compare_node(node_case_full, FP32_TOL)
+    emit("node_kernels", P=p_run, dtype="float32",
+         kw_ka_ko=list(NODE_SLOTS[0]), max_abs_err=node_err, tol=FP32_TOL)
+    from repro_torch.kernels.rfast_update import ops as node_ops
+    dispatch.clear()
+    full = node_ops.rfast_update(**node_case_full, impl="kernel")
+    commit = node_ops.rfast_commit(
+        **{k: node_case_full[k] for k in COMMIT_KEYS}, impl="kernel",
+        oracle=True)
+    torch.cuda.synchronize()
+    node_op_launches = dispatch.stats()["by_kernel"]
+    op_err = max(held(g, w, FP32_TOL, "ops.rfast_update") for g, w in zip(
+        full + commit, node_k.rfast_update_node_plain(**node_case_full)
+        + node_k.rfast_commit_node_plain(
+            **{k: node_case_full[k] for k in COMMIT_KEYS})))
+    emit("node_ops", P=p_run, launches=node_op_launches, max_abs_err=op_err)
+    check(node_op_launches == {"rfast_update_node": 1,
+                               "rfast_commit_node": 1},
+          f"one launch per node op: {node_op_launches}")
+    # its ten full-width rows go before the train: phase 13 makes them anew
+    del full, commit, node_case_full
+    torch.cuda.empty_cache()
+
+    # 11. sync train at full width -------------------------------------------
+    sync_launches = {}
+    for tag, extra in SYNC_RUNS:
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        sres = train.main(SYNC_ARGS + extra)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        sync_launches[tag] = dispatch.stats()["by_kernel"]
+        emit("sync_train", run=tag, args=extra, p=sres["p"],
+             rounds=sres["rounds"], losses=sres["losses"],
+             state_gb=sres["state_bytes"] / 1e9,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             memory_gb={k: {m: b / 1e9 for m, b in v.items()}
+                        for k, v in sres["memory"].items()},
+             resident_before_gb=resident / 1e9,
+             wall_s=swall, launches=sync_launches[tag],
+             lemma3_rel=sres["mass_rel"], device=name, nvidia_smi=smi)
+        check(all(math.isfinite(v) for v in sres["losses"]),
+              f"{tag}: finite losses")
+        check(sync_launches[tag] == {"commit_grid": sres["rounds"]},
+              f"{tag}: one commit_grid launch per round, no other: "
+              f"{sync_launches[tag]}")
+        check(sres["mass_rel"] <= 1e-4, f"{tag}: Lemma-3 residual <= 1e-4")
+        torch.cuda.empty_cache()
+
+    # 12. round routes at two layers of full width ---------------------------
+    from repro_torch.core.protocol import ProtocolState
+    from repro_torch.core.runtime import make_rfast_round
+    import numpy as np
+    plan4, st0, grad_fn, batches = train.sync_setup(
+        cfg2, 4, "binary_tree", batch_per_node=4, seq=128, seed=0,
+        device="cuda", robust=True, momentum=0.9)
+    mrng = np.random.default_rng(1)
+    masks = [torch.from_numpy((mrng.uniform(size=plan4.e_pad) >= 0.3)
+                              .astype(np.float32)).cuda() for _ in range(4)]
+    route_finals, route_launches = {}, {}
+    for rname, impl, oracle in (("kernel", "kernel", False),
+                                ("oracle", "kernel", True),
+                                ("plain", "plain", False)):
+        st = ProtocolState(st0.step, *(None if t is None else t.clone()
+                                       for t in st0[1:]))
+        rf = make_rfast_round(plan4, grad_fn, gamma=3e-3, robust=True,
+                              momentum=0.9, impl=impl, oracle=oracle,
+                              donate=True)
+        dispatch.clear()
+        for r, mk in enumerate(masks):
+            st, _ = rf(st, batches(r), None, mk)
+        torch.cuda.synchronize()
+        route_launches[rname] = dispatch.stats()["by_kernel"]
+        route_finals[rname] = (st.x, st.z, st.rho, st.rho_buf)
+        del st
+        torch.cuda.empty_cache()
+    route_rel = {r: state_rel(route_finals[r], route_finals["plain"])
+                 for r in ("kernel", "oracle")}
+    emit("round_routes", n_layers=2, p=st0.x.shape[1], rounds=len(masks),
+         rel_vs_plain=route_rel, tol=ROUTE_TOL, launches=route_launches)
+    check(max(route_rel.values()) <= ROUTE_TOL,
+          f"round routes agree to {ROUTE_TOL}")
+    check(route_launches == {
+        "kernel": {"commit_grid": len(masks)},
+        "oracle": {"rfast_commit_node": 4 * len(masks)},
+        "plain": {}}, f"round route launches: {route_launches}")
+    del route_finals, st0
+    torch.cuda.empty_cache()
+
+    # 13. node kernel timing at full width, commit_grid at the round shape --
+    node_case_full = node_case(p_run, torch.float32, *NODE_SLOTS[0], seed=1)
+    commit_full = {k: node_case_full[k] for k in COMMIT_KEYS}
+    node_rows = {
+        "rfast_update_node": dict(
+            ms=cuda_ms(lambda: node_k.rfast_update_node(**node_case_full),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: node_k.rfast_update_node_plain(
+                **node_case_full), reps=5),
+            nbytes=node_k.rfast_update_node_bytes(*NODE_SLOTS[0], p_run, 4),
+            flops=p_run * node_flops(*NODE_SLOTS[0], full=True)),
+        "rfast_commit_node": dict(
+            ms=cuda_ms(lambda: node_k.rfast_commit_node(**commit_full),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: node_k.rfast_commit_node_plain(
+                **commit_full), reps=5),
+            nbytes=node_k.rfast_commit_node_bytes(*NODE_SLOTS[0][1:], p_run,
+                                                  4),
+            flops=p_run * node_flops(*NODE_SLOTS[0], full=False))}
+    for kname, row in node_rows.items():
+        row["bound_ms"], row["bound_by"] = bound(row["flops"], row["nbytes"],
+                                                 torch.float32)
+        emit("node_timing", kernel=kname, P=p_run, kw_ka_ko=list(
+            NODE_SLOTS[0]), bytes=row["nbytes"], flops=row["flops"],
+            achieved_gb_s=row["nbytes"] / row["ms"] / 1e6,
+            bound_share=row["bound_ms"] / row["ms"], library_ms=None,
+            device=name, nvidia_smi=smi,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")})
+    del node_case_full, commit_full
+    torch.cuda.empty_cache()
+    kw, rshape = round_grid_case(plan4, p_run)
+    round_ms = cuda_ms(lambda: grid.commit_grid(**kw), reps=10)
+    round_plain_ms = cuda_ms(lambda: grid.commit_grid_plain(**kw), reps=5)
+    round_bound, round_by = bound(rshape["flops"], rshape["bytes"],
+                                  torch.float32)
+    emit("round_timing", kernel="commit_grid", ms=round_ms,
+         plain_ms=round_plain_ms, bytes=rshape["bytes"],
+         formula_bytes=grid.commit_grid_bytes(rshape["B"], rshape["ka"],
+                                              rshape["ko"], p_run, 4),
+         flops=rshape["flops"], bound_ms=round_bound, bound_by=round_by,
+         achieved_gb_s=rshape["bytes"] / round_ms / 1e6,
+         bound_share=round_bound / round_ms, library_ms=None, device=name,
+         nvidia_smi=smi, **{k: rshape[k] for k in (
+             "B", "ka", "ko", "Pf", "rows_read", "rows_written")})
+    del kw
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/rfast_update/grid.py:192",
-        "launches": launches.get("commit_grid", 0),
+        "launches": launches.get("commit_grid", 0)
+        + sum(v.get("commit_grid", 0) for v in sync_launches.values()),
+        "launches_by_path": {"async_train": launches.get("commit_grid", 0),
+                             **{f"sync_train_{t}": v.get("commit_grid", 0)
+                                for t, v in sync_launches.items()}},
         "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "round_shape": {"ms": round_ms, "plain_ms": round_plain_ms,
+                        "bound_ms": round_bound}}]
     for kname, src, rep in (
             ("flash_fwd", fa_fwd.KERNEL_SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:85"),
@@ -638,6 +903,21 @@ def main() -> int:
                         "launches": flash_launches.get(kname, 0),
                         "max_abs_err": flash_err[kname],
                         **flash_rows[kname]})
+    for kname, rep, nl in (
+            ("rfast_update_node",
+             "src/repro/kernels/rfast_update/kernel.py:143",
+             node_op_launches.get("rfast_update_node", 0)),
+            ("rfast_commit_node",
+             "src/repro/kernels/rfast_update/kernel.py:113",
+             route_launches["oracle"].get("rfast_commit_node", 0))):
+        row = node_rows[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": str(node_k.KERNEL_SOURCE.relative_to(ROOT)),
+                        "replaces": rep, "launches": nl,
+                        "max_abs_err": node_err[kname],
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ is the bridge:
   and ``gen`` a ``torch.Generator`` seeded per (event, node) by the
   engine (the JAX package passes a ``jax.random`` key instead).
 * :class:`ModelGradProvider` wraps a ``(params, batch, gen) -> loss``
-  model loss into that signature with :func:`torch.autograd.grad`.
+  model loss into that signature with :func:`torch.autograd.grad`;
+  :func:`value_and_grad` is the same bridge with the batch passed in,
+  ``(x_flat, batch, key) -> (loss, g_flat)``, the per-node gradient of
+  the synchronous rounds.
 
 All protocol operations are linear in the lane, so the zero pad tail
 stays zero (its gradient is zero: no parameter views it).
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["RavelSpec", "make_ravel_spec", "ravel", "unravel",
-           "GradProvider", "ModelGradProvider", "as_grad_fn"]
+           "GradProvider", "ModelGradProvider", "as_grad_fn",
+           "value_and_grad"]
 
 FlatGradFn = Callable[[int, torch.Tensor, torch.Generator], torch.Tensor]
 # (node_id, x_flat, generator) -> g_flat
@@ -118,6 +122,24 @@ def unravel(spec: RavelSpec, vec: torch.Tensor) -> dict:
     return tree
 
 
+def value_and_grad(spec: RavelSpec,
+                   loss_fn: Callable[[dict, Any, Any], torch.Tensor]):
+    """``(params, batch, key) -> loss`` -> ``(x_flat, batch, key) ->
+    (loss, g_flat)``: the lane becomes a leaf that requires grad, the
+    parameters are views into it (:func:`unravel`), and
+    ``torch.autograd.grad(loss, lane)`` is already the flat gradient.
+    The loss comes back detached."""
+
+    def vg(x_flat, batch, key):
+        lane = x_flat.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(unravel(spec, lane), batch, key)
+            (g,) = torch.autograd.grad(loss, lane)
+        return loss.detach(), g
+
+    return vg
+
+
 @runtime_checkable
 class GradProvider(Protocol):
     """What an objective exposes to drive the flat-vector engine."""
@@ -149,9 +171,7 @@ class ModelGradProvider:
     ``(i, x_flat, gen) -> g_flat`` engine signature.
 
     ``batch_fn(i, gen) -> batch`` draws node ``i``'s batch from the
-    per-(event, node) generator.  The lane becomes a leaf that requires
-    grad, the parameters are views into it, and
-    ``torch.autograd.grad(loss, lane)`` is already the flat gradient.
+    per-(event, node) generator; the gradient is :func:`value_and_grad`'s.
     """
 
     spec: RavelSpec
@@ -168,14 +188,5 @@ class ModelGradProvider:
         return self.spec.p
 
     def grad_fn(self) -> FlatGradFn:
-        spec, loss_fn, batch_fn = self.spec, self.loss_fn, self.batch_fn
-
-        def gfn(i, x_flat, gen):
-            lane = x_flat.detach().requires_grad_(True)
-            batch = batch_fn(i, gen)
-            with torch.enable_grad():
-                loss = loss_fn(unravel(spec, lane), batch, gen)
-                (g,) = torch.autograd.grad(loss, lane)
-            return g
-
-        return gfn
+        vg, batch_fn = value_and_grad(self.spec, self.loss_fn), self.batch_fn
+        return lambda i, x_flat, gen: vg(x_flat, batch_fn(i, gen), gen)[1]

@@ -56,15 +56,13 @@ from ..kernels.rfast_update import dispatch
 from ..kernels.rfast_update.grid import commit_grid
 from .paramvec import as_grad_fn
 from .plan import CommPlan, as_comm_plan
-from .protocol import consensus_mix, descent_step, tracking_step
+from .protocol import IMPLS, consensus_mix, descent_step, tracking_step
 from .schedule import Schedule, build_wavefront_plan, grid_gather_tables
 from .topology import Topology
 
 __all__ = ["RFASTState", "PackedState", "init_state", "init_packed",
            "zeros_state", "pack_state", "unpack_state", "wave_inputs",
            "event_generator", "run_rfast", "tracked_mass", "IMPLS"]
-
-IMPLS = ("kernel", "plain")
 
 
 class RFASTState(NamedTuple):

@@ -1,23 +1,36 @@
-"""End-to-end asynchronous R-FAST training driver of the port.
+"""End-to-end R-FAST training driver of the port.
 
-Counterpart of ``src/repro/launch/train.py --scenario <name>``: a static
-:class:`~repro_torch.core.scenario.NetworkScenario` (stragglers, latency,
-loss, crash/recovery) is realized into a per-event trace, and the LM
-trains through the wavefront engine on the flat-parameter substrate.
-``--steps N`` means N activations per node (K = N·nodes events).
+Counterpart of ``src/repro/launch/train.py``, in its two regimes:
+
+* **synchronous rounds** (default) — the protocol-round runtime
+  (:mod:`repro_torch.core.runtime`): every round runs S1–S5 for all
+  nodes over the flat parameter state, with optional Bernoulli per-edge
+  loss masks (``--loss-prob``) and heavy-ball momentum (``--momentum``).
+  Batches are the reference's ``node_batch`` and masks its
+  ``default_rng(seed + 1)`` draws, so only the initial weights differ
+  from a reference run.
+* **fully asynchronous** (``--scenario <name>``) — a static
+  :class:`~repro_torch.core.scenario.NetworkScenario` (stragglers,
+  latency, loss, crash/recovery) is realized into a per-event trace,
+  and the LM trains through the wavefront engine on the flat-parameter
+  substrate.  ``--steps N`` means N activations per node
+  (K = N·nodes events).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --nodes 4 --steps 20 --loss-prob 0.2 --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --nodes 4 --steps 20 --scenario straggler --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no GPU
 is present and the CPU was not asked for.  ``--impl kernel`` (default)
-commits every wave through the hand-written ``commit_grid`` kernel;
-``--impl plain`` through PyTorch ops.  On the card, float32 matmuls run
-in full float32 (TF32 off), as the reference does.
+commits through the hand-written ``commit_grid`` kernel (one launch per
+round, or per wave); ``--impl plain`` through PyTorch ops.  On the card,
+float32 matmuls run in full float32 (TF32 off), as the reference does.
 
-Not ported yet, each rejected with an error: the synchronous regime (no
-``--scenario``), ``--ckpt``, ``--publish-dir``, ``--param-shards`` and
-dynamic (membership) scenarios.
+Not ported yet, each rejected with an error: ``--ckpt``, and with
+``--scenario`` also ``--publish-dir``, ``--param-shards`` and dynamic
+(membership) scenarios.
 """
 from __future__ import annotations
 
@@ -28,13 +41,20 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.paramvec import make_ravel_spec, ravel, value_and_grad
+from repro_torch.core.protocol import IMPLS
+from repro_torch.core.runtime import (edge_arrays, init_node_state,
+                                      make_rfast_round, runtime_tracked_mass)
 from repro_torch.core.scenario import SCENARIOS, get_scenario
-from repro_torch.core.simulator import IMPLS, run_rfast, tracked_mass
+from repro_torch.core.simulator import run_rfast, tracked_mass
 from repro_torch.core.topology import get_topology
 from repro_torch.data.objectives import make_lm_problem
+from repro_torch.data.pipeline import LMShardConfig, node_batch
 from repro_torch.kernels.rfast_update import dispatch
+from repro_torch.metrics import MetricsLogger, StepTimer
+from repro_torch.optim.schedules import warmup_cosine
 
-_NOT_PORTED = "is not ported yet (repro_torch runs the async regime only)"
+_NOT_PORTED = "is not ported yet"
 
 
 def main(argv=None) -> dict:
@@ -48,9 +68,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--topology", default="binary_tree")
     ap.add_argument("--gamma", type=float, default=3e-3)
+    ap.add_argument("--momentum", type=float, default=0.0)
+    ap.add_argument("--loss-prob", type=float, default=0.0)
     ap.add_argument("--scenario", default="", metavar="NAME",
                     help="train asynchronously under a named static "
-                         f"NetworkScenario ({', '.join(sorted(SCENARIOS))})")
+                         f"NetworkScenario ({', '.join(sorted(SCENARIOS))}); "
+                         "default: synchronous rounds")
     ap.add_argument("--impl", default="kernel", choices=IMPLS,
                     help="commit backend: kernel (hand-written CUDA "
                          "commit_grid) or plain (PyTorch ops)")
@@ -59,20 +82,39 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--publish-dir", default="")
     ap.add_argument("--param-shards", type=int, default=1)
+    ap.add_argument("--metrics", default="", help="JSONL metrics path")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if not args.scenario:
-        ap.error(f"the synchronous regime {_NOT_PORTED}; pass --scenario")
-    for flag, on in (("--ckpt", args.ckpt), ("--publish-dir",
-                                             args.publish_dir),
-                     ("--param-shards", args.param_shards > 1)):
-        if on:
-            ap.error(f"{flag} is not ported yet")
-    if get_scenario(args.scenario, args.nodes).dynamic:
-        ap.error(f"dynamic scenario {args.scenario!r}: membership epochs "
-                 "are not ported yet")
+    if args.ckpt:
+        ap.error(f"--ckpt {_NOT_PORTED}")
+    if args.scenario:
+        if args.loss_prob:
+            ap.error("--loss-prob models loss in the synchronous rounds; "
+                     "with --scenario the NetworkScenario owns the "
+                     "loss/delay model")
+        if args.momentum:
+            ap.error("--momentum applies to the synchronous round engine "
+                     "only; the event-level Algorithm 2 recursion has no "
+                     "momentum term")
+        for flag, on in (("--publish-dir", args.publish_dir),
+                         ("--param-shards", args.param_shards > 1)):
+            if on:
+                ap.error(f"{flag} {_NOT_PORTED}")
+        if get_scenario(args.scenario, args.nodes).dynamic:
+            ap.error(f"dynamic scenario {args.scenario!r}: membership "
+                     "epochs are not ported yet")
+    else:
+        if args.publish_dir:
+            ap.error("--publish-dir publishes the async consensus "
+                     "average at chunk boundaries; the synchronous "
+                     "rounds have no flat-parameter chunk hook (pass "
+                     "--scenario)")
+        if args.param_shards > 1:
+            ap.error("--param-shards shards the wavefront engine's flat "
+                     "parameter axis (pass --scenario for the async "
+                     "regime)")
     device = dispatch.resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -80,9 +122,127 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    return _train_async(args, cfg, device)
+    if args.scenario:
+        return _train_async(args, cfg, device)
+    return _train_sync(args, cfg, device)
 
 
+# --------------------------------------------------------------------- #
+# synchronous rounds (protocol-round runtime)
+# --------------------------------------------------------------------- #
+def sync_grad_fn(cfg, spec):
+    """Per-node gradient of the LM on the flat lane: ``(x_flat, (toks,
+    labels), key) -> (loss, g_flat)``; the key is unused (the reference
+    drops it too)."""
+    from repro_torch.models.transformer import loss_fn
+    return value_and_grad(
+        spec, lambda params, batch, _key: loss_fn(cfg, params, *batch))
+
+
+def sync_batches(shard_cfg: LMShardConfig, step: int, device):
+    """Every node's ``node_batch`` at ``step``, stacked: ``(toks, labels)``
+    of shape (N, B, S), int64 on ``device``."""
+    toks, labels = zip(*(node_batch(shard_cfg, i, step)
+                         for i in range(shard_cfg.n_nodes)))
+    put = lambda a: torch.from_numpy(np.stack(a).astype(np.int64)).to(device)
+    return put(toks), put(labels)
+
+
+def sync_setup(cfg, n: int, topology: str, *, batch_per_node: int, seq: int,
+               seed: int, device, robust: bool, momentum: float):
+    """A synchronous run's plan, initial protocol state (flat, on
+    ``device``; weights from a ``torch.Generator`` seeded with ``seed``),
+    per-node gradient and batch source ``step -> batches``."""
+    from repro_torch.models.transformer import init_params
+    spec = edge_arrays(get_topology(topology, n))
+    shard_cfg = LMShardConfig(vocab=cfg.vocab, batch_per_node=batch_per_node,
+                              seq_len=seq, n_nodes=n, seed=seed)
+    params0 = init_params(cfg, torch.Generator().manual_seed(seed))
+    rspec = make_ravel_spec(params0)
+    x0 = ravel(rspec, params0).to(device)
+    del params0
+    grad_fn = sync_grad_fn(cfg, rspec)
+    batches = lambda step: sync_batches(shard_cfg, step, device)
+    state = init_node_state(spec, x0, grad_fn, batches(0), robust=robust,
+                            momentum=momentum)
+    return spec, state, grad_fn, batches
+
+
+def _train_sync(args, cfg, device) -> dict:
+    n = args.nodes
+    robust = args.loss_prob > 0
+    spec, state, grad_fn, batches = sync_setup(
+        cfg, n, args.topology, batch_per_node=args.batch_per_node,
+        seq=args.seq, seed=args.seed, device=device, robust=robust,
+        momentum=args.momentum)
+    gamma = warmup_cosine(args.gamma, warmup=max(1, args.steps // 20),
+                          total=args.steps)
+    # donate=True: the protocol state updates in place; the loop below
+    # rebinds ``state`` every step and never replays an old one
+    round_fn = make_rfast_round(
+        spec, grad_fn, gamma=gamma, robust=robust,
+        momentum=args.momentum, impl=args.impl, donate=True)
+    p = state.x.shape[1]
+    memory = {"init": _cuda_memory(device)}
+    print(f"arch={cfg.name} p={p} nodes={n} topo={args.topology} "
+          f"robust={robust} momentum={args.momentum} impl={args.impl} "
+          f"device={device}", flush=True)
+
+    rng = np.random.default_rng(args.seed + 1)
+    logger = MetricsLogger(args.metrics) if args.metrics else None
+    timer = StepTimer()
+    t0 = time.perf_counter()
+    losses: list[float] = []
+    for step in range(args.steps):
+        masks = None
+        if robust:
+            masks = torch.from_numpy(
+                (rng.uniform(size=spec.e_pad) >= args.loss_prob)
+                .astype(np.float32)).to(device)
+        state, metrics = round_fn(state, batches(step), None, masks)
+        if step == 0:
+            memory["round1"] = _cuda_memory(device)
+        timer.tick()
+        if logger:
+            logger.log(step + 1, loss=metrics["loss"],
+                       sps=timer.steps_per_sec)
+        if (step == 0 or (step + 1) % args.log_every == 0
+                or step + 1 == args.steps):
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            print(f"step {step + 1:5d} loss {loss:.4f} "
+                  f"({time.perf_counter() - t0:.1f}s, "
+                  f"{timer.steps_per_sec:.2f} it/s)", flush=True)
+    if logger:
+        logger.close()
+    # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
+    g_sum = state.g_prev.sum(0)
+    mass_rel = float(torch.linalg.vector_norm(
+        runtime_tracked_mass(state) - g_sum) / torch.linalg.vector_norm(g_sum))
+    state_bytes = sum(t.numel() * t.element_size() for t in state[1:]
+                      if t is not None)
+    print(f"done: {args.steps} rounds, lemma3 rel {mass_rel:.3e}",
+          flush=True)
+    return {"mode": "sync", "losses": losses, "steps": args.steps,
+            "p": p, "rounds": args.steps, "mass_rel": mass_rel,
+            "state_bytes": state_bytes,
+            "memory": {k: v for k, v in memory.items() if v is not None}}
+
+
+def _cuda_memory(device) -> dict | None:
+    """Bytes the CUDA allocator holds for tensors now and at its peak so
+    far (None on the CPU): read after the init and after round 1, they
+    split the sync run's peak between the init gradient and a round."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return {"allocated": torch.cuda.memory_allocated(dev),
+            "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+# --------------------------------------------------------------------- #
+# fully asynchronous (scenario trace through the wavefront engine)
+# --------------------------------------------------------------------- #
 def _train_async(args, cfg, device) -> dict:
     n = args.nodes
     topo = get_topology(args.topology, n)

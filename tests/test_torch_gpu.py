@@ -13,7 +13,12 @@ plain twins at the tolerances of tests/test_kernels.py (2e-5 for the fp32
 forward, 2e-4 for fp32 gradients, 2e-2 for bf16), on odd shapes: head
 dims 32, 48, 64 and 128, GQA ratios 1, 4 and 5, causal, full and
 windowed (a window below the 64-row tile and a ragged one), Sq != Sk, and
-sequence lengths that are not a multiple of the tile.
+sequence lengths that are not a multiple of the tile.  The per-node
+``rfast_update_node`` and ``rfast_commit_node`` kernels are held to their
+plain twins at odd P (1e-5 fp32, 3e-2 bf16, random weights and 0/1
+masks, binary-tree and wider slot counts), and the three routes of the
+protocol round (``kernel``, ``kernel`` with ``oracle=True``, ``plain``)
+to each other on the card.
 """
 import numpy as np
 import pytest
@@ -31,6 +36,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.kernels.rfast_update.grid import (commit_grid,
                                                    commit_grid_plain)
+from repro_torch.kernels.rfast_update.kernel import (
+    rfast_commit_node, rfast_commit_node_plain, rfast_update_node,
+    rfast_update_node_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -121,6 +129,20 @@ def test_train_runs_on_the_card_by_default(cuda):
     assert all(np.isfinite(res["losses"]))
     assert dispatch.launches("commit_grid") == res["waves"] > 0
     assert res["mass_rel"] < 1e-4
+
+
+def test_sync_train_reports_its_memory_on_the_card(cuda):
+    from repro_torch.launch import train
+    dispatch.clear()
+    res = train.main(["--reduced", "--nodes", "4", "--steps", "2",
+                      "--seq", "16", "--batch-per-node", "2"])
+    assert res["mode"] == "sync" and all(np.isfinite(res["losses"]))
+    assert dispatch.launches("commit_grid") == res["rounds"] == 2
+    mem = res["memory"]
+    assert set(mem) == {"init", "round1"}
+    assert mem["init"]["allocated"] >= res["state_bytes"]
+    assert (mem["round1"]["peak_allocated"]
+            >= mem["init"]["peak_allocated"] >= mem["init"]["allocated"])
 
 
 # (B, H, KV, Sq, Sk, D, causal, window); bq = bk = 8 divides every S
@@ -246,3 +268,120 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             fn(q, k, v, do.to(torch.bfloat16), lse, lse, **kw)
     assert dispatch.stats()["launches"] == 0
+
+
+def _node_case(P, dtype, kw, ka, ko, seed=0):
+    r = np.random.default_rng(seed)
+    a = lambda *s: torch.from_numpy(r.normal(0, 1, s).astype(np.float32)
+                                    ).to("cuda", dtype)
+    w = lambda *s: torch.from_numpy(np.asarray(r.uniform(0, 1, s),
+                                               np.float32)).cuda()
+    return dict(x=a(P), z=a(P), g_new=a(P), g_old=a(P), v_in=a(kw, P),
+                w_in=w(kw), rho_in=a(ka, P), rho_buf=a(ka, P),
+                mask=torch.from_numpy(r.integers(0, 2, ka).astype(
+                    np.float32)).cuda(), rho_out=a(ko, P), a_out=w(ko),
+                gamma=float(r.uniform(0, 0.1)), w_self=w(),
+                a_self=float(r.uniform(0, 1)))
+
+
+COMMIT_KEYS = ("z", "g_new", "g_old", "rho_in", "rho_buf", "mask",
+               "rho_out", "a_out", "a_self")
+
+
+@pytest.mark.parametrize("P", [1, 37, 4097, 100_001])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kw,ka,ko", [(1, 2, 1), (2, 3, 2)])
+def test_node_kernels_match_plain(cuda, P, dtype, tol, kw, ka, ko):
+    case = _node_case(P, dtype, kw, ka, ko)
+    got = rfast_update_node(**case)
+    torch.cuda.synchronize()
+    assert dispatch.launches("rfast_update_node") == 1
+    want = rfast_update_node_plain(**case)
+    commit = {k: case[k] for k in COMMIT_KEYS}
+    got_c = rfast_commit_node(**commit)
+    torch.cuda.synchronize()
+    assert dispatch.launches("rfast_commit_node") == 1
+    want_c = rfast_commit_node_plain(**commit)
+    for g, w in zip(got + got_c, want + want_c):
+        assert g.dtype == dtype and g.is_cuda and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def test_node_kernels_reject_what_they_do_not_take(cuda):
+    case = _node_case(64, torch.float32, 1, 2, 1)
+    commit = {k: case[k] for k in COMMIT_KEYS}
+    with pytest.raises(ValueError, match="one dtype"):
+        rfast_update_node(**{**case, "v_in": case["v_in"].bfloat16()})
+    with pytest.raises(ValueError, match="one dtype"):
+        rfast_commit_node(**{**commit,
+                             "rho_buf": commit["rho_buf"].bfloat16()})
+    with pytest.raises(ValueError, match="contiguous"):
+        rfast_commit_node(**{**commit, "rho_in": torch.randn(
+            64, 2, device="cuda").t()})
+    with pytest.raises(ValueError, match="<="):
+        rfast_commit_node(**{**commit, "rho_in": torch.randn(
+            9, 64, device="cuda"), "rho_buf": torch.randn(9, 64,
+                                                          device="cuda"),
+            "mask": torch.ones(9, device="cuda")})
+    with pytest.raises(TypeError):
+        rfast_update_node(**{k: (v.double() if torch.is_tensor(v)
+                                 and v.dim() and v.shape[-1] == 64 else v)
+                             for k, v in case.items()})
+    assert dispatch.stats()["launches"] == 0
+
+
+def test_node_ops_route_through_the_kernels(cuda):
+    from repro_torch.kernels.rfast_update import ops
+    case = _node_case(100_001, torch.float32, 1, 2, 1, seed=2)
+    commit = {k: case[k] for k in COMMIT_KEYS}
+    want = ops.rfast_update(**case, impl="ref")
+    got = ops.rfast_update(**case, impl="kernel")
+    assert dispatch.stats()["by_kernel"] == {"rfast_update_node": 1}
+    for oracle, name in ((False, "commit_grid"), (True, "rfast_commit_node")):
+        dispatch.clear()
+        got_c = ops.rfast_commit(**commit, impl="kernel", oracle=oracle)
+        assert dispatch.stats()["by_kernel"] == {name: 1}
+        for g, w in zip(got_c, want[2:]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_round_routes_agree_on_card(cuda):
+    from repro_torch.core.runtime import (edge_arrays, init_node_state,
+                                          make_rfast_round,
+                                          runtime_tracked_mass)
+    n, p = 7, 5000
+    rng = np.random.default_rng(0)
+    C = torch.from_numpy(rng.normal(0, 1, (n, p)).astype(np.float32)).cuda()
+    S = torch.from_numpy(rng.uniform(0.5, 2, (n, 1)).astype(np.float32)
+                         ).cuda()
+    gfn = lambda x, b, k: (0.5 * torch.sum(b[1] * (x - b[0]) ** 2),
+                           b[1] * (x - b[0]))
+    spec = edge_arrays(get_topology("binary_tree", n))
+    masks = [torch.from_numpy((rng.uniform(size=spec.e_pad) > 0.4).astype(
+        np.float32)).cuda() for _ in range(6)]
+    finals = {}
+    for impl, oracle in (("kernel", False), ("kernel", True),
+                         ("plain", False)):
+        st = init_node_state(spec, torch.zeros(p, device="cuda"), gfn,
+                             (C, S), robust=True, momentum=0.5)
+        rf = make_rfast_round(spec, gfn, gamma=0.05, robust=True,
+                              momentum=0.5, impl=impl, oracle=oracle,
+                              donate=True)
+        dispatch.clear()
+        for mk in masks:
+            st, _ = rf(st, (C, S), None, mk)
+        torch.cuda.synchronize()
+        assert dispatch.launches("commit_grid") == (
+            len(masks) if impl == "kernel" and not oracle else 0)
+        assert dispatch.launches("rfast_commit_node") == (
+            len(masks) * n if oracle else 0)
+        torch.testing.assert_close(runtime_tracked_mass(st),
+                                   st.g_prev.sum(0), rtol=1e-4, atol=1e-4)
+        finals[(impl, oracle)] = [st.x, st.z, st.rho, st.rho_buf]
+    ref = finals.pop(("plain", False))
+    for got in finals.values():
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -54,6 +54,8 @@ def test_forbidden_names():
 def test_entry_point_loads_no_jax_module():
     code = ("import json, sys; import repro_torch.launch.train; "
             "import repro_torch.core.simulator; "
+            "import repro_torch.core.runtime; "
+            "import repro_torch.kernels.rfast_update.ops; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0].startswith('jax') "
             "or m.split('.')[0] == 'repro')))")

@@ -37,8 +37,9 @@ def test_train_plain_backend_matches_kernel_backend_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--scenario", ""], ["--ckpt", "ck"], ["--publish-dir", "pub"],
-    ["--param-shards", "2"], ["--scenario", "churn"]])
+    ["--scenario", "", "--ckpt", "ck"], ["--ckpt", "ck"],
+    ["--publish-dir", "pub"], ["--param-shards", "2"],
+    ["--scenario", "churn"]])
 def test_train_rejects_what_is_not_ported(extra, capsys):
     with pytest.raises(SystemExit):
         train.main(ARGS + ["--device", "cpu"] + extra)
