@@ -49,7 +49,30 @@ run.  Phases:
 13. node timing — each node kernel and its plain twin at full width,
    and ``commit_grid`` at the round's shape (B = 4 nodes; its bound
    counts the rows the round keeps, not the pad slots it drops), median
-   of CUDA-event times, beside the bandwidth bound.
+   of CUDA-event times, beside the bandwidth bound;
+14. scan kernel — ``ssm_scan`` against its plain twin ``ssm_scan_plain``
+   (y and h_last; 1e-4 fp32, 3e-2 bf16) at tests/test_kernels.py's scan
+   cases, at ragged di (200, 3200), S (1, 100, 129) and N (4, 16), and at
+   hymba-1.5b's train shape (B 4, S 128, di 3200, N 16), with dt drawn as
+   the model feeds it and B, C as column slices of one projection; then
+   ``SelectiveScanFn``'s gradients against plain autograd of the ref at
+   that shape (1e-4 relative);
+15. hymba sync train — ``launch.train``'s synchronous regime on full-width
+   hymba-1.5b cut to 2 of its 32 layers (4 nodes, binary tree,
+   ``--impl kernel``): 3 rounds, then 3 rounds with ``--loss-prob 0.2
+   --momentum 0.9``; the counters zeroed before each and read after
+   (``ssm_scan`` = layers × gradients, ``commit_grid`` = rounds), the
+   allocator read before each call, after its init and after round 1;
+16. scan timing — ``ssm_scan`` and its plain twin at hymba-1.5b's train
+   shape and at the op widths of hymba-1.5b (S 4096, di 3200) and
+   falcon-mamba-7b (S 4096, di 8192), median of CUDA-event times, beside
+   the bound (bytes at 3.35 TB/s; fp32 operations; exponentials at the
+   MUFU rate of 16 per clock per SM at the card's maximum SM clock); the
+   kernel timed as 20 launches in a CUDA graph per event pair (and one
+   call, host work included, as ``call_ms``), and
+   at the train shape ``SelectiveScanFn`` forward + backward (the
+   kernel, then the ref's autograd loop) as one SSM layer's gradient
+   pays it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -105,6 +128,26 @@ SYNC_RUNS = [("sync", []),
 # (Kw, Ka, Ko): the binary tree's slot counts, and wider ones
 NODE_SLOTS = [(1, 2, 1), (2, 3, 2)]
 ROUTE_TOL = 1e-5             # the round routes agree to this, relative
+SCAN_FP32_TOL = 1e-4         # tests/test_kernels.py's scan tolerances:
+SCAN_BF16_TOL = 3e-2         # fp32 and bf16
+SCAN_GRAD_TOL = 1e-4         # SelectiveScanFn vs plain autograd, relative
+MUFU_PER_CLOCK_SM = 16       # sm_90 exponentials per clock per SM
+H100_SMS = 132
+# (B, S, di, N): tests/test_kernels.py:228-232, then ragged di, S and N
+SCAN_SMALL = [(1, 64, 16, 8), (2, 128, 64, 16), (1, 256, 32, 16)] + [
+    (2, S, di, N) for di in (200, 3200) for S in (1, 100, 129)
+    for N in (4, 16)]
+# (name, (B, S, di, N), dt_rank): hymba-1.5b's train shape (4 x 128
+# tokens per gradient, d_inner 3200), and the op widths of hymba-1.5b and
+# falcon-mamba-7b (d_inner 8192) at S 4096; src/repro/configs/
+SCAN_TRAIN = ("hymba-1.5b train", (4, 128, 3200, 16), 100)
+SCAN_TIMED = [SCAN_TRAIN, ("hymba-1.5b op", (1, 4096, 3200, 16), 100),
+              ("falcon-mamba-7b op", (1, 4096, 8192, 16), 256)]
+HYMBA_LAYERS = 2             # of hymba-1.5b's 32, at full width
+HYMBA_ARGS = ["--arch", "hymba-1.5b", "--nodes", "4", "--topology",
+              "binary_tree", "--steps", "3", "--batch-per-node", "4",
+              "--seq", "128", "--seed", "0", "--log-every", "1", "--impl",
+              "kernel"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -136,6 +179,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Median device time of one ``fn()`` in ms: ``launches`` calls
+    captured in a CUDA graph and replayed between one event pair, so the
+    host's time per call (a wrapper's checks, its ctypes call), which
+    :func:`cuda_ms` brackets too, is not in it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
     return statistics.median(times)
 
 
@@ -548,6 +620,63 @@ def state_rel(a, b) -> float:
 
 
 # --------------------------------------------------------------------- #
+# selective scan
+# --------------------------------------------------------------------- #
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def scan_inputs(Bsz, S, di, N, dtype, *, dt_rank=3, seed=0):
+    """The scan's operands on the card as the model makes them: u
+    N(0,1), dt = softplus(N(0,1) − 4.6), A = −(1..N) per channel, B and
+    C column slices of one (B, S, dt_rank + 2N) projection, D N(0,1);
+    u/dt/B/C in ``dtype``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    u = a(Bsz, S, di).to(dtype)
+    dt = torch.nn.functional.softplus(a(Bsz, S, di) - 4.6).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device="cuda").expand(di, N).contiguous()
+    proj = a(Bsz, S, dt_rank + 2 * N).to(dtype)
+    return (u, dt, A, proj[..., dt_rank:dt_rank + N],
+            proj[..., dt_rank + N:], a(di))
+
+
+def scan_bound(Bsz, S, di, N, itemsize, clock_hz):
+    """The least time for the scan: the largest of its bytes at
+    3.35 TB/s (each input read once, each output written once), its fp32
+    operations at 67 TFLOP/s (per (b, t, d, n) dt·A, the three of the h
+    update, h·C and its share of the n sum; per (b, t, d) dt·u and the
+    D·u multiply-add) and its exponentials (one per (b, t, d, n)) at the
+    MUFU rate.  Returns (ms, "bytes" | "operations", terms)."""
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bytes
+    nbytes = ssm_scan_bytes(Bsz, S, di, N, itemsize)
+    flops, exps = Bsz * S * di * (6 * N + 3), Bsz * S * di * N
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
+             "mufu_ms": exps / (MUFU_PER_CLOCK_SM * H100_SMS * clock_hz)
+             * 1e3}
+    ms = max(terms.values())
+    return ms, "bytes" if terms["bytes_ms"] == ms else "operations", dict(
+        terms, bytes=nbytes, flops=flops, exps=exps)
+
+
+def compare_scan(args, tol, what) -> float:
+    """The kernel against its plain twin on ``args``: the max abs error
+    over y and h_last; raises unless finite and within ``tol``."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    got, want = sk.ssm_scan(*args), sk.ssm_scan_plain(*args)
+    return max(held(g, w, tol, f"{what} {n}")
+               for g, w, n in zip(got, want, ("y", "h_last")))
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -565,8 +694,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_fwd
     from repro_torch.kernels.rfast_update import dispatch, grid
     from repro_torch.kernels.rfast_update import kernel as node_k
+    from repro_torch.kernels.ssm_scan import kernel as scan_k
     sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE,
-               node_k.KERNEL_SOURCE]
+               node_k.KERNEL_SOURCE, scan_k.KERNEL_SOURCE]
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -877,15 +1007,117 @@ def main() -> int:
     del kw
     torch.cuda.empty_cache()
 
+    # 14. the scan kernel vs its plain twin, and its autograd function -----
+    from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    for case in SCAN_SMALL + [SCAN_TRAIN[1]]:
+        for dt, tol in ((torch.float32, SCAN_FP32_TOL),
+                        (torch.bfloat16, SCAN_BF16_TOL)):
+            err = compare_scan(scan_inputs(*case, dt), tol, f"ssm_scan {case}")
+            emit("scan_kernel", case=dict(zip(("B", "S", "di", "N"), case)),
+                 dtype=str(dt), max_abs_err=err, tol=tol)
+    scan_err = compare_scan(scan_inputs(*SCAN_TRAIN[1], torch.float32,
+                                        dt_rank=SCAN_TRAIN[2], seed=1),
+                            SCAN_FP32_TOL, "ssm_scan at the train shape")
+    leaves = [t.detach().requires_grad_() for t in scan_inputs(
+        *SCAN_TRAIN[1], torch.float32, dt_rank=SCAN_TRAIN[2], seed=2)]
+    gg = torch.Generator(device="cuda").manual_seed(3)
+    gy = torch.randn(leaves[0].shape, generator=gg, device="cuda")
+    gh = torch.randn(leaves[0].shape[0], *leaves[2].shape, generator=gg,
+                     device="cuda")
+    scan_loss = lambda y, h: (y * gy).sum() + (h * gh).sum()
+    got = torch.autograd.grad(scan_loss(*SelectiveScanFn.apply(*leaves)),
+                              leaves)
+    want = torch.autograd.grad(scan_loss(*selective_scan_ref(*leaves)),
+                               leaves)
+    grad_rel = {n: float(torch.linalg.vector_norm(g - w)
+                         / torch.linalg.vector_norm(w).clamp_min(1e-30))
+                for n, g, w in zip(("u", "dt", "A", "B", "C", "D"), got, want)}
+    emit("scan_grad", case=dict(zip(("B", "S", "di", "N"), SCAN_TRAIN[1])),
+         y_max_abs_err=scan_err, grad_rel=grad_rel, tol=SCAN_GRAD_TOL)
+    check(all(math.isfinite(v) and v <= SCAN_GRAD_TOL
+              for v in grad_rel.values()),
+          f"SelectiveScanFn gradients within {SCAN_GRAD_TOL}: {grad_rel}")
+    del leaves, got, want, gy, gh
+    torch.cuda.empty_cache()
+
+    # 15. hymba-1.5b sync train at full width, 2 layers --------------------
+    cfg_h = dataclasses.replace(get_config("hymba-1.5b"),
+                                n_layers=HYMBA_LAYERS)
+    hymba_launches = {}
+    for tag, extra in SYNC_RUNS:
+        args = train.parse_args(HYMBA_ARGS + extra)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        hres = train._train_sync(args, cfg_h, torch.device("cuda"))
+        torch.cuda.synchronize()
+        hwall = time.perf_counter() - t0
+        hymba_launches[tag] = dispatch.stats()["by_kernel"]
+        grads = args.nodes * (1 + hres["rounds"])
+        emit("hymba_sync_train", run=tag, args=extra, n_layers=HYMBA_LAYERS,
+             p=hres["p"], rounds=hres["rounds"], losses=hres["losses"],
+             state_gb=hres["state_bytes"] / 1e9,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             memory_gb={k: {m: b / 1e9 for m, b in v.items()}
+                        for k, v in hres["memory"].items()},
+             resident_before_gb=resident / 1e9, wall_s=hwall,
+             gradients=grads, launches=hymba_launches[tag],
+             lemma3_rel=hres["mass_rel"], device=name, nvidia_smi=smi)
+        check(all(math.isfinite(v) for v in hres["losses"]),
+              f"hymba {tag}: finite losses")
+        check(hymba_launches[tag] == {"ssm_scan": HYMBA_LAYERS * grads,
+                                      "commit_grid": hres["rounds"]},
+              f"hymba {tag}: ssm_scan once per layer per gradient and "
+              f"commit_grid once per round: {hymba_launches[tag]}")
+        check(hres["mass_rel"] <= 1e-4, f"hymba {tag}: Lemma-3 <= 1e-4")
+        torch.cuda.empty_cache()
+
+    # 16. scan timing at the train shape and at two op widths --------------
+    clock_hz = sm_clock_hz()
+    scan_rows = {}
+    for sname, shape, dt_rank in SCAN_TIMED:
+        sargs = scan_inputs(*shape, torch.float32, dt_rank=dt_rank, seed=5)
+        long = shape[1] > 1024
+        row = dict(
+            ms=graph_ms(lambda: scan_k.ssm_scan(*sargs)),
+            plain_ms=cuda_ms(lambda: scan_k.ssm_scan_plain(*sargs),
+                             reps=2 if long else 5, warmup=1 if long else 2))
+        row["bound_ms"], row["bound_by"], terms = scan_bound(*shape, 4,
+                                                             clock_hz)
+        scan_rows[sname] = row
+        # one call as a caller pays it, the wrapper's host work included
+        more = {"call_ms": cuda_ms(lambda: scan_k.ssm_scan(*sargs), reps=20)}
+        if sname == SCAN_TRAIN[0]:
+            # one SSM layer's scan in a gradient: the kernel forward, then
+            # the backward through the ref's autograd loop
+            leaves = [t.detach().requires_grad_() for t in sargs]
+            more["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                SelectiveScanFn.apply(*leaves)[0].sum(), leaves), reps=5)
+            del leaves
+        emit("scan_timing", kernel="ssm_scan", shape=sname, **more,
+             case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
+             bound_share=row["bound_ms"] / row["ms"],
+             achieved_gb_s=terms["bytes"] / row["ms"] / 1e6,
+             sm_clock_max_mhz=clock_hz / 1e6, library_ms=None,
+             device=name, nvidia_smi=smi, **row, **terms)
+        del sargs
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/rfast_update/grid.py:192",
         "launches": launches.get("commit_grid", 0)
-        + sum(v.get("commit_grid", 0) for v in sync_launches.values()),
+        + sum(v.get("commit_grid", 0) for v in sync_launches.values())
+        + sum(v.get("commit_grid", 0) for v in hymba_launches.values()),
         "launches_by_path": {"async_train": launches.get("commit_grid", 0),
                              **{f"sync_train_{t}": v.get("commit_grid", 0)
-                                for t, v in sync_launches.items()}},
+                                for t, v in sync_launches.items()},
+                             **{f"hymba_sync_train_{t}":
+                                v.get("commit_grid", 0)
+                                for t, v in hymba_launches.items()}},
         "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "round_shape": {"ms": round_ms, "plain_ms": round_plain_ms,
@@ -918,6 +1150,18 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by")},
                         "library_ms": None})
+    train_row = scan_rows[SCAN_TRAIN[0]]
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": str(scan_k.KERNEL_SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:62",
+        "launches": sum(v.get("ssm_scan", 0)
+                        for v in hymba_launches.values()),
+        "launches_by_path": {f"hymba_sync_train_{t}": v.get("ssm_scan", 0)
+                             for t, v in hymba_launches.items()},
+        "max_abs_err": scan_err, **train_row, "library_ms": None,
+        "op_widths": {k: v for k, v in scan_rows.items()
+                      if k != SCAN_TRAIN[0]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

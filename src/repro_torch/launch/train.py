@@ -28,6 +28,11 @@ commits through the hand-written ``commit_grid`` kernel (one launch per
 round, or per wave); ``--impl plain`` through PyTorch ops.  On the card,
 float32 matmuls run in full float32 (TF32 off), as the reference does.
 
+``--arch`` takes the port's architectures: ``rfast-100m`` (dense
+attention), ``hymba-1.5b`` (hybrid attention + Mamba heads) and
+``falcon-mamba-7b`` (attention-free); every SSM mixer's scan forward runs
+the hand-written ``ssm_scan`` kernel on the card.
+
 Not ported yet, each rejected with an error: ``--ckpt``, and with
 ``--scenario`` also ``--publish-dir``, ``--param-shards`` and dynamic
 (membership) scenarios.
@@ -57,7 +62,9 @@ from repro_torch.optim.schedules import warmup_cosine
 _NOT_PORTED = "is not ported yet"
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The driver's arguments, with the reference's argument errors and
+    the port's "not ported yet" ones raised (``SystemExit``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rfast-100m", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true",
@@ -115,6 +122,11 @@ def main(argv=None) -> dict:
             ap.error("--param-shards shards the wavefront engine's flat "
                      "parameter axis (pass --scenario for the async "
                      "regime)")
+    return args
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
     device = dispatch.resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

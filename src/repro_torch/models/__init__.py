@@ -1,2 +1,2 @@
-"""The dense decoder of ``rfast-100m``: config, layers, attention,
-transformer."""
+"""The decoder models of the port: config, layers, attention, the
+Mamba-1 SSM block, transformer."""

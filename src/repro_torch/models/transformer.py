@@ -1,10 +1,15 @@
-"""Dense decoder-only transformer: init, forward, loss.
+"""Decoder-only transformer with attention, SSM or hybrid mixers: init,
+forward, loss.
 
-Counterpart of the dense-decoder part of ``src/repro/models/
-transformer.py`` (``init_params``, ``forward``, ``loss_fn``).  Parameters
-are a nested dict in the JAX package's layout: per-layer weights are
-stacked on a leading ``n_layers`` axis under ``"layers"``, and a Python
-loop over that axis takes the place of ``lax.scan``.
+Counterpart of the decoder-only part of ``src/repro/models/
+transformer.py`` (``init_params``, ``_layer_init``, ``_mixer_full``,
+``forward``, ``loss_fn``) for the RoPE GQA attention mixer
+(``rfast-100m``), the Mamba-1 SSM mixer (``falcon-mamba-7b``, no MLP when
+``d_ff`` is 0) and the hybrid of the two (``hymba-1.5b``: the mean of
+attention and SSM on the same input).  Parameters are a nested dict in
+the JAX package's layout: per-layer weights are stacked on a leading
+``n_layers`` axis under ``"layers"``, and a Python loop over that axis
+takes the place of ``lax.scan``.
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -20,6 +25,7 @@ import torch
 
 from ..core.paramvec import make_ravel_spec, unravel
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import dense_init, mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -27,27 +33,37 @@ __all__ = ["init_params", "forward", "loss_fn", "params_from_jax"]
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.mixer != "attn" or cfg.attention != "gqa" or cfg.moe_experts
-            or cfg.enc_dec or cfg.frontend or cfg.tie_embeddings
-            or not cfg.use_rope or not cfg.d_ff):
+    if (cfg.attention != "gqa" or cfg.moe_experts or cfg.enc_dec
+            or cfg.frontend or cfg.tie_embeddings
+            or (cfg.mixer != "ssm" and not cfg.use_rope)):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense RoPE GQA decoder with an untied "
-            "head (rfast-100m) is ported yet")
+            f"{cfg.name}: only decoders with RoPE GQA attention, SSM or "
+            "hybrid mixers, an optional dense MLP and an untied head "
+            "(rfast-100m, falcon-mamba-7b, hymba-1.5b) are ported yet")
+
+
+def _layer_init(cfg: ModelConfig, gen: torch.Generator,
+                lead: tuple) -> dict[str, Any]:
+    p: dict[str, Any] = {"ln1": norm_init(cfg, lead=lead)}
+    if cfg.mixer in ("attn", "hybrid"):
+        p["attn"] = attn.gqa_init(cfg, gen, lead=lead)
+    if cfg.mixer in ("ssm", "hybrid"):
+        p["ssm"] = ssm_mod.ssm_init(cfg, gen, lead=lead)
+    if cfg.d_ff:
+        p["ln2"] = norm_init(cfg, lead=lead)
+        p["mlp"] = mlp_init(cfg, gen, lead=lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     """fp32 CPU parameters drawn from ``gen``: N(0,1)·0.02 embedding,
-    N(0,1)·d_in^-½ dense weights, unit norm scales (the JAX package's
-    distributions; not its numbers)."""
+    N(0,1)·d_in^-½ dense weights, unit norm scales and the SSM's own
+    initial values (the JAX package's distributions; not its numbers)."""
     _check(cfg)
-    L = (cfg.n_layers,)
     return {
         "embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen) * 0.02,
         "final_norm": norm_init(cfg),
-        "layers": {"ln1": norm_init(cfg, lead=L),
-                   "attn": attn.gqa_init(cfg, gen, lead=L),
-                   "ln2": norm_init(cfg, lead=L),
-                   "mlp": mlp_init(cfg, gen, lead=L)},
+        "layers": _layer_init(cfg, gen, (cfg.n_layers,)),
         "lm_head": dense_init(gen, cfg.d_model, cfg.vocab),
     }
 
@@ -70,12 +86,22 @@ def params_from_jax(np_tree: dict, *, pad_to: int = 1,
     return unravel(spec, flat), flat
 
 
+def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    if cfg.mixer == "ssm":
+        return ssm_mod.ssm_apply(cfg, lp["ssm"], h)
+    a = attn.gqa_apply(cfg, lp["attn"], h, positions, window=cfg.attn_window)
+    if cfg.mixer == "hybrid":
+        return 0.5 * (a + ssm_mod.ssm_apply(cfg, lp["ssm"], h))
+    return a
+
+
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
-    h = norm_apply(cfg, lp["ln1"], x)
-    x = x + attn.gqa_apply(cfg, lp["attn"], h, positions,
-                           window=cfg.attn_window)
-    return x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+    x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x), positions)
+    if "mlp" in lp:
+        x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+    return x
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):

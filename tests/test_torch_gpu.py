@@ -18,7 +18,12 @@ sequence lengths that are not a multiple of the tile.  The per-node
 plain twins at odd P (1e-5 fp32, 3e-2 bf16, random weights and 0/1
 masks, binary-tree and wider slot counts), and the three routes of the
 protocol round (``kernel``, ``kernel`` with ``oracle=True``, ``plain``)
-to each other on the card.
+to each other on the card.  The ``ssm_scan`` kernel is held to its plain
+twin (y and h_last; 1e-4 fp32, 3e-2 bf16, tests/test_kernels.py's scan
+tolerances) at tests/test_kernels.py's cases and at ragged di, S and N,
+with B and C as strided column slices; ``SelectiveScanFn``'s gradients to
+plain autograd of the ref at 1e-4; and a reduced hymba-1.5b sync train
+launches it once per layer per gradient.
 """
 import numpy as np
 import pytest
@@ -39,6 +44,9 @@ from repro_torch.kernels.rfast_update.grid import (commit_grid,
 from repro_torch.kernels.rfast_update.kernel import (
     rfast_commit_node, rfast_commit_node_plain, rfast_update_node,
     rfast_update_node_plain)
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -385,3 +393,93 @@ def test_round_routes_agree_on_card(cuda):
     for got in finals.values():
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# (B, S, di, N): tests/test_kernels.py's scan cases, then ragged di, S, N
+SCAN_CASES = [(1, 64, 16, 8), (2, 128, 64, 16), (1, 256, 32, 16),
+              (2, 1, 200, 4), (2, 100, 200, 16), (1, 129, 3200, 4),
+              (3, 129, 33, 5), (1, 65, 1, 1)]
+
+
+def _scan_inputs(Bsz, S, di, N, dtype, seed=0, strided=False):
+    """u, dt (softplus(N(0,1) − 4.6), as the model feeds it), A = −(0.5..2),
+    B, C (column slices of one projection when ``strided``), D."""
+    r = np.random.default_rng(seed)
+    a = lambda *s: torch.from_numpy(r.normal(0, 1, s).astype(np.float32)
+                                    ).cuda()
+    u = a(Bsz, S, di).to(dtype)
+    dt = torch.nn.functional.softplus(a(Bsz, S, di) - 4.6).to(dtype)
+    A = -torch.from_numpy(r.uniform(0.5, 2, (di, N)).astype(np.float32)
+                          ).cuda()
+    proj = a(Bsz, S, 3 + 2 * N).to(dtype)
+    if strided:
+        B, C = proj[..., 3:3 + N], proj[..., 3 + N:]
+    else:
+        B, C = proj[..., 3:3 + N].contiguous(), proj[..., 3 + N:].contiguous()
+    return u, dt, A, B, C, a(di)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssm_scan_kernel_matches_plain(cuda, case, dtype, tol, strided):
+    args = _scan_inputs(*case, dtype, strided=strided)
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launches("ssm_scan") == 1
+    y_w, h_w = ssm_scan_plain(*args)
+    assert dispatch.launches("ssm_scan") == 1      # the twin: no launch
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, y_w, rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_w, rtol=tol, atol=tol)
+
+
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    u, dt, A, B, C, D = _scan_inputs(2, 10, 40, 16, torch.float32)
+    bad = [
+        (TypeError, (u.double(), dt, A, B, C, D)),
+        (TypeError, (u, dt.to(torch.bfloat16), A, B, C, D)),
+        (TypeError, (u, dt, A.double(), B, C, D)),
+        (ValueError, (u, dt, A, B.cpu(), C, D)),
+        (ValueError, (u.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                      B, C, D)),
+        (ValueError, (u, dt, A, B.transpose(1, 2).contiguous()
+                      .transpose(1, 2), C, D)),
+        (ValueError, (u, dt, A[:, :8], B, C, D)),
+        (ValueError, _scan_inputs(1, 4, 8, 17, torch.float32)),
+    ]
+    for err, args in bad:
+        with pytest.raises(err):
+            ssm_scan(*args)
+    assert dispatch.launches("ssm_scan") == 0
+
+
+@pytest.mark.parametrize("with_h", [True, False])
+def test_selective_scan_fn_gradient_matches_plain_autograd(cuda, with_h):
+    args = _scan_inputs(2, 70, 96, 16, torch.float32, seed=3, strided=True)
+    leaves = [t.detach().requires_grad_() for t in args]
+    r = torch.Generator(device="cuda").manual_seed(4)
+    gy = torch.randn(2, 70, 96, generator=r, device="cuda")
+    gh = torch.randn(2, 96, 16, generator=r, device="cuda")
+
+    def loss(y, h):
+        return (y * gy).sum() + ((h * gh).sum() if with_h else 0.0)
+
+    got = torch.autograd.grad(loss(*SelectiveScanFn.apply(*leaves)), leaves)
+    assert dispatch.launches("ssm_scan") == 1
+    want = torch.autograd.grad(loss(*selective_scan_ref(*leaves)), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_hymba_sync_train_launches_the_scan_per_layer_and_gradient(cuda):
+    from repro_torch.launch import train
+    dispatch.clear()
+    res = train.main(["--arch", "hymba-1.5b", "--reduced", "--nodes", "4",
+                      "--steps", "2", "--seq", "16", "--batch-per-node",
+                      "2", "--loss-prob", "0.2"])
+    assert all(np.isfinite(res["losses"])) and res["mass_rel"] < 1e-4
+    # 2 layers x 4 nodes x (init + 2 rounds)
+    assert dispatch.stats()["by_kernel"] == {"ssm_scan": 2 * 4 * 3,
+                                             "commit_grid": 2}

@@ -39,6 +39,11 @@ def _imports(path: Path) -> list[str]:
 
 def test_no_jax_or_reference_imports_in_the_port():
     assert len(FILES) > 20 and all(f.exists() for f in FILES)
+    port = ROOT / "src" / "repro_torch"
+    for mod in ("models/ssm.py", "kernels/ssm_scan/ops.py",
+                "kernels/ssm_scan/kernel.py", "kernels/ssm_scan/ref.py",
+                "configs/hymba_1_5b.py", "configs/falcon_mamba_7b.py"):
+        assert port / mod in FILES
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f)
                                       if _forbidden(n)]
            for f in FILES}
@@ -56,6 +61,10 @@ def test_entry_point_loads_no_jax_module():
             "import repro_torch.core.simulator; "
             "import repro_torch.core.runtime; "
             "import repro_torch.kernels.rfast_update.ops; "
+            "import repro_torch.kernels.ssm_scan.ops; "
+            "import repro_torch.models.ssm; "
+            "import repro_torch.configs.hymba_1_5b; "
+            "import repro_torch.configs.falcon_mamba_7b; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0].startswith('jax') "
             "or m.split('.')[0] == 'repro')))")

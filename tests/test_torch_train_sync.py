@@ -7,8 +7,12 @@ and ``warmup_cosine``: three rounds of the port's ``plain`` and
 ``kernel`` backends against JAX's ``jnp`` and ``pallas``.  Per-round
 losses and the final flat x, z, ρ and ρ̃ agree within 1e-4, the
 tolerance tests/test_torch_model.py holds the flat gradient to (fp32 on
-both sides; only the order of sums differs).
+both sides; only the order of sums differs).  The same holds over the
+model families: rfast-100m without loss, and reduced hymba-1.5b (hybrid
+attention + Mamba heads, its scan through ``SelectiveScanFn``) with and
+without loss, against JAX's ``jnp`` rounds.
 """
+import functools
 import math
 
 import jax
@@ -88,25 +92,32 @@ def jax_runs():
     return jax.tree.map(np.asarray, params), runs
 
 
-@pytest.mark.parametrize("impl", ["plain", "kernel"])
-def test_sync_rounds_match_jax(jax_runs, impl):
-    np_params, runs = jax_runs
-    cfg = get_config("rfast-100m").reduced()
+def _port_run(arch, np_params, impl, robust):
+    """The port's rounds from JAX's weights: (final state, losses)."""
+    cfg = get_config(arch).reduced()
     _, x0 = params_from_jax(np_params)
     spec = edge_arrays(get_topology("binary_tree", N))
     rspec = make_ravel_spec(np_params)
     grad_fn = train.sync_grad_fn(cfg, rspec)
     gamma = warmup_cosine(GAMMA, warmup=max(1, STEPS // 20), total=STEPS)
-    rf = make_rfast_round(spec, grad_fn, gamma=gamma, robust=True,
-                          momentum=MOMENTUM, impl=impl, donate=True)
+    momentum = MOMENTUM if robust else 0.0
+    rf = make_rfast_round(spec, grad_fn, gamma=gamma, robust=robust,
+                          momentum=momentum, impl=impl, donate=True)
     st = init_node_state(spec, x0, grad_fn,
-                         train.sync_batches(SHARD, 0, "cpu"), robust=True,
-                         momentum=MOMENTUM)
+                         train.sync_batches(SHARD, 0, "cpu"), robust=robust,
+                         momentum=momentum)
     losses = []
     for step, mk in enumerate(_masks(spec.e_pad)):
         st, met = rf(st, train.sync_batches(SHARD, step, "cpu"), None,
-                     torch.from_numpy(mk))
+                     torch.from_numpy(mk) if robust else None)
         losses.append(met["losses"].numpy())
+    return st, losses
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_sync_rounds_match_jax(jax_runs, impl):
+    np_params, runs = jax_runs
+    st, losses = _port_run("rfast-100m", np_params, impl, robust=True)
     for j_impl, (want, want_losses) in runs.items():
         np.testing.assert_allclose(np.stack(losses), want_losses,
                                    rtol=1e-4, atol=1e-4,
@@ -115,6 +126,58 @@ def test_sync_rounds_match_jax(jax_runs, impl):
             np.testing.assert_allclose(getattr(st, f).numpy(), want[f],
                                        rtol=1e-4, atol=1e-4,
                                        err_msg=f"{impl} vs {j_impl}: {f}")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_jnp_run(arch, robust):
+    """JAX's ``jnp`` rounds of reduced ``arch`` from ``init_params(
+    PRNGKey(0))``: (numpy params, final flat fields, losses)."""
+    cfg = j_get_config(arch).reduced()
+    # init, init state and rounds jitted (the round through the
+    # reference's own donate=True): the same functions, compiled once
+    # rather than run op by op
+    params = jax.jit(lambda k: jt.init_params(cfg, k))(jax.random.PRNGKey(0))
+    spec = j_edge_arrays(j_get_topology("binary_tree", N))
+
+    def grad_fn(p, batch, key):
+        toks, labels = batch
+        return jax.value_and_grad(
+            lambda q: jt.loss_fn(cfg, q, toks, labels))(p)
+
+    def batches_at(step):
+        toks, labels = zip(*(node_batch(SHARD, i, step) for i in range(N)))
+        return jnp.asarray(np.stack(toks)), jnp.asarray(np.stack(labels))
+
+    momentum = MOMENTUM if robust else 0.0
+    gamma = j_warmup_cosine(GAMMA, warmup=max(1, STEPS // 20), total=STEPS)
+    key = jax.random.PRNGKey(0)
+    rf = j_make_rfast_round(spec, grad_fn, gamma=gamma, robust=robust,
+                            momentum=momentum, impl="jnp", donate=True)
+    st = jax.jit(lambda p, b, k: j_init_node_state(
+        spec, p, grad_fn, b, k, robust=robust, momentum=momentum))(
+        params, batches_at(0), key)
+    losses = []
+    for step, mk in enumerate(_masks(spec.e_pad)):
+        st, met = rf(st, batches_at(step), jax.random.split(key, N),
+                     jnp.asarray(mk) if robust else None)
+        losses.append(np.asarray(met["losses"]))
+    return (jax.tree.map(np.asarray, params),
+            {f: _flat_rows(getattr(st, f)) for f in FIELDS},
+            np.stack(losses))
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+@pytest.mark.parametrize("arch,robust", [("rfast-100m", False),
+                                         ("hymba-1.5b", False),
+                                         ("hymba-1.5b", True)])
+def test_sync_rounds_match_jax_over_model_families(arch, robust, impl):
+    np_params, want, want_losses = _jax_jnp_run(arch, robust)
+    st, losses = _port_run(arch, np_params, impl, robust=robust)
+    np.testing.assert_allclose(np.stack(losses), want_losses, rtol=1e-4,
+                               atol=1e-4, err_msg="losses")
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(st, f).numpy(), want[f],
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
 
 
 def test_schedule_matches_jax_in_fp32():
@@ -134,7 +197,10 @@ ARGS = ["--reduced", "--nodes", "4", "--steps", "3", "--seq", "16",
 
 
 @pytest.mark.parametrize("extra", [[], ["--loss-prob", "0.3", "--momentum",
-                                        "0.5", "--impl", "plain"]])
+                                        "0.5", "--impl", "plain"],
+                                   ["--arch", "hymba-1.5b"],
+                                   ["--arch", "falcon-mamba-7b",
+                                    "--loss-prob", "0.3"]])
 def test_train_main_runs_sync_rounds(extra, tmp_path):
     path = tmp_path / "m.jsonl"
     res = train.main(ARGS + extra + ["--metrics", str(path)])
