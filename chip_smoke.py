@@ -11,7 +11,9 @@ run.  Phases:
 
 1. device   — name, capability, ``nvidia-smi`` name and power limit;
 2. build    — the kernels, built from ``csrc/`` with ``nvcc`` (one
-   process per source, all at once) into ``build/kernels/``;
+   process per source, all at once) into ``build/kernels/``; for the two
+   bf16 tensor-core kernels, their registers, spills and shared memory,
+   and the ``HGMMA`` / ``HMMA`` instructions in their SASS;
 3. kernels  — each kernel against its plain PyTorch version on the card
    (commit_grid: ragged and sentinel-clamp cases in fp32 and bf16, and
    the main path's shape with the row counts of the train run below);
@@ -22,16 +24,24 @@ run.  Phases:
    layers (full width and vocab), same seed and schedule;
 6. timing   — each kernel and its plain version at the main path's
    shape, median of CUDA-event times, beside the bandwidth bound;
-7. flash kernels — the flash forward, dq and dk/dv kernels against their
-   plain twins on the card at small odd cases (D 32/48/64/128, GQA 1/4/5,
-   causal / full / window, Sq != Sk, ragged S, fp32 and bf16);
+7. flash kernels — each flash kernel against its plain twin on the card
+   at small odd cases (D 32/48/64/128, GQA 1/4/5, causal / full / window,
+   Sq != Sk, ragged S): in fp32 ``flash_fwd``, ``flash_dq`` and
+   ``flash_dkv``; in bf16 the tensor-core ``flash_fwd_tc`` and fused
+   ``flash_bwd_tc`` (dO in bf16), at those cases and at a head dim with
+   D % 8 != 0 (36, padded by the wrappers) and one with D % 16 != 0 (40);
 8. flash path — the flash attention op and its autograd function at full
-   attention width (llama3-8b, hymba-1.5b, rfast-100m; fp32, and bf16
-   for llama3-8b), forward and forward+backward, against the plain
-   twins, with the launch counters zeroed just before and read after;
+   attention width (llama3-8b, hymba-1.5b, rfast-100m; fp32 and bf16
+   each), forward and forward+backward, against the plain twins, with
+   the launch counters zeroed just before and read after (fp32: 1
+   ``flash_fwd``, then 1 each of ``flash_fwd``, ``flash_dq``,
+   ``flash_dkv``; bf16: 1 ``flash_fwd_tc``, then 1 each of
+   ``flash_fwd_tc`` and ``flash_bwd_tc``);
 9. flash timing — each flash kernel, its plain twin and PyTorch's
    ``scaled_dot_product_attention`` (forward, and its backward through
-   autograd) at the llama3-8b and hymba-1.5b shapes, beside the bound;
+   autograd, the backend named) at the llama3-8b and hymba-1.5b shapes,
+   in fp32 and bf16 (both sides read a dO of the inputs' dtype), beside
+   the bound;
 10. node kernels — ``rfast_update_node`` and ``rfast_commit_node``
    against their plain twins (P 1, 37, 4097, 100,001 in fp32 and bf16,
    slot counts (Kw, Ka, Ko) (1, 2, 1) and (2, 3, 2), random weights and
@@ -108,6 +118,12 @@ FLASH_SMALL = [
     (1, 4, 1, 256, 128, 32, True, None),      # Sq > Sk
     (1, 5, 5, 200, 200, 64, True, 5),         # window below one tile
     (2, 4, 4, 200, 200, 48, True, 100),       # ragged window, D = 48
+]
+# bf16 only: a head dim the tensor-core kernels take by padding
+# (D % 8 != 0) and one with a half-filled 16-column k-step (D % 16 != 0)
+FLASH_SMALL_BF16 = [
+    (1, 4, 2, 136, 136, 36, True, None),      # D = 36
+    (2, 4, 2, 136, 72, 40, True, 96),         # D = 40, Sq > Sk, window
 ]
 # attention widths of src/repro/configs/{llama3_8b,hymba_1_5b,rfast_100m}.py
 # (hymba's attn_window 1024); rfast-100m at the train phase's batch and
@@ -318,13 +334,13 @@ def compare_grid(kw, tol) -> float:
 # flash attention cases
 # --------------------------------------------------------------------- #
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
-    """q (B,H,Sq,D), k, v (B,KV,Sk,D) in ``dtype`` and an fp32 cotangent
-    of q's shape, random on the card."""
+    """q (B,H,Sq,D), k, v (B,KV,Sk,D) and a cotangent of q's shape in
+    ``dtype``, random on the card."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    a = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    return (a(B, H, Sq, D).to(dtype), a(B, KV, Sk, D).to(dtype),
-            a(B, KV, Sk, D).to(dtype), a(B, H, Sq, D))
+    a = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    return (a(B, H, Sq, D), a(B, KV, Sk, D), a(B, KV, Sk, D),
+            a(B, H, Sq, D))
 
 
 def held(got, want, tol, what) -> float:
@@ -355,19 +371,26 @@ def attn_pairs(Sq, Sk, causal, window) -> int:
 def flash_work(B, H, KV, S, D, window, dtype):
     """Operations and bytes each flash kernel's function needs: the
     forward does 2 products per pair (4·D flops), dq 3 (6·D), dk/dv 4
-    (8·D); the whole backward at least 5 (10·D).  Bytes count each input
-    once (k/v at KV heads for the forward, repeated to H for the
-    backward kernels) and each output once."""
+    (8·D); the whole backward at least 5 (10·D: ``backward``, the fp32
+    pair's sum, and ``flash_bwd_tc``, which does just those five).
+    Bytes count each input once at the dtype its kernel reads it (q, k,
+    v and dO in ``dtype``: fp32 for flash_dq / flash_dkv, bf16 for
+    flash_bwd_tc; k/v at KV heads for the forward, repeated to H for the
+    backward kernels; lse and δ in fp32) and each output once (o in
+    ``dtype``; lse and the gradients in fp32)."""
     import torch
     it = torch.tensor([], dtype=dtype).element_size()
     pairs = attn_pairs(S, S, True, window) * B * H
     q_el, kv_el, row = B * H * S * D, B * KV * S * D, B * H * S
-    bwd_in = it * (3 * q_el) + 4 * (q_el + 2 * row)   # q, k, v; dO, lse, δ
-    return {"flash_fwd": (4 * D * pairs, it * (2 * q_el + 2 * kv_el)
-                          + 4 * row),
+    bwd_in = it * (4 * q_el) + 4 * 2 * row    # q, k, v, dO; lse, δ
+    fwd = (4 * D * pairs, it * (2 * q_el + 2 * kv_el) + 4 * row)
+    bwd = (10 * D * pairs, bwd_in + 12 * q_el)
+    if dtype != torch.float32:
+        return {"flash_fwd_tc": fwd, "flash_bwd_tc": bwd}
+    return {"flash_fwd": fwd,
             "flash_dq": (6 * D * pairs, bwd_in + 4 * q_el),
             "flash_dkv": (8 * D * pairs, bwd_in + 8 * q_el),
-            "backward": (10 * D * pairs, bwd_in + 12 * q_el)}
+            "backward": bwd}
 
 
 def bound(flops, nbytes, dtype):
@@ -377,39 +400,94 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def tc_report(kname, source):
+    """What the compiler made of one bf16 tensor-core kernel: ptxas's
+    registers and spill bytes for each instantiation, the dynamic shared
+    memory one block asks for at D = 64 and D = 128, and the count of
+    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and of TMA
+    loads (UTMALDG) in its SASS."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    entries, cur = [], None
+    for ln in _build.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    smem = getattr(_build.load(source), f"{kname}_smem")
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    text = _build.sass(source)
+    return {"ptxas": entries,
+            "dynamic_smem_bytes": {"D<=64": smem(64), "D<=128": smem(128)},
+            "sass": {op: text.count(op) for op in ("HGMMA", "HMMA",
+                                                   "UTMALDG")}}
+
+
+def flash_names(dtype):
+    """The forward kernel and the backward kernels that ``dtype`` runs."""
+    import torch
+    if dtype == torch.float32:
+        return "flash_fwd", ("flash_dq", "flash_dkv")
+    return "flash_fwd_tc", ("flash_bwd_tc",)
+
+
 def flash_small_case(case, dtype, fwd_tol, grad_tol):
-    """Each flash kernel against its plain twin on one small case."""
+    """Each flash kernel of ``dtype`` against its plain twin on one small
+    case: fp32 runs ``flash_fwd``, ``flash_dq`` and ``flash_dkv``; bf16
+    runs ``flash_fwd_tc`` and the fused ``flash_bwd_tc`` (dO in bf16)
+    against ``flash_bwd_plain``.  Returns the errors and the launches."""
     import torch
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rfast_update import dispatch
     B, H, KV, Sq, Sk, D, causal, window = case
+    fwd_name, _ = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, Sq, Sk, D, dtype)
     kw = dict(causal=causal, window=window, bq=8, bk=8)
+    dispatch.clear()
     o, lse = fk.flash_fwd(q, k, v, **kw)
     o_w, lse_w = fk.flash_fwd_plain(q, k, v, **kw)
-    err = {"flash_fwd": held(o, o_w, fwd_tol, f"flash_fwd {case}"),
-           "lse": held(lse, lse_w, FLASH_FWD_TOL, f"flash_fwd lse {case}")}
+    err = {fwd_name: held(o, o_w, fwd_tol, f"{fwd_name} {case}"),
+           "lse": held(lse, lse_w, FLASH_FWD_TOL, f"{fwd_name} lse {case}")}
     rep = H // KV
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     o32, _ = fk.flash_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
-    delta = (do * o32).sum(-1)
+    delta = (do.float() * o32).sum(-1)
     bkw = dict(kw, scale=D ** -0.5)
-    err["flash_dq"] = held(fb.flash_dq(q, kr, vr, do, lse_w, delta, **bkw),
-                           fb.flash_dq_plain(q, kr, vr, do, lse_w, delta,
-                                             **bkw), grad_tol,
-                           f"flash_dq {case}")
-    got = fb.flash_dkv(q, kr, vr, do, lse_w, delta, **bkw)
-    want = fb.flash_dkv_plain(q, kr, vr, do, lse_w, delta, **bkw)
-    err["flash_dkv"] = max(held(g, w, grad_tol, f"flash_dkv {case}")
-                           for g, w in zip(got, want))
-    return err
+    if dtype == torch.float32:
+        err["flash_dq"] = held(fb.flash_dq(q, kr, vr, do, lse_w, delta,
+                                           **bkw),
+                               fb.flash_dq_plain(q, kr, vr, do, lse_w, delta,
+                                                 **bkw), grad_tol,
+                               f"flash_dq {case}")
+        got = fb.flash_dkv(q, kr, vr, do, lse_w, delta, **bkw)
+        want = fb.flash_dkv_plain(q, kr, vr, do, lse_w, delta, **bkw)
+        err["flash_dkv"] = max(held(g, w, grad_tol, f"flash_dkv {case}")
+                               for g, w in zip(got, want))
+    else:
+        got = fb.flash_bwd(q, kr, vr, do, lse_w, delta, **bkw)
+        want = fb.flash_bwd_plain(q, kr, vr, do, lse_w, delta, **bkw)
+        err["flash_bwd_tc"] = max(
+            held(g, w, grad_tol, f"flash_bwd_tc {n} {case}")
+            for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+    torch.cuda.synchronize()
+    return err, dispatch.stats()["by_kernel"]
 
 
 def flash_full_run(cfg, dtype, seed=0):
     """The flash path at one full width: the op forward, then forward +
     backward through the autograd function (k/v repeated to H heads in
-    the graph), each held against the plain twins.  Returns the errors
-    and the launches each step made."""
+    the graph; the cotangent in ``dtype``), each held against the plain
+    twins.  Returns the errors by kernel and the launches each step
+    made."""
     import torch
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -419,6 +497,7 @@ def flash_full_run(cfg, dtype, seed=0):
                                                 "window"))
     fwd_tol = FLASH_FWD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     grad_tol = FLASH_GRAD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    fwd_name, bwd_names = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed)
     steps = {}
     before = dict(dispatch.stats()["by_kernel"])
@@ -431,7 +510,7 @@ def flash_full_run(cfg, dtype, seed=0):
     torch.cuda.synchronize()
     steps["forward"] = delta_of()
     o_w, lse_w = fk.flash_fwd_plain(q, k, v, causal=True, window=window)
-    err = {"flash_fwd": held(o, o_w, fwd_tol, "flash path forward")}
+    err = {fwd_name: held(o, o_w, fwd_tol, "flash path forward")}
     del o, o_w
 
     before = dict(dispatch.stats()["by_kernel"])
@@ -441,34 +520,37 @@ def flash_full_run(cfg, dtype, seed=0):
                                  leaves[1].repeat_interleave(rep, 1),
                                  leaves[2].repeat_interleave(rep, 1),
                                  True, window)
-    out.backward(do.to(dtype))
+    out.backward(do)
     torch.cuda.synchronize()
     steps["forward+backward"] = delta_of()
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     o32, _ = fk.flash_fwd_plain(q, kr, vr, causal=True, window=window,
                                 out_dtype=torch.float32)
-    err["flash_fwd"] = max(err["flash_fwd"],
-                           held(out, o32.to(dtype), fwd_tol,
-                                "flash path forward (autograd)"))
-    dof = do.to(dtype).float()
+    err[fwd_name] = max(err[fwd_name],
+                        held(out, o32.to(dtype), fwd_tol,
+                             "flash path forward (autograd)"))
+    dof = do.float()
     delta = (dof * o32).sum(-1)
     kw = dict(scale=D ** -0.5, causal=True, window=window)
     dq = fb.flash_dq_plain(q, kr, vr, dof, lse_w, delta, **kw)
-    err["flash_dq"] = held(leaves[0].grad, dq.to(dtype), grad_tol,
-                           "flash path dq")
+    e_dq = held(leaves[0].grad, dq.to(dtype), grad_tol, "flash path dq")
     del dq
     dk, dv = fb.flash_dkv_plain(q, kr, vr, dof, lse_w, delta, **kw)
     group = lambda t: t.view(B, KV, rep, S, D).sum(2).to(dtype)
-    err["flash_dkv"] = max(held(leaves[1].grad, group(dk), grad_tol,
-                                "flash path dk"),
-                           held(leaves[2].grad, group(dv), grad_tol,
-                                "flash path dv"))
+    e_dkv = max(held(leaves[1].grad, group(dk), grad_tol, "flash path dk"),
+                held(leaves[2].grad, group(dv), grad_tol, "flash path dv"))
+    if dtype == torch.float32:
+        err.update(flash_dq=e_dq, flash_dkv=e_dkv)
+    else:
+        err["flash_bwd_tc"] = max(e_dq, e_dkv)
     return err, steps
 
 
 def flash_timing(name, cfg, dtype, smi, device):
-    """CUDA-event medians of each flash kernel, its plain twin and the
-    PyTorch library call at one full width, beside the bound."""
+    """CUDA-event medians of each flash kernel of ``dtype``, its plain
+    twin and the PyTorch library call at one full width, beside the
+    bound.  The kernels and the library read one cotangent, in
+    ``dtype``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -476,6 +558,7 @@ def flash_timing(name, cfg, dtype, smi, device):
     from repro_torch.kernels.flash_attention import kernel as fk
     B, S, H, KV, D, window = (cfg[x] for x in ("B", "S", "H", "KV", "D",
                                                 "window"))
+    fwd_name, bwd_names = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed=2)
     kw = dict(causal=True, window=window)
     if window:
@@ -488,7 +571,7 @@ def flash_timing(name, cfg, dtype, smi, device):
         q, k, v, mask, 0.0, sdpa_kw["is_causal"], enable_gqa=True)).name
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(
         a, b, c, enable_gqa=True, **sdpa_kw)
-    rows = {"flash_fwd": dict(
+    rows = {fwd_name: dict(
         ms=cuda_ms(lambda: fk.flash_fwd(q, k, v, **kw), reps=10),
         plain_ms=cuda_ms(lambda: fk.flash_fwd_plain(q, k, v, **kw), reps=5),
         library_ms=cuda_ms(lambda: sdpa(q, k, v), reps=10))}
@@ -496,26 +579,25 @@ def flash_timing(name, cfg, dtype, smi, device):
     rep = H // KV
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     o32, lse = fk.flash_fwd(q, k, v, out_dtype=torch.float32, **kw)
-    delta = (do * o32).sum(-1)
+    delta = (do.float() * o32).sum(-1)
     bkw = dict(kw, scale=D ** -0.5)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o_lib = sdpa(*leaves)
-    do_t = do.to(dtype)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do_t,
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
                                                   retain_graph=True),
                       reps=10)
-    rows["flash_dq"] = dict(
-        ms=cuda_ms(lambda: fb.flash_dq(q, kr, vr, do, lse, delta, **bkw),
-                   reps=10),
-        plain_ms=cuda_ms(lambda: fb.flash_dq_plain(q, kr, vr, do, lse,
-                                                   delta, **bkw), reps=5),
-        library_ms=lib_bwd)
-    rows["flash_dkv"] = dict(
-        ms=cuda_ms(lambda: fb.flash_dkv(q, kr, vr, do, lse, delta, **bkw),
-                   reps=10),
-        plain_ms=cuda_ms(lambda: fb.flash_dkv_plain(q, kr, vr, do, lse,
-                                                    delta, **bkw), reps=5),
-        library_ms=lib_bwd)
+    if dtype == torch.float32:
+        bwd = {"flash_dq": (fb.flash_dq, fb.flash_dq_plain),
+               "flash_dkv": (fb.flash_dkv, fb.flash_dkv_plain)}
+    else:
+        bwd = {"flash_bwd_tc": (fb.flash_bwd, fb.flash_bwd_plain)}
+    for kname, (kern, plain) in bwd.items():
+        rows[kname] = dict(
+            ms=cuda_ms(lambda: kern(q, kr, vr, do, lse, delta, **bkw),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: plain(q, kr, vr, do, lse, delta,
+                                           **bkw), reps=5),
+            library_ms=lib_bwd)
     work = flash_work(B, H, KV, S, D, window, dtype)
     for kname, row in rows.items():
         flops, nbytes = work[kname]
@@ -524,15 +606,16 @@ def flash_timing(name, cfg, dtype, smi, device):
              flops=flops, bytes=nbytes, bound_share=row["bound_ms"]
              / row["ms"], tflop_s=flops / row["ms"] / 1e9,
              sdpa_backend=backend, library="scaled_dot_product_attention"
-             + (" backward (dq, dk, dv)" if kname != "flash_fwd" else ""),
+             + (" backward (dq, dk, dv)" if kname != fwd_name else ""),
              device=device, nvidia_smi=smi, **row)
-    flops, nbytes = work["backward"]
-    bwd_bound, bwd_by = bound(flops, nbytes, dtype)
-    emit("flash_timing", kernel="backward (flash_dq + flash_dkv)",
-         config=name, dtype=str(dtype),
-         ms=rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
-         library_ms=lib_bwd, bound_ms=bwd_bound, bound_by=bwd_by,
-         sdpa_backend=backend, device=device, nvidia_smi=smi)
+    if dtype == torch.float32:
+        flops, nbytes = work["backward"]
+        bwd_bound, bwd_by = bound(flops, nbytes, dtype)
+        emit("flash_timing", kernel="backward (flash_dq + flash_dkv)",
+             config=name, dtype=str(dtype),
+             ms=rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
+             library_ms=lib_bwd, bound_ms=bwd_bound, bound_by=bwd_by,
+             sdpa_backend=backend, device=device, nvidia_smi=smi)
     return rows
 
 
@@ -696,7 +779,8 @@ def main() -> int:
     from repro_torch.kernels.rfast_update import kernel as node_k
     from repro_torch.kernels.ssm_scan import kernel as scan_k
     sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE,
-               node_k.KERNEL_SOURCE, scan_k.KERNEL_SOURCE]
+               fa_fwd.TC_SOURCE, fa_bwd.TC_SOURCE, node_k.KERNEL_SOURCE,
+               scan_k.KERNEL_SOURCE]
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -719,6 +803,18 @@ def main() -> int:
                                               else str(p)
                                               for p in libs.values()],
          ptxas=ptxas)
+    # the bf16 tensor-core kernels: registers, spills and shared memory
+    # per instantiation (D <= 64 and D <= 128), and tensor-core
+    # instructions in the SASS (HGMMA: wgmma; HMMA: mma.sync)
+    for kname, src in (("flash_fwd_tc", fa_fwd.TC_SOURCE),
+                       ("flash_bwd_tc", fa_bwd.TC_SOURCE)):
+        report = tc_report(kname, src)
+        emit("build_tc", kernel=kname, **report)
+        ops = report["sass"]
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+              if kname == "flash_fwd_tc" else ops["HGMMA"] + ops["HMMA"] > 0,
+              f"{kname} runs on the tensor cores (and the forward's tiles "
+              f"arrive by TMA): {ops}")
 
     # 3. kernels vs plain --------------------------------------------------
     for P in (37, 100_001):
@@ -813,50 +909,57 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. flash kernels vs plain at small odd cases --------------------------
-    for case in FLASH_SMALL:
+    for case in FLASH_SMALL + FLASH_SMALL_BF16:
         for dt, fwd_tol, grad_tol in ((torch.float32, FLASH_FWD_TOL,
                                        FLASH_GRAD_TOL),
                                       (torch.bfloat16, FLASH_BF16_TOL,
                                        FLASH_BF16_TOL)):
-            err = flash_small_case(case, dt, fwd_tol, grad_tol)
+            if dt == torch.float32 and case in FLASH_SMALL_BF16:
+                continue
+            err, small_launches = flash_small_case(case, dt, fwd_tol,
+                                                   grad_tol)
             emit("flash_kernels", case=dict(zip(
                 ("B", "H", "KV", "Sq", "Sk", "D", "causal", "window"),
                 case)), dtype=str(dt), max_abs_err=err, fwd_tol=fwd_tol,
-                grad_tol=grad_tol)
+                grad_tol=grad_tol, launches=small_launches)
+            fwd_name, bwd_names = flash_names(dt)
+            check(small_launches == {n: 1 for n in (fwd_name, *bwd_names)},
+                  f"one launch of each {dt} flash kernel at {case}: "
+                  f"{small_launches}")
 
     # 8. the flash path at full attention width -----------------------------
     dispatch.clear()
-    flash_err, runs = {}, 0
+    flash_err, runs = {}, {}
     for cfg_name, cfg in FLASH_FULL:
-        dts = (torch.float32, torch.bfloat16) if cfg_name == "llama3-8b" \
-            else (torch.float32,)
-        for dt in dts:
+        for dt in (torch.float32, torch.bfloat16):
             err, steps = flash_full_run(cfg, dt)
-            runs += 1
+            runs[dt] = runs.get(dt, 0) + 1
             emit("flash_path", config=cfg_name, dtype=str(dt), **cfg,
                  max_abs_err=err, launches=steps)
-            check(steps == {"forward": {"flash_fwd": 1},
-                            "forward+backward": {"flash_fwd": 1,
-                                                 "flash_dq": 1,
-                                                 "flash_dkv": 1}},
+            fwd_name, bwd_names = flash_names(dt)
+            check(steps == {"forward": {fwd_name: 1},
+                            "forward+backward": {fwd_name: 1,
+                                                 **{n: 1 for n in
+                                                    bwd_names}}},
                   f"flash launches per step at {cfg_name} {dt}: {steps}")
-            if cfg_name == "llama3-8b" and dt == torch.float32:
-                flash_err = err
+            if cfg_name == "llama3-8b":
+                flash_err.update(err)
             torch.cuda.empty_cache()
     flash_launches = dispatch.stats()["by_kernel"]
-    emit("flash_path", runs=runs, launches=flash_launches)
-    check(flash_launches == {"flash_fwd": 2 * runs, "flash_dq": runs,
-                             "flash_dkv": runs}, "flash path launches")
+    emit("flash_path", runs={str(d): n for d, n in runs.items()},
+         launches=flash_launches)
+    n32, n16 = runs[torch.float32], runs[torch.bfloat16]
+    check(flash_launches == {"flash_fwd": 2 * n32, "flash_dq": n32,
+                             "flash_dkv": n32, "flash_fwd_tc": 2 * n16,
+                             "flash_bwd_tc": n16}, "flash path launches")
 
     # 9. flash timing at the llama3-8b and hymba-1.5b widths ----------------
     flash_rows = {}
     for cfg_name, cfg in FLASH_FULL[:2]:
-        dts = (torch.float32, torch.bfloat16) if cfg_name == "llama3-8b" \
-            else (torch.float32,)
-        for dt in dts:
+        for dt in (torch.float32, torch.bfloat16):
             rows = flash_timing(cfg_name, cfg, dt, smi, name)
-            if cfg_name == "llama3-8b" and dt == torch.float32:
-                flash_rows = rows
+            if cfg_name == "llama3-8b":
+                flash_rows.update(rows)
             torch.cuda.empty_cache()
 
     # 10. node kernels vs plain, then their ops at full width --------------
@@ -1128,6 +1231,11 @@ def main() -> int:
             ("flash_dq", fa_bwd.KERNEL_SOURCE,
              "src/repro/kernels/flash_attention/backward.py:135"),
             ("flash_dkv", fa_bwd.KERNEL_SOURCE,
+             "src/repro/kernels/flash_attention/backward.py:156"),
+            ("flash_fwd_tc", fa_fwd.TC_SOURCE,
+             "src/repro/kernels/flash_attention/kernel.py:85"),
+            ("flash_bwd_tc", fa_bwd.TC_SOURCE,
+             "src/repro/kernels/flash_attention/backward.py:135, "
              "src/repro/kernels/flash_attention/backward.py:156")):
         kernels.append({"name": kname, "route": "cuda",
                         "source": str(src.relative_to(ROOT)),

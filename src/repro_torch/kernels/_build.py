@@ -22,7 +22,7 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "library_path", "build", "load",
-           "build_log"]
+           "build_log", "sass"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,6 +62,15 @@ def build_log(source: Path) -> str:
     current build, or '' when it has not been built here."""
     log = library_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(source: Path) -> str:
+    """The SASS of ``source``'s current build, as the toolkit's
+    ``cuobjdump -sass`` prints it (the instructions that really run)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(library_path(source))],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
 
 
 def build(sources: list[Path]) -> dict[Path, Path]:

@@ -7,15 +7,20 @@ the forward's fp32 row statistic lse and δ = rowsum(dO ⊙ O):
   p   = exp(q·kᵀ·scale − lse)       (0 where the mask drops)
   dp  = dO · vᵀ
   ds  = p ⊙ (dp − δ) · scale
-  dq  = ds · k                     (:func:`flash_dq`,  one kernel)
-  dk  = dsᵀ · q,   dv = pᵀ · dO    (:func:`flash_dkv`, one kernel)
+  dq  = ds · k
+  dk  = dsᵀ · q,   dv = pᵀ · dO
 
 As in the reference, k and v come already repeated to the H query heads
-(GQA gradients flow back through the caller's repeat), dO, lse and δ are
-fp32 and the three gradients are fp32.  On CUDA tensors the wrappers
-launch the hand-written kernels (``csrc/flash_bwd.cu``) or raise; on CPU
-tensors they run their plain twins, which compute the same function
-densely.
+(GQA gradients flow back through the caller's repeat), lse and δ are fp32
+and the three gradients are fp32.  :func:`flash_bwd` computes all three
+and follows its tensors: bf16 CUDA tensors launch one fused tensor-core
+kernel (``csrc/flash_bwd_tc.cu``, dO read in bf16); fp32 CUDA tensors
+launch the two CUDA-core kernels :func:`flash_dq` and :func:`flash_dkv`
+(``csrc/flash_bwd.cu``, dO in fp32), which take fp32 only; CPU tensors
+run :func:`flash_bwd_plain`, which computes the same function densely.
+Each kernel path launches its kernels or raises.  The fused kernel adds
+dq's partial sums by atomics, so its dq is not bitwise repeatable from
+run to run.
 """
 from __future__ import annotations
 
@@ -25,31 +30,36 @@ from pathlib import Path
 import torch
 
 from ..rfast_update import dispatch
-from .kernel import (DTYPE_CODE, MAX_HEAD_DIM, check_blocks, check_cuda,
-                     check_window, flash_fwd, launch_status, masked_scores,
+from .kernel import (MAX_HEAD_DIM, check_blocks, check_cuda, check_window,
+                     flash_fwd, launch_status, masked_scores, pad_head_dim,
                      ptr, stream_of)
 
-__all__ = ["flash_attention_vjp", "FlashAttentionFn", "flash_dq",
-           "flash_dq_plain", "flash_dkv", "flash_dkv_plain", "KERNEL_SOURCE"]
+__all__ = ["flash_attention_vjp", "FlashAttentionFn", "flash_bwd",
+           "flash_bwd_plain", "flash_dq", "flash_dq_plain", "flash_dkv",
+           "flash_dkv_plain", "KERNEL_SOURCE", "TC_SOURCE"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
+TC_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd_tc.cu"
 
-_lib = None
+_libs: dict = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(source):
+    if source not in _libs:
         from .._build import load
-        lib = load(KERNEL_SOURCE)
+        lib = load(source)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         tail = [i32, i32, i64, i64, i32, ctypes.c_float, i32, i64, vp]
-        lib.flash_dq_launch.argtypes = [i32] + [vp] * 7 + tail
-        lib.flash_dq_launch.restype = i32
-        lib.flash_dkv_launch.argtypes = [i32] + [vp] * 8 + tail
-        lib.flash_dkv_launch.restype = i32
-        _lib = lib
-    return _lib
+        if source == KERNEL_SOURCE:
+            lib.flash_dq_launch.argtypes = [vp] * 7 + tail
+            lib.flash_dq_launch.restype = i32
+            lib.flash_dkv_launch.argtypes = [vp] * 8 + tail
+            lib.flash_dkv_launch.restype = i32
+        else:
+            lib.flash_bwd_tc_launch.argtypes = [vp] * 9 + tail
+            lib.flash_bwd_tc_launch.restype = i32
+        _libs[source] = lib
+    return _libs[source]
 
 
 def _check(q, k, v, do, lse, delta, bq, bk):
@@ -95,10 +105,26 @@ def flash_dkv_plain(q, k, v, do, lse, delta, *, scale, causal=True,
     return dk, dv
 
 
+def flash_bwd_plain(q, k, v, do, lse, delta, *, scale, causal=True,
+                    window=None, bq=128, bk=128):
+    """(dq, dk, dv) = (ds · k, dsᵀ · q, pᵀ · dO) in one dense pass; fp32
+    (fp64 for fp64 inputs)."""
+    _check(q, k, v, do, lse, delta, bq, bk)
+    check_window(window)
+    p, ds, cdt = _p_ds(q, k, v, do, lse, delta, scale, causal, window)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.to(cdt)),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.to(cdt)),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.to(cdt)))
+
+
 def _cuda_args(name, q, k, v, do, lse, delta, bq, bk, window):
     _check(q, k, v, do, lse, delta, bq, bk)
     win = check_window(window)
     dt = check_cuda(name, q, k, v)
+    if dt != torch.float32:
+        raise TypeError(f"{name} kernel takes float32 CUDA tensors; "
+                        f"{dt} inputs run flash_bwd (one fused tensor-core "
+                        f"kernel for dq, dk and dv)")
     f32 = torch.float32
     for t in (do, lse, delta):
         if t.device != q.device or t.dtype != f32:
@@ -111,20 +137,21 @@ def _cuda_args(name, q, k, v, do, lse, delta, bq, bk, window):
 
 def flash_dq(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
              bq=128, bk=128):
-    """dq (B,H,Sq,D) fp32 — the counterpart of ``_run_dq``.  On CUDA
-    tensors one ``flash_dq`` launch; on CPU tensors, the plain twin."""
+    """dq (B,H,Sq,D) fp32 — the counterpart of ``_run_dq``.  On fp32 CUDA
+    tensors one ``flash_dq`` launch (bf16 ones raise: they run
+    :func:`flash_bwd`); on CPU tensors of any dtype, the plain twin."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, scale=scale,
                               causal=causal, window=window, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_dq runs on cuda or cpu tensors, got "
                          f"{q.device}")
-    dt, win, ts = _cuda_args("flash_dq", q, k, v, do, lse, delta, bq, bk,
-                             window)
+    _, win, ts = _cuda_args("flash_dq", q, k, v, do, lse, delta, bq, bk,
+                            window)
     B, H, Sq, D = q.shape
     dq = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
-    err = _library().flash_dq_launch(
-        DTYPE_CODE[dt], *(ptr(t) for t in ts), ptr(dq), B, H, Sq,
+    err = _library(KERNEL_SOURCE).flash_dq_launch(
+        *(ptr(t) for t in ts), ptr(dq), B, H, Sq,
         k.shape[2], D, float(scale), int(bool(causal)), win, stream_of(q))
     launch_status("flash_dq", err)
     dispatch.record_launch("flash_dq")
@@ -134,25 +161,78 @@ def flash_dq(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
 def flash_dkv(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
               bq=128, bk=128):
     """(dk, dv), each (B,H,Sk,D) fp32 — the counterpart of ``_run_dkv``.
-    On CUDA tensors one ``flash_dkv`` launch; on CPU, the plain twin."""
+    On fp32 CUDA tensors one ``flash_dkv`` launch (bf16 ones raise: they
+    run :func:`flash_bwd`); on CPU tensors of any dtype, the plain twin."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                causal=causal, window=window, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_dkv runs on cuda or cpu tensors, got "
                          f"{q.device}")
-    dt, win, ts = _cuda_args("flash_dkv", q, k, v, do, lse, delta, bq, bk,
-                             window)
+    _, win, ts = _cuda_args("flash_dkv", q, k, v, do, lse, delta, bq, bk,
+                            window)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    err = _library().flash_dkv_launch(
-        DTYPE_CODE[dt], *(ptr(t) for t in ts), ptr(dk), ptr(dv), B, H, Sq,
+    err = _library(KERNEL_SOURCE).flash_dkv_launch(
+        *(ptr(t) for t in ts), ptr(dk), ptr(dv), B, H, Sq,
         Sk, D, float(scale), int(bool(causal)), win, stream_of(q))
     launch_status("flash_dkv", err)
     dispatch.record_launch("flash_dkv")
     return dk, dv
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
+              bq=128, bk=128):
+    """(dq, dk, dv), fp32, of q, dO (B,H,Sq,D) and k, v (B,H,Sk,D) (k/v
+    repeated to H heads), lse and δ (B,H,Sq) fp32 — the counterpart of
+    ``_run_dq`` and ``_run_dkv`` together.
+
+    On bfloat16 CUDA tensors one fused ``flash_bwd_tc`` launch: dO is
+    read in bf16 (an fp32 dO is rounded to bf16 once, here), q/k/v/dO are
+    zero-padded to a head dim that is a multiple of 8 and the gradients
+    sliced back; dq is summed by atomics (not bitwise repeatable).  On
+    float32 CUDA tensors one ``flash_dq`` and one ``flash_dkv`` launch;
+    on CPU tensors, :func:`flash_bwd_plain`.
+    """
+    kw = dict(scale=scale, causal=causal, window=window, bq=bq, bk=bk)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    _check(q, k, v, do, lse, delta, bq, bk)
+    win = check_window(window)
+    dt = check_cuda("flash_bwd", q, k, v)
+    if dt == torch.float32:
+        return (flash_dq(q, k, v, do, lse, delta, **kw),
+                *flash_dkv(q, k, v, do, lse, delta, **kw))
+    for t in (do, lse, delta):
+        if t.device != q.device:
+            raise ValueError(f"flash_bwd needs dO, lse and delta on "
+                             f"{q.device}, got {t.device}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"flash_bwd takes lse and delta in float32; got "
+                         f"{lse.dtype}, {delta.dtype}")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    q, k, v, do = (pad_head_dim(t) for t in (q, k, v,
+                                            do.to(torch.bfloat16)))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    Dp = q.shape[-1]
+    dq = torch.zeros((B, H, Sq, Dp), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, H, Sk, Dp), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    err = _library(TC_SOURCE).flash_bwd_tc_launch(
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+        ptr(dk), ptr(dv), B, H, Sq, Sk, Dp, float(scale), int(bool(causal)),
+        win, stream_of(q))
+    launch_status("flash_bwd_tc", err)
+    dispatch.record_launch("flash_bwd_tc")
+    if Dp != D:
+        dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
+    return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -163,7 +243,10 @@ class FlashAttentionFn(torch.autograd.Function):
     flash_fwd`), which computes the same function and its lse in one
     pass.  It writes o in fp32, saved unrounded for δ as the reference
     saves it, and returns o in q's dtype.  δ = rowsum(dO ⊙ O) is plain
-    PyTorch, as it is plain jnp in the reference (``backward.py:220``).
+    PyTorch in fp32, as it is plain jnp in the reference
+    (``backward.py:220``).  The backward is :func:`flash_bwd`, given the
+    cotangent as it arrives (bf16 for bf16 inputs: the fused kernel reads
+    it so; fp32 for fp32 inputs).
     """
 
     @staticmethod
@@ -185,10 +268,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse, o = ctx.saved_tensors
-        dof = do.to(o.dtype)
-        delta = (dof * o).sum(-1)
-        dq = flash_dq(q, k, v, dof, lse, delta, **ctx.kw)
-        dk, dv = flash_dkv(q, k, v, dof, lse, delta, **ctx.kw)
+        delta = (do.to(o.dtype) * o).sum(-1)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, **ctx.kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None)
 

@@ -1,5 +1,6 @@
-// Flash attention backward on Hopper (sm_90a): the dq kernel and the
-// dk/dv kernel.
+// Flash attention backward on Hopper (sm_90a) for fp32 inputs: the dq
+// kernel and the dk/dv kernel (bf16 inputs run flash_bwd_tc.cu, one fused
+// tensor-core kernel).
 //
 // Replace the TPU kernels src/repro/kernels/flash_attention/backward.py::
 // _dq_kernel (launched by _run_dq) and ::_dkv_kernel (launched by
@@ -23,7 +24,7 @@
 // (q k^T, dO v^T, ds k: 6 D flops) and the dk/dv kernel four (q k^T,
 // dO v^T, p^T dO, ds^T q: 8 D flops) on the CUDA cores in fp32; the
 // minimum for the whole backward is five products (10 D flops), since
-// q k^T and dO v^T are recomputed by both.
+// q k^T and dO v^T are recomputed by both (flash_bwd_tc.cu does five).
 
 #include "flash_common.cuh"
 
@@ -31,10 +32,10 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ dO,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int H, int64_t Sq, int64_t Sk, int D,
     float scale, int causal, int64_t window) {
@@ -51,8 +52,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kTile;
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * H + blockIdx.y;
-  const T* kb = k + bh * Sk * D;
-  const T* vb = v + bh * Sk * D;
+  const float* kb = k + bh * Sk * D;
+  const float* vb = v + bh * Sk * D;
   const int64_t q_last = (q0 + kTile < Sq ? q0 + kTile : Sq) - 1;
 
   load_t<DP>(qT, q + bh * Sq * D, q0, Sq, D);
@@ -113,10 +114,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ dO,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int H, int64_t Sq,
     int64_t Sk, int D, float scale, int causal, int64_t window) {
@@ -134,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * H + blockIdx.y;
-  const T* qb = q + bh * Sq * D;
+  const float* qb = q + bh * Sq * D;
   const float* dob = dO + bh * Sq * D;
   const int64_t k_last = (k0 + kTile < Sk ? k0 + kTile : Sk) - 1;
 
@@ -204,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO,
               const void* lse, const void* delta, void* dq, int B, int H,
               int64_t Sq, int64_t Sk, int D, float scale, int causal,
@@ -213,15 +214,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
       * sizeof(float);
   const dim3 grid(static_cast<unsigned>((Sq + kTile - 1) / kTile),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  return launch(flash_dq_kernel<T, DP>, grid, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(dO),
+  return launch(flash_dq_kernel<DP>, grid, smem, stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dO),
                 static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<float*>(dq), H,
                 Sq, Sk, D, scale, causal, window);
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int64_t Sq, int64_t Sk, int D, float scale, int causal,
@@ -230,53 +231,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
       * sizeof(float);
   const dim3 grid(static_cast<unsigned>((Sk + kTile - 1) / kTile),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  return launch(flash_dkv_kernel<T, DP>, grid, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(dO),
+  return launch(flash_dkv_kernel<DP>, grid, smem, stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dO),
                 static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<float*>(dk),
                 static_cast<float*>(dv), H, Sq, Sk, D, scale, causal, window);
-}
-
-template <typename T>
-int dispatch_dq(const void* q, const void* k, const void* v, const void* dO,
-                const void* lse, const void* delta, void* dq, int B, int H,
-                int64_t Sq, int64_t Sk, int D, float scale, int causal,
-                int64_t window, void* stream) {
-  switch (padded_head_dim(D)) {
-    case 32:
-      return launch_dq<T, 32>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
-                              scale, causal, window, stream);
-    case 64:
-      return launch_dq<T, 64>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
-                              scale, causal, window, stream);
-    case 128:
-      return launch_dq<T, 128>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
-                               scale, causal, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int dispatch_dkv(const void* q, const void* k, const void* v,
-                 const void* dO, const void* lse, const void* delta,
-                 void* dk, void* dv, int B, int H, int64_t Sq, int64_t Sk,
-                 int D, float scale, int causal, int64_t window,
-                 void* stream) {
-  switch (padded_head_dim(D)) {
-    case 32:
-      return launch_dkv<T, 32>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk,
-                               D, scale, causal, window, stream);
-    case 64:
-      return launch_dkv<T, 64>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk,
-                               D, scale, causal, window, stream);
-    case 128:
-      return launch_dkv<T, 128>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq,
-                                Sk, D, scale, causal, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 bool bad_shape(int B, int H, int64_t Sq, int64_t Sk, int D) {
@@ -288,29 +248,32 @@ bool bad_shape(int B, int H, int64_t Sq, int64_t Sk, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v).  q, dO (B,H,Sq,D); k, v
-// (B,H,Sk,D); lse, delta (B,H,Sq); dO, lse, delta and the outputs dq
-// (B,H,Sq,D), dk and dv (B,H,Sk,D) are float32; all contiguous.
+// q, dO (B,H,Sq,D); k, v (B,H,Sk,D); lse, delta (B,H,Sq); the outputs dq
+// (B,H,Sq,D), dk and dv (B,H,Sk,D); all float32 and contiguous.
 // window <= 0: none.  Each returns the CUDA error of its launch.
-int flash_dq_launch(int dtype, const void* q, const void* k, const void* v,
+int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dO, const void* lse, const void* delta,
                     void* dq, int B, int H, int64_t Sq, int64_t Sk, int D,
                     float scale, int causal, int64_t window, void* stream) {
   if (bad_shape(B, H, Sq, Sk, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return dispatch_dq<float>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
-                              scale, causal, window, stream);
+  switch (padded_head_dim(D)) {
+    case 32:
+      return launch_dq<32>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
+                           scale, causal, window, stream);
+    case 64:
+      return launch_dq<64>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
+                           scale, causal, window, stream);
+    case 128:
+      return launch_dq<128>(q, k, v, dO, lse, delta, dq, B, H, Sq, Sk, D,
+                            scale, causal, window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch_dq<__nv_bfloat16>(q, k, v, dO, lse, delta, dq, B, H, Sq,
-                                      Sk, D, scale, causal, window, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int flash_dkv_launch(int dtype, const void* q, const void* k, const void* v,
+int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dO, const void* lse, const void* delta,
                      void* dk, void* dv, int B, int H, int64_t Sq, int64_t Sk,
                      int D, float scale, int causal, int64_t window,
@@ -318,16 +281,19 @@ int flash_dkv_launch(int dtype, const void* q, const void* k, const void* v,
   if (bad_shape(B, H, Sq, Sk, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return dispatch_dkv<float>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk,
-                               D, scale, causal, window, stream);
+  switch (padded_head_dim(D)) {
+    case 32:
+      return launch_dkv<32>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk, D,
+                            scale, causal, window, stream);
+    case 64:
+      return launch_dkv<64>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk, D,
+                            scale, causal, window, stream);
+    case 128:
+      return launch_dkv<128>(q, k, v, dO, lse, delta, dk, dv, B, H, Sq, Sk,
+                             D, scale, causal, window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch_dkv<__nv_bfloat16>(q, k, v, dO, lse, delta, dk, dv, B, H,
-                                       Sq, Sk, D, scale, causal, window,
-                                       stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

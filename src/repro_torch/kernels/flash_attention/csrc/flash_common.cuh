@@ -1,16 +1,19 @@
-// Shared pieces of the flash attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash attention kernels.  The mask (kNeg, keep,
+// tile_live) is every kernel's; the rest is the fp32 kernels'
+// (flash_fwd.cu, flash_bwd.cu), while bf16 inputs go to flash_fwd_tc.cu
+// and flash_bwd_tc.cu on the tensor cores.
 //
-// Every kernel works on 64 x 64 (q rows x kv rows) tiles of one (batch,
+// Every fp32 kernel works on 64 x 64 (q rows x kv rows) tiles of one (batch,
 // head) slab with 256 threads arranged 16 x 16: thread (ty, tx) owns tile
 // rows ty*4 .. ty*4+3 and tile columns tx, tx+16, tx+32, tx+48, and output
 // columns tx + 16*n of the head dimension.  Operand tiles live in shared
 // memory in fp32, transposed (d-major) with a row length of 65 so that
 // both the transposing stores and the per-d reads are free of bank
-// conflicts.  Arithmetic is fp32 FMAs on the CUDA cores: the port's
-// tolerance (2e-5 in fp32) rules out TF32 tensor cores.
+// conflicts.  Arithmetic is fp32 FMAs on the CUDA cores: for fp32 inputs
+// the port's tolerance (2e-5 forward, 2e-4 gradients) rules out TF32
+// tensor cores.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -23,19 +26,6 @@ constexpr int kPad = kTile + 1;     // row length of a transposed tile
 constexpr int kRows = kTile / 16;   // tile rows (and columns) per thread
 constexpr int kMaxHeadDim = 128;
 constexpr float kNeg = -1e30f;      // the TPU kernels' finite mask value
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
 
 // The TPU kernels' mask: causal without an Sk - Sq offset, and a sliding
 // window when window > 0.
@@ -56,27 +46,28 @@ __device__ __forceinline__ bool tile_live(int64_t q0, int64_t q_last,
 
 // dst[d * kPad + r] = src[(r0 + r) * D + d] for r < kTile, d < DP; zero
 // past row S or column D.  src is one (S, D) slab.
-template <int DP, typename T>
+template <int DP>
 __device__ __forceinline__ void load_t(float* __restrict__ dst,
-                                       const T* __restrict__ src, int64_t r0,
+                                       const float* __restrict__ src,
+                                       int64_t r0,
                                        int64_t S, int D) {
   for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
     const int r = idx / DP, d = idx % DP;
     float x = 0.0f;
-    if (r0 + r < S && d < D) x = to_f32(src[(r0 + r) * D + d]);
+    if (r0 + r < S && d < D) x = src[(r0 + r) * D + d];
     dst[d * kPad + r] = x;
   }
 }
 
 // dst[r * DP + d] = src[(r0 + r) * D + d], zero-padded as load_t.
-template <int DP, typename T>
+template <int DP>
 __device__ __forceinline__ void load_rows(float* __restrict__ dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t r0, int64_t S, int D) {
   for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
     const int r = idx / DP, d = idx % DP;
     float x = 0.0f;
-    if (r0 + r < S && d < D) x = to_f32(src[(r0 + r) * D + d]);
+    if (r0 + r < S && d < D) x = src[(r0 + r) * D + d];
     dst[r * DP + d] = x;
   }
 }

@@ -1,4 +1,5 @@
-// Flash attention forward on Hopper (sm_90a).
+// Flash attention forward on Hopper (sm_90a) for fp32 inputs (bf16 inputs
+// run flash_fwd_tc.cu on the tensor cores).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // _kernel (launched by flash_attention_pallas).  For query head h of
@@ -6,7 +7,7 @@
 //
 //   s   = q k^T * scale, NEG = -1e30 where the mask drops (ki > qi, or
 //         ki <= qi - window), with no Sk - Sq offset, as on the TPU;
-//   o   = softmax(s) v, written in q's dtype (or fp32);
+//   o   = softmax(s) v, in fp32;
 //   lse = m + log(l) per row, fp32, for the backward.
 //
 // Design: one block per (q tile of 64 rows, h, b); a loop over the kv
@@ -26,7 +27,7 @@
 // flops per unmasked (q, k) pair against about 2 * D * (B H Sq + 2 B KV Sk)
 // bytes.  In fp32 they run on the CUDA cores (67 TFLOP/s); each thread
 // does 16 FMAs per 8 shared-memory loads in q k^T, which caps it well
-// below that.  Tensor cores (wgmma) and TMA are later work.
+// below that.
 
 #include "flash_common.cuh"
 
@@ -41,10 +42,11 @@ __host__ __device__ constexpr int kt_rows() {
   return DP > kTile ? DP : kTile;
 }
 
-template <typename T, typename TO, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, TO* __restrict__ o, float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse,
     int H, int KV, int64_t Sq, int64_t Sk, int D, float scale, int causal,
     int64_t window) {
   constexpr int DN = DP / 16;
@@ -59,8 +61,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * H + blockIdx.y;
   const int64_t bkv = static_cast<int64_t>(blockIdx.z) * KV
       + blockIdx.y / (H / KV);
-  const T* kb = k + bkv * Sk * D;
-  const T* vb = v + bkv * Sk * D;
+  const float* kb = k + bkv * Sk * D;
+  const float* vb = v + bkv * Sk * D;
   const int64_t q_last = (q0 + kTile < Sq ? q0 + kTile : Sq) - 1;
 
   load_t<DP>(qT, q + bh * Sq * D, q0, Sq, D);
@@ -135,17 +137,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int64_t qi = q0 + ty * kRows + i;
     if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    TO* orow = o + (bh * Sq + qi) * D;
+    float* orow = o + (bh * Sq + qi) * D;
 #pragma unroll
     for (int n = 0; n < DN; ++n) {
       const int d = tx + 16 * n;
-      if (d < D) orow[d] = from_f32<TO>(acc[i][n] / den);
+      if (d < D) orow[d] = acc[i][n] / den;
     }
     if (tx == 0) lse[bh * Sq + qi] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, typename TO, int DP>
+template <int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int KV, int64_t Sq, int64_t Sk,
                int D, float scale, int causal, int64_t window, void* stream) {
@@ -153,63 +155,41 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
       * sizeof(float);
   const dim3 grid(static_cast<unsigned>((Sq + kTile - 1) / kTile),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  return launch(flash_fwd_kernel<T, TO, DP>, grid, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<TO*>(o),
+  return launch(flash_fwd_kernel<DP>, grid, smem, stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o),
                 static_cast<float*>(lse), H, KV, Sq, Sk, D, scale, causal,
                 window);
-}
-
-template <typename T, typename TO>
-int dispatch_fwd(const void* q, const void* k, const void* v, void* o,
-                 void* lse, int B, int H, int KV, int64_t Sq, int64_t Sk,
-                 int D, float scale, int causal, int64_t window,
-                 void* stream) {
-  switch (padded_head_dim(D)) {
-    case 32:
-      return launch_fwd<T, TO, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, D,
-                                   scale, causal, window, stream);
-    case 64:
-      return launch_fwd<T, TO, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, D,
-                                   scale, causal, window, stream);
-    case 128:
-      return launch_fwd<T, TO, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, D,
-                                    scale, causal, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v).  out_f32: o in float32 for
-// bfloat16 inputs (else o has q's dtype).  q (B,H,Sq,D), k/v (B,KV,Sk,D),
-// o (B,H,Sq,D), lse (B,H,Sq) float32, all contiguous.  window <= 0: none.
-// Returns the CUDA error of the launch (0 = launched).
-int flash_fwd_launch(int dtype, int out_f32, const void* q, const void* k,
-                     const void* v, void* o, void* lse, int B, int H, int KV,
-                     int64_t Sq, int64_t Sk, int D, float scale, int causal,
-                     int64_t window, void* stream) {
+// q (B,H,Sq,D), k/v (B,KV,Sk,D), o (B,H,Sq,D), lse (B,H,Sq), all float32
+// and contiguous.  window <= 0: none.  Returns the CUDA error of the
+// launch (0 = launched).
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int B, int H, int KV, int64_t Sq, int64_t Sk,
+                     int D, float scale, int causal, int64_t window,
+                     void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || KV < 1 || H % KV != 0
       || Sq < 1 || Sk < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return dispatch_fwd<float, float>(q, k, v, o, lse, B, H, KV, Sq, Sk, D,
-                                      scale, causal, window, stream);
+  switch (padded_head_dim(D)) {
+    case 32:
+      return launch_fwd<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, scale,
+                            causal, window, stream);
+    case 64:
+      return launch_fwd<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, scale,
+                            causal, window, stream);
+    case 128:
+      return launch_fwd<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, scale,
+                             causal, window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1 && out_f32) {
-    return dispatch_fwd<__nv_bfloat16, float>(q, k, v, o, lse, B, H, KV, Sq,
-                                              Sk, D, scale, causal, window,
-                                              stream);
-  }
-  if (dtype == 1) {
-    return dispatch_fwd<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, o, lse, B, H, KV, Sq, Sk, D, scale, causal, window, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -16,11 +16,12 @@ Semantics, shared by the kernel and its plain twin:
   lse = logsumexp(s) per row, fp32 (B,H,Sq) — what the backward needs.
 
 GQA: query head h reads kv head ``h // (H // KV)``; k/v are never
-repeated in memory.  Where it runs follows from the tensors: on CUDA
-tensors :func:`flash_fwd` launches the hand-written kernel
-(``csrc/flash_fwd.cu``) or raises; on CPU tensors it runs
-:func:`flash_fwd_plain`, a dense masked softmax computing the same
-function.  Nothing falls back from one to the other.
+repeated in memory.  Where it runs follows from the tensors: on bf16
+CUDA tensors :func:`flash_fwd` launches the tensor-core kernel
+(``csrc/flash_fwd_tc.cu``: wgmma and TMA), on fp32 CUDA tensors the
+CUDA-core kernel (``csrc/flash_fwd.cu``), each or it raises; on CPU
+tensors it runs :func:`flash_fwd_plain`, a dense masked softmax
+computing the same function.  Nothing falls back from one to another.
 """
 from __future__ import annotations
 
@@ -32,28 +33,52 @@ import torch
 from ..rfast_update import dispatch
 
 __all__ = ["flash_fwd", "flash_fwd_plain", "masked_scores", "check_blocks",
-           "KERNEL_SOURCE", "NEG", "MAX_HEAD_DIM"]
+           "pad_head_dim", "KERNEL_SOURCE", "TC_SOURCE", "NEG",
+           "MAX_HEAD_DIM"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+TC_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd_tc.cu"
 NEG = -1e30
 MAX_HEAD_DIM = 128
+TMA_ALIGN = 16             # bytes: TMA's global address and stride unit
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
+_libs: dict = {}
+_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+         ctypes.c_int64, ctypes.c_void_p]
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(source):
+    if source not in _libs:
         from .._build import load
-        lib = load(KERNEL_SOURCE)
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.flash_fwd_launch.argtypes = (
-            [i32, i32] + [vp] * 5 + [i32, i32, i32, i64, i64, i32,
-                                     ctypes.c_float, i32, i64, vp])
-        lib.flash_fwd_launch.restype = i32
-        _lib = lib
-    return _lib
+        lib = load(source)
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        if source == KERNEL_SOURCE:
+            lib.flash_fwd_launch.argtypes = [vp] * 5 + _TAIL
+            lib.flash_fwd_launch.restype = i32
+        else:
+            lib.flash_fwd_tc_launch.argtypes = [i32, vp, vp, vp, vp,
+                                                vp] + _TAIL
+            lib.flash_fwd_tc_launch.restype = i32
+        _libs[source] = lib
+    return _libs[source]
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """bf16 ``t`` (..., D) with zero columns appended up to the next
+    multiple of 8, contiguous and 16-byte aligned: what TMA reads (its
+    row stride must be a multiple of 16 bytes).  Zero columns change no
+    product q·k or p·v, so slicing the output back to D gives the
+    unpadded result.  Returns ``t`` itself when it needs nothing."""
+    D = t.shape[-1]
+    pad = -D % (TMA_ALIGN // 2)
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    t = t.contiguous()
+    if t.data_ptr() % TMA_ALIGN:
+        t = t.clone()
+    return t
 
 
 def check_blocks(Sq: int, Sk: int, bq: int, bk: int) -> None:
@@ -80,7 +105,7 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.dtype:
     """Every tensor on one CUDA device, of one dtype the kernels take
     (float32 or bfloat16).  Returns that dtype."""
     dev, dt = tensors[0].device, tensors[0].dtype
-    if dt not in DTYPE_CODE:
+    if dt not in CUDA_DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dt}")
     for t in tensors:
         if t.device != dev or t.dtype != dt:
@@ -168,8 +193,10 @@ def flash_fwd(q, k, v, *, causal=True, window=None, scale=None, bq=128,
       out_dtype: o's dtype, q's by default (the autograd forward asks
         for float32 so that δ = rowsum(dO ⊙ O) uses the unrounded O).
 
-    On CUDA tensors (float32 or bfloat16, one dtype) the Hopper kernel
-    runs and counts one ``flash_fwd`` launch; on CPU tensors,
+    On bfloat16 CUDA tensors the tensor-core kernel runs and counts one
+    ``flash_fwd_tc`` launch (q, k, v zero-padded to a head dim that is a
+    multiple of 8, o sliced back); on float32 CUDA tensors the CUDA-core
+    kernel counts one ``flash_fwd``; on CPU tensors,
     :func:`flash_fwd_plain`.
     """
     if q.device.type == "cpu":
@@ -189,11 +216,21 @@ def flash_fwd(q, k, v, *, causal=True, window=None, scale=None, bq=128,
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if dt == torch.bfloat16:
+        q, k, v = (pad_head_dim(t) for t in (q, k, v))
+        Dp = q.shape[-1]
+        o = torch.empty((B, H, Sq, Dp), dtype=out_dtype, device=q.device)
+        err = _library(TC_SOURCE).flash_fwd_tc_launch(
+            int(out_dtype == torch.float32), ptr(q), ptr(k), ptr(v), ptr(o),
+            ptr(lse), B, H, KV, Sq, Sk, Dp, float(scale), int(bool(causal)),
+            win, stream_of(q))
+        launch_status("flash_fwd_tc", err)
+        dispatch.record_launch("flash_fwd_tc")
+        return (o[..., :D] if Dp != D else o), lse
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty((B, H, Sq, D), dtype=out_dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = _library().flash_fwd_launch(
-        DTYPE_CODE[dt], int(out_dtype == torch.float32 and dt != out_dtype),
+    err = _library(KERNEL_SOURCE).flash_fwd_launch(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), B, H, KV, Sq, Sk, D,
         float(scale), int(bool(causal)), win, stream_of(q))
     launch_status("flash_fwd", err)

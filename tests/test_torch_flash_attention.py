@@ -6,7 +6,9 @@ runs its Pallas kernels in the interpreter (``flash_attention(impl=
 tests/test_kernels.py does; tolerances are that file's: 2e-5 for the
 fp32 forward, 2e-2 for bf16, 2e-4 for gradients.  The CUDA kernels are
 held to these plain twins on the card by chip_smoke.py and
-tests/test_torch_gpu.py.
+tests/test_torch_gpu.py: ``flash_bwd_plain`` is what the fused bf16
+backward kernel is held to, and ``pad_head_dim`` is what the bf16
+kernels' wrappers do to a head dim that is not a multiple of 8.
 """
 import jax
 import jax.numpy as jnp
@@ -18,9 +20,10 @@ from repro.kernels.flash_attention import backward as jax_backward
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention.backward import (
-    flash_attention_vjp, flash_dkv, flash_dq)
+    flash_attention_vjp, flash_bwd, flash_bwd_plain, flash_dkv, flash_dq)
 from repro_torch.kernels.flash_attention.kernel import (flash_fwd,
-                                                        flash_fwd_plain)
+                                                        flash_fwd_plain,
+                                                        pad_head_dim)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rfast_update import dispatch
@@ -210,6 +213,7 @@ def test_cpu_tensors_launch_nothing():
     flash_attention_vjp(q, kr, vr).sum().backward()
     flash_dq(q, kr, vr, q.detach(), lse, lse, scale=0.1)
     flash_dkv(q, kr, vr, q.detach(), lse, lse, scale=0.1)
+    flash_bwd(q, kr, vr, q.detach(), lse, lse, scale=0.1)
     assert dispatch.stats() == {"launches": 0, "by_kernel": {}}
 
 
@@ -233,3 +237,98 @@ def test_same_calls_fail_as_in_jax():
     with pytest.raises(ValueError):
         flash_attention_vjp(qt.transpose(1, 2), kt.transpose(1, 2)[:, :1],
                             vt.transpose(1, 2)[:, :1])
+
+
+BWD_CASES = [(1, 2, 128, 32), (2, 2, 256, 64)]
+BWD_MASKS = [(True, None), (True, 64), (False, None)]
+
+
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+@pytest.mark.parametrize("B,H,S,D", BWD_CASES)
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 2e-2)])
+def test_flash_bwd_plain_matches_jax_dq_dkv_kernels(B, H, S, D, causal,
+                                                    window, dtype, tol):
+    """``flash_bwd_plain`` — the dense (dq, dk, dv) in one call, the twin
+    of the fused bf16 kernel — against JAX's ``_run_dq`` and ``_run_dkv``
+    Pallas kernels in the interpreter, on the same q, k, v (fp32 or
+    bf16), dO (rounded to that dtype), lse and δ."""
+    (qj, qt), (kj, kt), (vj, vt) = (_both(_np((B, H, S, D), 40 + i), dtype)
+                                    for i in range(3))
+    do = np.array(jnp.asarray(_np((B, H, S, D), 43), getattr(jnp, dtype))
+                  .astype(jnp.float32))
+    _, (_, _, _, lse, o) = jax_backward._fwd(qj, kj, vj, causal, window,
+                                             None, 64, 64, True)
+    delta = np.sum(do * np.asarray(o), axis=-1)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, bq=64, bk=64)
+    want = (jax_backward._run_dq(qj, kj, vj, jnp.asarray(do), lse,
+                                 jnp.asarray(delta), interpret=True, **kw),
+            *jax_backward._run_dkv(qj, kj, vj, jnp.asarray(do), lse,
+                                   jnp.asarray(delta), interpret=True, **kw))
+    got = flash_bwd_plain(qt, kt, vt,
+                          torch.from_numpy(do).to(getattr(torch, dtype)),
+                          torch.from_numpy(np.array(lse)),
+                          torch.from_numpy(delta), **kw)
+    for w, t in zip(want, got):
+        assert t.dtype == torch.float32 and t.shape == (B, H, S, D)
+        _close(w, t, tol)
+
+
+@pytest.mark.parametrize("D", [36, 44])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)])
+def test_pad_head_dim_leaves_attention_unchanged(D, causal, window):
+    """What the bf16 kernels' wrappers do to a head dim that is not a
+    multiple of 8: zero columns up to the next one (the scale stays the
+    true D's), then slice the outputs.  The plain forward and backward on
+    the padded tensors, sliced, equal the unpadded ones, and the padded
+    columns of every gradient are 0."""
+    B, H, KV, S = 1, 4, 2, 128
+    q, k, v, do = (torch.from_numpy(_np((B, h, S, D), 50 + i))
+                   for i, h in enumerate((H, KV, KV, H)))
+    padded = [pad_head_dim(t) for t in (q, k, v, do)]
+    Dp = D + (-D % 8)
+    for t, u in zip(padded, (q, k, v, do)):
+        assert t.shape[-1] == Dp and t.is_contiguous()
+        assert torch.equal(t[..., :D], u) and not t[..., D:].any()
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, bq=64, bk=64)
+    o, lse = flash_fwd_plain(q, k, v, **kw)
+    o_p, lse_p = flash_fwd_plain(*padded[:3], **kw)
+    torch.testing.assert_close(o_p[..., :D], o, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+    assert not o_p[..., D:].any()
+    kr, vr = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+    kpr, vpr = (t.repeat_interleave(H // KV, 1) for t in padded[1:3])
+    delta = (do * o).sum(-1)
+    want = flash_bwd_plain(q, kr, vr, do, lse, delta, **kw)
+    got = flash_bwd_plain(padded[0], kpr, vpr, padded[3], lse, delta, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[..., :D], w, rtol=1e-6, atol=1e-6)
+        assert not g[..., D:].any()
+    assert pad_head_dim(padded[0]) is padded[0]
+
+
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_flash_vjp_bf16_grads_match_jax_bf16_vjp(causal, window):
+    """``FlashAttentionFn`` with bf16 inputs on the CPU (the plain twins of
+    the two bf16 tensor-core kernels; the cotangent stays bf16, δ is fp32)
+    against ``jax.grad`` of the JAX custom VJP with bf16 inputs and its
+    Pallas dq / dk/dv kernels in the interpreter."""
+    B, H, S, D = 1, 2, 128, 64
+    arrs = [_np((B, H, S, D), 60 + i) for i in range(4)]
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in arrs[:3])
+    wj = jnp.asarray(arrs[3])
+
+    def f(q_, k_, v_):
+        o = jax_backward.flash_attention_vjp(q_, k_, v_, causal, window,
+                                             None, 64, 64, True)
+        return jnp.sum(o.astype(jnp.float32) * wj)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(qj, kj, vj)
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+              for a in arrs[:3]]
+    o = flash_attention_vjp(*leaves, causal, window, None, 64, 64)
+    assert o.dtype == torch.bfloat16
+    (o.float() * torch.from_numpy(arrs[3])).sum().backward()
+    for w, t in zip(want, leaves):
+        assert t.grad.dtype == torch.bfloat16
+        _close(w, t.grad, 2e-2)

@@ -8,12 +8,17 @@ port's dependencies:
 The CUDA ``commit_grid`` is held to its plain PyTorch version on the
 same card tensors (fp32 at 1e-5, the reference's own tolerance; bf16 at
 3e-2, its bf16 tolerance), and the engine's two commit backends are
-held to each other.  The three flash attention kernels are held to their
-plain twins at the tolerances of tests/test_kernels.py (2e-5 for the fp32
+held to each other.  The flash attention kernels are held to their plain
+twins at the tolerances of tests/test_kernels.py (2e-5 for the fp32
 forward, 2e-4 for fp32 gradients, 2e-2 for bf16), on odd shapes: head
-dims 32, 48, 64 and 128, GQA ratios 1, 4 and 5, causal, full and
-windowed (a window below the 64-row tile and a ragged one), Sq != Sk, and
-sequence lengths that are not a multiple of the tile.  The per-node
+dims 16, 32, 36, 40, 48, 64, 100 and 128 (36 and 100 are padded to a
+multiple of 8 by the bf16 wrappers), GQA ratios 1, 4 and 5, causal, full
+and windowed (a window below the 64-row tile and a ragged one), Sq != Sk,
+and sequence lengths that are not a multiple of the tile: fp32 inputs
+run ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` (CUDA cores), bf16
+inputs ``flash_fwd_tc`` (wgmma, TMA) and the fused ``flash_bwd_tc``
+(mma.sync), whose dq is summed by atomics and so only held to a
+tolerance, never bitwise.  The per-node
 ``rfast_update_node`` and ``rfast_commit_node`` kernels are held to their
 plain twins at odd P (1e-5 fp32, 3e-2 bf16, random weights and 0/1
 masks, binary-tree and wider slot counts), and the three routes of the
@@ -33,8 +38,8 @@ from repro_torch.core.scenario import get_scenario
 from repro_torch.core.simulator import run_rfast, tracked_mass
 from repro_torch.core.topology import get_topology
 from repro_torch.kernels.flash_attention.backward import (
-    flash_attention_vjp, flash_dkv, flash_dkv_plain, flash_dq,
-    flash_dq_plain)
+    flash_attention_vjp, flash_bwd, flash_bwd_plain, flash_dkv,
+    flash_dkv_plain, flash_dq, flash_dq_plain)
 from repro_torch.kernels.flash_attention.kernel import (flash_fwd,
                                                         flash_fwd_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -166,6 +171,8 @@ FLASH_CASES = [
     (1, 8, 2, 1, 1, 64, True, None),          # one query, one key
     (1, 2, 1, 64, 296, 100, False, None),     # D = 100, ragged Sk
     (3, 3, 3, 8, 72, 16, True, 7),            # D = 16, Sq < Sk, window
+    (1, 4, 2, 136, 136, 36, True, None),      # D % 8 != 0
+    (2, 4, 2, 136, 72, 40, True, 96),         # D % 16 != 0, Sq > Sk
 ]
 FLASH_DTYPES = [(torch.float32, 2e-5, 2e-4), (torch.bfloat16, 2e-2, 2e-2)]
 
@@ -184,11 +191,12 @@ def test_flash_fwd_kernel_matches_plain(cuda, case, dtype, tol, _):
     B, H, KV, Sq, Sk, D, causal, window = case
     q, k, v, _do = _flash_inputs(B, H, KV, Sq, Sk, D, dtype)
     kw = dict(causal=causal, window=window, bq=8, bk=8)
+    name = "flash_fwd" if dtype == torch.float32 else "flash_fwd_tc"
     o, lse = flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert dispatch.launches("flash_fwd") == 1
+    assert dispatch.stats()["by_kernel"] == {name: 1}
     o_w, lse_w = flash_fwd_plain(q, k, v, **kw)
-    assert dispatch.launches("flash_fwd") == 1
+    assert dispatch.stats()["by_kernel"] == {name: 1}
     assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), o_w.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, lse_w, rtol=2e-5, atol=2e-5)
@@ -199,18 +207,22 @@ def test_flash_fwd_kernel_matches_plain(cuda, case, dtype, tol, _):
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype, _, tol):
     B, H, KV, Sq, Sk, D, causal, window = case
     q, k, v, do = _flash_inputs(B, H, KV, Sq, Sk, D, dtype)
+    do = do.to(dtype)
     k, v = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
     kw = dict(scale=D ** -0.5, causal=causal, window=window, bq=8, bk=8)
     o, lse = flash_fwd_plain(q, k, v, causal=causal, window=window, bq=8,
                              bk=8, out_dtype=torch.float32)
-    delta = (do * o).sum(-1)
-    got = (flash_dq(q, k, v, do, lse, delta, **kw),
-           *flash_dkv(q, k, v, do, lse, delta, **kw))
+    delta = (do.float() * o).sum(-1)
+    if dtype == torch.float32:
+        got = (flash_dq(q, k, v, do, lse, delta, **kw),
+               *flash_dkv(q, k, v, do, lse, delta, **kw))
+        launched = {"flash_dq": 1, "flash_dkv": 1}
+    else:
+        got = flash_bwd(q, k, v, do, lse, delta, **kw)
+        launched = {"flash_bwd_tc": 1}
     torch.cuda.synchronize()
-    assert dispatch.launches("flash_dq") == dispatch.launches("flash_dkv") \
-        == 1
-    want = (flash_dq_plain(q, k, v, do, lse, delta, **kw),
-            *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    assert dispatch.stats()["by_kernel"] == launched
+    want = flash_bwd_plain(q, k, v, do, lse, delta, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=tol, atol=tol)
@@ -236,8 +248,10 @@ def test_flash_vjp_through_kernels_with_gqa_repeat(cuda, dtype, tol):
         (o.float() * w).sum().backward()
         grads[path] = [t.grad for t in leaves]
         if path == "kernel":
-            assert dispatch.stats()["by_kernel"] == {
-                "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+            assert dispatch.stats()["by_kernel"] == (
+                {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+                if dtype == torch.float32 else
+                {"flash_fwd_tc": 1, "flash_bwd_tc": 1})
     for g, p in zip(grads["kernel"], grads["plain"]):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol)
@@ -275,7 +289,87 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
             fn(q, k, v, do, lse, lse, bk=96, **kw)           # 128 % 96
         with pytest.raises(ValueError):
             fn(q, k, v, do.to(torch.bfloat16), lse, lse, **kw)
+        with pytest.raises(TypeError, match="flash_bwd"):
+            fn(*(t.to(torch.bfloat16) for t in (q, k, v, do)), lse, lse,
+               **kw)                                         # bf16: fused
+    bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    with pytest.raises(ValueError):
+        flash_bwd(bq, bk, bv, bdo, lse.to(torch.bfloat16), lse, **kw)
+    with pytest.raises(ValueError):
+        flash_bwd(wide.to(torch.bfloat16), wide.to(torch.bfloat16),
+                  wide.to(torch.bfloat16), wide.to(torch.bfloat16), lse,
+                  lse, **kw)                                 # D > 128
     assert dispatch.stats()["launches"] == 0
+
+
+def test_flash_fwd_tc_writes_o_in_fp32_on_request(cuda):
+    """bf16 inputs with ``out_dtype=float32`` (what the autograd forward
+    asks for): o in fp32 from the same kernel, within the bf16 tolerance
+    of the twin's fp32 o (p is rounded to bf16 before p·v)."""
+    q, k, v, _ = _flash_inputs(1, 8, 2, 200, 200, 128, torch.bfloat16, 5)
+    kw = dict(window=64, bq=8, bk=8, out_dtype=torch.float32)
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_w, lse_w = flash_fwd_plain(q, k, v, **kw)
+    assert dispatch.stats()["by_kernel"] == {"flash_fwd_tc": 1}
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, o_w, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, lse_w, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_tc_kernels_take_strided_and_misaligned_inputs(cuda):
+    """TMA needs contiguous rows and 16-byte aligned addresses: the bf16
+    wrappers copy a transposed view and a tensor that starts one element
+    into its storage, and give the twins' answers."""
+    B, H, S, D = 1, 4, 136, 64
+    flat = torch.randn(B * H * S * D + 1, device="cuda").to(torch.bfloat16)
+    q = flat[1:].view(B, H, S, D)                      # 2 bytes off
+    assert q.data_ptr() % 16
+    k = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    k = k.transpose(1, 2)                              # strided view
+    v = torch.randn(B, H, S, D, device="cuda").to(torch.bfloat16)
+    do = torch.randn(B, H, S, D, device="cuda").to(torch.bfloat16)
+    kw = dict(bq=8, bk=8)
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_w, lse_w = flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_w.float(), rtol=2e-2, atol=2e-2)
+    delta = (do.float() * flash_fwd_plain(q, k, v, out_dtype=torch.float32,
+                                          **kw)[0]).sum(-1)
+    got = flash_bwd(q, k, v, do, lse_w, delta, scale=D ** -0.5, **kw)
+    want = flash_bwd_plain(q, k, v, do, lse_w, delta, scale=D ** -0.5, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+    assert dispatch.stats()["by_kernel"] == {"flash_fwd_tc": 1,
+                                             "flash_bwd_tc": 1}
+
+
+def test_flash_bwd_rounds_an_fp32_cotangent_once(cuda):
+    """A direct bf16 call with an fp32 dO: the wrapper rounds it to bf16
+    once, so the result is the bf16 cotangent's (dk, dv bitwise; dq, summed
+    by atomics in a run-dependent order, within fp32 rounding)."""
+    q, k, v, do = _flash_inputs(1, 4, 4, 200, 200, 64, torch.bfloat16, 3)
+    o, lse = flash_fwd_plain(q, k, v, window=100, bq=8, bk=8,
+                             out_dtype=torch.float32)
+    delta = (do * o).sum(-1)
+    kw = dict(scale=0.125, window=100, bq=8, bk=8)
+    a = flash_bwd(q, k, v, do, lse, delta, **kw)
+    b = flash_bwd(q, k, v, do.to(torch.bfloat16), lse, delta, **kw)
+    assert dispatch.stats()["by_kernel"] == {"flash_bwd_tc": 2}
+    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_flash_bwd_fp32_runs_the_two_cuda_core_kernels(cuda):
+    """flash_bwd on fp32 tensors is flash_dq then flash_dkv, bitwise."""
+    q, k, v, do = _flash_inputs(2, 4, 4, 136, 136, 48, torch.float32, 4)
+    o, lse = flash_fwd_plain(q, k, v, bq=8, bk=8)
+    delta = (do * o).sum(-1)
+    kw = dict(scale=48 ** -0.5, bq=8, bk=8)
+    got = flash_bwd(q, k, v, do, lse, delta, **kw)
+    want = (flash_dq(q, k, v, do, lse, delta, **kw),
+            *flash_dkv(q, k, v, do, lse, delta, **kw))
+    assert dispatch.stats()["by_kernel"] == {"flash_dq": 2, "flash_dkv": 2}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _node_case(P, dtype, kw, ka, ko, seed=0):
