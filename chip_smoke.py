@@ -11,9 +11,11 @@ run.  Phases:
 
 1. device   — name, capability, ``nvidia-smi`` name and power limit;
 2. build    — the kernels, built from ``csrc/`` with ``nvcc`` (one
-   process per source, all at once) into ``build/kernels/``; for the two
-   bf16 tensor-core kernels, their registers, spills and shared memory,
-   and the ``HGMMA`` / ``HMMA`` instructions in their SASS;
+   process per source, all at once) into ``build/kernels/``; for the four
+   flash kernels (fp32 ``flash_fwd_3xtf32`` / ``flash_bwd_3xtf32``, bf16
+   ``flash_fwd_tc`` / ``flash_bwd_tc``), their registers, spills and
+   shared memory per instantiation, and the tensor-core instructions
+   (``HGMMA``, ``HMMA``) and TMA loads in their SASS;
 3. kernels  — each kernel against its plain PyTorch version on the card
    (commit_grid: ragged and sentinel-clamp cases in fp32 and bf16, and
    the main path's shape with the row counts of the train run below);
@@ -26,22 +28,28 @@ run.  Phases:
    shape, median of CUDA-event times, beside the bandwidth bound;
 7. flash kernels — each flash kernel against its plain twin on the card
    at small odd cases (D 32/48/64/128, GQA 1/4/5, causal / full / window,
-   Sq != Sk, ragged S): in fp32 ``flash_fwd``, ``flash_dq`` and
-   ``flash_dkv``; in bf16 the tensor-core ``flash_fwd_tc`` and fused
-   ``flash_bwd_tc`` (dO in bf16), at those cases and at a head dim with
-   D % 8 != 0 (36, padded by the wrappers) and one with D % 16 != 0 (40);
+   Sq != Sk, ragged S): in fp32 ``flash_fwd_3xtf32`` and the fused
+   ``flash_bwd_3xtf32`` (3xTF32 on the tensor cores), in bf16
+   ``flash_fwd_tc`` and the fused ``flash_bwd_tc`` (dO in bf16), at
+   those cases and at head dims the wrappers pad: D % 4 != 0 (35) in
+   both, D % 8 != 0 (36) and D % 16 != 0 (40) in bf16;
 8. flash path — the flash attention op and its autograd function at full
    attention width (llama3-8b, hymba-1.5b, rfast-100m; fp32 and bf16
    each), forward and forward+backward, against the plain twins, with
    the launch counters zeroed just before and read after (fp32: 1
-   ``flash_fwd``, then 1 each of ``flash_fwd``, ``flash_dq``,
-   ``flash_dkv``; bf16: 1 ``flash_fwd_tc``, then 1 each of
-   ``flash_fwd_tc`` and ``flash_bwd_tc``);
+   ``flash_fwd_3xtf32``, then 1 each of ``flash_fwd_3xtf32`` and
+   ``flash_bwd_3xtf32``; bf16: the same of ``flash_fwd_tc`` and
+   ``flash_bwd_tc``);
 9. flash timing — each flash kernel, its plain twin and PyTorch's
-   ``scaled_dot_product_attention`` (forward, and its backward through
-   autograd, the backend named) at the llama3-8b and hymba-1.5b shapes,
-   in fp32 and bf16 (both sides read a dO of the inputs' dtype), beside
-   the bound;
+   ``scaled_dot_product_attention`` at the llama3-8b and hymba-1.5b
+   shapes, in fp32 and bf16 (both sides read a dO of the inputs' dtype),
+   beside the bound (fp32: operations at the 3xTF32 rate, with the
+   CUDA-core bound beside it).  The library call is timed forward and
+   backward through autograd, with its backend and its errors against
+   the plain twins: in bf16 the backend PyTorch picks with GQA; in fp32
+   also the efficient backend forced on k, v repeated to H heads (the
+   repeat outside the timed window), the faster call within the fp32
+   tolerance being the yardstick;
 10. node kernels — ``rfast_update_node`` and ``rfast_commit_node``
    against their plain twins (P 1, 37, 4097, 100,001 in fp32 and bf16,
    slot counts (Kw, Ka, Ko) (1, 2, 1) and (2, 3, 2), random weights and
@@ -103,6 +111,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3   # fp32 products in 3xTF32
 FP32_TOL = 1e-5              # tests/test_kernels.py's commit_grid tolerance
 BF16_TOL = 3e-2              # tests/test_kernels.py's bf16 tolerance
 BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, fp32 accumulate
@@ -118,6 +128,7 @@ FLASH_SMALL = [
     (1, 4, 1, 256, 128, 32, True, None),      # Sq > Sk
     (1, 5, 5, 200, 200, 64, True, 5),         # window below one tile
     (2, 4, 4, 200, 200, 48, True, 100),       # ragged window, D = 48
+    (1, 3, 1, 104, 104, 35, True, 50),        # D % 4 != 0: padded to 36
 ]
 # bf16 only: a head dim the tensor-core kernels take by padding
 # (D % 8 != 0) and one with a half-filled 16-column k-step (D % 16 != 0)
@@ -343,18 +354,26 @@ def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
             a(B, H, Sq, D))
 
 
+def max_err(got, want) -> float:
+    return float((got.detach().float() - want.float()).abs().max())
+
+
+def within(got, want, tol) -> bool:
+    """Finite and within ``tol`` (atol = rtol) of ``want``."""
+    import torch
+    got = got.detach()
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def held(got, want, tol, what) -> float:
     """Max abs error of ``got`` against ``want``; raises unless finite,
     of the same shape and dtype, and within ``tol`` (atol = rtol)."""
-    import torch
-    got = got.detach()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{what}: layout {tuple(got.shape)} {got.dtype} vs "
           f"{tuple(want.shape)} {want.dtype}")
-    check(bool(torch.isfinite(got).all()), f"{what}: finite output")
-    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"{what} within {tol}")
-    return float((got.float() - want.float()).abs().max())
+    check(within(got, want, tol), f"{what}: finite and within {tol}")
+    return max_err(got, want)
 
 
 def attn_pairs(Sq, Sk, causal, window) -> int:
@@ -368,42 +387,42 @@ def attn_pairs(Sq, Sk, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def flash_names(dtype):
+    """The forward and the backward kernel that ``dtype`` runs."""
+    import torch
+    if dtype == torch.float32:
+        return "flash_fwd_3xtf32", "flash_bwd_3xtf32"
+    return "flash_fwd_tc", "flash_bwd_tc"
+
+
 def flash_work(B, H, KV, S, D, window, dtype):
     """Operations and bytes each flash kernel's function needs: the
-    forward does 2 products per pair (4·D flops), dq 3 (6·D), dk/dv 4
-    (8·D); the whole backward at least 5 (10·D: ``backward``, the fp32
-    pair's sum, and ``flash_bwd_tc``, which does just those five).
-    Bytes count each input once at the dtype its kernel reads it (q, k,
-    v and dO in ``dtype``: fp32 for flash_dq / flash_dkv, bf16 for
-    flash_bwd_tc; k/v at KV heads for the forward, repeated to H for the
-    backward kernels; lse and δ in fp32) and each output once (o in
-    ``dtype``; lse and the gradients in fp32)."""
+    forward does 2 products per unmasked pair (4·D flops), the fused
+    backward 5 (10·D).  Bytes count each input once at the dtype its
+    kernel reads it (q, k, v and dO in ``dtype``; k/v at KV heads for the
+    forward, repeated to H for the backward; lse and δ in fp32) and each
+    output once (o in ``dtype``; lse and the gradients in fp32)."""
     import torch
     it = torch.tensor([], dtype=dtype).element_size()
     pairs = attn_pairs(S, S, True, window) * B * H
     q_el, kv_el, row = B * H * S * D, B * KV * S * D, B * H * S
-    bwd_in = it * (4 * q_el) + 4 * 2 * row    # q, k, v, dO; lse, δ
-    fwd = (4 * D * pairs, it * (2 * q_el + 2 * kv_el) + 4 * row)
-    bwd = (10 * D * pairs, bwd_in + 12 * q_el)
-    if dtype != torch.float32:
-        return {"flash_fwd_tc": fwd, "flash_bwd_tc": bwd}
-    return {"flash_fwd": fwd,
-            "flash_dq": (6 * D * pairs, bwd_in + 4 * q_el),
-            "flash_dkv": (8 * D * pairs, bwd_in + 8 * q_el),
-            "backward": bwd}
+    fwd_name, bwd_name = flash_names(dtype)
+    return {fwd_name: (4 * D * pairs, it * (2 * q_el + 2 * kv_el) + 4 * row),
+            bwd_name: (10 * D * pairs,
+                       it * (4 * q_el) + 4 * 2 * row + 12 * q_el)}
 
 
-def bound(flops, nbytes, dtype):
-    import torch
-    peak = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+def bound(flops, nbytes, peak):
+    """The least time in ms for ``flops`` at ``peak`` FLOP/s and
+    ``nbytes`` at the HBM rate, and which of the two bounds it."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def tc_report(kname, source):
-    """What the compiler made of one bf16 tensor-core kernel: ptxas's
-    registers and spill bytes for each instantiation, the dynamic shared
-    memory one block asks for at D = 64 and D = 128, and the count of
+def tc_report(kname, source, dims):
+    """What the compiler made of one flash kernel: ptxas's registers and
+    spill bytes for each instantiation, the dynamic shared memory one
+    block asks for at each head dim of ``dims``, and the count of
     tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and of TMA
     loads (UTMALDG) in its SASS."""
     import ctypes
@@ -426,30 +445,23 @@ def tc_report(kname, source):
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     text = _build.sass(source)
     return {"ptxas": entries,
-            "dynamic_smem_bytes": {"D<=64": smem(64), "D<=128": smem(128)},
+            "dynamic_smem_bytes": {f"D<={d}": smem(d) for d in dims},
             "sass": {op: text.count(op) for op in ("HGMMA", "HMMA",
                                                    "UTMALDG")}}
 
 
-def flash_names(dtype):
-    """The forward kernel and the backward kernels that ``dtype`` runs."""
-    import torch
-    if dtype == torch.float32:
-        return "flash_fwd", ("flash_dq", "flash_dkv")
-    return "flash_fwd_tc", ("flash_bwd_tc",)
-
-
 def flash_small_case(case, dtype, fwd_tol, grad_tol):
-    """Each flash kernel of ``dtype`` against its plain twin on one small
-    case: fp32 runs ``flash_fwd``, ``flash_dq`` and ``flash_dkv``; bf16
-    runs ``flash_fwd_tc`` and the fused ``flash_bwd_tc`` (dO in bf16)
-    against ``flash_bwd_plain``.  Returns the errors and the launches."""
+    """Both flash kernels of ``dtype`` against their plain twins on one
+    small case: fp32 runs ``flash_fwd_3xtf32`` and ``flash_bwd_3xtf32``,
+    bf16 ``flash_fwd_tc`` and ``flash_bwd_tc`` (dO in the inputs' dtype),
+    held to ``flash_fwd_plain`` and ``flash_bwd_plain``.  Returns the
+    errors and the launches."""
     import torch
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rfast_update import dispatch
     B, H, KV, Sq, Sk, D, causal, window = case
-    fwd_name, _ = flash_names(dtype)
+    fwd_name, bwd_name = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, Sq, Sk, D, dtype)
     kw = dict(causal=causal, window=window, bq=8, bk=8)
     dispatch.clear()
@@ -462,22 +474,10 @@ def flash_small_case(case, dtype, fwd_tol, grad_tol):
     o32, _ = fk.flash_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
     delta = (do.float() * o32).sum(-1)
     bkw = dict(kw, scale=D ** -0.5)
-    if dtype == torch.float32:
-        err["flash_dq"] = held(fb.flash_dq(q, kr, vr, do, lse_w, delta,
-                                           **bkw),
-                               fb.flash_dq_plain(q, kr, vr, do, lse_w, delta,
-                                                 **bkw), grad_tol,
-                               f"flash_dq {case}")
-        got = fb.flash_dkv(q, kr, vr, do, lse_w, delta, **bkw)
-        want = fb.flash_dkv_plain(q, kr, vr, do, lse_w, delta, **bkw)
-        err["flash_dkv"] = max(held(g, w, grad_tol, f"flash_dkv {case}")
-                               for g, w in zip(got, want))
-    else:
-        got = fb.flash_bwd(q, kr, vr, do, lse_w, delta, **bkw)
-        want = fb.flash_bwd_plain(q, kr, vr, do, lse_w, delta, **bkw)
-        err["flash_bwd_tc"] = max(
-            held(g, w, grad_tol, f"flash_bwd_tc {n} {case}")
-            for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+    got = fb.flash_bwd(q, kr, vr, do, lse_w, delta, **bkw)
+    want = fb.flash_bwd_plain(q, kr, vr, do, lse_w, delta, **bkw)
+    err[bwd_name] = max(held(g, w, grad_tol, f"{bwd_name} {n} {case}")
+                        for g, w, n in zip(got, want, ("dq", "dk", "dv")))
     torch.cuda.synchronize()
     return err, dispatch.stats()["by_kernel"]
 
@@ -497,7 +497,7 @@ def flash_full_run(cfg, dtype, seed=0):
                                                 "window"))
     fwd_tol = FLASH_FWD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     grad_tol = FLASH_GRAD_TOL if dtype == torch.float32 else FLASH_BF16_TOL
-    fwd_name, bwd_names = flash_names(dtype)
+    fwd_name, bwd_name = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed)
     steps = {}
     before = dict(dispatch.stats()["by_kernel"])
@@ -539,83 +539,123 @@ def flash_full_run(cfg, dtype, seed=0):
     group = lambda t: t.view(B, KV, rep, S, D).sum(2).to(dtype)
     e_dkv = max(held(leaves[1].grad, group(dk), grad_tol, "flash path dk"),
                 held(leaves[2].grad, group(dv), grad_tol, "flash path dv"))
-    if dtype == torch.float32:
-        err.update(flash_dq=e_dq, flash_dkv=e_dkv)
-    else:
-        err["flash_bwd_tc"] = max(e_dq, e_dkv)
+    err[bwd_name] = max(e_dq, e_dkv)
     return err, steps
 
 
-def flash_timing(name, cfg, dtype, smi, device):
-    """CUDA-event medians of each flash kernel of ``dtype``, its plain
-    twin and the PyTorch library call at one full width, beside the
-    bound.  The kernels and the library read one cotangent, in
-    ``dtype``."""
+def sdpa_calls(q, k, v, do, window, o_w, grads_w):
+    """PyTorch's ``scaled_dot_product_attention`` on the flash op's inputs,
+    each call forward (``fwd_ms``) and backward through autograd
+    (``bwd_ms``), with its backend and its errors against the plain twins
+    ``o_w`` and ``grads_w`` (dq, and dk, dv at H heads).  ``gqa``: k, v
+    at KV heads with ``enable_gqa`` and the backend PyTorch picks; in
+    fp32 also ``repeated_kv``: k, v repeated to H heads, the repeat made
+    before the timed window, with the efficient backend forced (it takes
+    no GQA).  Both use hymba's window as a boolean mask."""
+    import contextlib
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    rep = H // KV
+    fp32 = q.dtype == torch.float32
+    fwd_tol = FLASH_FWD_TOL if fp32 else FLASH_BF16_TOL
+    grad_tol = FLASH_GRAD_TOL if fp32 else FLASH_BF16_TOL
+    if window:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        kw = dict(attn_mask=mask, is_causal=False)
+    else:
+        mask, kw = None, dict(is_causal=True)
+    group = lambda t: t.view(B, KV, rep, S, D).sum(2)
+    calls = {"gqa": ((q, k, v), dict(enable_gqa=True), None,
+                     (grads_w[0], group(grads_w[1]), group(grads_w[2])))}
+    if fp32:
+        kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        calls["repeated_kv"] = ((q, kr, vr), {},
+                                SDPBackend.EFFICIENT_ATTENTION, grads_w)
+    out = {}
+    for name, (ins, extra, forced, want) in calls.items():
+        backend = forced.name if forced else SDPBackend(
+            torch._fused_sdp_choice(*ins, mask, 0.0, kw["is_causal"],
+                                    **extra)).name
+        call = lambda *a: F.scaled_dot_product_attention(*a, **kw, **extra)
+        with sdpa_kernel(forced) if forced else contextlib.nullcontext():
+            o = call(*ins)
+            row = dict(backend=backend, fwd_err=max_err(o, o_w),
+                       fwd_ok=within(o, o_w, fwd_tol))
+            del o
+            row["fwd_ms"] = cuda_ms(lambda: call(*ins), reps=10)
+            leaves = [t.detach().requires_grad_() for t in ins]
+            o_lib = call(*leaves)
+            grads = torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+            row["bwd_err"] = max(max_err(g, w) for g, w in zip(grads, want))
+            row["bwd_ok"] = all(within(g, w, grad_tol)
+                                for g, w in zip(grads, want))
+            del grads
+            row["bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, leaves, do, retain_graph=True), reps=10)
+            del o_lib, leaves
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_timing(name, cfg, dtype, smi, device):
+    """CUDA-event medians of both flash kernels of ``dtype``, their plain
+    twins and PyTorch's attention calls at one full width, beside the
+    bound.  The kernels and the library read one cotangent, in
+    ``dtype``.  ``library_ms`` is the fastest call within the tolerance
+    (bf16: the one call)."""
+    import torch
     from repro_torch.kernels.flash_attention import backward as fb
     from repro_torch.kernels.flash_attention import kernel as fk
     B, S, H, KV, D, window = (cfg[x] for x in ("B", "S", "H", "KV", "D",
                                                 "window"))
-    fwd_name, bwd_names = flash_names(dtype)
+    fwd_name, bwd_name = flash_names(dtype)
     q, k, v, do = flash_inputs(B, H, KV, S, S, D, dtype, seed=2)
     kw = dict(causal=True, window=window)
-    if window:
-        i = torch.arange(S, device="cuda")
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        sdpa_kw = dict(attn_mask=mask, is_causal=False)
-    else:
-        mask, sdpa_kw = None, dict(is_causal=True)
-    backend = SDPBackend(torch._fused_sdp_choice(
-        q, k, v, mask, 0.0, sdpa_kw["is_causal"], enable_gqa=True)).name
-    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
-        a, b, c, enable_gqa=True, **sdpa_kw)
     rows = {fwd_name: dict(
         ms=cuda_ms(lambda: fk.flash_fwd(q, k, v, **kw), reps=10),
-        plain_ms=cuda_ms(lambda: fk.flash_fwd_plain(q, k, v, **kw), reps=5),
-        library_ms=cuda_ms(lambda: sdpa(q, k, v), reps=10))}
+        plain_ms=cuda_ms(lambda: fk.flash_fwd_plain(q, k, v, **kw), reps=5))}
 
     rep = H // KV
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    o32, lse = fk.flash_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    o32, lse = fk.flash_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
     delta = (do.float() * o32).sum(-1)
     bkw = dict(kw, scale=D ** -0.5)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o_lib = sdpa(*leaves)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
-                                                  retain_graph=True),
-                      reps=10)
-    if dtype == torch.float32:
-        bwd = {"flash_dq": (fb.flash_dq, fb.flash_dq_plain),
-               "flash_dkv": (fb.flash_dkv, fb.flash_dkv_plain)}
-    else:
-        bwd = {"flash_bwd_tc": (fb.flash_bwd, fb.flash_bwd_plain)}
-    for kname, (kern, plain) in bwd.items():
-        rows[kname] = dict(
-            ms=cuda_ms(lambda: kern(q, kr, vr, do, lse, delta, **bkw),
-                       reps=10),
-            plain_ms=cuda_ms(lambda: plain(q, kr, vr, do, lse, delta,
-                                           **bkw), reps=5),
-            library_ms=lib_bwd)
+    rows[bwd_name] = dict(
+        ms=cuda_ms(lambda: fb.flash_bwd(q, kr, vr, do, lse, delta, **bkw),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: fb.flash_bwd_plain(q, kr, vr, do, lse,
+                                                    delta, **bkw), reps=5))
+    grads_w = fb.flash_bwd_plain(q, kr, vr, do, lse, delta, **bkw)
+    del kr, vr
+    lib = sdpa_calls(q, k, v, do, window, o32.to(dtype), grads_w)
+    del grads_w, o32
+    for kname, key in ((fwd_name, "fwd"), (bwd_name, "bwd")):
+        ok = {c: r for c, r in lib.items()
+              if r[f"{key}_ok"] or dtype != torch.float32}
+        best = min(ok, key=lambda c: ok[c][f"{key}_ms"]) if ok else None
+        rows[kname].update(
+            library_ms=ok[best][f"{key}_ms"] if best else None,
+            library=None if best is None else
+            f"scaled_dot_product_attention ({best}, {ok[best]['backend']})"
+            + (" backward (dq, dk, dv)" if key == "bwd" else ""))
     work = flash_work(B, H, KV, S, D, window, dtype)
+    # fp32 products run as 3xTF32 on the tensor cores
+    peak = TF32X3_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
     for kname, row in rows.items():
         flops, nbytes = work[kname]
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peak)
+        if dtype == torch.float32:
+            row["cuda_core_bound_ms"] = bound(flops, nbytes,
+                                              FP32_FLOP_PER_S)[0]
         emit("flash_timing", kernel=kname, config=name, dtype=str(dtype),
              flops=flops, bytes=nbytes, bound_share=row["bound_ms"]
-             / row["ms"], tflop_s=flops / row["ms"] / 1e9,
-             sdpa_backend=backend, library="scaled_dot_product_attention"
-             + (" backward (dq, dk, dv)" if kname != fwd_name else ""),
+             / row["ms"], tflop_s=flops / row["ms"] / 1e9, sdpa=lib,
              device=device, nvidia_smi=smi, **row)
-    if dtype == torch.float32:
-        flops, nbytes = work["backward"]
-        bwd_bound, bwd_by = bound(flops, nbytes, dtype)
-        emit("flash_timing", kernel="backward (flash_dq + flash_dkv)",
-             config=name, dtype=str(dtype),
-             ms=rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
-             library_ms=lib_bwd, bound_ms=bwd_bound, bound_by=bwd_by,
-             sdpa_backend=backend, device=device, nvidia_smi=smi)
     return rows
 
 
@@ -803,18 +843,21 @@ def main() -> int:
                                               else str(p)
                                               for p in libs.values()],
          ptxas=ptxas)
-    # the bf16 tensor-core kernels: registers, spills and shared memory
-    # per instantiation (D <= 64 and D <= 128), and tensor-core
-    # instructions in the SASS (HGMMA: wgmma; HMMA: mma.sync)
-    for kname, src in (("flash_fwd_tc", fa_fwd.TC_SOURCE),
-                       ("flash_bwd_tc", fa_bwd.TC_SOURCE)):
-        report = tc_report(kname, src)
+    # the flash kernels: registers, spills and shared memory per
+    # instantiation, and tensor-core instructions in the SASS (HGMMA:
+    # wgmma; HMMA: mma.sync); the bf16 forward's tiles arrive by TMA
+    for kname, src, dims in (
+            ("flash_fwd_3xtf32", fa_fwd.KERNEL_SOURCE, (32, 64, 128)),
+            ("flash_bwd_3xtf32", fa_bwd.KERNEL_SOURCE, (32, 64, 128)),
+            ("flash_fwd_tc", fa_fwd.TC_SOURCE, (64, 128)),
+            ("flash_bwd_tc", fa_bwd.TC_SOURCE, (64, 128))):
+        report = tc_report(kname, src, dims)
         emit("build_tc", kernel=kname, **report)
         ops = report["sass"]
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
               if kname == "flash_fwd_tc" else ops["HGMMA"] + ops["HMMA"] > 0,
-              f"{kname} runs on the tensor cores (and the forward's tiles "
-              f"arrive by TMA): {ops}")
+              f"{kname} runs on the tensor cores (and the bf16 forward's "
+              f"tiles arrive by TMA): {ops}")
 
     # 3. kernels vs plain --------------------------------------------------
     for P in (37, 100_001):
@@ -922,8 +965,8 @@ def main() -> int:
                 ("B", "H", "KV", "Sq", "Sk", "D", "causal", "window"),
                 case)), dtype=str(dt), max_abs_err=err, fwd_tol=fwd_tol,
                 grad_tol=grad_tol, launches=small_launches)
-            fwd_name, bwd_names = flash_names(dt)
-            check(small_launches == {n: 1 for n in (fwd_name, *bwd_names)},
+            fwd_name, bwd_name = flash_names(dt)
+            check(small_launches == {fwd_name: 1, bwd_name: 1},
                   f"one launch of each {dt} flash kernel at {case}: "
                   f"{small_launches}")
 
@@ -936,11 +979,10 @@ def main() -> int:
             runs[dt] = runs.get(dt, 0) + 1
             emit("flash_path", config=cfg_name, dtype=str(dt), **cfg,
                  max_abs_err=err, launches=steps)
-            fwd_name, bwd_names = flash_names(dt)
+            fwd_name, bwd_name = flash_names(dt)
             check(steps == {"forward": {fwd_name: 1},
                             "forward+backward": {fwd_name: 1,
-                                                 **{n: 1 for n in
-                                                    bwd_names}}},
+                                                 bwd_name: 1}},
                   f"flash launches per step at {cfg_name} {dt}: {steps}")
             if cfg_name == "llama3-8b":
                 flash_err.update(err)
@@ -949,8 +991,9 @@ def main() -> int:
     emit("flash_path", runs={str(d): n for d, n in runs.items()},
          launches=flash_launches)
     n32, n16 = runs[torch.float32], runs[torch.bfloat16]
-    check(flash_launches == {"flash_fwd": 2 * n32, "flash_dq": n32,
-                             "flash_dkv": n32, "flash_fwd_tc": 2 * n16,
+    check(flash_launches == {"flash_fwd_3xtf32": 2 * n32,
+                             "flash_bwd_3xtf32": n32,
+                             "flash_fwd_tc": 2 * n16,
                              "flash_bwd_tc": n16}, "flash path launches")
 
     # 9. flash timing at the llama3-8b and hymba-1.5b widths ----------------
@@ -1083,7 +1126,7 @@ def main() -> int:
             flops=p_run * node_flops(*NODE_SLOTS[0], full=False))}
     for kname, row in node_rows.items():
         row["bound_ms"], row["bound_by"] = bound(row["flops"], row["nbytes"],
-                                                 torch.float32)
+                                                 FP32_FLOP_PER_S)
         emit("node_timing", kernel=kname, P=p_run, kw_ka_ko=list(
             NODE_SLOTS[0]), bytes=row["nbytes"], flops=row["flops"],
             achieved_gb_s=row["nbytes"] / row["ms"] / 1e6,
@@ -1097,7 +1140,7 @@ def main() -> int:
     round_ms = cuda_ms(lambda: grid.commit_grid(**kw), reps=10)
     round_plain_ms = cuda_ms(lambda: grid.commit_grid_plain(**kw), reps=5)
     round_bound, round_by = bound(rshape["flops"], rshape["bytes"],
-                                  torch.float32)
+                                  FP32_FLOP_PER_S)
     emit("round_timing", kernel="commit_grid", ms=round_ms,
          plain_ms=round_plain_ms, bytes=rshape["bytes"],
          formula_bytes=grid.commit_grid_bytes(rshape["B"], rshape["ka"],
@@ -1226,11 +1269,10 @@ def main() -> int:
         "round_shape": {"ms": round_ms, "plain_ms": round_plain_ms,
                         "bound_ms": round_bound}}]
     for kname, src, rep in (
-            ("flash_fwd", fa_fwd.KERNEL_SOURCE,
+            ("flash_fwd_3xtf32", fa_fwd.KERNEL_SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:85"),
-            ("flash_dq", fa_bwd.KERNEL_SOURCE,
-             "src/repro/kernels/flash_attention/backward.py:135"),
-            ("flash_dkv", fa_bwd.KERNEL_SOURCE,
+            ("flash_bwd_3xtf32", fa_bwd.KERNEL_SOURCE,
+             "src/repro/kernels/flash_attention/backward.py:135, "
              "src/repro/kernels/flash_attention/backward.py:156"),
             ("flash_fwd_tc", fa_fwd.TC_SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:85"),

@@ -1,4 +1,4 @@
-"""Flash attention backward (two passes, no S² traffic) and the
+"""Flash attention backward (one fused kernel, no S² traffic) and the
 differentiable op.
 
 Counterpart of ``src/repro/kernels/flash_attention/backward.py``.  From
@@ -14,13 +14,14 @@ As in the reference, k and v come already repeated to the H query heads
 (GQA gradients flow back through the caller's repeat), lse and δ are fp32
 and the three gradients are fp32.  :func:`flash_bwd` computes all three
 and follows its tensors: bf16 CUDA tensors launch one fused tensor-core
-kernel (``csrc/flash_bwd_tc.cu``, dO read in bf16); fp32 CUDA tensors
-launch the two CUDA-core kernels :func:`flash_dq` and :func:`flash_dkv`
-(``csrc/flash_bwd.cu``, dO in fp32), which take fp32 only; CPU tensors
-run :func:`flash_bwd_plain`, which computes the same function densely.
-Each kernel path launches its kernels or raises.  The fused kernel adds
-dq's partial sums by atomics, so its dq is not bitwise repeatable from
-run to run.
+kernel (``csrc/flash_bwd_tc.cu``, dO read in bf16), fp32 CUDA tensors
+one fused kernel in 3xTF32 (``csrc/flash_bwd_3xtf32.cu``, dO read in
+fp32), each or it raises; CPU tensors run :func:`flash_bwd_plain`,
+which computes the same function densely.  Both kernels add dq's
+partial sums by atomics, so their dq is not bitwise repeatable from run
+to run.  :func:`flash_dq` and :func:`flash_dkv`, the counterparts of
+the reference's two kernels, run their plain twins on CPU tensors and
+refuse CUDA tensors, which :func:`flash_bwd` serves.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ __all__ = ["flash_attention_vjp", "FlashAttentionFn", "flash_bwd",
            "flash_bwd_plain", "flash_dq", "flash_dq_plain", "flash_dkv",
            "flash_dkv_plain", "KERNEL_SOURCE", "TC_SOURCE"]
 
-KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
+KERNEL_SOURCE = (Path(__file__).resolve().parent / "csrc"
+                 / "flash_bwd_3xtf32.cu")
 TC_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd_tc.cu"
 
 _libs: dict = {}
@@ -50,14 +52,10 @@ def _library(source):
         lib = load(source)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         tail = [i32, i32, i64, i64, i32, ctypes.c_float, i32, i64, vp]
-        if source == KERNEL_SOURCE:
-            lib.flash_dq_launch.argtypes = [vp] * 7 + tail
-            lib.flash_dq_launch.restype = i32
-            lib.flash_dkv_launch.argtypes = [vp] * 8 + tail
-            lib.flash_dkv_launch.restype = i32
-        else:
-            lib.flash_bwd_tc_launch.argtypes = [vp] * 9 + tail
-            lib.flash_bwd_tc_launch.restype = i32
+        fn = (lib.flash_bwd_3xtf32_launch if source == KERNEL_SOURCE
+              else lib.flash_bwd_tc_launch)
+        fn.argtypes = [vp] * 9 + tail
+        fn.restype = i32
         _libs[source] = lib
     return _libs[source]
 
@@ -117,70 +115,31 @@ def flash_bwd_plain(q, k, v, do, lse, delta, *, scale, causal=True,
             torch.einsum("bhqk,bhqd->bhkd", p, do.to(cdt)))
 
 
-def _cuda_args(name, q, k, v, do, lse, delta, bq, bk, window):
-    _check(q, k, v, do, lse, delta, bq, bk)
-    win = check_window(window)
-    dt = check_cuda(name, q, k, v)
-    if dt != torch.float32:
-        raise TypeError(f"{name} kernel takes float32 CUDA tensors; "
-                        f"{dt} inputs run flash_bwd (one fused tensor-core "
-                        f"kernel for dq, dk and dv)")
-    f32 = torch.float32
-    for t in (do, lse, delta):
-        if t.device != q.device or t.dtype != f32:
-            raise ValueError(f"{name} kernel takes dO, lse and delta in "
-                             f"float32 on {q.device}; got {t.dtype} on "
-                             f"{t.device}")
-    ts = [t.contiguous() for t in (q, k, v, do, lse, delta)]
-    return dt, win, ts
+def _plain_only(name, q):
+    if q.device.type != "cpu":
+        raise TypeError(f"{name} runs its plain twin on CPU tensors only; "
+                        f"on {q.device} run flash_bwd (one fused kernel "
+                        f"for dq, dk and dv)")
 
 
 def flash_dq(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
              bq=128, bk=128):
-    """dq (B,H,Sq,D) fp32 — the counterpart of ``_run_dq``.  On fp32 CUDA
-    tensors one ``flash_dq`` launch (bf16 ones raise: they run
-    :func:`flash_bwd`); on CPU tensors of any dtype, the plain twin."""
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, scale=scale,
-                              causal=causal, window=window, bq=bq, bk=bk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_dq runs on cuda or cpu tensors, got "
-                         f"{q.device}")
-    _, win, ts = _cuda_args("flash_dq", q, k, v, do, lse, delta, bq, bk,
-                            window)
-    B, H, Sq, D = q.shape
-    dq = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
-    err = _library(KERNEL_SOURCE).flash_dq_launch(
-        *(ptr(t) for t in ts), ptr(dq), B, H, Sq,
-        k.shape[2], D, float(scale), int(bool(causal)), win, stream_of(q))
-    launch_status("flash_dq", err)
-    dispatch.record_launch("flash_dq")
-    return dq
+    """dq (B,H,Sq,D) fp32 — the counterpart of ``_run_dq``, on CPU
+    tensors of any dtype (the plain twin); CUDA tensors raise: they run
+    :func:`flash_bwd`."""
+    _plain_only("flash_dq", q)
+    return flash_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                          causal=causal, window=window, bq=bq, bk=bk)
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
               bq=128, bk=128):
-    """(dk, dv), each (B,H,Sk,D) fp32 — the counterpart of ``_run_dkv``.
-    On fp32 CUDA tensors one ``flash_dkv`` launch (bf16 ones raise: they
-    run :func:`flash_bwd`); on CPU tensors of any dtype, the plain twin."""
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale=scale,
-                               causal=causal, window=window, bq=bq, bk=bk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_dkv runs on cuda or cpu tensors, got "
-                         f"{q.device}")
-    _, win, ts = _cuda_args("flash_dkv", q, k, v, do, lse, delta, bq, bk,
-                            window)
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    dk = torch.empty((B, H, Sk, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    err = _library(KERNEL_SOURCE).flash_dkv_launch(
-        *(ptr(t) for t in ts), ptr(dk), ptr(dv), B, H, Sq,
-        Sk, D, float(scale), int(bool(causal)), win, stream_of(q))
-    launch_status("flash_dkv", err)
-    dispatch.record_launch("flash_dkv")
-    return dk, dv
+    """(dk, dv), each (B,H,Sk,D) fp32 — the counterpart of ``_run_dkv``,
+    on CPU tensors of any dtype (the plain twin); CUDA tensors raise:
+    they run :func:`flash_bwd`."""
+    _plain_only("flash_dkv", q)
+    return flash_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                           causal=causal, window=window, bq=bq, bk=bk)
 
 
 def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
@@ -189,12 +148,12 @@ def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
     repeated to H heads), lse and δ (B,H,Sq) fp32 — the counterpart of
     ``_run_dq`` and ``_run_dkv`` together.
 
-    On bfloat16 CUDA tensors one fused ``flash_bwd_tc`` launch: dO is
-    read in bf16 (an fp32 dO is rounded to bf16 once, here), q/k/v/dO are
-    zero-padded to a head dim that is a multiple of 8 and the gradients
-    sliced back; dq is summed by atomics (not bitwise repeatable).  On
-    float32 CUDA tensors one ``flash_dq`` and one ``flash_dkv`` launch;
-    on CPU tensors, :func:`flash_bwd_plain`.
+    On bfloat16 CUDA tensors one fused ``flash_bwd_tc`` launch, dO read
+    in bf16 (an fp32 dO is rounded to bf16 once, here); on float32 CUDA
+    tensors one fused ``flash_bwd_3xtf32`` launch, dO in fp32.  q, k, v
+    and dO are zero-padded to rows of a multiple of 16 bytes and the
+    gradients sliced back; dq is summed by atomics (not bitwise
+    repeatable).  On CPU tensors, :func:`flash_bwd_plain`.
     """
     kw = dict(scale=scale, causal=causal, window=window, bq=bq, bk=bk)
     if q.device.type == "cpu":
@@ -205,9 +164,6 @@ def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
     _check(q, k, v, do, lse, delta, bq, bk)
     win = check_window(window)
     dt = check_cuda("flash_bwd", q, k, v)
-    if dt == torch.float32:
-        return (flash_dq(q, k, v, do, lse, delta, **kw),
-                *flash_dkv(q, k, v, do, lse, delta, **kw))
     for t in (do, lse, delta):
         if t.device != q.device:
             raise ValueError(f"flash_bwd needs dO, lse and delta on "
@@ -215,21 +171,27 @@ def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"flash_bwd takes lse and delta in float32; got "
                          f"{lse.dtype}, {delta.dtype}")
+    if dt == torch.float32 and do.dtype != dt:
+        raise ValueError(f"flash_bwd takes dO in float32 beside float32 "
+                         f"q, k, v; got {do.dtype}")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    q, k, v, do = (pad_head_dim(t) for t in (q, k, v,
-                                            do.to(torch.bfloat16)))
+    q, k, v, do = (pad_head_dim(t) for t in (q, k, v, do.to(dt)))
     lse, delta = lse.contiguous(), delta.contiguous()
     Dp = q.shape[-1]
     dq = torch.zeros((B, H, Sq, Dp), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, H, Sk, Dp), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    err = _library(TC_SOURCE).flash_bwd_tc_launch(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
-        ptr(dk), ptr(dv), B, H, Sq, Sk, Dp, float(scale), int(bool(causal)),
-        win, stream_of(q))
-    launch_status("flash_bwd_tc", err)
-    dispatch.record_launch("flash_bwd_tc")
+    if dt == torch.bfloat16:
+        name, fn = "flash_bwd_tc", _library(TC_SOURCE).flash_bwd_tc_launch
+    else:
+        name = "flash_bwd_3xtf32"
+        fn = _library(KERNEL_SOURCE).flash_bwd_3xtf32_launch
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+             ptr(dk), ptr(dv), B, H, Sq, Sk, Dp, float(scale),
+             int(bool(causal)), win, stream_of(q))
+    launch_status(name, err)
+    dispatch.record_launch(name)
     if Dp != D:
         dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
     return dq, dk, dv
@@ -245,8 +207,8 @@ class FlashAttentionFn(torch.autograd.Function):
     saves it, and returns o in q's dtype.  δ = rowsum(dO ⊙ O) is plain
     PyTorch in fp32, as it is plain jnp in the reference
     (``backward.py:220``).  The backward is :func:`flash_bwd`, given the
-    cotangent as it arrives (bf16 for bf16 inputs: the fused kernel reads
-    it so; fp32 for fp32 inputs).
+    cotangent as it arrives (bf16 for bf16 inputs, fp32 for fp32 inputs:
+    each fused kernel reads it so).
     """
 
     @staticmethod

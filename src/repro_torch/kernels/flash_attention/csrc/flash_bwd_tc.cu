@@ -4,7 +4,7 @@
 // Replaces, for bf16 inputs, the two TPU kernels
 // src/repro/kernels/flash_attention/backward.py:135 (_run_dq, body
 // _dq_kernel at :51) and backward.py:156 (_run_dkv, body _dkv_kernel at
-// :90), which flash_bwd.cu's flash_dq / flash_dkv keep for fp32 inputs.
+// :90), which flash_bwd_3xtf32.cu replaces for fp32 inputs.
 // From the forward's fp32 row statistic lse and delta = rowsum(dO * O),
 // for one (batch, head) with k/v already repeated to the query heads:
 //
@@ -32,8 +32,8 @@
 //   operand's layout of dv += p^T dO and dk += ds^T q: those two
 //   products take p and ds from registers, and dk, dv accumulate in
 //   registers over the whole loop and are written once.  Five products
-//   per tile, where the two CUDA-core kernels of flash_bwd.cu recompute
-//   s and dp in both (seven).
+//   per tile, not the seven of a dq pass and a dk/dv pass that each
+//   recompute s and dp.
 // - dq += ds k needs ds with q as rows: each warp writes its ds^T rows to
 //   a shared tile, and after a barrier each warp multiplies 16 q rows of
 //   it by the k tile (ldmatrix.trans for both operands) and adds the
@@ -54,7 +54,12 @@
 
 namespace {
 
+using flash::cp16;
+using flash::cp4;
+using flash::cp_commit;
+using flash::cp_wait;
 using flash::keep;
+using flash::smem_u32;
 using flash::tile_live;
 
 constexpr int kKB = 64;             // kv rows per block
@@ -65,34 +70,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte chunk `chunk` of row `r` in a tile of rows of
 // `rowb` bytes (8 or more chunks a row), XOR-swizzled by r % 8.
 __device__ __forceinline__ uint32_t swz(int r, int chunk, int rowb) {
   return static_cast<uint32_t>(r * rowb + ((chunk ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {

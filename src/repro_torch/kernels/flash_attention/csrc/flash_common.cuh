@@ -1,17 +1,20 @@
-// Shared pieces of the flash attention kernels.  The mask (kNeg, keep,
-// tile_live) is every kernel's; the rest is the fp32 kernels'
-// (flash_fwd.cu, flash_bwd.cu), while bf16 inputs go to flash_fwd_tc.cu
-// and flash_bwd_tc.cu on the tensor cores.
+// Shared pieces of the flash attention kernels: the TPU kernels' mask
+// (kNeg, keep, tile_live), cp.async copies into shared memory, and the
+// 3xTF32 arithmetic of the fp32 kernels (flash_fwd_3xtf32.cu,
+// flash_bwd_3xtf32.cu); bf16 inputs go to flash_fwd_tc.cu and
+// flash_bwd_tc.cu.
 //
-// Every fp32 kernel works on 64 x 64 (q rows x kv rows) tiles of one (batch,
-// head) slab with 256 threads arranged 16 x 16: thread (ty, tx) owns tile
-// rows ty*4 .. ty*4+3 and tile columns tx, tx+16, tx+32, tx+48, and output
-// columns tx + 16*n of the head dimension.  Operand tiles live in shared
-// memory in fp32, transposed (d-major) with a row length of 65 so that
-// both the transposing stores and the per-d reads are free of bank
-// conflicts.  Arithmetic is fp32 FMAs on the CUDA cores: for fp32 inputs
-// the port's tolerance (2e-5 forward, 2e-4 gradients) rules out TF32
-// tensor cores.
+// 3xTF32: one TF32 tensor-core product keeps 10 mantissa bits of each
+// operand, about three decimal digits, too few for the port's fp32
+// tolerance (2e-5 forward, 2e-4 gradients).  Each fp32 operand is split
+// as x = hi + lo, hi = x rounded to TF32 (to nearest, ties away from
+// zero, as cvt.rna does) and lo = x - hi (exact in fp32; the tensor core
+// reads its top 19 bits), and a b is taken as lo_a hi_b + hi_a lo_b +
+// hi_a hi_b with fp32 accumulation: the dropped lo_a lo_b and the
+// truncation of lo leave an error near 2^-21 of each product, close to
+// fp32's own.  It is CUTLASS's OpMultiplyAddFastF32, at a third of the
+// TF32 tensor-core rate (495 / 3 = 165 TFLOP/s on an H100 SXM, 2.5 times
+// the CUDA cores' 67).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,10 +23,6 @@
 
 namespace flash {
 
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kTile = 64;           // q rows and kv rows of one tile
-constexpr int kPad = kTile + 1;     // row length of a transposed tile
-constexpr int kRows = kTile / 16;   // tile rows (and columns) per thread
 constexpr int kMaxHeadDim = 128;
 constexpr float kNeg = -1e30f;      // the TPU kernels' finite mask value
 
@@ -44,105 +43,96 @@ __device__ __forceinline__ bool tile_live(int64_t q0, int64_t q_last,
   return k0 <= q_last && (window <= 0 || k_last > q0 - window);
 }
 
-// dst[d * kPad + r] = src[(r0 + r) * D + d] for r < kTile, d < DP; zero
-// past row S or column D.  src is one (S, D) slab.
-template <int DP>
-__device__ __forceinline__ void load_t(float* __restrict__ dst,
-                                       const float* __restrict__ src,
-                                       int64_t r0,
-                                       int64_t S, int D) {
-  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    float x = 0.0f;
-    if (r0 + r < S && d < D) x = src[(r0 + r) * D + d];
-    dst[d * kPad + r] = x;
+// --- cp.async ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ROWS rows from row r0 of an fp32 (S, D) slab into a shared tile of DP
+// columns and row stride ST floats, by `threads` threads; zero past row
+// S and column D.  D % 4 == 0 and the slab 16-byte aligned.
+template <int ROWS, int DP, int ST>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int64_t r0, int64_t S, int D,
+                                              int threads) {
+  constexpr int kChunks = DP / 4;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += threads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool valid = r0 + r < S && c * 4 < D;
+    cp16(smem_u32(dst + r * ST + c * 4),
+         valid ? src + (r0 + r) * D + c * 4 : src, valid);
   }
 }
 
-// dst[r * DP + d] = src[(r0 + r) * D + d], zero-padded as load_t.
-template <int DP>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int64_t r0, int64_t S, int D) {
-  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    float x = 0.0f;
-    if (r0 + r < S && d < D) x = src[(r0 + r) * D + d];
-    dst[r * DP + d] = x;
-  }
+// --- 3xTF32 ------------------------------------------------------------
+
+// x = hi + lo: hi is x rounded to TF32 (add half a TF32 ulp to the
+// magnitude's bits, clear the 13 bits TF32 drops), lo the exact rest.
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {h, __float_as_uint(x - __uint_as_float(h))};
 }
 
-// A row load of kTile floats (lse, delta) into shared memory, 0 past S.
-__device__ __forceinline__ void load_vec(float* __restrict__ dst,
-                                         const float* __restrict__ src,
-                                         int64_t r0, int64_t S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    dst[r] = r0 + r < S ? src[r0 + r] : 0.0f;
-  }
+// d (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 out.
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g);
+// d0, d1 (g, 2t and 2t + 1), d2, d3 (g + 8, 2t and 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// acc[i][j] += sum_d a[d][ty*4 + i] * b[d][tx + 16 j] over two transposed
-// tiles: one 64 x 64 tile product, 16 entries per thread.
-template <int DP>
-__device__ __forceinline__ void mma_t(float (&acc)[kRows][kRows],
-                                      const float* __restrict__ a,
-                                      const float* __restrict__ b, int ty,
-                                      int tx) {
-#pragma unroll 4
-  for (int d = 0; d < DP; ++d) {
-    float av[kRows], bv[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[d * kPad + ty * kRows + i];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) bv[j] = b[d * kPad + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
+// An A fragment split once, reused across the n-tiles of a k-step.
+struct FragA {
+  Split x[4];
+};
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  return {{split(a0), split(a1), split(a2), split(a3)}};
 }
 
-// acc[i][n] += sum_c p[ty*4 + i][c] * m(c, tx + 16 n), where p is a
-// kTile x kPad row-major tile and m(c, d) = m[c * SC + d * SD].
-template <int DN, int SC, int SD>
-__device__ __forceinline__ void mma_p(float (&acc)[kRows][DN],
-                                      const float* __restrict__ p,
-                                      const float* __restrict__ m, int ty,
-                                      int tx) {
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float pv[kRows], mv[DN];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) pv[i] = p[(ty * kRows + i) * kPad + c];
-#pragma unroll
-    for (int n = 0; n < DN; ++n) mv[n] = m[c * SC + (tx + 16 * n) * SD];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int n = 0; n < DN; ++n) acc[i][n] = fmaf(pv[i], mv[n], acc[i][n]);
-    }
-  }
+// d += a b in 3xTF32: the two small terms first, then hi hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     float b0, float b1) {
+  const Split x = split(b0), y = split(b1);
+  mma_tf32(d, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, x.hi, y.hi);
+  mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, x.lo, y.lo);
+  mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, x.hi, y.hi);
 }
 
-// Reductions over the 16 threads (tx = 0..15) that share a tile row; they
-// are the 16 consecutive lanes of one half-warp.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// The padded head dimension a kernel is instantiated for (0: too wide).
+// The padded head dimension an fp32 kernel is instantiated for (0: too
+// wide).
 inline int padded_head_dim(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= kMaxHeadDim ? 128 : 0;
 }
@@ -150,13 +140,13 @@ inline int padded_head_dim(int D) {
 // Sets the kernel's dynamic shared memory and launches it; returns the
 // CUDA error code (0 = launched).
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream,
            Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       args...);
   return static_cast<int>(cudaGetLastError());
 }

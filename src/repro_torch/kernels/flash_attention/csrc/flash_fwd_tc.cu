@@ -3,9 +3,8 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:85 (flash_attention_pallas,
-// body _kernel at :28).  It computes what flash_fwd.cu computes (which
-// keeps the fp32 inputs): for query head h of batch b, kv head
-// h / (H / KV),
+// body _kernel at :28).  It computes what flash_fwd_3xtf32.cu computes
+// for fp32 inputs: for query head h of batch b, kv head h / (H / KV),
 //
 //   s   = q k^T * scale, NEG = -1e30 where the mask drops (ki > qi, or
 //         ki <= qi - window), with no Sk - Sq offset, as on the TPU;
@@ -60,6 +59,7 @@
 namespace {
 
 using flash::keep;
+using flash::smem_u32;
 using flash::tile_live;
 
 constexpr int kBM = 128;            // q rows per block
@@ -72,10 +72,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // --- shared-memory barriers and TMA ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),

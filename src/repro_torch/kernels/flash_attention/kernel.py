@@ -4,8 +4,9 @@ Counterpart of ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_pallas``: the (B,H,S,D) layout, the same keyword
 arguments (less ``interpret``), the same mask and the same rule that
 ``S % min(b, S) == 0`` for the block sizes ``bq`` / ``bk`` (the CUDA
-kernel's own tile is 64 × 64 and takes ragged edges, so ``bq`` / ``bk``
-only decide which calls are refused, as they do in the reference).
+kernels' own tiles, 128 q × 64 kv rows in fp32 and 128 × 128 in bf16,
+take ragged edges, so ``bq`` / ``bk`` only decide which calls are
+refused, as they do in the reference).
 
 Semantics, shared by the kernel and its plain twin:
 
@@ -17,11 +18,12 @@ Semantics, shared by the kernel and its plain twin:
 
 GQA: query head h reads kv head ``h // (H // KV)``; k/v are never
 repeated in memory.  Where it runs follows from the tensors: on bf16
-CUDA tensors :func:`flash_fwd` launches the tensor-core kernel
-(``csrc/flash_fwd_tc.cu``: wgmma and TMA), on fp32 CUDA tensors the
-CUDA-core kernel (``csrc/flash_fwd.cu``), each or it raises; on CPU
-tensors it runs :func:`flash_fwd_plain`, a dense masked softmax
-computing the same function.  Nothing falls back from one to another.
+CUDA tensors :func:`flash_fwd` launches ``csrc/flash_fwd_tc.cu`` (wgmma
+and TMA), on fp32 CUDA tensors ``csrc/flash_fwd_3xtf32.cu`` (mma.sync
+in 3xTF32: each fp32 product as three TF32 tensor-core products, close
+to fp32's accuracy), each or it raises; on CPU tensors it runs
+:func:`flash_fwd_plain`, a dense masked softmax computing the same
+function.  Nothing falls back from one to another.
 """
 from __future__ import annotations
 
@@ -36,11 +38,12 @@ __all__ = ["flash_fwd", "flash_fwd_plain", "masked_scores", "check_blocks",
            "pad_head_dim", "KERNEL_SOURCE", "TC_SOURCE", "NEG",
            "MAX_HEAD_DIM"]
 
-KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+KERNEL_SOURCE = (Path(__file__).resolve().parent / "csrc"
+                 / "flash_fwd_3xtf32.cu")
 TC_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd_tc.cu"
 NEG = -1e30
 MAX_HEAD_DIM = 128
-TMA_ALIGN = 16             # bytes: TMA's global address and stride unit
+ALIGN = 16                 # bytes: the unit of TMA and of 16-byte cp.async
 
 CUDA_DTYPES = (torch.float32, torch.bfloat16)
 _libs: dict = {}
@@ -55,8 +58,8 @@ def _library(source):
         lib = load(source)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         if source == KERNEL_SOURCE:
-            lib.flash_fwd_launch.argtypes = [vp] * 5 + _TAIL
-            lib.flash_fwd_launch.restype = i32
+            lib.flash_fwd_3xtf32_launch.argtypes = [vp] * 5 + _TAIL
+            lib.flash_fwd_3xtf32_launch.restype = i32
         else:
             lib.flash_fwd_tc_launch.argtypes = [i32, vp, vp, vp, vp,
                                                 vp] + _TAIL
@@ -66,17 +69,18 @@ def _library(source):
 
 
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """bf16 ``t`` (..., D) with zero columns appended up to the next
-    multiple of 8, contiguous and 16-byte aligned: what TMA reads (its
-    row stride must be a multiple of 16 bytes).  Zero columns change no
-    product q·k or p·v, so slicing the output back to D gives the
-    unpadded result.  Returns ``t`` itself when it needs nothing."""
+    """``t`` (..., D) with zero columns appended up to a row of a
+    multiple of 16 bytes (D a multiple of 8 in bf16, of 4 in fp32),
+    contiguous and 16-byte aligned: what TMA and 16-byte cp.async copies
+    read.  Zero columns change no product q·k or p·v, so slicing the
+    output back to D gives the unpadded result.  Returns ``t`` itself
+    when it needs nothing."""
     D = t.shape[-1]
-    pad = -D % (TMA_ALIGN // 2)
+    pad = -D % (ALIGN // t.element_size())
     if pad:
         t = torch.nn.functional.pad(t, (0, pad))
     t = t.contiguous()
-    if t.data_ptr() % TMA_ALIGN:
+    if t.data_ptr() % ALIGN:
         t = t.clone()
     return t
 
@@ -193,10 +197,9 @@ def flash_fwd(q, k, v, *, causal=True, window=None, scale=None, bq=128,
       out_dtype: o's dtype, q's by default (the autograd forward asks
         for float32 so that δ = rowsum(dO ⊙ O) uses the unrounded O).
 
-    On bfloat16 CUDA tensors the tensor-core kernel runs and counts one
-    ``flash_fwd_tc`` launch (q, k, v zero-padded to a head dim that is a
-    multiple of 8, o sliced back); on float32 CUDA tensors the CUDA-core
-    kernel counts one ``flash_fwd``; on CPU tensors,
+    On bfloat16 CUDA tensors one ``flash_fwd_tc`` launch, on float32
+    CUDA tensors one ``flash_fwd_3xtf32`` launch (q, k, v zero-padded to
+    rows of a multiple of 16 bytes, o sliced back); on CPU tensors,
     :func:`flash_fwd_plain`.
     """
     if q.device.type == "cpu":
@@ -217,23 +220,19 @@ def flash_fwd(q, k, v, *, causal=True, window=None, scale=None, bq=128,
     KV, Sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    q, k, v = (pad_head_dim(t) for t in (q, k, v))
+    Dp = q.shape[-1]
+    o = torch.empty((B, H, Sq, Dp), dtype=out_dtype, device=q.device)
+    args = (ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), B, H, KV, Sq, Sk, Dp,
+            float(scale), int(bool(causal)), win, stream_of(q))
     if dt == torch.bfloat16:
-        q, k, v = (pad_head_dim(t) for t in (q, k, v))
-        Dp = q.shape[-1]
-        o = torch.empty((B, H, Sq, Dp), dtype=out_dtype, device=q.device)
+        name = "flash_fwd_tc"
         err = _library(TC_SOURCE).flash_fwd_tc_launch(
-            int(out_dtype == torch.float32), ptr(q), ptr(k), ptr(v), ptr(o),
-            ptr(lse), B, H, KV, Sq, Sk, Dp, float(scale), int(bool(causal)),
-            win, stream_of(q))
-        launch_status("flash_fwd_tc", err)
-        dispatch.record_launch("flash_fwd_tc")
-        return (o[..., :D] if Dp != D else o), lse
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty((B, H, Sq, D), dtype=out_dtype, device=q.device)
-    err = _library(KERNEL_SOURCE).flash_fwd_launch(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), B, H, KV, Sq, Sk, D,
-        float(scale), int(bool(causal)), win, stream_of(q))
-    launch_status("flash_fwd", err)
-    dispatch.record_launch("flash_fwd")
-    return o, lse
+            int(out_dtype == torch.float32), *args)
+    else:
+        name = "flash_fwd_3xtf32"
+        err = _library(KERNEL_SOURCE).flash_fwd_3xtf32_launch(*args)
+    launch_status(name, err)
+    dispatch.record_launch(name)
+    return (o[..., :D] if Dp != D else o), lse
 

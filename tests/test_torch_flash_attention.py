@@ -277,22 +277,22 @@ def test_flash_bwd_plain_matches_jax_dq_dkv_kernels(B, H, S, D, causal,
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 64)])
 def test_pad_head_dim_leaves_attention_unchanged(D, causal, window):
-    """What the bf16 kernels' wrappers do to a head dim that is not a
-    multiple of 8: zero columns up to the next one (the scale stays the
+    """What the bf16 kernels' wrappers do to a bf16 head dim that is not
+    a multiple of 8: zero columns up to the next one (the scale stays the
     true D's), then slice the outputs.  The plain forward and backward on
     the padded tensors, sliced, equal the unpadded ones, and the padded
     columns of every gradient are 0."""
     B, H, KV, S = 1, 4, 2, 128
     q, k, v, do = (torch.from_numpy(_np((B, h, S, D), 50 + i))
-                   for i, h in enumerate((H, KV, KV, H)))
+                   .to(torch.bfloat16) for i, h in enumerate((H, KV, KV, H)))
     padded = [pad_head_dim(t) for t in (q, k, v, do)]
     Dp = D + (-D % 8)
     for t, u in zip(padded, (q, k, v, do)):
         assert t.shape[-1] == Dp and t.is_contiguous()
         assert torch.equal(t[..., :D], u) and not t[..., D:].any()
     kw = dict(causal=causal, window=window, scale=D ** -0.5, bq=64, bk=64)
-    o, lse = flash_fwd_plain(q, k, v, **kw)
-    o_p, lse_p = flash_fwd_plain(*padded[:3], **kw)
+    o, lse = flash_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
+    o_p, lse_p = flash_fwd_plain(*padded[:3], out_dtype=torch.float32, **kw)
     torch.testing.assert_close(o_p[..., :D], o, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
     assert not o_p[..., D:].any()
