@@ -15,7 +15,10 @@ run.  Phases:
    flash kernels (fp32 ``flash_fwd_3xtf32`` / ``flash_bwd_3xtf32``, bf16
    ``flash_fwd_tc`` / ``flash_bwd_tc``), their registers, spills and
    shared memory per instantiation, and the tensor-core instructions
-   (``HGMMA``, ``HMMA``) and TMA loads in their SASS;
+   (``HGMMA``, ``HMMA``) and TMA loads in their SASS; for the scan's
+   ``ssm_scan`` and ``ssm_scan_bwd``, their registers, spills and static
+   shared memory per instantiation and the backward's dynamic shared
+   memory at the checkpoint spacing the autograd function uses;
 3. kernels  — each kernel against its plain PyTorch version on the card
    (commit_grid: ragged and sentinel-clamp cases in fp32 and bf16, and
    the main path's shape with the row counts of the train run below);
@@ -68,29 +71,38 @@ run.  Phases:
    and ``commit_grid`` at the round's shape (B = 4 nodes; its bound
    counts the rows the round keeps, not the pad slots it drops), median
    of CUDA-event times, beside the bandwidth bound;
-14. scan kernel — ``ssm_scan`` against its plain twin ``ssm_scan_plain``
-   (y and h_last; 1e-4 fp32, 3e-2 bf16) at tests/test_kernels.py's scan
-   cases, at ragged di (200, 3200), S (1, 100, 129) and N (4, 16), and at
-   hymba-1.5b's train shape (B 4, S 128, di 3200, N 16), with dt drawn as
-   the model feeds it and B, C as column slices of one projection; then
-   ``SelectiveScanFn``'s gradients against plain autograd of the ref at
-   that shape (1e-4 relative);
+14. scan kernels — ``ssm_scan`` against its plain twin ``ssm_scan_plain``
+   (y, h_last and the checkpoints at the autograd function's spacing;
+   1e-4 fp32, 3e-2 bf16), unsplit and with its time axis split in 3, and
+   ``ssm_scan_bwd`` against ``ssm_scan_bwd_plain`` (the six gradients,
+   with and without a gradient of h_last, within the same tolerances
+   relative to each gradient's largest entry) at tests/test_kernels.py's
+   scan cases, at ragged di (200, 3200), S (1, 100, 129) and N (4, 16),
+   and at hymba-1.5b's train shape (B 4, S 128, di 3200, N 16), with dt
+   drawn as the model feeds it and B, C as column slices of one
+   projection; then ``SelectiveScanFn``'s gradients (both kernels)
+   against plain autograd of the ref at that shape (1e-4 relative);
 15. hymba sync train — ``launch.train``'s synchronous regime on full-width
    hymba-1.5b cut to 2 of its 32 layers (4 nodes, binary tree,
    ``--impl kernel``): 3 rounds, then 3 rounds with ``--loss-prob 0.2
    --momentum 0.9``; the counters zeroed before each and read after
-   (``ssm_scan`` = layers × gradients, ``commit_grid`` = rounds), the
-   allocator read before each call, after its init and after round 1;
-16. scan timing — ``ssm_scan`` and its plain twin at hymba-1.5b's train
-   shape and at the op widths of hymba-1.5b (S 4096, di 3200) and
-   falcon-mamba-7b (S 4096, di 8192), median of CUDA-event times, beside
-   the bound (bytes at 3.35 TB/s; fp32 operations; exponentials at the
-   MUFU rate of 16 per clock per SM at the card's maximum SM clock); the
-   kernel timed as 20 launches in a CUDA graph per event pair (and one
-   call, host work included, as ``call_ms``), and
-   at the train shape ``SelectiveScanFn`` forward + backward (the
-   kernel, then the ref's autograd loop) as one SSM layer's gradient
-   pays it.
+   (``ssm_scan`` = ``ssm_scan_bwd`` = layers × gradients, ``commit_grid``
+   = rounds), the allocator read before each call, after its init and
+   after round 1;
+16. scan timing — at hymba-1.5b's train shape and at the op widths of
+   hymba-1.5b (S 4096, di 3200) and falcon-mamba-7b (S 4096, di 8192):
+   the forward (without checkpoints, as before; with them, as the
+   autograd function runs it; at the op widths unsplit and at the split
+   ``scan_segments`` chooses), the backward kernel, and their plain twins
+   (the backward's at the op widths once), median of CUDA-event times,
+   beside the bounds (bytes at 3.35 TB/s; fp32 operations; exponentials
+   at the MUFU rate of 16 per clock per SM at the card's maximum SM
+   clock; the backward's with its checkpoints every
+   ``SCAN_BOUND_CKPT_EVERY`` steps, and beside it at the kernel's
+   ``CKPT_EVERY``); a kernel timed as 20 launches in a CUDA graph per
+   event pair (and the forward as one call, host work included, as
+   ``call_ms``), and ``SelectiveScanFn`` forward + backward (both
+   kernels, through autograd) as one SSM layer's gradient pays it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -159,6 +171,11 @@ SCAN_FP32_TOL = 1e-4         # tests/test_kernels.py's scan tolerances:
 SCAN_BF16_TOL = 3e-2         # fp32 and bf16
 SCAN_GRAD_TOL = 1e-4         # SelectiveScanFn vs plain autograd, relative
 MUFU_PER_CLOCK_SM = 16       # sm_90 exponentials per clock per SM
+# the checkpoint spacing the scan gradient's own bound counts: the kernel
+# reads checkpoints every CKPT_EVERY = 8 steps only to fit its shared
+# memory, so the 8x more checkpoint bytes are a cost of its design, not
+# part of the least work (its bound at T = 8 is reported beside)
+SCAN_BOUND_CKPT_EVERY = 64
 H100_SMS = 132
 # (B, S, di, N): tests/test_kernels.py:228-232, then ragged di, S and N
 SCAN_SMALL = [(1, 64, 16, 8), (2, 128, 64, 16), (1, 256, 32, 16)] + [
@@ -419,13 +436,9 @@ def bound(flops, nbytes, peak):
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def tc_report(kname, source, dims):
-    """What the compiler made of one flash kernel: ptxas's registers and
-    spill bytes for each instantiation, the dynamic shared memory one
-    block asks for at each head dim of ``dims``, and the count of
-    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and of TMA
-    loads (UTMALDG) in its SASS."""
-    import ctypes
+def ptxas_entries(source):
+    """ptxas's report for each kernel instantiation of ``source``'s build:
+    registers, spill bytes and static shared memory."""
     import re
     from repro_torch.kernels import _build
     entries, cur = [], None
@@ -441,10 +454,23 @@ def tc_report(kname, source, dims):
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return entries
+
+
+def tc_report(kname, source, dims):
+    """What the compiler made of one flash kernel: ptxas's registers and
+    spill bytes for each instantiation, the dynamic shared memory one
+    block asks for at each head dim of ``dims``, and the count of
+    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and of TMA
+    loads (UTMALDG) in its SASS."""
+    import ctypes
+    from repro_torch.kernels import _build
     smem = getattr(_build.load(source), f"{kname}_smem")
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     text = _build.sass(source)
-    return {"ptxas": entries,
+    return {"ptxas": ptxas_entries(source),
             "dynamic_smem_bytes": {f"D<={d}": smem(d) for d in dims},
             "sass": {op: text.count(op) for op in ("HGMMA", "HMMA",
                                                    "UTMALDG")}}
@@ -790,13 +816,77 @@ def scan_bound(Bsz, S, di, N, itemsize, clock_hz):
         terms, bytes=nbytes, flops=flops, exps=exps)
 
 
-def compare_scan(args, tol, what) -> float:
-    """The kernel against its plain twin on ``args``: the max abs error
-    over y and h_last; raises unless finite and within ``tol``."""
+def scan_bwd_bound(Bsz, S, di, N, itemsize, n_ckpt, clock_hz):
+    """The least time for the scan's backward, as :func:`scan_bound`: its
+    bytes (u, dt, B, C, gy, the ``n_ckpt`` checkpoints a batch row, gh, A
+    and D read; the six gradients written) at 3.35 TB/s, its fp32
+    operations (per (b, t, d, n): the rerun's dt·A and h update, 4; the
+    sweep's G = gy·C + carry, gy·h, G·dt·u, G·B into du, dA·h_{t−1}, its
+    product with G, that into ddt and into dA, dA·G for the next step, 13;
+    the d sums of dB and dC, 2; per (b, t, d): dt·u twice, du's and ddt's
+    multiply-adds and dD's, 9) at 67 TFLOP/s, and its exponentials (one
+    per (b, t, d, n): the rerun's, kept for the sweep) at the MUFU rate."""
+    from repro_torch.kernels.ssm_scan.backward import ssm_scan_bwd_bytes
+    nbytes = ssm_scan_bwd_bytes(Bsz, S, di, N, itemsize, n_ckpt)
+    flops, exps = Bsz * S * di * (19 * N + 9), Bsz * S * di * N
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
+             "mufu_ms": exps / (MUFU_PER_CLOCK_SM * H100_SMS * clock_hz)
+             * 1e3}
+    ms = max(terms.values())
+    return ms, "bytes" if terms["bytes_ms"] == ms else "operations", dict(
+        terms, bytes=nbytes, flops=flops, exps=exps)
+
+
+def compare_scan(args, tol, what, segments=(1, 3), fwd=None) -> float:
+    """The forward kernel (``fwd``, by default the checkout's
+    ``ssm_scan``) against its plain twin on ``args``, unsplit and split:
+    the max abs error over y, h_last and the checkpoints at the autograd
+    function's spacing (y and h_last where ``fwd`` returns no
+    checkpoints); raises unless finite and within ``tol``."""
     from repro_torch.kernels.ssm_scan import kernel as sk
-    got, want = sk.ssm_scan(*args), sk.ssm_scan_plain(*args)
-    return max(held(g, w, tol, f"{what} {n}")
-               for g, w, n in zip(got, want, ("y", "h_last")))
+    fwd = fwd or sk.ssm_scan
+    want = sk.ssm_scan_plain(*args, ckpt_every=sk.CKPT_EVERY)
+    return max(held(g, w, tol, f"{what} {n} ({nseg} segments)")
+               for nseg in segments
+               for g, w, n in zip(
+                   fwd(*args, ckpt_every=sk.CKPT_EVERY, segments=nseg),
+                   want, ("y", "h_last", "checkpoints")))
+
+
+def compare_scan_bwd(args, tol, what, seed=0, bwd=None):
+    """The backward kernel (``bwd``, by default the checkout's
+    ``ssm_scan_bwd``) against its plain twin on ``args`` and random
+    cotangents, with and without a gradient of h_last: returns (the
+    largest error relative to each gradient's largest entry, the largest
+    absolute error); raises unless finite and within ``tol`` relative."""
+    import torch
+    from repro_torch.kernels.ssm_scan import backward as sb
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    bwd = bwd or sb.ssm_scan_bwd
+    Bsz, S, di = args[0].shape
+    N = args[2].shape[1]
+    _, _, ckpt = sk.ssm_scan_plain(*args, ckpt_every=sk.CKPT_EVERY)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gy = torch.randn(Bsz, S, di, generator=g, device="cuda")
+    gh = torch.randn(Bsz, di, N, generator=g, device="cuda")
+    rel = absolute = 0.0
+    for h in (gh, None):
+        got = bwd(*args, gy, h, ckpt, ckpt_every=sk.CKPT_EVERY)
+        want = sb.ssm_scan_bwd_plain(*args, gy, h, ckpt,
+                                     ckpt_every=sk.CKPT_EVERY)
+        for name, a, w, x in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got,
+                                 want, args):
+            check(a.dtype == w.dtype == x.dtype,
+                  f"{what} {name}: in its input's dtype {x.dtype}")
+            scale = max(1.0, float(w.float().abs().max()))
+            absolute = max(absolute, float((a.float() - w.float()).abs()
+                                           .max()))
+            err = held(a.float() / scale, w.float() / scale, tol,
+                       f"{what} {name} ({'with' if h is not None else 'no'}"
+                       f" gh)")
+            rel = max(rel, err)
+    return rel, absolute
 
 
 # --------------------------------------------------------------------- #
@@ -817,10 +907,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_fwd
     from repro_torch.kernels.rfast_update import dispatch, grid
     from repro_torch.kernels.rfast_update import kernel as node_k
+    from repro_torch.kernels.ssm_scan import backward as scan_b
     from repro_torch.kernels.ssm_scan import kernel as scan_k
     sources = [grid.KERNEL_SOURCE, fa_fwd.KERNEL_SOURCE, fa_bwd.KERNEL_SOURCE,
                fa_fwd.TC_SOURCE, fa_bwd.TC_SOURCE, node_k.KERNEL_SOURCE,
-               scan_k.KERNEL_SOURCE]
+               scan_k.KERNEL_SOURCE, scan_b.KERNEL_SOURCE]
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -858,6 +949,20 @@ def main() -> int:
               if kname == "flash_fwd_tc" else ops["HGMMA"] + ops["HMMA"] > 0,
               f"{kname} runs on the tensor cores (and the bf16 forward's "
               f"tiles arrive by TMA): {ops}")
+    # the scan's two kernels: registers, spills, static shared memory per
+    # instantiation; the backward's dynamic shared memory per block
+    for kname, src in (("ssm_scan", scan_k.KERNEL_SOURCE),
+                       ("ssm_scan_bwd", scan_b.KERNEL_SOURCE)):
+        entries = ptxas_entries(src)
+        emit("build_scan", kernel=kname, ptxas=entries,
+             **({"dynamic_smem_bytes": {
+                 f"T={scan_k.CKPT_EVERY}, N={n}": scan_b.bwd_smem_bytes(
+                     scan_k.CKPT_EVERY, n) for n in (4, 8, 16)}}
+                if kname == "ssm_scan_bwd" else {}))
+        check(len(entries) == 6 and all(
+            e.get("spill_store_bytes", 0) == 0 for e in entries),
+            f"{kname}: six instantiations (fp32, bf16 x 1, 2, 4 lanes), "
+            f"none spilling: {entries}")
 
     # 3. kernels vs plain --------------------------------------------------
     for P in (37, 100_001):
@@ -1153,18 +1258,25 @@ def main() -> int:
     del kw
     torch.cuda.empty_cache()
 
-    # 14. the scan kernel vs its plain twin, and its autograd function -----
+    # 14. the scan kernels vs their plain twins, and the autograd function
     from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
     for case in SCAN_SMALL + [SCAN_TRAIN[1]]:
         for dt, tol in ((torch.float32, SCAN_FP32_TOL),
                         (torch.bfloat16, SCAN_BF16_TOL)):
-            err = compare_scan(scan_inputs(*case, dt), tol, f"ssm_scan {case}")
+            sargs = scan_inputs(*case, dt)
+            err = compare_scan(sargs, tol, f"ssm_scan {case}")
+            rel, _ = compare_scan_bwd(sargs, tol, f"ssm_scan_bwd {case}")
             emit("scan_kernel", case=dict(zip(("B", "S", "di", "N"), case)),
-                 dtype=str(dt), max_abs_err=err, tol=tol)
-    scan_err = compare_scan(scan_inputs(*SCAN_TRAIN[1], torch.float32,
-                                        dt_rank=SCAN_TRAIN[2], seed=1),
-                            SCAN_FP32_TOL, "ssm_scan at the train shape")
+                 dtype=str(dt), max_abs_err=err, bwd_max_rel_err=rel,
+                 tol=tol)
+    sargs = scan_inputs(*SCAN_TRAIN[1], torch.float32, dt_rank=SCAN_TRAIN[2],
+                        seed=1)
+    scan_err = compare_scan(sargs, SCAN_FP32_TOL,
+                            "ssm_scan at the train shape")
+    scan_bwd_rel, scan_bwd_err = compare_scan_bwd(
+        sargs, SCAN_FP32_TOL, "ssm_scan_bwd at the train shape", seed=4)
+    del sargs
     leaves = [t.detach().requires_grad_() for t in scan_inputs(
         *SCAN_TRAIN[1], torch.float32, dt_rank=SCAN_TRAIN[2], seed=2)]
     gg = torch.Generator(device="cuda").manual_seed(3)
@@ -1172,15 +1284,22 @@ def main() -> int:
     gh = torch.randn(leaves[0].shape[0], *leaves[2].shape, generator=gg,
                      device="cuda")
     scan_loss = lambda y, h: (y * gy).sum() + (h * gh).sum()
+    dispatch.clear()
     got = torch.autograd.grad(scan_loss(*SelectiveScanFn.apply(*leaves)),
                               leaves)
+    fn_launches = dispatch.stats()["by_kernel"]
     want = torch.autograd.grad(scan_loss(*selective_scan_ref(*leaves)),
                                leaves)
     grad_rel = {n: float(torch.linalg.vector_norm(g - w)
                          / torch.linalg.vector_norm(w).clamp_min(1e-30))
                 for n, g, w in zip(("u", "dt", "A", "B", "C", "D"), got, want)}
     emit("scan_grad", case=dict(zip(("B", "S", "di", "N"), SCAN_TRAIN[1])),
-         y_max_abs_err=scan_err, grad_rel=grad_rel, tol=SCAN_GRAD_TOL)
+         y_max_abs_err=scan_err, bwd_max_abs_err=scan_bwd_err,
+         bwd_max_rel_err=scan_bwd_rel, grad_rel=grad_rel,
+         launches=fn_launches, tol=SCAN_GRAD_TOL)
+    check(fn_launches == {"ssm_scan": 1, "ssm_scan_bwd": 1},
+          f"SelectiveScanFn runs one ssm_scan and one ssm_scan_bwd: "
+          f"{fn_launches}")
     check(all(math.isfinite(v) and v <= SCAN_GRAD_TOL
               for v in grad_rel.values()),
           f"SelectiveScanFn gradients within {SCAN_GRAD_TOL}: {grad_rel}")
@@ -1214,41 +1333,84 @@ def main() -> int:
         check(all(math.isfinite(v) for v in hres["losses"]),
               f"hymba {tag}: finite losses")
         check(hymba_launches[tag] == {"ssm_scan": HYMBA_LAYERS * grads,
+                                      "ssm_scan_bwd": HYMBA_LAYERS * grads,
                                       "commit_grid": hres["rounds"]},
-              f"hymba {tag}: ssm_scan once per layer per gradient and "
-              f"commit_grid once per round: {hymba_launches[tag]}")
+              f"hymba {tag}: ssm_scan and ssm_scan_bwd once per layer per "
+              f"gradient and commit_grid once per round: "
+              f"{hymba_launches[tag]}")
         check(hres["mass_rel"] <= 1e-4, f"hymba {tag}: Lemma-3 <= 1e-4")
         torch.cuda.empty_cache()
 
     # 16. scan timing at the train shape and at two op widths --------------
     clock_hz = sm_clock_hz()
-    scan_rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    every = scan_k.CKPT_EVERY
+    scan_rows, bwd_rows = {}, {}
     for sname, shape, dt_rank in SCAN_TIMED:
         sargs = scan_inputs(*shape, torch.float32, dt_rank=dt_rank, seed=5)
-        long = shape[1] > 1024
+        Bsz, S, di, N = shape
+        long = S > 1024
+        rule = scan_k.scan_segments(Bsz, S, di, N, sms)
+        split = {nseg: graph_ms(lambda: scan_k.ssm_scan(*sargs,
+                                                        segments=nseg))
+                 for nseg in sorted({1, rule})}
         row = dict(
-            ms=graph_ms(lambda: scan_k.ssm_scan(*sargs)),
+            ms=split[rule],
             plain_ms=cuda_ms(lambda: scan_k.ssm_scan_plain(*sargs),
                              reps=2 if long else 5, warmup=1 if long else 2))
         row["bound_ms"], row["bound_by"], terms = scan_bound(*shape, 4,
                                                              clock_hz)
         scan_rows[sname] = row
-        # one call as a caller pays it, the wrapper's host work included
-        more = {"call_ms": cuda_ms(lambda: scan_k.ssm_scan(*sargs), reps=20)}
-        if sname == SCAN_TRAIN[0]:
-            # one SSM layer's scan in a gradient: the kernel forward, then
-            # the backward through the ref's autograd loop
-            leaves = [t.detach().requires_grad_() for t in sargs]
-            more["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                SelectiveScanFn.apply(*leaves)[0].sum(), leaves), reps=5)
-            del leaves
+        more = {
+            # one call as a caller pays it, the wrapper's host work included
+            "call_ms": cuda_ms(lambda: scan_k.ssm_scan(*sargs), reps=20),
+            # as the autograd function runs it: with the checkpoints
+            "ckpt_ms": graph_ms(lambda: scan_k.ssm_scan(
+                *sargs, ckpt_every=every)),
+            "segments": rule, "ms_by_segments": split}
+        _, _, ckpt = scan_k.ssm_scan(*sargs, ckpt_every=every)
+        gg = torch.Generator(device="cuda").manual_seed(6)
+        bargs = (*sargs, torch.randn(Bsz, S, di, generator=gg, device="cuda"),
+                 torch.randn(Bsz, di, N, generator=gg, device="cuda"), ckpt)
+        n_ck = scan_k.n_checkpoints(S, every)
+        brow = dict(
+            ms=graph_ms(lambda: scan_b.ssm_scan_bwd(*bargs,
+                                                    ckpt_every=every)),
+            # the twin once at the op widths (two Python loops over S)
+            plain_ms=cuda_ms(lambda: scan_b.ssm_scan_bwd_plain(
+                *bargs, ckpt_every=every), reps=1 if long else 3,
+                warmup=0 if long else 1))
+        # the gradient's own bound, its checkpoints at the spacing the least
+        # work needs; and as the kernel reads them, at CKPT_EVERY
+        brow["bound_ms"], brow["bound_by"], bterms = scan_bwd_bound(
+            *shape, 4, scan_k.n_checkpoints(S, SCAN_BOUND_CKPT_EVERY),
+            clock_hz)
+        at_every, _, every_terms = scan_bwd_bound(*shape, 4, n_ck, clock_hz)
+        bwd_rows[sname] = brow
+        # one SSM layer's scan in a gradient: both kernels through autograd
+        # (at hymba's op width the forward splits: the shape a train at
+        # --batch-per-node 1 --seq 4096 gives the scan)
+        leaves = [t.detach().requires_grad_() for t in sargs]
+        more["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            SelectiveScanFn.apply(*leaves)[0].sum(), leaves),
+            reps=5 if long else 10)
+        del leaves
         emit("scan_timing", kernel="ssm_scan", shape=sname, **more,
              case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
              bound_share=row["bound_ms"] / row["ms"],
              achieved_gb_s=terms["bytes"] / row["ms"] / 1e6,
              sm_clock_max_mhz=clock_hz / 1e6, library_ms=None,
              device=name, nvidia_smi=smi, **row, **terms)
-        del sargs
+        emit("scan_timing", kernel="ssm_scan_bwd", shape=sname,
+             case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
+             ckpt_every=every, bound_ckpt_every=SCAN_BOUND_CKPT_EVERY,
+             bound_share=brow["bound_ms"] / brow["ms"],
+             bound_ms_at_ckpt_every=at_every,
+             bound_share_at_ckpt_every=at_every / brow["ms"],
+             bytes_at_ckpt_every=every_terms["bytes"],
+             achieved_gb_s=every_terms["bytes"] / brow["ms"] / 1e6,
+             library_ms=None, device=name, nvidia_smi=smi, **brow, **bterms)
+        del sargs, bargs, ckpt
     torch.cuda.empty_cache()
 
     kernels = [{
@@ -1311,6 +1473,21 @@ def main() -> int:
                              for t, v in hymba_launches.items()},
         "max_abs_err": scan_err, **train_row, "library_ms": None,
         "op_widths": {k: v for k, v in scan_rows.items()
+                      if k != SCAN_TRAIN[0]}})
+    kernels.append({
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": str(scan_b.KERNEL_SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/models/ssm.py:42 (the gradient of "
+                    "selective_scan_ref: lax.scan autodiff, no Pallas "
+                    "kernel)",
+        "launches": sum(v.get("ssm_scan_bwd", 0)
+                        for v in hymba_launches.values()),
+        "launches_by_path": {f"hymba_sync_train_{t}":
+                             v.get("ssm_scan_bwd", 0)
+                             for t, v in hymba_launches.items()},
+        "max_abs_err": scan_bwd_err, **bwd_rows[SCAN_TRAIN[0]],
+        "library_ms": None,
+        "op_widths": {k: v for k, v in bwd_rows.items()
                       if k != SCAN_TRAIN[0]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,3 +1,4 @@
 """Mamba-1 selective scan: the op and its autograd function (``ops``),
-the CUDA kernel's wrapper and plain twin (``kernel``), and the plain
-oracle (``ref``, shared with ``models/ssm.py``)."""
+the CUDA kernels' wrappers and plain twins — the forward (``kernel``) and
+the backward from its checkpoints (``backward``) — and the plain oracle
+(``ref``, shared with ``models/ssm.py``)."""

@@ -3,22 +3,23 @@
 Counterpart of ``src/repro/kernels/ssm_scan/ops.py``: ``impl="ref"`` is
 the plain oracle :func:`.ref.selective_scan_ref`; ``impl="kernel"`` (the
 reference's ``"pallas"``) is :class:`SelectiveScanFn`, whose forward is
-:func:`.kernel.ssm_scan` — the CUDA kernel on CUDA tensors, its plain twin
-on CPU tensors, and an error on any other device.
+:func:`.kernel.ssm_scan` and whose backward is
+:func:`.backward.ssm_scan_bwd` — the CUDA kernels on CUDA tensors, their
+plain twins on CPU tensors, and an error on any other device.
 
-:class:`SelectiveScanFn` differentiates the scan as the JAX package does:
-JAX has no backward scan kernel and differentiates ``selective_scan_ref``
-through ``lax.scan``.  Its backward therefore runs ``selective_scan_ref``
-again on the saved inputs under autograd and returns the gradients of all
-six inputs (``A = −exp(A_log)`` and ``D`` are trained parameters).  The
-forward always runs the kernel on the card; a backward scan kernel is
-later work (ROADMAP), not part of this port.
+The JAX package has no backward scan kernel and differentiates
+``selective_scan_ref`` through ``lax.scan``; :class:`SelectiveScanFn`
+computes the same gradient of all six inputs (``A = −exp(A_log)`` and
+``D`` are trained parameters) from the checkpoints its forward writes
+every ``CKPT_EVERY`` steps.  ``selective_scan_ref`` under autograd is the
+tests' oracle for it, not part of this path.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import ssm_scan
+from .backward import ssm_scan_bwd
+from .kernel import CKPT_EVERY, ssm_scan
 from .ref import selective_scan_ref
 
 __all__ = ["selective_scan", "SelectiveScanFn"]
@@ -26,25 +27,27 @@ __all__ = ["selective_scan", "SelectiveScanFn"]
 
 class SelectiveScanFn(torch.autograd.Function):
     """``(u, dt, A, B, C, D) -> (y, h_last)`` through :func:`ssm_scan`,
-    differentiable in all six inputs; the gradient of ``h_last`` may be
-    absent."""
+    differentiable in all six inputs through :func:`ssm_scan_bwd`; the
+    gradient of ``y`` or of ``h_last`` may be absent."""
 
     @staticmethod
     def forward(ctx, u, dt, A, B, C, D):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(u, dt, A, B, C, D)
-        return ssm_scan(u, dt, A, B, C, D)
+        if not any(ctx.needs_input_grad):
+            return ssm_scan(u, dt, A, B, C, D)
+        y, h, ckpt = ssm_scan(u, dt, A, B, C, D, ckpt_every=CKPT_EVERY)
+        ctx.save_for_backward(u, dt, A, B, C, D, ckpt)
+        return y, h
 
     @staticmethod
     def backward(ctx, gy, gh):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = selective_scan_ref(*ins)
-        pairs = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
-        if not pairs:
+        if gy is None and gh is None:
             return (None,) * 6
-        outs, cots = zip(*pairs)
-        grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+        u, dt, A, B, C, D, ckpt = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        grads = ssm_scan_bwd(u, dt, A, B, C, D, gy, gh, ckpt,
+                             ckpt_every=CKPT_EVERY)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
 

@@ -4,9 +4,10 @@ Counterpart of ``ssm_init``, ``selective_scan_ref``, ``_conv_causal``,
 ``_ssm_inner`` and ``ssm_apply`` in ``src/repro/models/ssm.py``, as plain
 functions on tensors in the JAX package's layouts.  The model's scan goes
 through :class:`~repro_torch.kernels.ssm_scan.ops.SelectiveScanFn`: the
-hand-written CUDA kernel on CUDA tensors (its plain twin on CPU tensors)
-forward, and the gradient of :func:`selective_scan_ref` backward, as JAX
-differentiates its ``lax.scan``.  The reference's model calls
+hand-written CUDA kernels on CUDA tensors (their plain twins on CPU
+tensors), the forward scan and a backward scan from the forward's
+checkpoints, which compute the gradient JAX takes of its ``lax.scan``
+over :func:`selective_scan_ref`.  The reference's model calls
 ``selective_scan_ref`` itself; both compute the same function from
 h0 = 0, which is how ``ssm_apply`` calls it.
 
@@ -27,7 +28,7 @@ from .layers import dense_init
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "ssm_cache",
            "selective_scan_ref"]
 
-_NOT_PORTED = "is not ported yet (serving, ROADMAP Queue 1 item 11)"
+_NOT_PORTED = "is not ported yet (serving, ROADMAP Queue 1 item 6)"
 
 
 def ssm_init(cfg: ModelConfig, gen: torch.Generator, *,

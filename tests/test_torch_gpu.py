@@ -27,9 +27,14 @@ protocol round (``kernel``, ``kernel`` with ``oracle=True``, ``plain``)
 to each other on the card.  The ``ssm_scan`` kernel is held to its plain
 twin (y and h_last; 1e-4 fp32, 3e-2 bf16, tests/test_kernels.py's scan
 tolerances) at tests/test_kernels.py's cases and at ragged di, S and N,
-with B and C as strided column slices; ``SelectiveScanFn``'s gradients to
-plain autograd of the ref at 1e-4; and a reduced hymba-1.5b sync train
-launches it once per layer per gradient.
+with B and C as strided column slices, with its checkpoints and with its
+time axis split; the ``ssm_scan_bwd`` kernel to its plain twin (the six
+gradients, with and without a gradient of h_last, at odd and ragged
+cases with strided B and C; 1e-4 fp32, 3e-2 bf16; dA, dB, dC and dD are
+summed by atomics, so only to a tolerance); ``SelectiveScanFn`` launches
+one of each and its gradients match plain autograd of the ref at 1e-4;
+and a reduced hymba-1.5b sync train launches both once per layer per
+gradient.
 """
 import numpy as np
 import pytest
@@ -49,7 +54,10 @@ from repro_torch.kernels.rfast_update.grid import (commit_grid,
 from repro_torch.kernels.rfast_update.kernel import (
     rfast_commit_node, rfast_commit_node_plain, rfast_update_node,
     rfast_update_node_plain)
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan.backward import (ssm_scan_bwd,
+                                                   ssm_scan_bwd_plain)
+from repro_torch.kernels.ssm_scan.kernel import (CKPT_EVERY, scan_segments,
+                                                 ssm_scan, ssm_scan_plain)
 from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
@@ -554,6 +562,103 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
     assert dispatch.launches("ssm_scan") == 0
 
 
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("every,segments", [(CKPT_EVERY, 1), (7, 3)])
+def test_ssm_scan_kernel_checkpoints_and_split_match_plain(
+        cuda, case, dtype, tol, every, segments):
+    args = _scan_inputs(*case, dtype, seed=1, strided=True)
+    got = ssm_scan(*args, ckpt_every=every, segments=segments)
+    torch.cuda.synchronize()
+    assert dispatch.launches("ssm_scan") == 1
+    want = ssm_scan_plain(*args, ckpt_every=every)
+    assert len(got) == 3 and got[2].shape == want[2].shape
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def test_ssm_scan_split_takes_many_segments(cuda):
+    """A long S split into up to 64 segments (the pass-B blocks of the
+    last segments wait on 63 pass-A blocks each), and an S just past a
+    segment boundary."""
+    for S, segments in ((4096, 64), (1000, 5), (33, 2)):
+        args = _scan_inputs(2, S, 100, 16, torch.float32, seed=S)
+        dispatch.clear()
+        y, h = ssm_scan(*args, segments=segments)
+        torch.cuda.synchronize()
+        assert dispatch.launches("ssm_scan") == 1
+        y_w, h_w = ssm_scan_plain(*args, chunk=256)
+        torch.testing.assert_close(y, y_w, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(h, h_w, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_case(case, dtype, seed, with_h, every=CKPT_EVERY):
+    args = _scan_inputs(*case, dtype, seed=seed, strided=True)
+    _, _, ckpt = ssm_scan_plain(*args, ckpt_every=every)
+    r = torch.Generator(device="cuda").manual_seed(seed + 1)
+    Bsz, S, di, N = case
+    gy = torch.randn(Bsz, S, di, generator=r, device="cuda")
+    gh = (torch.randn(Bsz, di, N, generator=r, device="cuda") if with_h
+          else None)
+    return (*args, gy, gh, ckpt)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("with_h", [True, False])
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype, tol, with_h):
+    bargs = _bwd_case(case, dtype, 5, with_h)
+    got = ssm_scan_bwd(*bargs, ckpt_every=CKPT_EVERY)
+    torch.cuda.synchronize()
+    assert dispatch.launches("ssm_scan_bwd") == 1
+    want = ssm_scan_bwd_plain(*bargs, ckpt_every=CKPT_EVERY)
+    assert dispatch.launches("ssm_scan_bwd") == 1   # the twin: no launch
+    for name, g, w, x in zip("u dt A B C D".split(), got, want, bargs):
+        assert g.dtype == w.dtype == x.dtype and g.shape == x.shape, name
+        # relative to the gradient's size: dA, dD sum B·S terms
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * scale, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("every", [1, 7, 32])
+def test_ssm_scan_bwd_kernel_at_other_checkpoint_spacings(cuda, every):
+    bargs = _bwd_case((2, 100, 200, 16), torch.float32, 9, True, every)
+    got = ssm_scan_bwd(*bargs, ckpt_every=every)
+    want = ssm_scan_bwd_plain(*bargs, ckpt_every=every)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_ssm_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    u, dt, A, B, C, D, gy, gh, ck = _bwd_case((2, 10, 40, 16), torch.float32,
+                                              0, True)
+    bad = [
+        (TypeError, (u.double(), dt, A, B, C, D, gy, gh, ck), CKPT_EVERY),
+        (TypeError, (u, dt.to(torch.bfloat16), A, B, C, D, gy, gh, ck),
+         CKPT_EVERY),
+        (ValueError, (u, dt, A, B.cpu(), C, D, gy, gh, ck), CKPT_EVERY),
+        (ValueError, (u, dt, A, B, C, D, gy.cpu(), gh, ck), CKPT_EVERY),
+        (ValueError, (u, dt, A, B, C, D, gy[:, :5], gh, ck), CKPT_EVERY),
+        (ValueError, (u, dt, A, B, C, D, gy, gh[:, :, :8], ck), CKPT_EVERY),
+        (ValueError, (u, dt, A, B, C, D, gy, gh, ck), 3),   # 4 chunks
+        (ValueError, (u, dt, A, B, C, D, gy, gh, ck.double()), CKPT_EVERY),
+        (ValueError, (u, dt, A, B, C, D, gy, gh, ck), 0),
+        (ValueError, (u, dt, A, B, C, D, gy, gh,
+                      ssm_scan_plain(u, dt, A, B, C, D, ckpt_every=100)[2]),
+         100),                       # more shared memory than a block has
+        (ValueError, (u.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                      B, C, D, gy, gh, ck), CKPT_EVERY),
+    ]
+    for err, args, every in bad:
+        with pytest.raises(err):
+            ssm_scan_bwd(*args, ckpt_every=every)
+    assert dispatch.launches("ssm_scan_bwd") == 0
+
+
 @pytest.mark.parametrize("with_h", [True, False])
 def test_selective_scan_fn_gradient_matches_plain_autograd(cuda, with_h):
     args = _scan_inputs(2, 70, 96, 16, torch.float32, seed=3, strided=True)
@@ -567,9 +672,56 @@ def test_selective_scan_fn_gradient_matches_plain_autograd(cuda, with_h):
 
     got = torch.autograd.grad(loss(*SelectiveScanFn.apply(*leaves)), leaves)
     assert dispatch.launches("ssm_scan") == 1
+    assert dispatch.launches("ssm_scan_bwd") == 1
     want = torch.autograd.grad(loss(*selective_scan_ref(*leaves)), leaves)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_selective_scan_fn_launches_one_forward_and_one_backward(cuda):
+    """Strided B and C (the model's slices) in bf16: one launch of each
+    kernel, gradients in the inputs' dtypes, no launch without a grad."""
+    args = _scan_inputs(1, 129, 3200, 16, torch.bfloat16, strided=True)
+    with torch.no_grad():
+        SelectiveScanFn.apply(*args)
+    assert dispatch.stats()["by_kernel"] == {"ssm_scan": 1}
+    dispatch.clear()
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, h = SelectiveScanFn.apply(*leaves)
+    grads = torch.autograd.grad(y.sum() + h.sum(), leaves)
+    torch.cuda.synchronize()
+    assert dispatch.stats()["by_kernel"] == {"ssm_scan": 1,
+                                             "ssm_scan_bwd": 1}
+    assert [g.dtype for g in grads] == [a.dtype for a in args]
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+def test_selective_scan_fn_splits_a_long_sequence(cuda):
+    """Few channel tiles and a long S, as a batch of one at S 4096 gives
+    hymba-1.5b's layers: the autograd function's forward takes the split
+    time axis (each segment's checkpoints from its true carry-in), and its
+    gradients agree with the twins' from the unsplit scan."""
+    Bsz, S, di, N = 1, 2048, 256, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert scan_segments(Bsz, S, di, N, sms) > 1
+    args = _scan_inputs(Bsz, S, di, N, torch.float32, seed=7, strided=True)
+    leaves = [t.detach().requires_grad_() for t in args]
+    gy = torch.randn(Bsz, S, di, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(8))
+    y, h = SelectiveScanFn.apply(*leaves)
+    got = torch.autograd.grad((y * gy).sum() + h.sum(), leaves)
+    torch.cuda.synchronize()
+    assert dispatch.stats()["by_kernel"] == {"ssm_scan": 1,
+                                             "ssm_scan_bwd": 1}
+    y_w, h_w, ckpt = ssm_scan_plain(*args, chunk=256, ckpt_every=CKPT_EVERY)
+    torch.testing.assert_close(y, y_w, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_w, rtol=1e-4, atol=1e-4)
+    want = ssm_scan_bwd_plain(*args, gy, torch.ones_like(h_w), ckpt,
+                              ckpt_every=CKPT_EVERY)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g / scale, w / scale, rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_hymba_sync_train_launches_the_scan_per_layer_and_gradient(cuda):
@@ -581,4 +733,5 @@ def test_hymba_sync_train_launches_the_scan_per_layer_and_gradient(cuda):
     assert all(np.isfinite(res["losses"])) and res["mass_rel"] < 1e-4
     # 2 layers x 4 nodes x (init + 2 rounds)
     assert dispatch.stats()["by_kernel"] == {"ssm_scan": 2 * 4 * 3,
+                                             "ssm_scan_bwd": 2 * 4 * 3,
                                              "commit_grid": 2}
