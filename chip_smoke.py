@@ -104,8 +104,38 @@ run.  Phases:
    ``call_ms``), and ``SelectiveScanFn`` forward + backward (both
    kernels, through autograd) as one SSM layer's gradient pays it.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``.
+17. event oracle — the port's ``run_rfast(mode="event")`` (snapshot
+   histories, no kernel) and ``run_rfast(mode="wavefront",
+   impl="kernel")`` at full-width rfast-100m on phase 4's schedule (4
+   nodes, binary tree, uniform, K = 16, batch 4 × 128), one after the
+   other, the first's x, v, z, g_prev, ρ and ρ̃ kept: both engines draw
+   the same gradients, so every field agrees to 1e-4 of its largest
+   entry; the event run launches no ``commit_grid``, the wavefront run
+   one per wave;
+18. fleet sweep — (a) ``run_sweep`` over 8 lanes (``straggler`` and
+   ``packet_loss`` × seeds 0–3) of the paper's logistic regression
+   (``make_logistic_problem`` at its defaults, label-sorted shards, 7
+   nodes on a binary tree, K = 7000, eval every 1000): one
+   ``commit_grid`` launch per fleet wave (fewer than the lanes' waves
+   summed), every lane equal to ``run_rfast`` of its schedule and seed
+   to 1e-5, each lane's loss, accuracy and time to the loss target;
+   the fleet's widest wave's ``commit_grid`` (Pf = 785) held to its
+   plain twin and timed; and a short fleet (``TRACE_K`` events a lane)
+   run under ``torch.profiler`` for the card's busy share of its span;
+   (b) two lanes at rfast-100m's width cut to 2 layers (uniform, seeds 0
+   and 1, K = 16), held the same way, and one fleet wave's
+   ``commit_grid`` (its widest) timed beside its bytes bound;
+19. baselines — the six runners of ``core/baselines.py`` on phase 18's
+   logistic problem under the straggler scenario (300 rounds, or 2100
+   events), each with its final loss, accuracy, first virtual time at
+   the loss target and wall seconds, beside the R-FAST straggler lanes
+   of phase 18; each runner's card run held to its CPU run at a small
+   key-free size (batch 0, 20 rounds or 140 events) to 1e-5.
+
+Each of phases 17–19 prints its wall seconds, peak memory and
+``commit_grid`` launches (counters zeroed just before a run and read
+just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
+line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -188,6 +218,25 @@ SCAN_TRAIN = ("hymba-1.5b train", (4, 128, 3200, 16), 100)
 SCAN_TIMED = [SCAN_TRAIN, ("hymba-1.5b op", (1, 4096, 3200, 16), 100),
               ("falcon-mamba-7b op", (1, 4096, 8192, 16), 256)]
 HYMBA_LAYERS = 2             # of hymba-1.5b's 32, at full width
+# phases 17-19: the engines, the fleet sweep and the baselines
+STATE_FIELDS = ("x", "v", "z", "g_prev", "rho", "rho_buf")
+EVENT_TOL = 1e-4             # event vs wavefront, of each field's max
+FLEET_TOL = 1e-5             # fleet lane vs run_rfast, card vs CPU runs
+LOGISTIC_N = 7               # the paper's §VI-A experiment: 7 nodes,
+LOGISTIC_GAMMA = 1e-3        # make_logistic_problem's defaults (m 12000,
+FLEET_K = 7000               # d 784, batch 32), label-sorted shards
+FLEET_EVAL = 1000
+TRACE_K = 500                # events a lane of the traced short fleet
+FLEET_LANES = [(sc, seed) for sc in ("straggler", "packet_loss")
+               for seed in range(4)]
+LOSS_TARGET = 2e-3           # mean loss that time-to-target reads
+SYNC_ROUNDS = 300            # the sync baselines' rounds, and the async
+ASYNC_K = 2100               # ones' events: 2100 gradients each
+# (runner, topology): the graphs the reference's benches give each
+# baseline (benchmarks/bench_straggler.py); push-pull on R-FAST's tree
+BASELINES = [("push_pull_sync", "binary_tree"), ("sab", "directed_ring"),
+             ("ring_allreduce", None), ("dpsgd", "undirected_ring"),
+             ("adpsgd", "undirected_ring"), ("osgp", "directed_ring")]
 HYMBA_ARGS = ["--arch", "hymba-1.5b", "--nodes", "4", "--topology",
               "binary_tree", "--steps", "3", "--batch-per-node", "4",
               "--seq", "128", "--seed", "0", "--log-every", "1", "--impl",
@@ -356,6 +405,91 @@ def compare_grid(kw, tol) -> float:
         if g.numel():
             err = max(err, float((g.float() - w.float()).abs().max()))
     return err
+
+
+def fleet_wave_case(sp, seeds, n: int, p: int, seed: int):
+    """``commit_grid``'s arguments at a fleet's widest wave: that wave's
+    row tables (from ``wave_inputs`` of the flattened plan ``sp``) over
+    random sources with the fleet's row counts, at width ``p``."""
+    import torch
+    from repro_torch.core.simulator import wave_inputs
+    S = len(seeds)
+    w = max(wave_inputs(sp.fleet, sp.ko, "cuda", seeds),
+            key=lambda w: w.agent.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda r: torch.randn(r, p, generator=gen, device="cuda")
+    nodes, hist, rho2 = rnd(S * n * 4), rnd(sp.H * S * sp.e_a), rnd(
+        2 * S * sp.e_a)
+    B = w.agent.shape[0]
+    kw = dict(zip(("idx_z", "idx_g", "idx_ri", "idx_rb", "idx_ro"), w.grid),
+              a_self=w.a_self, mask=w.a_val, a_out=w.out_wt, z_src=nodes,
+              g_new=rnd(B), go_src=nodes, ri_src=hist, rb_src=rho2,
+              ro_src=rho2)
+    return kw, dict(B=B, ka=w.grid[2].shape[1], ko=w.grid[4].shape[1], Pf=p,
+                    rows={"nodes": S * n * 4, "rho_hist": sp.H * S * sp.e_a,
+                          "rho2": 2 * S * sp.e_a})
+
+
+def time_fleet_wave(kw, case) -> dict:
+    """One fleet wave's ``commit_grid`` against its plain twin (max abs
+    error, raising past ``FP32_TOL``), both timed, beside its bound."""
+    from repro_torch.kernels.rfast_update import grid
+    err = compare_grid(kw, FP32_TOL)
+    ms = cuda_ms(lambda: grid.commit_grid(**kw), reps=10)
+    plain_ms = cuda_ms(lambda: grid.commit_grid_plain(**kw), reps=5)
+    B, ka, ko, Pf = case["B"], case["ka"], case["ko"], case["Pf"]
+    nbytes = grid.commit_grid_bytes(B, ka, ko, Pf, 4)
+    flops = B * Pf * (4 * ka + 2 * ko + 4)
+    bound_ms, bound_by = bound(flops, nbytes, FP32_FLOP_PER_S)
+    return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms,
+                achieved_gb_s=nbytes / ms / 1e6, max_abs_err=err)
+
+
+def device_busy(fn) -> dict:
+    """Run ``fn()`` under ``torch.profiler`` and measure the share of its
+    span (a user annotation around it, the card synchronized inside) in
+    which the card ran a kernel, a copy or a memset: the union of their
+    intervals in the trace.  ``device_busy_share`` is None when the trace
+    holds no device events."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_span"):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "traced_span"
+            and e.get("cat") == "user_annotation"]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not span or not dev:
+        return dict(device_busy_share=None, device_events=len(dev),
+                    note="not measured: no span or no device events")
+    t0 = float(span[0]["ts"])
+    t1 = t0 + float(span[0]["dur"])
+    busy, cur = 0.0, None
+    for a, b in dev:
+        a, b = max(a, t0), min(b, t1)
+        if b <= a:
+            continue
+        if cur is not None and a <= cur[1]:
+            cur[1] = max(cur[1], b)
+            continue
+        if cur is not None:
+            busy += cur[1] - cur[0]
+        cur = [a, b]
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return dict(span_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / (t1 - t0), device_events=len(dev))
 
 
 # --------------------------------------------------------------------- #
@@ -766,6 +900,64 @@ def state_rel(a, b) -> float:
     return max(float(torch.linalg.vector_norm(u - w)
                      / torch.linalg.vector_norm(w).clamp_min(1e-30))
                for u, w in zip(a, b))
+
+
+# --------------------------------------------------------------------- #
+# engines, fleets and baselines
+# --------------------------------------------------------------------- #
+def field_rel(got, want) -> dict:
+    """Per state field, the largest difference over the field's largest
+    entry (``got``/``want``: RFASTStates or dicts of their fields)."""
+    pick = lambda st, f: st[f] if isinstance(st, dict) else getattr(st, f)
+    out = {}
+    for f in STATE_FIELDS:
+        a, b = pick(got, f).float(), pick(want, f).float().to(
+            pick(got, f).device)
+        out[f] = float((a - b).abs().max()
+                       / b.abs().max().clamp_min(1e-30))
+    return out
+
+
+def state_rows(n: int, e_a: int, H: int, S: int = 1) -> int:
+    """Rows of p floats an R-FAST state holds: x, v, z, g_prev per node,
+    ρ and ρ̃ per A-edge, and H history rows of each (S lanes)."""
+    return S * (4 * n + 2 * e_a + H * (n + e_a))
+
+
+def lemma3_rel(st) -> float:
+    import torch
+    g = st.g_prev.sum(0)
+    return float(torch.linalg.vector_norm(
+        st.z.sum(0) + (st.rho - st.rho_buf).sum(0) - g)
+        / torch.linalg.vector_norm(g).clamp_min(1e-30))
+
+
+def time_to(metrics, target):
+    """First virtual time at which the eval's mean loss is at most
+    ``target`` (None if it never is)."""
+    return next((m["t"] for m in metrics if m["loss"] <= target), None)
+
+
+def logistic_eval(prob):
+    """eval_fn of the engines and baselines: mean loss and accuracy of
+    the node average (or of the single model)."""
+    def ev(x, t):
+        x = getattr(x, "x", x)
+        xb = x.mean(0) if x.dim() == 2 else x
+        return {"loss": float(prob.mean_loss(xb)),
+                "acc": float(prob.accuracy(xb)), "t": t}
+    return ev
+
+
+def run_baseline(name, topo, prob, size, device, **kw):
+    """One baseline runner on ``prob`` from x0 = 0: ``size`` rounds
+    (sync) or events (async)."""
+    import torch
+    from repro_torch.core import baselines
+    first = LOGISTIC_N if name == "ring_allreduce" else topo
+    return getattr(baselines, f"run_{name}")(
+        first, prob.grad_fn(), torch.zeros(prob.p, device=device),
+        LOGISTIC_GAMMA, size, device=device, **kw)
 
 
 # --------------------------------------------------------------------- #
@@ -1413,23 +1605,269 @@ def main() -> int:
         del sargs, bargs, ckpt
     torch.cuda.empty_cache()
 
+    # 17. the event oracle at full width ----------------------------------
+    from repro_torch.core.plan import build_comm_plan
+    from repro_torch.core.simulator import run_sweep, sweep_plan
+    topo4 = get_topology("binary_tree", 4)
+    sched4 = get_scenario("uniform", 4).realize(topo4, 16, seed=0).schedule
+    plan_4 = build_comm_plan(topo4)
+    # full width and depth (phase 9 rebound ``cfg`` to a flash shape)
+    prob = make_lm_problem(get_config("rfast-100m"), 4, batch_per_node=4,
+                           seq_len=128, seed=0, device="cuda")
+    H4, e_a4 = int(sched4.D) + 2, max(1, plan_4.n_edges_a)
+    rows = state_rows(4, e_a4, H4)
+    emit("event_oracle_plan", p=prob.p, events=sched4.K, H=H4, e_a=e_a4,
+         state_rows=rows, state_gb=rows * prob.p * 4 / 1e9,
+         kept_rows=4 * 4 + 2 * e_a4)
+    oracle, kept = {}, None
+    for mode, impl in (("event", "plain"), ("wavefront", "kernel")):
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        st, om = run_rfast(topo4, sched4, prob, prob.x0_flat, 3e-3, seed=0,
+                           mode=mode, impl=impl, eval_fn=lambda s_, t: {},
+                           device="cuda")
+        torch.cuda.synchronize()
+        oracle[mode] = dict(
+            wall_s=time.perf_counter() - t0,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            commit_grid_launches=dispatch.launches("commit_grid"),
+            waves=sum(m.get("waves", 0) for m in om),
+            lemma3_rel=lemma3_rel(st))
+        if kept is None:
+            kept = {f: getattr(st, f).clone() for f in STATE_FIELDS}
+        else:
+            oracle_rel = field_rel(st, kept)
+        del st
+        torch.cuda.empty_cache()
+    emit("event_oracle", p=prob.p, events=sched4.K, runs=oracle,
+         rel_wavefront_vs_event=oracle_rel, tol=EVENT_TOL, device=name,
+         nvidia_smi=smi)
+    check(oracle["event"]["commit_grid_launches"] == 0,
+          "the event engine launches no kernel")
+    check(oracle["wavefront"]["commit_grid_launches"]
+          == oracle["wavefront"]["waves"] > 0,
+          "the wavefront engine launches commit_grid once per wave")
+    check(max(oracle_rel.values()) <= EVENT_TOL,
+          f"event and wavefront engines agree to {EVENT_TOL}: {oracle_rel}")
+    check(all(r["lemma3_rel"] <= 1e-4 for r in oracle.values()),
+          "Lemma-3 residual <= 1e-4 in both engines")
+    del kept, prob
+    torch.cuda.empty_cache()
+
+    # 18. the fleet sweep: (a) the logistic fleet --------------------------
+    from repro_torch.data.objectives import make_logistic_problem
+    lprob = make_logistic_problem(LOGISTIC_N, heterogeneous=True,
+                                  device="cuda")
+    ltopo = get_topology("binary_tree", LOGISTIC_N)
+    lscheds = [get_scenario(sc, LOGISTIC_N).realize(ltopo, FLEET_K,
+                                                   seed=seed).schedule
+               for sc, seed in FLEET_LANES]
+    lseeds = [seed for _, seed in FLEET_LANES]
+    lev = logistic_eval(lprob)
+    lx0 = torch.zeros(lprob.p, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    fstates, fmetrics = run_sweep(
+        [ltopo] * len(FLEET_LANES), lscheds, lprob, lx0, LOGISTIC_GAMMA,
+        seeds=lseeds, eval_every=FLEET_EVAL, eval_fn=lev, device="cuda")
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    fleet_peak = torch.cuda.max_memory_allocated() / 1e9
+    fleet_launches = dispatch.launches("commit_grid")
+    fleet_waves = sum(m["waves"] for m in fmetrics[0])
+    ffinal = [{f: getattr(st, f).clone() for f in STATE_FIELDS}
+              for st in fstates]
+    del fstates
+    lane_rows, lane_waves, lane_wall = [], 0, 0.0
+    for s_, ((sc, seed), sched) in enumerate(zip(FLEET_LANES, lscheds)):
+        dispatch.clear()
+        t0 = time.perf_counter()
+        ref, _ = run_rfast(ltopo, sched, lprob, lx0, LOGISTIC_GAMMA,
+                           seed=seed, eval_every=FLEET_EVAL, device="cuda")
+        torch.cuda.synchronize()
+        lane_wall += time.perf_counter() - t0
+        lane_waves += dispatch.launches("commit_grid")
+        ms_ = fmetrics[s_]
+        lane_rows.append(dict(
+            scenario=sc, seed=seed, loss_final=ms_[-1]["loss"],
+            acc_final=ms_[-1]["acc"], vtime=ms_[-1]["t"],
+            time_to_target=time_to(ms_, LOSS_TARGET),
+            losses=[m["loss"] for m in ms_],
+            rel_vs_run_rfast=max(field_rel(ffinal[s_], ref).values())))
+        del ref
+    fleet_err = max(r["rel_vs_run_rfast"] for r in lane_rows)
+    emit("fleet_logistic", lanes=len(FLEET_LANES), n=LOGISTIC_N,
+         events=FLEET_K, p=lprob.p, rows=lprob.n * lprob.X.shape[1],
+         batch=lprob.batch,
+         gamma=LOGISTIC_GAMMA, eval_every=FLEET_EVAL, fleet_waves=fleet_waves,
+         commit_grid_launches=fleet_launches, lane_waves_sum=lane_waves,
+         wall_s=fleet_wall, lanes_run_rfast_wall_s=lane_wall,
+         max_memory_allocated_gb=fleet_peak, max_rel_err=fleet_err,
+         tol=FLEET_TOL, loss_target=LOSS_TARGET, lane_results=lane_rows,
+         device=name, nvidia_smi=smi)
+    check(fleet_launches == fleet_waves > 0,
+          "one commit_grid launch per fleet wave")
+    check(fleet_waves < lane_waves,
+          "the fleet runs fewer waves than its lanes alone")
+    check(fleet_err <= FLEET_TOL,
+          f"every lane equals run_rfast(seed) to {FLEET_TOL}: {fleet_err}")
+    check(all(math.isfinite(r["loss_final"]) for r in lane_rows),
+          "finite lane losses")
+    del ffinal
+    # the kernel at the logistic fleet's own shapes: its widest fleet
+    # wave (Pf = 785) against the plain twin
+    lsp = sweep_plan([build_comm_plan(ltopo)] * len(FLEET_LANES), lscheds,
+                     FLEET_EVAL)
+    lkw, lcase = fleet_wave_case(lsp, lseeds, LOGISTIC_N, lprob.p, seed=3)
+    lwave = time_fleet_wave(lkw, lcase)
+    emit("fleet_logistic_wave_timing", kernel="commit_grid", **lcase,
+         **lwave, library_ms=None, device=name, nvidia_smi=smi)
+    del lkw
+    # the device's busy share over one traced short fleet (TRACE_K events
+    # a lane), beside the same fleet's untraced wall
+    tscheds = [get_scenario(sc, LOGISTIC_N).realize(ltopo, TRACE_K,
+                                                   seed=seed).schedule
+               for sc, seed in FLEET_LANES]
+    tfleet = lambda: run_sweep([ltopo] * len(FLEET_LANES), tscheds, lprob,
+                               lx0, LOGISTIC_GAMMA, seeds=lseeds,
+                               device="cuda")
+    t0 = time.perf_counter()
+    tfleet()
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    busy = device_busy(tfleet)
+    emit("fleet_logistic_trace", lanes=len(FLEET_LANES), events=TRACE_K,
+         untraced_wall_s=untraced_s, **busy, device=name, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
+    # 18. (b) the fleet at a real row width: rfast-100m at 2 layers --------
+    prob2 = make_lm_problem(cfg2, 4, batch_per_node=4, seq_len=128, seed=0,
+                            device="cuda")
+    scheds2 = [get_scenario("uniform", 4).realize(topo4, 16,
+                                                  seed=s_).schedule
+               for s_ in (0, 1)]
+    S2 = len(scheds2)
+    sp = sweep_plan([plan_4] * S2, scheds2, 16)
+    rows2 = state_rows(4, sp.e_a, sp.H, S=S2)
+    emit("fleet_lm_plan", p=prob2.p, lanes=S2, events=16, H=sp.H,
+         e_a=sp.e_a, state_rows=rows2, state_gb=rows2 * prob2.p * 4 / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    states2, metrics2 = run_sweep([topo4] * S2, scheds2, prob2,
+                                  prob2.x0_flat, 3e-3, seeds=[0, 1],
+                                  eval_fn=lambda s_, t: {}, device="cuda")
+    torch.cuda.synchronize()
+    lm_wall = time.perf_counter() - t0
+    lm_peak = torch.cuda.max_memory_allocated() / 1e9
+    lm_launches = dispatch.launches("commit_grid")
+    lm_waves = sum(m["waves"] for m in metrics2[0])
+    lm_rel = []
+    for s_ in range(S2):
+        ref, _ = run_rfast(topo4, scheds2[s_], prob2, prob2.x0_flat, 3e-3,
+                           seed=s_, device="cuda")
+        lm_rel.append(field_rel(states2[s_], ref))
+        del ref
+        torch.cuda.empty_cache()
+    del states2
+    torch.cuda.empty_cache()
+    emit("fleet_lm", p=prob2.p, lanes=S2, events=16, fleet_waves=lm_waves,
+         commit_grid_launches=lm_launches, wall_s=lm_wall,
+         max_memory_allocated_gb=lm_peak, rel_vs_run_rfast=lm_rel,
+         tol=FLEET_TOL, device=name, nvidia_smi=smi)
+    check(lm_launches == lm_waves > 0, "one commit_grid launch per fleet "
+          "wave at rfast-100m width")
+    check(max(max(r.values()) for r in lm_rel) <= FLEET_TOL,
+          f"rfast-100m fleet lanes equal run_rfast(seed) to {FLEET_TOL}")
+    # one fleet wave's commit_grid: the widest wave's tables over sources
+    # with the fleet's row counts, at the model's width
+    fkw, fcase = fleet_wave_case(sp, [0, 1], 4, prob2.p, seed=2)
+    fwave = time_fleet_wave(fkw, fcase)
+    emit("fleet_wave_timing", kernel="commit_grid", **fcase, **fwave,
+         library_ms=None, device=name, nvidia_smi=smi)
+    del fkw, prob2
+    torch.cuda.empty_cache()
+
+    # 19. the baselines on the card, beside the R-FAST lanes ---------------
+    topos7 = {t: get_topology(t, LOGISTIC_N) for t in
+              ("binary_tree", "directed_ring", "undirected_ring")}
+    straggler = get_scenario("straggler", LOGISTIC_N)
+    small = {dev: make_logistic_problem(LOGISTIC_N, m=700, d=16, batch=0,
+                                        heterogeneous=True, device=dev)
+             for dev in ("cuda", "cpu")}
+    base_rows = {}
+    for bname, tname in BASELINES:
+        sync = bname in ("push_pull_sync", "sab", "ring_allreduce", "dpsgd")
+        topo_b = topos7.get(tname)
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        _, bm = run_baseline(
+            bname, topo_b, lprob, SYNC_ROUNDS if sync else ASYNC_K, "cuda",
+            scenario=straggler, eval_every=10 if sync else 70, eval_fn=lev)
+        torch.cuda.synchronize()
+        row = dict(
+            topology=tname, rounds=SYNC_ROUNDS if sync else None,
+            events=None if sync else ASYNC_K, wall_s=time.perf_counter() - t0,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=dispatch.stats()["launches"],
+            loss_final=bm[-1]["loss"], acc_final=bm[-1]["acc"],
+            vtime=bm[-1]["t"], time_to_target=time_to(bm, LOSS_TARGET))
+        # the card run against the CPU run at a small key-free size
+        finals = [run_baseline(bname, topos7.get(tname), small[dev],
+                               20 if sync else 140, dev,
+                               scenario=straggler)[0].cpu()
+                  for dev in ("cuda", "cpu")]
+        row["rel_card_vs_cpu"] = float(
+            (finals[0] - finals[1]).abs().max()
+            / finals[1].abs().max().clamp_min(1e-30))
+        base_rows[bname] = row
+    rfast_lanes = [r for r in lane_rows if r["scenario"] == "straggler"]
+    emit("baselines", scenario="straggler", n=LOGISTIC_N, p=lprob.p,
+         gamma=LOGISTIC_GAMMA, loss_target=LOSS_TARGET, runners=base_rows,
+         rfast_lanes=[{k: r[k] for k in ("seed", "loss_final", "acc_final",
+                                         "vtime", "time_to_target")}
+                      for r in rfast_lanes],
+         rfast_fleet_wall_s=fleet_wall, tol=FLEET_TOL, device=name,
+         nvidia_smi=smi)
+    check(all(math.isfinite(r["loss_final"]) for r in base_rows.values()),
+          "finite baseline losses")
+    check(all(r["launches"] == 0 for r in base_rows.values()),
+          "the baselines launch no kernel")
+    check(all(r["rel_card_vs_cpu"] <= FLEET_TOL for r in base_rows.values()),
+          f"every baseline's card run equals its CPU run to {FLEET_TOL}: "
+          f"{ {k: r['rel_card_vs_cpu'] for k, r in base_rows.items()} }")
+    del lprob, small
+    torch.cuda.empty_cache()
+
+    grid_paths = {
+        "async_train": launches.get("commit_grid", 0),
+        **{f"sync_train_{t}": v.get("commit_grid", 0)
+           for t, v in sync_launches.items()},
+        **{f"hymba_sync_train_{t}": v.get("commit_grid", 0)
+           for t, v in hymba_launches.items()},
+        "event_oracle": oracle["event"]["commit_grid_launches"],
+        "event_oracle_wavefront": oracle["wavefront"]["commit_grid_launches"],
+        "fleet_logistic": fleet_launches, "fleet_lm": lm_launches}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/rfast_update/grid.py:192",
-        "launches": launches.get("commit_grid", 0)
-        + sum(v.get("commit_grid", 0) for v in sync_launches.values())
-        + sum(v.get("commit_grid", 0) for v in hymba_launches.values()),
-        "launches_by_path": {"async_train": launches.get("commit_grid", 0),
-                             **{f"sync_train_{t}": v.get("commit_grid", 0)
-                                for t, v in sync_launches.items()},
-                             **{f"hymba_sync_train_{t}":
-                                v.get("commit_grid", 0)
-                                for t, v in hymba_launches.items()}},
-        "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": sum(grid_paths.values()),
+        "launches_by_path": grid_paths,
+        "max_abs_err": max(main_err, fwave["max_abs_err"],
+                           lwave["max_abs_err"]),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "round_shape": {"ms": round_ms, "plain_ms": round_plain_ms,
-                        "bound_ms": round_bound}}]
+                        "bound_ms": round_bound},
+        "fleet_wave_shape": {k: v for k, v in {**fcase, **fwave}.items()
+                             if k != "rows"},
+        "fleet_logistic_wave_shape": {k: v for k, v in {**lcase,
+                                                       **lwave}.items()
+                                      if k != "rows"}}]
     for kname, src, rep in (
             ("flash_fwd_3xtf32", fa_fwd.KERNEL_SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:85"),

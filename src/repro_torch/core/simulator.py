@@ -1,19 +1,31 @@
-"""Global-view (Algorithm 2) R-FAST engine, wavefront mode.
+"""Global-view (Algorithm 2) R-FAST engines: wavefront, event-serial,
+and the fleet sweep.
 
-Counterpart of ``src/repro/core/simulator.py`` (``mode="wavefront"``).
-The schedule is compiled on the host
-(:func:`repro_torch.core.schedule.build_wavefront_plan`) into waves of
-events with distinct agents whose payload stamps predate the wave; each
-wave runs the per-agent update for all its lanes at once and commits
-O(p) delta rows into the history rings.  The formulas live in
-:mod:`repro_torch.core.protocol`.
+Counterpart of ``src/repro/core/simulator.py``.  Three entry points run
+one realized schedule (or a fleet of them) over a flat parameter state;
+the formulas live in :mod:`repro_torch.core.protocol`.
 
-What differs from the JAX engine, and why:
+* ``run_rfast(mode="wavefront")`` (default) — the schedule is compiled
+  on the host (:func:`repro_torch.core.schedule.build_wavefront_plan`)
+  into waves of events with distinct agents whose payload stamps
+  predate the wave; each wave runs the per-agent update for all its
+  lanes at once and commits O(p) delta rows into the history rings.
+* ``run_rfast(mode="event")`` — one event at a time with full snapshot
+  commits of ``v`` and ``ρ`` after every event: the oracle the
+  wavefront engine is held to.  It runs no kernel.
+* :func:`run_sweep` — a fleet of S independent (topology, schedule,
+  seed) experiments as ONE wavefront run: the lanes' plans are padded
+  to shared maxima and flattened (``schedule.flatten_plans``) into
+  index-disjoint blocks of one width-S·B plan over the block-stacked
+  state ``(S·n, 4, p)``, so each fleet wave commits every lane in one
+  kernel launch.  Lane s reproduces ``run_rfast(seed=seeds[s])``.
+
+What differs from the JAX engines, and why:
 
 * **No scan, no padding to a chunk shape.** PyTorch runs eagerly, so a
   chunk is a Python loop over its waves, each wave only as wide as its
-  real lanes.  Pad lanes (agent ``n``) are dropped on the host: they
-  compute no gradient and commit nothing.
+  real lanes.  Pad lanes (the sentinel agent) are dropped on the host:
+  they compute no gradient and commit nothing.
 * **Commits are row copies.** JAX scatters with ``mode="drop"`` to skip
   sentinel rows; torch indexing would fault on them.  The commit writes
   each valid row with its own in-place copy, chosen from the host-side
@@ -22,24 +34,29 @@ What differs from the JAX engine, and why:
   values are computed out of place first, so the order of the copies
   does not matter.
 * **Generators, not keys.** The gradient of event ``k`` at node ``i``
-  draws from a ``torch.Generator`` seeded from ``(seed, k, i)``
-  (``k = -1`` for the initial gradients); ``wf.kidx`` carries ``k``.
-* **In-place state.** The packed state is updated in place (the JAX
-  engine donates it); :func:`unpack_state` returns views into it.
+  draws from a CPU ``torch.Generator`` seeded from ``(seed, k, i)``
+  (:func:`event_generator`; ``k = -1`` for the initial gradients) in
+  every engine, so the event and wavefront engines draw identical
+  gradients even for a stochastic objective, and fleet lane s draws
+  what ``run_rfast(seed=seeds[s])`` draws.
+* **In-place state.** The state is updated in place (the JAX engines
+  donate it); :func:`unpack_state` returns views into it.
 
-Two commit backends, selected with ``impl``:
+Two commit backends for the wavefront engines, selected with ``impl``:
 
 * ``"kernel"`` (default) — ONE :func:`~repro_torch.kernels.rfast_update.
   grid.commit_grid` launch per wave, gathering z, g_prev, the ρ-history
   payloads, ρ̃ and ρ-out rows from the flat packed state itself;
-* ``"plain"`` — the scatter/gather path in PyTorch ops.
+* ``"plain"`` — the scatter/gather path in PyTorch ops (the event
+  engine's only backend).
 
 State layout (flat parameter vectors, ``p`` = dimension):
 
 * ``nodes``    — (n, 4, p): rows x, v, z, g_prev per node;
 * ``rho2``     — (2·E_A, p): ρ rows then ρ̃ rows;
-* ``v_hist``   — (H, n, p) delta rows (writer count mod H, node);
-* ``rho_hist`` — (H, E_A, p) delta rows (sender count mod H, edge).
+* ``v_hist``   — (H, n, p): delta rows (writer count mod H, node) in
+  wavefront mode, snapshots of ``v`` after every event in event mode;
+* ``rho_hist`` — (H, E_A, p): likewise for ``ρ``.
 
 Mass-conservation invariant (Lemma 3)::
 
@@ -55,14 +72,17 @@ import torch
 from ..kernels.rfast_update import dispatch
 from ..kernels.rfast_update.grid import commit_grid
 from .paramvec import as_grad_fn
-from .plan import CommPlan, as_comm_plan
+from .plan import CommPlan, as_comm_plan, pad_comm_plan
 from .protocol import IMPLS, consensus_mix, descent_step, tracking_step
-from .schedule import Schedule, build_wavefront_plan, grid_gather_tables
+from .schedule import (Schedule, WavefrontPlan, build_wavefront_plan,
+                       concat_plans, flatten_plans, grid_gather_tables,
+                       pad_plan, slice_plan, stack_plans)
 from .topology import Topology
 
 __all__ = ["RFASTState", "PackedState", "init_state", "init_packed",
            "zeros_state", "pack_state", "unpack_state", "wave_inputs",
-           "event_generator", "run_rfast", "tracked_mass", "IMPLS"]
+           "event_generator", "rfast_scan", "run_rfast", "sweep_plan",
+           "run_sweep", "tracked_mass", "IMPLS"]
 
 
 class RFASTState(NamedTuple):
@@ -112,13 +132,19 @@ def init_packed(topo: Topology | CommPlan, x0: torch.Tensor, grad_fn,
     n = plan.n
     p = int(x0.shape[-1])
     st = _zeros_packed(n, max(1, plan.n_edges_a), p, H, x0.device)
-    x = st.nodes[:, 0]
-    x.copy_(x0.to(torch.float32).expand(n, p))
-    for i in range(n):
-        g = grad_fn(i, x[i], event_generator(seed, -1, i))
-        st.nodes[i, 2].copy_(g)
-        st.nodes[i, 3].copy_(g)
+    st.nodes[:, 0].copy_(x0.to(torch.float32).expand(n, p))
+    _paper_init(st.nodes, grad_fn, seed)
     return st
+
+
+def _paper_init(nodes: torch.Tensor, grad_fn, seed: int) -> None:
+    """z = g_prev = ∇f_i(x_i; ζ_i^0) for every node of an ``(n, 4, p)``
+    block whose x is set, node ``i`` drawing from
+    ``event_generator(seed, -1, i)``."""
+    for i in range(nodes.shape[0]):
+        g = grad_fn(i, nodes[i, 0], event_generator(seed, -1, i))
+        nodes[i, 2].copy_(g)
+        nodes[i, 3].copy_(g)
 
 
 def init_state(topo: Topology | CommPlan, x0: torch.Tensor, grad_fn,
@@ -128,11 +154,12 @@ def init_state(topo: Topology | CommPlan, x0: torch.Tensor, grad_fn,
 
 
 def zeros_state(topo: Topology | CommPlan, p: int, H: int, *,
-                device="cpu") -> RFASTState:
-    """All-zeros state of a run over ``topo`` at dimension ``p``."""
+                device=None) -> RFASTState:
+    """All-zeros state of a run over ``topo`` at dimension ``p``, on
+    ``device`` (``cuda`` unless the caller asks for another)."""
     plan = as_comm_plan(topo)
-    return unpack_state(
-        _zeros_packed(plan.n, max(1, plan.n_edges_a), p, H, device), 0)
+    return unpack_state(_zeros_packed(plan.n, max(1, plan.n_edges_a), p, H,
+                                      dispatch.resolve_device(device)), 0)
 
 
 def pack_state(state: RFASTState) -> PackedState:
@@ -159,9 +186,101 @@ def tracked_mass(state: RFASTState) -> torch.Tensor:
     return state.z.sum(dim=0) + (state.rho - state.rho_buf).sum(dim=0)
 
 
+# --------------------------------------------------------------------- #
+# event-serial engine (snapshot histories) — the equivalence oracle
+# --------------------------------------------------------------------- #
+class _EventTables(NamedTuple):
+    """One chunk's per-event read/write tables on the device, each row
+    holding the active agent's real edges first (``cw``/``ca``/``co`` of
+    them, by agent) and zero-weight pads after."""
+
+    rslot_v: torch.Tensor    # (C, kw) v_hist slot of each in-W payload
+    src_v: torch.Tensor      # (C, kw) its sender
+    w_in: torch.Tensor       # (C, kw) W[a, j]
+    rslot_rho: torch.Tensor  # (C, ka) rho_hist slot of each in-A payload
+    epos_in: torch.Tensor    # (C, ka) its A-edge
+    epos_out: torch.Tensor   # (C, ko) the agent's out-A edges
+    wt_out: torch.Tensor     # (C, ko) A[dst, a]
+
+
+def rfast_scan(topo: Topology | CommPlan, grad_fn, gamma: float, H: int, *,
+               seed: int = 0):
+    """Event-serial engine: ``run_chunk(state, agent, stamp_v, stamp_rho)
+    -> state`` runs one event per entry of ``agent`` in place on an
+    :class:`RFASTState` (e.g. :func:`init_state`), numbering the events
+    from ``state.k``.  Event ``k`` at agent ``a`` draws its gradient
+    from ``event_generator(seed, k, a)``; after it, the whole ``v`` and
+    ``ρ`` are written into history slot ``(k+1) % H``, so a payload
+    stamped ``s`` (the state after event ``s − 1``) is read at slot
+    ``s % H``.  The reference masks every edge of the graph per event;
+    this reads only the agent's own edges, which is the same sum."""
+    grad_fn = as_grad_fn(grad_fn)
+    plan = as_comm_plan(topo)
+    n = plan.n
+    # real edges per node (the plan's node tables put them first)
+    cw = np.bincount(plan.dst_w[:plan.n_edges_w], minlength=n)
+    ca = plan.in_a_val.sum(1).astype(np.int64)
+    co = plan.out_a_val.sum(1).astype(np.int64)
+
+    def tables(agent, stamp_v, stamp_rho, device) -> _EventTables:
+        rows = np.arange(agent.shape[0])[:, None]
+        dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
+                                            device=device)
+        return _EventTables(
+            rslot_v=dev(stamp_v[rows, plan.in_w_epos[agent]] % H, np.int64),
+            src_v=dev(plan.in_w_src[agent], np.int64),
+            w_in=dev(plan.in_w_wt[agent], np.float32),
+            rslot_rho=dev(stamp_rho[rows, plan.in_a_epos[agent]] % H,
+                          np.int64),
+            epos_in=dev(plan.in_a_epos[agent], np.int64),
+            epos_out=dev(plan.out_a_epos[agent], np.int64),
+            wt_out=dev(plan.out_a_wt[agent], np.float32))
+
+    def run_chunk(state: RFASTState, agent, stamp_v, stamp_rho) -> RFASTState:
+        agent = np.asarray(agent, np.int64)
+        t = tables(agent, np.asarray(stamp_v), np.asarray(stamp_rho),
+                   state.x.device)
+        k0 = int(state.k)
+        for j, a in enumerate(agent.tolist()):
+            k = k0 + j
+            # (S.1) local descent
+            v_new = descent_step(state.x[a], state.z[a], gamma)
+            # (S.2a) consensus pull over G(W) with stale payloads
+            c = int(cw[a])
+            vals_v = state.v_hist[t.rslot_v[j, :c], t.src_v[j, :c]]
+            x_a = consensus_mix(float(plan.w_diag[a]), v_new,
+                                t.w_in[j, :c, None], vals_v)
+            # (S.2b) robust gradient tracking
+            g_new = grad_fn(a, x_a, event_generator(seed, k, a))
+            c = int(ca[a])
+            e_in = t.epos_in[j, :c]
+            vals_rho = state.rho_hist[t.rslot_rho[j, :c], e_in]
+            recv = torch.sum(vals_rho - state.rho_buf[e_in], dim=0)
+            z_half = tracking_step(state.z[a], recv, g_new, state.g_prev[a])
+            # (S.2c) keep own share; push mass onto out-edges
+            c = int(co[a])
+            state.rho.index_add_(0, t.epos_out[j, :c],
+                                 t.wt_out[j, :c, None] * z_half)
+            # (S.4) buffers take the consumed values
+            state.rho_buf[e_in] = vals_rho
+            # commit, then snapshot v and ρ after event k
+            state.x[a].copy_(x_a)
+            state.v[a].copy_(v_new)
+            state.z[a].copy_(float(plan.a_diag[a]) * z_half)
+            state.g_prev[a].copy_(g_new)
+            state.v_hist[(k + 1) % H].copy_(state.v)
+            state.rho_hist[(k + 1) % H].copy_(state.rho)
+        return state._replace(k=k0 + agent.shape[0])
+
+    return run_chunk
+
+
+# --------------------------------------------------------------------- #
+# wavefront engine (delta histories)
+# --------------------------------------------------------------------- #
 class _WaveInputs(NamedTuple):
-    """One wave's lane tables, cut to its real lanes: device tensors for
-    the gathers and the kernel, host arrays for the row commits."""
+    """One wave's real lanes: device tensors for the gathers and the
+    kernel, host arrays for the row commits and the gradients."""
 
     agent: torch.Tensor      # (s,)
     w_self: torch.Tensor     # (s,)
@@ -175,41 +294,65 @@ class _WaveInputs(NamedTuple):
     rho_read: torch.Tensor   # (s, ko+ka) rho_gidx clamped into range
     out_wt: torch.Tensor     # (s, ko)
     grid: tuple              # commit_grid's five row tables
-    agent_h: np.ndarray      # (s,)
+    agent_h: np.ndarray      # (s,) state row of each lane's node
     wslot_h: np.ndarray      # (s,)
     rho_gidx_h: np.ndarray   # (s, ko+ka) with sentinel 2·e_a
-    kidx_h: np.ndarray       # (s,) event index of each lane
+    node_h: np.ndarray       # (s,) the node id the gradient sees
+    k_h: np.ndarray          # (s,) the event index within its experiment
+    seed_h: np.ndarray       # (s,) the experiment's seed
 
 
-def wave_inputs(wf, plan: CommPlan, device) -> list[_WaveInputs]:
-    """Per-wave lane tables of a WavefrontPlan.  Every device table is
-    moved once for the whole plan; a wave's tables are views of it."""
-    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-    i64 = lambda a: dev(np.asarray(a, np.int64))
-    f32 = lambda a: dev(np.asarray(a, np.float32))
-    grid = [dev(np.asarray(t, np.int32)) for t in grid_gather_tables(
-        wf.agent, wf.rslot_rho, wf.hist_epos, wf.rho_gidx,
-        e_a_flat=wf.e_a, ko=plan.ko)]
-    t = dict(agent=i64(wf.agent), w_self=f32(wf.w_self),
-             a_self=f32(wf.a_self), rslot_v=i64(wf.rslot_v),
-             src_v=i64(wf.src_v), w_in=f32(wf.w_in),
-             rslot_rho=i64(wf.rslot_rho), hist_epos=i64(wf.hist_epos),
-             a_val=f32(wf.a_val),
-             rho_read=i64(np.minimum(wf.rho_gidx, 2 * wf.e_a - 1)),
-             out_wt=f32(wf.out_wt))
+def wave_inputs(wf: WavefrontPlan, ko: int, device,
+                seeds=(0,)) -> list[_WaveInputs]:
+    """Per-wave real-lane tables of a WavefrontPlan: a single run's
+    (``seeds = (seed,)``) or a fleet's flattened plan (one seed per
+    lane).  A lane is real where its agent is not the sentinel ``wf.n``:
+    in a fleet wave lane s's real slots sit at ``[s·B, s·B + size_s)``
+    with its pads after them, so a wave is not cut to its first
+    ``sizes[w]`` lanes.  The real lanes of all waves are compacted on
+    the host and moved once; a wave's device tables are views of them.
+    ``ko`` is the (fleet-wide) max A out-degree.  For the gradient each
+    lane carries its experiment's view: node ``agent − s·n`` and event
+    ``kidx − s·K`` of experiment ``s = kidx // K``."""
+    S = len(seeds)
+    n_lane, K_lane = wf.n // S, wf.K // S
+    real = wf.agent != wf.n                                 # (NW, B)
+    off = np.concatenate([[0], np.cumsum(real.sum(1))])
+    cut = lambda a: np.ascontiguousarray(np.asarray(a)[real])
+    dev = lambda a, dt: torch.as_tensor(cut(a).astype(dt), device=device)
+    agent, kidx = cut(wf.agent).astype(np.int64), cut(wf.kidx)
+    lane = kidx // K_lane
+    grid = [torch.as_tensor(np.ascontiguousarray(g, np.int32), device=device)
+            for g in grid_gather_tables(
+                agent, cut(wf.rslot_rho), cut(wf.hist_epos),
+                cut(wf.rho_gidx), e_a_flat=wf.e_a, ko=ko)]
+    t = dict(agent=dev(wf.agent, np.int64),
+             w_self=dev(wf.w_self, np.float32),
+             a_self=dev(wf.a_self, np.float32),
+             rslot_v=dev(wf.rslot_v, np.int64),
+             src_v=dev(wf.src_v, np.int64),
+             w_in=dev(wf.w_in, np.float32),
+             rslot_rho=dev(wf.rslot_rho, np.int64),
+             hist_epos=dev(wf.hist_epos, np.int64),
+             a_val=dev(wf.a_val, np.float32),
+             rho_read=dev(np.minimum(wf.rho_gidx, 2 * wf.e_a - 1), np.int64),
+             out_wt=dev(wf.out_wt, np.float32))
+    h = dict(agent_h=agent, wslot_h=cut(wf.wslot),
+             rho_gidx_h=cut(wf.rho_gidx), node_h=agent - lane * n_lane,
+             k_h=kidx - lane * K_lane,
+             seed_h=np.asarray(seeds, np.int64)[lane])
     waves = []
     for w in range(wf.n_waves):
-        s = int(wf.sizes[w])
+        a, b = int(off[w]), int(off[w + 1])
         waves.append(_WaveInputs(
-            **{k: v[w, :s] for k, v in t.items()},
-            grid=tuple(g[w, :s] for g in grid),
-            agent_h=wf.agent[w, :s], wslot_h=wf.wslot[w, :s],
-            rho_gidx_h=wf.rho_gidx[w, :s], kidx_h=wf.kidx[w, :s]))
+            **{k: v[a:b] for k, v in t.items()},
+            grid=tuple(g[a:b] for g in grid),
+            **{k: v[a:b] for k, v in h.items()}))
     return waves
 
 
 def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
-               ko: int, impl: str, seed: int) -> None:
+               ko: int, impl: str) -> None:
     """One wave, in place: ``s`` independent per-agent updates (distinct
     agents, pre-wave reads only), committed as disjoint row copies."""
     nodes, rho2, v_hist, rho_hist = state
@@ -229,9 +372,9 @@ def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
     # (S.2b) gradient at the mixed point, one lane at a time ------------
     g_new = torch.empty_like(x_a)
     for b in range(s):
-        g_new[b] = grad_fn(int(w.agent_h[b]), x_a[b],
-                           event_generator(seed, int(w.kidx_h[b]),
-                                           int(w.agent_h[b])))
+        node = int(w.node_h[b])
+        g_new[b] = grad_fn(node, x_a[b], event_generator(
+            int(w.seed_h[b]), int(w.k_h[b]), node))
 
     if impl == "kernel":
         # one fused launch for the whole wave over the flat state rows
@@ -269,6 +412,12 @@ def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
                 rho2[row].copy_(buf_new[b, j - ko])
 
 
+def _chunk_waves(wf: WavefrontPlan, K: int, eval_every: int) -> list[int]:
+    """Wave bounds of the eval chunks (waves never cross a boundary)."""
+    return [int(np.searchsorted(wf.event_start, s))
+            for s in range(0, K, eval_every)] + [wf.n_waves]
+
+
 def run_rfast(
     topo: Topology | CommPlan,
     schedule: Schedule,
@@ -280,26 +429,50 @@ def run_rfast(
     eval_every: int = 0,
     eval_fn: Callable[[RFASTState, float], dict] | None = None,
     mode: str = "wavefront",
-    impl: str = "kernel",
+    impl: str | None = None,
     chunk_cb: Callable[[RFASTState, int], None] | None = None,
     device=None,
 ) -> tuple[RFASTState, list[dict]]:
     """Run the full schedule; evaluate every ``eval_every`` events.
 
     ``grad_fn`` is a ``(i, x_flat, gen) -> g_flat`` callable or a
-    :class:`~repro_torch.core.paramvec.GradProvider`.  ``device``
-    defaults to ``cuda`` (raises without a GPU; pass ``"cpu"`` to run on
-    the CPU).  ``eval_fn(state, t)`` and ``chunk_cb(state, k)`` fire
-    after every chunk with the state as views into the live buffers.
-    Each metrics entry carries ``k`` and the chunk's wave count
-    ``waves``.  Returns the final state (views) and the metrics.
+    :class:`~repro_torch.core.paramvec.GradProvider`.  ``mode`` is
+    ``"wavefront"`` (default) or ``"event"`` (the snapshot oracle; both
+    realize the same Algorithm-2 trajectory, their ``v_hist`` /
+    ``rho_hist`` *contents* differ by representation).  ``impl`` is the
+    wavefront commit backend, ``"kernel"`` (its default) or
+    ``"plain"``; the event engine runs ``"plain"`` only and rejects
+    ``"kernel"``.  ``device`` defaults to ``cuda`` (raises without a
+    GPU; pass ``"cpu"`` to run on the CPU).  ``eval_fn(state, t)`` and
+    ``chunk_cb(state, k)`` fire after every chunk with the state as
+    views into the live buffers.  Each metrics entry carries ``k`` and,
+    in wavefront mode, the chunk's wave count ``waves``.  Returns the
+    final state (views) and the metrics.
     """
-    if mode != "wavefront":
-        raise NotImplementedError(
-            f"mode={mode!r}: the event engine is not ported yet "
-            "(repro_torch runs mode='wavefront')")
+    if mode not in ("wavefront", "event"):
+        raise ValueError(f"mode must be 'wavefront' or 'event', got {mode!r}")
+    if impl is None:
+        impl = "kernel" if mode == "wavefront" else "plain"
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if mode == "event" and impl != "plain":
+        raise ValueError("impl='kernel' requires mode='wavefront' "
+                         "(the event engine is the plain oracle)")
+    if mode == "wavefront":
+        # a fleet of one lane: run_sweep owns the wavefront driver
+        def hook(state: RFASTState, t: float) -> dict:
+            m = eval_fn(state, t) if eval_fn is not None else {}
+            if chunk_cb is not None:
+                chunk_cb(state, state.k)
+            return m
+
+        states, metrics = run_sweep(
+            topo, [schedule], grad_fn, x0, gamma, seeds=[seed],
+            eval_every=eval_every,
+            eval_fn=None if eval_fn is None and chunk_cb is None else hook,
+            impl=impl, device=device)
+        return states[0], metrics[0] if eval_fn is not None else []
+
     device = dispatch.resolve_device(device)
     grad_fn = as_grad_fn(grad_fn)
     plan = as_comm_plan(topo)
@@ -307,26 +480,175 @@ def run_rfast(
     K = schedule.K
     if eval_every <= 0:
         eval_every = K
-
     x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
-    packed = init_packed(plan, x0, grad_fn, H, seed=seed)
-    wf = build_wavefront_plan(schedule, plan, H, break_every=eval_every)
-    waves = wave_inputs(wf, plan, device)
-
-    # chunk boundaries in wave space (waves never cross eval boundaries)
-    bounds = [int(np.searchsorted(wf.event_start, s))
-              for s in range(0, K, eval_every)] + [wf.n_waves]
+    state = init_state(plan, x0, grad_fn, H, seed=seed)
+    chunk = rfast_scan(plan, grad_fn, gamma, H, seed=seed)
     metrics: list[dict] = []
-    for ci, (w0, w1) in enumerate(zip(bounds, bounds[1:])):
-        for w in waves[w0:w1]:
-            _wave_step(packed, w, grad_fn=grad_fn, gamma=gamma, ko=plan.ko,
-                       impl=impl, seed=seed)
-        e = min(K, (ci + 1) * eval_every)
+    for s in range(0, K, eval_every):
+        e = min(K, s + eval_every)
+        state = chunk(state, schedule.agent[s:e], schedule.stamp_v[s:e],
+                      schedule.stamp_rho[s:e])
         if eval_fn is not None:
-            m = eval_fn(unpack_state(packed, e), float(schedule.times[e - 1]))
+            m = eval_fn(state, float(schedule.times[e - 1]))
             m["k"] = e
-            m["waves"] = w1 - w0
             metrics.append(m)
         if chunk_cb is not None:
-            chunk_cb(unpack_state(packed, e), e)
-    return unpack_state(packed, K), metrics
+            chunk_cb(state, e)
+    return state, metrics
+
+
+# --------------------------------------------------------------------- #
+# fleet sweeps: many experiments as one wavefront run
+# --------------------------------------------------------------------- #
+class SweepPlan(NamedTuple):
+    """A fleet's flattened wavefront plan and the shapes it was built
+    to (see :func:`sweep_plan`)."""
+
+    fleet: WavefrontPlan     # width S·B over S·n nodes, S·e_a ρ rows
+    H: int                   # fleet-wide history depth
+    ko: int                  # fleet-wide max A out-degree
+    e_a: int                 # per-lane ρ half-size (fleet max A edges)
+    cmax: int                # waves per eval chunk, every lane padded to it
+
+
+def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
+               eval_every: int) -> SweepPlan:
+    """The fleet's one wavefront plan: each lane's CommPlan degree-padded
+    to the fleet maxima (``pad_comm_plan``), its WavefrontPlan built at
+    the fleet's H and ρ layout and cut into eval chunks, every chunk
+    padded to the fleet-wide widest chunk (``pad_plan``) so chunk c
+    occupies waves ``[c·cmax, (c+1)·cmax)`` in every lane, then stacked
+    and flattened (``stack_plans`` / ``flatten_plans``)."""
+    K = schedules[0].K
+    H = max(int(s.D) for s in schedules) + 2
+    kw = max(pl.kw for pl in plans)
+    ka = max(pl.ka for pl in plans)
+    ko = max(pl.ko for pl in plans)
+    e_a = max(max(1, pl.n_edges_a) for pl in plans)
+    wfs = [build_wavefront_plan(sc, pad_comm_plan(pl, kw=kw, ka=ka, ko=ko),
+                                H, break_every=eval_every, e_a=e_a)
+           for pl, sc in zip(plans, schedules)]
+    bounds = [_chunk_waves(wf, K, eval_every) for wf in wfs]
+    n_chunks = len(bounds[0]) - 1
+    cmax = max(b[c + 1] - b[c] for b in bounds for c in range(n_chunks))
+    B = max(wf.width for wf in wfs)
+    rechunked = [concat_plans([pad_plan(slice_plan(wf, b[c], b[c + 1]),
+                                        width=B, n_waves=cmax, e_a=e_a)
+                               for c in range(n_chunks)])
+                 for wf, b in zip(wfs, bounds)]
+    return SweepPlan(fleet=flatten_plans(stack_plans(rechunked)), H=H,
+                     ko=ko, e_a=e_a, cmax=cmax)
+
+
+def _lane_state(packed: PackedState, s: int, k: int, *, S: int, n: int,
+                e_a: int, e_a_lane: int) -> RFASTState:
+    """Fleet lane ``s`` of the flat fleet state as views (lane blocks:
+    nodes ``[s·n, (s+1)·n)``, ρ ``[s·e_a, ·)`` with ρ̃ at offset
+    ``S·e_a``), its ρ state cut back to the lane's real A-edge count."""
+    nd = packed.nodes[s * n:(s + 1) * n]
+    return RFASTState(
+        k=int(k), x=nd[:, 0], v=nd[:, 1], z=nd[:, 2], g_prev=nd[:, 3],
+        rho=packed.rho2[s * e_a:s * e_a + e_a_lane],
+        rho_buf=packed.rho2[(S + s) * e_a:(S + s) * e_a + e_a_lane],
+        v_hist=packed.v_hist[:, s * n:(s + 1) * n],
+        rho_hist=packed.rho_hist[:, s * e_a:s * e_a + e_a_lane])
+
+
+def run_sweep(
+    topos,
+    schedules,
+    grad_fn,
+    x0: torch.Tensor,
+    gamma: float,
+    *,
+    seeds=None,
+    eval_every: int = 0,
+    eval_fn: Callable[[RFASTState, float], dict] | None = None,
+    impl: str = "kernel",
+    device=None,
+) -> tuple[list[RFASTState], list[list[dict]]]:
+    """Run a fleet of S independent experiments as ONE wavefront run.
+
+    Args:
+      topos: one Topology/CommPlan shared by every lane, or S of them.
+        All lanes must share the node count ``n``; topologies may
+        otherwise differ (plans are degree-normalized and padded to the
+        fleet maxima, and padded waves and lanes are inert).
+      schedules: S realized Schedules sharing ``K``.
+      grad_fn: the shared objective; it sees lane-local node ids, and
+        lane s's event k draws from ``event_generator(seeds[s], k, i)``,
+        as ``run_rfast(seed=seeds[s])`` would.
+      x0: ``(p,)``, ``(n, p)`` or per lane ``(S, n, p)``.
+      seeds: per-lane seeds (default 0 for every lane).
+      eval_every / eval_fn: as in :func:`run_rfast`, per lane, each
+        entry stamped with that lane's own virtual time, its ``k`` and
+        the chunk's fleet wave count ``waves``.
+      impl: ``"kernel"`` commits every fleet wave — all lanes, all wave
+        slots — in ONE ``commit_grid`` launch; ``"plain"`` in PyTorch
+        ops.
+      device: ``cuda`` unless the caller asks for another.
+
+    Returns ``(states, metrics)``: the final per-lane :class:`RFASTState`
+    views (ρ state cut to each lane's real A-edge count) and the
+    per-lane metrics lists.
+    """
+    schedules = list(schedules)
+    S = len(schedules)
+    if S == 0:
+        raise ValueError("run_sweep needs at least one lane")
+    if not isinstance(topos, (list, tuple)):
+        topos = [topos] * S
+    plans = [as_comm_plan(t) for t in topos]
+    if len(plans) != S:
+        raise ValueError(f"{len(plans)} topologies for {S} schedules")
+    n = plans[0].n
+    if any(pl.n != n for pl in plans):
+        raise ValueError("all lanes must share the node count n "
+                         f"(got {[pl.n for pl in plans]})")
+    K = schedules[0].K
+    if any(s.K != K for s in schedules):
+        raise ValueError("all lanes must share the event count K "
+                         f"(got {[s.K for s in schedules]})")
+    seeds = [0] * S if seeds is None else [int(s) for s in seeds]
+    if len(seeds) != S:
+        raise ValueError(f"{len(seeds)} seeds for {S} lanes")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    device = dispatch.resolve_device(device)
+    grad_fn = as_grad_fn(grad_fn)
+    if eval_every <= 0:
+        eval_every = K
+
+    x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
+    if x0.dim() == 3 and x0.shape[0] != S:
+        raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
+                         f"expected {S}")
+    p = int(x0.shape[-1])
+    sp = sweep_plan(plans, schedules, eval_every)
+    e_a = sp.e_a
+    # the paper init per lane, from the lane's own generators, in the
+    # flat fleet layout
+    packed = _zeros_packed(S * n, S * e_a, p, sp.H, device)
+    packed.nodes[:, 0].view(S, n, p).copy_(x0.expand(S, n, p))
+    for s in range(S):
+        _paper_init(packed.nodes[s * n:(s + 1) * n], grad_fn, seeds[s])
+    waves = wave_inputs(sp.fleet, sp.ko, device, seeds)
+    e_a_lane = [max(1, pl.n_edges_a) for pl in plans]
+    lane_state = lambda s, k: _lane_state(packed, s, k, S=S, n=n, e_a=e_a,
+                                          e_a_lane=e_a_lane[s])
+
+    metrics: list[list[dict]] = [[] for _ in range(S)]
+    for ci in range(-(-K // eval_every)):
+        chunk = [w for w in waves[ci * sp.cmax:(ci + 1) * sp.cmax]
+                 if w.agent.shape[0]]
+        for w in chunk:
+            _wave_step(packed, w, grad_fn=grad_fn, gamma=gamma, ko=sp.ko,
+                       impl=impl)
+        e = min(K, (ci + 1) * eval_every)
+        if eval_fn is not None:
+            for s in range(S):
+                m = eval_fn(lane_state(s, e), float(schedules[s].times[e - 1]))
+                m["k"] = e
+                m["waves"] = len(chunk)
+                metrics[s].append(m)
+    return [lane_state(s, K) for s in range(S)], metrics

@@ -90,8 +90,10 @@ def test_run_rfast_defaults_to_cuda_and_rejects_event_mode():
     sched = get_scenario("uniform", 4).realize(topo, 8, seed=0).schedule
     _, tfn = quad(4, 8)
     x0 = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_rfast(topo, sched, tfn, x0, 0.1, mode="event", device="cpu")
+    # the event engine is the plain oracle: it rejects the kernel backend
+    with pytest.raises(ValueError, match="requires mode='wavefront'"):
+        run_rfast(topo, sched, tfn, x0, 0.1, mode="event", impl="kernel",
+                  device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_rfast(topo, sched, tfn, x0, 0.1)
@@ -113,6 +115,6 @@ def test_state_layouts_round_trip():
     # unpack gives views: an in-place write to the packed state shows
     packed.nodes[2, 2] += 1.0
     np.testing.assert_array_equal(back.z[2].numpy(), st.z[2].numpy() + 1.0)
-    z = zeros_state(topo, 12, 4)
+    z = zeros_state(topo, 12, 4, device="cpu")
     assert all(not getattr(z, f).any() for f in FIELDS)
     assert z.rho.shape == st.rho.shape

@@ -34,7 +34,10 @@ cases with strided B and C; 1e-4 fp32, 3e-2 bf16; dA, dB, dC and dD are
 summed by atomics, so only to a tolerance); ``SelectiveScanFn`` launches
 one of each and its gradients match plain autograd of the ref at 1e-4;
 and a reduced hymba-1.5b sync train launches both once per layer per
-gradient.
+gradient.  The fleet sweep launches one ``commit_grid`` per fleet wave
+and its lanes match the plain backend and ``run_rfast`` at 1e-5; the
+event engine launches nothing and matches the wavefront kernel route at
+1e-4.
 """
 import numpy as np
 import pytest
@@ -140,6 +143,64 @@ def test_engine_backends_agree_on_card(cuda, topo_name, scen):
         finals[impl] = [t.clone() for t in st[1:]]
     for a, b in zip(finals["kernel"], finals["plain"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _logistic_fleet(n=7, K=140):
+    from repro_torch.data import make_logistic_problem
+    prob = make_logistic_problem(n, m=700, d=12, batch=8, heterogeneous=True)
+    topo = get_topology("binary_tree", n)
+    scheds = [get_scenario(sc, n).realize(topo, K, seed=s).schedule
+              for s, sc in enumerate(["straggler", "packet_loss", "uniform"])]
+    return prob, topo, scheds
+
+
+def test_fleet_kernel_matches_plain_on_card(cuda):
+    """One ``commit_grid`` launch per fleet wave (not per lane wave), and
+    the fleet's lanes equal ``run_rfast(seed=s)`` on the card."""
+    from repro_torch.core.simulator import run_sweep
+    prob, topo, scheds = _logistic_fleet()
+    finals = {}
+    for impl in ("plain", "kernel"):
+        dispatch.clear()
+        states, metrics = run_sweep([topo] * 3, scheds, prob,
+                                    torch.zeros(prob.p), 2e-3,
+                                    seeds=[0, 1, 2], eval_every=35,
+                                    eval_fn=lambda st, t: {}, impl=impl)
+        waves = sum(m["waves"] for m in metrics[0])
+        assert dispatch.launches("commit_grid") == (
+            waves if impl == "kernel" else 0)
+        finals[impl] = [[t.clone() for t in st[1:7]] for st in states]
+    lane_waves = 0
+    for s, sched in enumerate(scheds):
+        dispatch.clear()
+        ref, rm = run_rfast(topo, sched, prob, torch.zeros(prob.p), 2e-3,
+                            seed=s, eval_every=35, eval_fn=lambda st, t: {})
+        lane_waves += dispatch.launches("commit_grid")
+        for a, b, c in zip(finals["kernel"][s], finals["plain"][s], ref[1:7]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+    assert waves < lane_waves
+
+
+def test_event_matches_wavefront_on_card(cuda):
+    """The event oracle on CUDA tensors launches nothing and gives the
+    wavefront kernel route's trajectory (same generators per event)."""
+    prob, topo, scheds = _logistic_fleet()
+    finals = {}
+    for mode in ("event", "wavefront"):
+        dispatch.clear()
+        st, m = run_rfast(topo, scheds[0], prob, torch.zeros(prob.p), 2e-3,
+                          seed=3, mode=mode, eval_every=35,
+                          eval_fn=lambda st, t: {})
+        assert dispatch.launches("commit_grid") == sum(
+            x.get("waves", 0) for x in m)
+        assert (dispatch.launches("commit_grid") > 0) == (mode != "event")
+        assert st.x.is_cuda
+        finals[mode] = [t.clone() for t in st[1:7]]
+        torch.testing.assert_close(tracked_mass(st), st.g_prev.sum(0),
+                                   rtol=1e-4, atol=1e-4)
+    for a, b in zip(finals["event"], finals["wavefront"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_train_runs_on_the_card_by_default(cuda):
