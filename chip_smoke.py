@@ -132,7 +132,32 @@ run.  Phases:
    of phase 18; each runner's card run held to its CPU run at a small
    key-free size (batch 0, 20 rounds or 140 events) to 1e-5.
 
-Each of phases 17–19 prints its wall seconds, peak memory and
+20. dynamic membership — (a) ``launch.train.main`` on ``churn`` at
+   full-width, full-depth rfast-100m (binary tree, 4 nodes, 20 steps: K
+   80 in 3 membership epochs), its ``commit_grid`` launches equal to the
+   epochs' non-empty waves as the port's planner counts them on the
+   host, the Lemma-3 residual of the final state ≤ 1e-4; (b)
+   ``run_epochs`` on ``root_failover`` (robust tree, 4 nodes, K 160: the
+   sole root departs and 1 is re-elected) at full width cut to 2 layers,
+   ``impl="kernel"`` then ``"plain"``, every field within 1e-5 of its
+   largest entry, and the widest epoch wave's ``commit_grid`` held to
+   its twin and timed beside ``commit_grid_bytes``' bound; (c)
+   tests/test_epochs.py's re-election claim on the paper's logistic
+   objective (robust tree, 8 nodes, 150 rounds) over seeds 0–3 through
+   ``run_sweep_epochs``, each lane bitwise its ``run_epochs``: after the
+   crash the epochized runs keep descending and the frozen plans
+   (``realize`` + ``run_rfast``) stall;
+21. checkpoints — under ``build/chip_smoke_ckpt`` (free disk printed
+   first, every directory deleted after its check): a 4.4 GB member
+   (zip64) saved and loaded back to the card bitwise; the synchronous
+   train at full width, 2 layers, 2 nodes, 4 rounds saving every 2
+   against 2 rounds resumed to 4 (the step-4 files bitwise equal); the
+   asynchronous train (``uniform``, K 32 in chunks of 16) run to the
+   end, its step-16 file alone (with a manifest) resumed to a bitwise
+   equal step-32 file, and a rerun with nothing to redo; each file's
+   bytes and its write and read GB/s.
+
+Each of phases 17–21 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -237,6 +262,23 @@ ASYNC_K = 2100               # ones' events: 2100 gradients each
 BASELINES = [("push_pull_sync", "binary_tree"), ("sab", "directed_ring"),
              ("ring_allreduce", None), ("dpsgd", "undirected_ring"),
              ("adpsgd", "undirected_ring"), ("osgp", "directed_ring")]
+# phases 20-21: dynamic membership and checkpoints
+CHURN_ARGS = ["--arch", "rfast-100m", "--scenario", "churn", "--topology",
+              "binary_tree", "--nodes", "4", "--steps", "20", "--log-every",
+              "5", "--impl", "kernel", "--batch-per-node", "4", "--seq",
+              "128", "--seed", "0"]
+CHURN_K, CHURN_EVERY = 80, 20     # K = steps x nodes; train.py's chunk
+RF_K, RF_EVERY = 160, 40          # root_failover on robust_tree, n 4
+REELECT_N, REELECT_K = 8, 1200    # tests/test_epochs.py's re-election
+REELECT_GAMMA, REELECT_EVERY = 2e-3, 100   # claim: 150 rounds of 8
+REELECT_SEEDS = [0, 1, 2, 3]
+CKPT_COMMON = ["--arch", "rfast-100m", "--nodes", "2", "--topology",
+               "binary_tree", "--batch-per-node", "4", "--seq", "128",
+               "--seed", "0", "--impl", "kernel"]
+CKPT_SYNC_ARGS = CKPT_COMMON + ["--log-every", "1", "--ckpt-every", "2"]
+CKPT_ASYNC_ARGS = CKPT_COMMON + ["--scenario", "uniform", "--steps", "16",
+                                 "--log-every", "8", "--ckpt-every", "8"]
+ZIP64_FLOATS = 1_100_000_000      # one 4.4 GB member: past zip's 4 GiB
 HYMBA_ARGS = ["--arch", "hymba-1.5b", "--nodes", "4", "--topology",
               "binary_tree", "--steps", "3", "--batch-per-node", "4",
               "--seq", "128", "--seed", "0", "--log-every", "1", "--impl",
@@ -407,27 +449,94 @@ def compare_grid(kw, tol) -> float:
     return err
 
 
-def fleet_wave_case(sp, seeds, n: int, p: int, seed: int):
-    """``commit_grid``'s arguments at a fleet's widest wave: that wave's
-    row tables (from ``wave_inputs`` of the flattened plan ``sp``) over
-    random sources with the fleet's row counts, at width ``p``."""
+def wave_case(w, rows: dict, p: int, seed: int):
+    """``commit_grid``'s arguments at one wave (``w``, a ``wave_inputs``
+    entry: its real lanes' row tables) over random sources with the row
+    counts ``rows`` (nodes × 4, ρ history, ρ/ρ̃) at width ``p``."""
     import torch
-    from repro_torch.core.simulator import wave_inputs
-    S = len(seeds)
-    w = max(wave_inputs(sp.fleet, sp.ko, "cuda", seeds),
-            key=lambda w: w.agent.shape[0])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda r: torch.randn(r, p, generator=gen, device="cuda")
-    nodes, hist, rho2 = rnd(S * n * 4), rnd(sp.H * S * sp.e_a), rnd(
-        2 * S * sp.e_a)
+    nodes, hist, rho2 = (rnd(rows[k]) for k in ("nodes", "rho_hist",
+                                                 "rho2"))
     B = w.agent.shape[0]
     kw = dict(zip(("idx_z", "idx_g", "idx_ri", "idx_rb", "idx_ro"), w.grid),
               a_self=w.a_self, mask=w.a_val, a_out=w.out_wt, z_src=nodes,
               g_new=rnd(B), go_src=nodes, ri_src=hist, rb_src=rho2,
               ro_src=rho2)
     return kw, dict(B=B, ka=w.grid[2].shape[1], ko=w.grid[4].shape[1], Pf=p,
-                    rows={"nodes": S * n * 4, "rho_hist": sp.H * S * sp.e_a,
-                          "rho2": 2 * S * sp.e_a})
+                    rows=rows)
+
+
+def fleet_wave_case(sp, seeds, n: int, p: int, seed: int):
+    """:func:`wave_case` at a fleet's widest wave (from ``wave_inputs``
+    of the flattened plan ``sp``), with the fleet's row counts."""
+    from repro_torch.core.simulator import wave_inputs
+    S = len(seeds)
+    w = max(wave_inputs(sp.fleet, sp.ko, "cuda", seeds),
+            key=lambda w: w.agent.shape[0])
+    return wave_case(w, {"nodes": S * n * 4, "rho_hist": sp.H * S * sp.e_a,
+                         "rho2": 2 * S * sp.e_a}, p, seed)
+
+
+def epoch_plans(et, eval_every: int):
+    """The plans ``run_epochs`` builds for the epoch trace ``et``: the
+    trace-wide ``(H, kw, ka, ko, e_a)`` and, per epoch, its CommPlan,
+    WavefrontPlan and chunk bounds (the engine's own planner)."""
+    from repro_torch.core.simulator import _epoch_lane_plans, _epoch_shapes
+    shapes = _epoch_shapes(et.epochs)
+    H, kw, ka, ko, e_a = shapes
+    return shapes, _epoch_lane_plans(et.epochs, eval_every, H=H, kw=kw,
+                                     ka=ka, ko=ko, e_a=e_a)
+
+
+def epoch_waves(et, eval_every: int) -> list[int]:
+    """Per epoch, the waves with a real lane: the ``commit_grid``
+    launches ``run_epochs(impl="kernel")`` makes for it."""
+    return [int((wf.sizes > 0).sum())
+            for _, wf, _ in epoch_plans(et, eval_every)[1]]
+
+
+def epoch_wave_case(et, eval_every: int, n: int, p: int, seed: int):
+    """:func:`wave_case` at the widest wave of an epoch run (any epoch,
+    each with its trace offset), with the trace-wide row counts."""
+    from repro_torch.core.simulator import wave_inputs
+    (H, _, _, ko, e_a), lane = epoch_plans(et, eval_every)
+    w = max((wv for (_, wf, _), ep in zip(lane, et.epochs)
+             for wv in wave_inputs(wf, ko, "cuda", (0,), k0=ep.k0)),
+            key=lambda w: w.agent.shape[0])
+    return wave_case(w, {"nodes": n * 4, "rho_hist": H * e_a,
+                         "rho2": 2 * e_a}, p, seed)
+
+
+def npz_equal(a: Path, b: Path) -> bool:
+    """Two checkpoint files hold the same members, bitwise (read one
+    member at a time)."""
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x.files)
+
+
+def ckpt_io(src: Path, like, dst: Path) -> dict:
+    """Read ``src``'s latest checkpoint into ``like`` (card tensors) and
+    write it to ``dst``: bytes of the file, and each direction's GB/s
+    (device copies, npz coding and the fsync included)."""
+    import torch
+    from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                        save_checkpoint)
+    step = latest_step(str(src))
+    nbytes = (src / f"step_{step:010d}.npz").stat().st_size
+    t0 = time.perf_counter()
+    tree = load_checkpoint(str(src), like)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(str(dst), step, tree)
+    write_s = time.perf_counter() - t0
+    return dict(file_bytes=nbytes, read_s=read_s, write_s=write_s,
+                read_gb_s=nbytes / read_s / 1e9,
+                write_gb_s=nbytes / write_s / 1e9)
 
 
 def time_fleet_wave(kw, case) -> dict:
@@ -1366,7 +1475,7 @@ def main() -> int:
     from repro_torch.core.protocol import ProtocolState
     from repro_torch.core.runtime import make_rfast_round
     import numpy as np
-    plan4, st0, grad_fn, batches = train.sync_setup(
+    plan4, st0, grad_fn, batches, _ = train.sync_setup(
         cfg2, 4, "binary_tree", batch_per_node=4, seq=128, seed=0,
         device="cuda", robust=True, momentum=0.9)
     mrng = np.random.default_rng(1)
@@ -1842,6 +1951,269 @@ def main() -> int:
     del lprob, small
     torch.cuda.empty_cache()
 
+    # 20. dynamic membership: (a) churn through train.main at full depth --
+    from repro_torch.core.scenario import realize_epochs_batch
+    from repro_torch.core.simulator import run_epochs, run_sweep_epochs
+    et_churn = get_scenario("churn", 4).realize_epochs(
+        get_topology("binary_tree", 4), CHURN_K, seed=0)
+    (H20, *_, e_a20), _ = epoch_plans(et_churn, CHURN_EVERY)
+    churn_waves = epoch_waves(et_churn, CHURN_EVERY)
+    rows20 = state_rows(4, e_a20, H20)
+    emit("epochs_churn_plan", events=CHURN_K, H=H20, e_a=e_a20,
+         state_rows=rows20, state_gb=rows20 * p_run * 4 / 1e9,
+         planner_waves=churn_waves,
+         epochs=[(ep.k0, ep.K, ep.t0) for ep in et_churn.epochs])
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    cres = train.main(CHURN_ARGS)
+    torch.cuda.synchronize()
+    churn_wall = time.perf_counter() - t0
+    churn_launches = dispatch.launches("commit_grid")
+    emit("epochs_churn", p=cres["p"], events=cres["events"],
+         epochs=cres["epoch_table"], losses=cres["losses"],
+         waves=cres["waves"], commit_grid_launches=churn_launches,
+         lemma3_rel=cres["mass_rel"], wall_s=churn_wall,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         state_gb=rows20 * cres["p"] * 4 / 1e9, device=name, nvidia_smi=smi)
+    check(cres["mode"] == "async-dynamic" and cres["epochs"] == 3,
+          "churn runs as three membership epochs")
+    check(all(math.isfinite(v) for v in cres["losses"]), "finite losses")
+    check(churn_launches == cres["waves"] == sum(churn_waves) > 0,
+          f"one commit_grid launch per non-empty wave of every epoch: "
+          f"{churn_launches} launches, {churn_waves} planned")
+    check(cres["mass_rel"] <= 1e-4, "Lemma-3 residual <= 1e-4 after churn")
+    torch.cuda.empty_cache()
+
+    # 20. (b) root_failover at 2 layers: kernel against plain -------------
+    prob20 = make_lm_problem(cfg2, 4, batch_per_node=4, seq_len=128, seed=0,
+                             device="cuda")
+    et_rf = get_scenario("root_failover", 4).realize_epochs(
+        get_topology("robust_tree", 4), RF_K, seed=0)
+    (H_rf, *_, e_a_rf), _ = epoch_plans(et_rf, RF_EVERY)
+    rf_waves = epoch_waves(et_rf, RF_EVERY)
+    rows_rf = state_rows(4, e_a_rf, H_rf)
+    emit("epochs_root_failover_plan", p=prob20.p, events=RF_K, H=H_rf,
+         e_a=e_a_rf, state_rows=rows_rf,
+         state_gb=rows_rf * prob20.p * 4 / 1e9, planner_waves=rf_waves,
+         epochs=[(ep.k0, ep.K, ep.t0, ep.root) for ep in et_rf.epochs])
+    rf_runs, kept = {}, None
+    for impl in ("kernel", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        st, rm = run_epochs(et_rf, prob20, prob20.x0_flat, 3e-3, seed=0,
+                            eval_every=RF_EVERY, eval_fn=lambda s_, t: {},
+                            impl=impl, device="cuda")
+        torch.cuda.synchronize()
+        rf_runs[impl] = dict(
+            wall_s=time.perf_counter() - t0,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            commit_grid_launches=dispatch.launches("commit_grid"),
+            waves=sum(m["waves"] for m in rm), lemma3_rel=lemma3_rel(st))
+        if kept is None:
+            kept = {f: getattr(st, f).clone() for f in STATE_FIELDS}
+        else:
+            rf_rel = field_rel(st, kept)
+        del st
+        torch.cuda.empty_cache()
+    del kept
+    emit("epochs_root_failover", p=prob20.p, events=RF_K, runs=rf_runs,
+         rel_kernel_vs_plain=rf_rel, tol=FLEET_TOL, device=name,
+         nvidia_smi=smi)
+    check(rf_runs["kernel"]["commit_grid_launches"]
+          == rf_runs["kernel"]["waves"] == sum(rf_waves) > 0,
+          "root_failover: one commit_grid launch per non-empty wave")
+    check(rf_runs["plain"]["commit_grid_launches"] == 0,
+          "the plain backend launches no kernel")
+    check(max(rf_rel.values()) <= FLEET_TOL,
+          f"root_failover kernel and plain agree to {FLEET_TOL}: {rf_rel}")
+    check(all(r["lemma3_rel"] <= 1e-4 for r in rf_runs.values()),
+          "Lemma-3 residual <= 1e-4 after root_failover")
+    # the widest epoch wave's commit_grid, held to its twin and timed
+    ekw, ecase = epoch_wave_case(et_rf, RF_EVERY, 4, prob20.p, seed=4)
+    ewave = time_fleet_wave(ekw, ecase)
+    emit("epochs_wave_timing", kernel="commit_grid", **ecase, **ewave,
+         library_ms=None, device=name, nvidia_smi=smi)
+    del ekw, prob20
+    torch.cuda.empty_cache()
+
+    # 20. (c) the re-election claim on the paper's logistic objective ------
+    lprob8 = make_logistic_problem(REELECT_N, m=2800, d=64, batch=16,
+                                   heterogeneous=True, device="cuda")
+    topo8 = get_topology("robust_tree", REELECT_N)
+    sc8 = get_scenario("root_failover", REELECT_N)
+    traces8 = realize_epochs_batch(topo8, REELECT_K, scenario=sc8,
+                                   seeds=REELECT_SEEDS)
+    ev8 = logistic_eval(lprob8)
+    x8 = torch.zeros(lprob8.p, device="cuda")
+    dispatch.clear()
+    t0 = time.perf_counter()
+    sts8, ms8 = run_sweep_epochs(traces8, lprob8, x8, REELECT_GAMMA,
+                                 seeds=REELECT_SEEDS,
+                                 eval_every=REELECT_EVERY, eval_fn=ev8,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    reelect_wall = time.perf_counter() - t0
+    reelect_launches = dispatch.launches("commit_grid")
+    reelect_waves = [sum(epoch_waves(tr, REELECT_EVERY)) for tr in traces8]
+    reelect_rows = []
+    for s_, tr in enumerate(traces8):
+        solo, solo_m = run_epochs(tr, lprob8, x8, REELECT_GAMMA, seed=s_,
+                                  eval_every=REELECT_EVERY, eval_fn=ev8,
+                                  device="cuda")
+        # the rings differ in depth (the fleet's H is the largest lane's)
+        bitwise = all(torch.equal(getattr(sts8[s_], f), getattr(solo, f))
+                      for f in STATE_FIELDS) and solo_m == ms8[s_]
+        del solo
+        _, frozen = run_rfast(topo8, sc8.realize(topo8, REELECT_K,
+                                                 seed=s_).schedule,
+                              lprob8, x8, REELECT_GAMMA, seed=s_,
+                              eval_every=REELECT_EVERY, eval_fn=ev8,
+                              device="cuda")
+        post_e = [m["loss"] for m in ms8[s_] if m["t"] > 40.0]
+        post_f = [m["loss"] for m in frozen if m["t"] > 40.0]
+        reelect_rows.append(dict(
+            seed=s_, epochs=[(ep.k0, ep.K, ep.root) for ep in tr.epochs],
+            sweep_equals_run_epochs=bitwise,
+            epochized_last_over_first_post_crash=ms8[s_][-1]["loss"]
+            / post_e[0],
+            frozen_plateau_max_over_min=max(post_f) / min(post_f),
+            frozen_over_epochized_final=frozen[-1]["loss"]
+            / ms8[s_][-1]["loss"],
+            loss_final=ms8[s_][-1]["loss"], frozen_loss_final=frozen[-1][
+                "loss"]))
+    emit("epochs_logistic", n=REELECT_N, events=REELECT_K, p=lprob8.p,
+         seeds=REELECT_SEEDS, gamma=REELECT_GAMMA, wall_s=reelect_wall,
+         commit_grid_launches=reelect_launches, planner_waves=reelect_waves,
+         lanes=reelect_rows, device=name, nvidia_smi=smi)
+    check(reelect_launches == sum(m["waves"] for ms in ms8 for m in ms)
+          == sum(reelect_waves), "run_sweep_epochs: one commit_grid launch "
+          "per non-empty wave of every lane's epochs")
+    check(all(r["sweep_equals_run_epochs"] for r in reelect_rows),
+          "every run_sweep_epochs lane is bitwise its run_epochs")
+    check(all(r["epochized_last_over_first_post_crash"] < 0.7
+              and r["frozen_plateau_max_over_min"] < 1.05
+              and r["frozen_over_epochized_final"] > 1.5
+              for r in reelect_rows),
+          "re-election: the epochized runs keep descending after the "
+          "crash, the frozen plans stall")
+    del sts8, lprob8
+    torch.cuda.empty_cache()
+
+    # 21. checkpoints: zip64, sync resume, async resume --------------------
+    import os
+    import shutil
+    from repro_torch.checkpoint import (MANIFEST, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.core.protocol import ProtocolState
+    from repro_torch.core.runtime import edge_arrays
+    from repro_torch.core.simulator import zeros_state
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ck_root.mkdir(parents=True)
+    emit("ckpt_disk", path=str(ck_root.relative_to(ROOT)),
+         free_gb=shutil.disk_usage(ck_root).free / 1e9)
+    big = torch.randn(ZIP64_FLOATS, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(9))
+    zdir = ck_root / "zip64"
+    t0 = time.perf_counter()
+    save_checkpoint(str(zdir), 1, {"big": big})
+    zwrite = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zback = load_checkpoint(str(zdir), {"big": big})
+    torch.cuda.synchronize()
+    zread = time.perf_counter() - t0
+    zbytes = (zdir / "step_0000000001.npz").stat().st_size
+    zip_ok = zback["big"].is_cuda and torch.equal(zback["big"], big)
+    del big, zback
+    shutil.rmtree(zdir)
+    emit("ckpt_zip64", member_bytes=ZIP64_FLOATS * 4, file_bytes=zbytes,
+         write_gb_s=zbytes / zwrite / 1e9, read_gb_s=zbytes / zread / 1e9,
+         bitwise=zip_ok, device=name, nvidia_smi=smi)
+    check(zip_ok and ZIP64_FLOATS * 4 > 2 ** 32,
+          "a member over 4 GiB (zip64) round-trips bitwise to the card")
+    torch.cuda.empty_cache()
+
+    # sync: 4 rounds saving every 2, against 2 rounds resumed to 4
+    sa, sb = ck_root / "sync_a", ck_root / "sync_b"
+    dispatch.clear()
+    sruns = []
+    for steps, d in ((4, sa), (2, sb), (4, sb)):
+        args = train.parse_args(CKPT_SYNC_ARGS + ["--steps", str(steps),
+                                                  "--ckpt", str(d)])
+        sruns.append(train._train_sync(args, cfg2, torch.device("cuda")))
+        torch.cuda.empty_cache()
+    sync_resume_launches = dispatch.launches("commit_grid")
+    step4 = "step_0000000004.npz"
+    sync_equal = npz_equal(sa / step4, sb / step4)
+    rspec2 = make_ravel_spec(init_params(cfg2, torch.Generator()
+                                         .manual_seed(0)))
+    e_pad2 = edge_arrays(get_topology("binary_tree", 2)).e_pad
+    zrows = lambda r: torch.zeros(r, rspec2.p, device="cuda")
+    sync_like = train.sync_tree(rspec2, ProtocolState(
+        step=0, x=zrows(2), z=zrows(2), g_prev=zrows(2), rho=zrows(e_pad2),
+        rho_buf=zrows(e_pad2), mail_v=None, m=None))
+    shutil.rmtree(sb)
+    sync_io = ckpt_io(sa, sync_like, ck_root / "sync_io")
+    del sync_like
+    shutil.rmtree(sa)
+    shutil.rmtree(ck_root / "sync_io")
+    emit("ckpt_sync", p=sruns[0]["p"], rounds=4, ckpt_every=2,
+         losses=[r["losses"] for r in sruns], resumed_from=sruns[2]["start"],
+         bitwise_step4=sync_equal, commit_grid_launches=sync_resume_launches,
+         **sync_io, device=name, nvidia_smi=smi)
+    check(sruns[2]["start"] == 2 and sync_equal
+          and sruns[2]["losses"] == sruns[0]["losses"][2:],
+          "a sync run resumed at round 2 is bitwise the uninterrupted one")
+    check(sync_resume_launches == 4 + 2 + 2,
+          "one commit_grid launch per sync round")
+    torch.cuda.empty_cache()
+
+    # async: run to the end; resume the step-16 file alone; nothing to redo
+    aa, ab = ck_root / "async_a", ck_root / "async_b"
+    step16, step32 = "step_0000000016.npz", "step_0000000032.npz"
+    run_async = lambda d: train._train_async(
+        train.parse_args(CKPT_ASYNC_ARGS + ["--ckpt", str(d)]), cfg2,
+        torch.device("cuda"))
+    dispatch.clear()
+    ar1 = run_async(aa)
+    torch.cuda.empty_cache()
+    check(sorted(os.listdir(aa)) == [MANIFEST, step16, step32],
+          "async checkpoints at k 16 and 32")
+    ab.mkdir()
+    os.link(aa / step16, ab / step16)
+    (ab / MANIFEST).write_text(json.dumps(
+        {"step": 16, "file": step16, "time": time.time(), "leaves": 9})
+        + "\n")
+    ar2 = run_async(ab)
+    torch.cuda.empty_cache()
+    async_equal = npz_equal(aa / step32, ab / step32)
+    ar3 = run_async(ab)
+    async_resume_launches = dispatch.launches("commit_grid")
+    shutil.rmtree(ab)
+    sched_a = get_scenario("uniform", 2).realize(
+        get_topology("binary_tree", 2), 32, seed=0).schedule
+    async_io = ckpt_io(aa, zeros_state(get_topology("binary_tree", 2),
+                                       ar1["p"], int(sched_a.D) + 2,
+                                       device="cuda"), ck_root / "async_io")
+    shutil.rmtree(ck_root)
+    torch.cuda.empty_cache()
+    emit("ckpt_async", p=ar1["p"], events=32, chunk=16,
+         state_gb=ar1["packed_bytes"] / 1e9,
+         losses=[ar1["losses"], ar2["losses"], ar3["losses"]],
+         resumed_from=[ar2["start"], ar3["start"]],
+         bitwise_step32=async_equal,
+         waves=[ar1["waves"], ar2["waves"], ar3["waves"]],
+         commit_grid_launches=async_resume_launches, **async_io,
+         device=name, nvidia_smi=smi)
+    check(ar2["start"] == 16 and async_equal,
+          "an async run resumed at k 16 is bitwise the uninterrupted one")
+    check(ar3["start"] == 32 and ar3["losses"] == ar3["losses"][:1],
+          "a finished async run leaves nothing to redo")
+    check(async_resume_launches == ar1["waves"] + ar2["waves"] > 0
+          and ar3["waves"] == 0, "one commit_grid launch per wave run")
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -1850,7 +2222,12 @@ def main() -> int:
            for t, v in hymba_launches.items()},
         "event_oracle": oracle["event"]["commit_grid_launches"],
         "event_oracle_wavefront": oracle["wavefront"]["commit_grid_launches"],
-        "fleet_logistic": fleet_launches, "fleet_lm": lm_launches}
+        "fleet_logistic": fleet_launches, "fleet_lm": lm_launches,
+        "epochs_churn": churn_launches,
+        "epochs_root_failover": rf_runs["kernel"]["commit_grid_launches"],
+        "epochs_logistic": reelect_launches,
+        "sync_resume": sync_resume_launches,
+        "async_resume": async_resume_launches}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
@@ -1858,7 +2235,7 @@ def main() -> int:
         "launches": sum(grid_paths.values()),
         "launches_by_path": grid_paths,
         "max_abs_err": max(main_err, fwave["max_abs_err"],
-                           lwave["max_abs_err"]),
+                           lwave["max_abs_err"], ewave["max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "round_shape": {"ms": round_ms, "plain_ms": round_plain_ms,
@@ -1867,7 +2244,9 @@ def main() -> int:
                              if k != "rows"},
         "fleet_logistic_wave_shape": {k: v for k, v in {**lcase,
                                                        **lwave}.items()
-                                      if k != "rows"}}]
+                                      if k != "rows"},
+        "epoch_wave_shape": {k: v for k, v in {**ecase, **ewave}.items()
+                             if k != "rows"}}]
     for kname, src, rep in (
             ("flash_fwd_3xtf32", fa_fwd.KERNEL_SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:85"),

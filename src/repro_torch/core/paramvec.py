@@ -12,7 +12,9 @@ is the bridge:
   weights in both packages.
 * :func:`ravel` copies a tree into a new flat buffer; :func:`unravel`
   returns **views** into a flat buffer, so a model built from a lane
-  that requires grad differentiates straight back to that lane.
+  that requires grad differentiates straight back to that lane.  Both
+  take leading axes too: ``(N, p)`` rows are the node-stacked trees of
+  ``(N, *shape)`` leaves the JAX package's synchronous state holds.
 * :class:`GradProvider` / :func:`as_grad_fn` — what an objective exposes
   to the engine: ``n`` nodes, flat dimension ``p`` and
   ``grad_fn() -> (i, x_flat, gen) -> g_flat``, where ``i`` is a node id
@@ -97,28 +99,35 @@ def make_ravel_spec(tree: Any, *, pad_to: int = 1,
 
 
 def ravel(spec: RavelSpec, tree: Any) -> torch.Tensor:
-    """Tree -> new ``(spec.p,)`` buffer (working dtype, zero pad tail)."""
+    """Tree -> new ``(*lead, spec.p)`` buffer (working dtype, zero pad
+    tail).  ``lead`` is what each leaf has before its spec shape: none
+    for one model, ``(N,)`` for a node-stacked tree (the JAX package's
+    synchronous state)."""
     items = _flatten(tree)
     if len(items) != len(spec.shapes):
         raise ValueError(f"tree has {len(items)} leaves, spec expects "
                          f"{len(spec.shapes)}")
-    dev = items[0][1].device
-    flat = torch.zeros(spec.p, dtype=spec.dtype, device=dev)
+    first = items[0][1]
+    lead = tuple(first.shape[:first.dim() - len(spec.shapes[0])])
+    flat = torch.zeros(*lead, spec.p, dtype=spec.dtype, device=first.device)
     for (_, leaf), off in zip(items, spec.offsets):
-        flat[off:off + leaf.numel()] = leaf.reshape(-1)
+        n = leaf.numel() // max(1, int(np.prod(lead)))
+        flat[..., off:off + n] = leaf.reshape(*lead, n)
     return flat
 
 
 def unravel(spec: RavelSpec, vec: torch.Tensor) -> dict:
-    """``(spec.p,)`` buffer -> nested dict of views into ``vec`` (no
-    copies: autograd through the views lands in ``vec``'s gradient)."""
+    """``(*lead, spec.p)`` buffer -> nested dict of ``(*lead, *shape)``
+    views into ``vec`` (no copies: autograd through the views lands in
+    ``vec``'s gradient; the pad tail is in no view)."""
+    lead = tuple(vec.shape[:-1])
     tree: dict = {}
     for path, shape, off in zip(spec.paths, spec.shapes, spec.offsets):
         size = int(np.prod(shape)) if shape else 1
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = vec[off:off + size].view(shape)
+        node[path[-1]] = vec[..., off:off + size].view(*lead, *shape)
     return tree
 
 

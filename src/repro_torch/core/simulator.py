@@ -19,6 +19,17 @@ the formulas live in :mod:`repro_torch.core.protocol`.
   index-disjoint blocks of one width-S·B plan over the block-stacked
   state ``(S·n, 4, p)``, so each fleet wave commits every lane in one
   kernel launch.  Lane s reproduces ``run_rfast(seed=seeds[s])``.
+* :func:`run_epochs` — a dynamic-membership trace
+  (``NetworkScenario.realize_epochs``): every epoch's plan is padded to
+  the trace-wide shapes and run through the same chunk loop, and the
+  packed state is migrated in place at each epoch boundary
+  (:func:`migrate_state`'s arithmetic).  :func:`run_sweep_epochs` runs
+  a fleet of such traces one lane after another.
+
+``run_rfast`` and ``run_sweep`` resume from a saved state (``state0`` /
+``states0``, e.g. from :mod:`repro_torch.checkpoint`) at an eval-chunk
+boundary; the generators are counter-based, so a resumed run is the
+uninterrupted one, bit for bit, on the same device.
 
 What differs from the JAX engines, and why:
 
@@ -82,7 +93,8 @@ from .topology import Topology
 __all__ = ["RFASTState", "PackedState", "init_state", "init_packed",
            "zeros_state", "pack_state", "unpack_state", "wave_inputs",
            "event_generator", "rfast_scan", "run_rfast", "sweep_plan",
-           "run_sweep", "tracked_mass", "IMPLS"]
+           "run_sweep", "migrate_state", "run_epochs", "run_sweep_epochs",
+           "tracked_mass", "IMPLS"]
 
 
 class RFASTState(NamedTuple):
@@ -127,11 +139,17 @@ def init_packed(topo: Topology | CommPlan, x0: torch.Tensor, grad_fn,
     """Paper init in the packed layout, on ``x0``'s device:
     x = x0, z = g_prev = ∇f_i(x_i^0; ζ_i^0), everything else zero.
     ``x0`` is ``(p,)`` (broadcast to every node) or ``(n, p)``."""
-    grad_fn = as_grad_fn(grad_fn)
     plan = as_comm_plan(topo)
-    n = plan.n
+    return _fresh_packed(plan.n, max(1, plan.n_edges_a), H, x0,
+                         as_grad_fn(grad_fn), seed)
+
+
+def _fresh_packed(n: int, e_a: int, H: int, x0: torch.Tensor, grad_fn,
+                  seed: int) -> PackedState:
+    """A packed state with ``e_a`` ρ rows on ``x0``'s device, x = x0
+    and the paper init of :func:`_paper_init`."""
     p = int(x0.shape[-1])
-    st = _zeros_packed(n, max(1, plan.n_edges_a), p, H, x0.device)
+    st = _zeros_packed(n, e_a, p, H, x0.device)
     st.nodes[:, 0].copy_(x0.to(torch.float32).expand(n, p))
     _paper_init(st.nodes, grad_fn, seed)
     return st
@@ -162,12 +180,25 @@ def zeros_state(topo: Topology | CommPlan, p: int, H: int, *,
                                       dispatch.resolve_device(device)), 0)
 
 
-def pack_state(state: RFASTState) -> PackedState:
-    """Copy an :class:`RFASTState` into a new packed layout."""
+def pack_state(state: RFASTState, *, e_a: int | None = None) -> PackedState:
+    """Copy an :class:`RFASTState` into a new packed layout.  ``e_a``
+    pads the ρ state with zero rows to a larger layout (the trace-wide
+    or fleet-wide A-edge count; no real lane references the extra
+    rows, and the WavefrontPlan must be built against the same
+    ``e_a``)."""
+    rho, rho_buf, rho_hist = state.rho, state.rho_buf, state.rho_hist
+    if e_a is not None and e_a != rho.shape[0]:
+        if e_a < rho.shape[0]:
+            raise ValueError(f"e_a={e_a} < state's A-edge count "
+                             f"{rho.shape[0]}")
+        pad = e_a - rho.shape[0]
+        rho = torch.nn.functional.pad(rho, (0, 0, 0, pad))
+        rho_buf = torch.nn.functional.pad(rho_buf, (0, 0, 0, pad))
+        rho_hist = torch.nn.functional.pad(rho_hist, (0, 0, 0, pad))
     return PackedState(
         nodes=torch.stack([state.x, state.v, state.z, state.g_prev], dim=1),
-        rho2=torch.cat([state.rho, state.rho_buf], dim=0),
-        v_hist=state.v_hist.clone(), rho_hist=state.rho_hist.clone())
+        rho2=torch.cat([rho, rho_buf], dim=0),
+        v_hist=state.v_hist.clone(), rho_hist=rho_hist.clone())
 
 
 def unpack_state(packed: PackedState, k: int) -> RFASTState:
@@ -303,7 +334,7 @@ class _WaveInputs(NamedTuple):
 
 
 def wave_inputs(wf: WavefrontPlan, ko: int, device,
-                seeds=(0,)) -> list[_WaveInputs]:
+                seeds=(0,), k0: int = 0) -> list[_WaveInputs]:
     """Per-wave real-lane tables of a WavefrontPlan: a single run's
     (``seeds = (seed,)``) or a fleet's flattened plan (one seed per
     lane).  A lane is real where its agent is not the sentinel ``wf.n``:
@@ -313,7 +344,9 @@ def wave_inputs(wf: WavefrontPlan, ko: int, device,
     the host and moved once; a wave's device tables are views of them.
     ``ko`` is the (fleet-wide) max A out-degree.  For the gradient each
     lane carries its experiment's view: node ``agent − s·n`` and event
-    ``kidx − s·K`` of experiment ``s = kidx // K``."""
+    ``k0 + kidx − s·K`` of experiment ``s = kidx // K`` (``k0``: the
+    global index of the plan's event 0, an epoch's offset in its
+    trace)."""
     S = len(seeds)
     n_lane, K_lane = wf.n // S, wf.K // S
     real = wf.agent != wf.n                                 # (NW, B)
@@ -339,7 +372,7 @@ def wave_inputs(wf: WavefrontPlan, ko: int, device,
              out_wt=dev(wf.out_wt, np.float32))
     h = dict(agent_h=agent, wslot_h=cut(wf.wslot),
              rho_gidx_h=cut(wf.rho_gidx), node_h=agent - lane * n_lane,
-             k_h=kidx - lane * K_lane,
+             k_h=int(k0) + kidx - lane * K_lane,
              seed_h=np.asarray(seeds, np.int64)[lane])
     waves = []
     for w in range(wf.n_waves):
@@ -418,6 +451,63 @@ def _chunk_waves(wf: WavefrontPlan, K: int, eval_every: int) -> list[int]:
             for s in range(0, K, eval_every)] + [wf.n_waves]
 
 
+def _chunked_plan(schedule: Schedule, plan: CommPlan, H: int, e_a: int,
+                  eval_every: int) -> tuple[WavefrontPlan, list[int]]:
+    """A schedule's WavefrontPlan at history depth ``H`` and ρ layout
+    ``e_a``, broken at the eval chunks, and its chunk wave bounds."""
+    wf = build_wavefront_plan(schedule, plan, H, break_every=eval_every,
+                              e_a=e_a)
+    return wf, _chunk_waves(wf, schedule.K, eval_every)
+
+
+def _pad_chunks(wf: WavefrontPlan, bounds: list[int], *, B: int, cmax: int,
+                e_a: int) -> WavefrontPlan:
+    """Every chunk of ``wf`` padded to ``cmax`` waves of width ``B``, so
+    chunk c occupies waves ``[c·cmax, (c+1)·cmax)``."""
+    return concat_plans([pad_plan(slice_plan(wf, b0, b1), width=B,
+                                  n_waves=cmax, e_a=e_a)
+                         for b0, b1 in zip(bounds, bounds[1:])])
+
+
+def _shape_maxima(plans: list[CommPlan], schedules: list[Schedule]):
+    """``(H, kw, ka, ko, e_a)``: the history depth, in/out degrees and ρ
+    layout every plan of a fleet or an epoch trace is padded to."""
+    return (max(int(s.D) for s in schedules) + 2,
+            max(pl.kw for pl in plans), max(pl.ka for pl in plans),
+            max(pl.ko for pl in plans),
+            max(max(1, pl.n_edges_a) for pl in plans))
+
+
+def _run_chunks(packed: PackedState, waves: list[_WaveInputs], cmax: int,
+                n_chunks: int, *, skip: int = 0, **step):
+    """Run eval chunks ``skip, …, n_chunks − 1`` of ``waves`` (``cmax``
+    waves each; a wave with no real lane launches nothing) in place,
+    yielding ``(chunk, waves run)`` after each.  ``step`` holds
+    :func:`_wave_step`'s keywords."""
+    for ci in range(skip, n_chunks):
+        chunk = [w for w in waves[ci * cmax:(ci + 1) * cmax]
+                 if w.agent.shape[0]]
+        for w in chunk:
+            _wave_step(packed, w, **step)
+        yield ci, len(chunk)
+
+
+def _resume_k(state0: RFASTState, H: int, K: int, eval_every: int) -> int:
+    """The event count a saved state resumes from, checked against the
+    run it resumes into: the same history depth, and an eval-chunk
+    boundary (or ``K``: a finished run)."""
+    if state0.v_hist.shape[0] != H:
+        raise ValueError(
+            f"state0 has H={state0.v_hist.shape[0]} but this schedule "
+            f"needs H={H} — resume only into the same schedule")
+    k0 = int(state0.k)
+    # k0 == K is a completed run (its K need not be chunk-aligned)
+    if k0 < K and k0 % eval_every != 0:
+        raise ValueError(f"state0.k={k0} is not an eval-chunk boundary "
+                         f"(eval_every={eval_every})")
+    return k0
+
+
 def run_rfast(
     topo: Topology | CommPlan,
     schedule: Schedule,
@@ -430,6 +520,7 @@ def run_rfast(
     eval_fn: Callable[[RFASTState, float], dict] | None = None,
     mode: str = "wavefront",
     impl: str | None = None,
+    state0: RFASTState | None = None,
     chunk_cb: Callable[[RFASTState, int], None] | None = None,
     device=None,
 ) -> tuple[RFASTState, list[dict]]:
@@ -448,6 +539,13 @@ def run_rfast(
     views into the live buffers.  Each metrics entry carries ``k`` and,
     in wavefront mode, the chunk's wave count ``waves``.  Returns the
     final state (views) and the metrics.
+
+    ``state0`` resumes from a state that ``chunk_cb`` saw (e.g. saved
+    with :func:`repro_torch.checkpoint.save_checkpoint`): ``state0.k``
+    must sit on an eval-chunk boundary of the SAME schedule, seed and
+    ``mode`` (the two engines' history *representations* differ, their
+    shapes do not, so a cross-mode resume is not detected).  The first
+    ``state0.k // eval_every`` chunks are skipped; ``x0`` is unused.
     """
     if mode not in ("wavefront", "event"):
         raise ValueError(f"mode must be 'wavefront' or 'event', got {mode!r}")
@@ -470,7 +568,8 @@ def run_rfast(
             topo, [schedule], grad_fn, x0, gamma, seeds=[seed],
             eval_every=eval_every,
             eval_fn=None if eval_fn is None and chunk_cb is None else hook,
-            impl=impl, device=device)
+            impl=impl, device=device,
+            states0=None if state0 is None else [state0])
         return states[0], metrics[0] if eval_fn is not None else []
 
     device = dispatch.resolve_device(device)
@@ -480,11 +579,16 @@ def run_rfast(
     K = schedule.K
     if eval_every <= 0:
         eval_every = K
-    x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
-    state = init_state(plan, x0, grad_fn, H, seed=seed)
+    if state0 is None:
+        x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
+        state = init_state(plan, x0, grad_fn, H, seed=seed)
+    else:
+        k0 = _resume_k(state0, H, K, eval_every)
+        state = RFASTState(k0, *(t.to(device=device, dtype=torch.float32,
+                                      copy=True) for t in state0[1:]))
     chunk = rfast_scan(plan, grad_fn, gamma, H, seed=seed)
     metrics: list[dict] = []
-    for s in range(0, K, eval_every):
+    for s in range(state.k, K, eval_every):
         e = min(K, s + eval_every)
         state = chunk(state, schedule.agent[s:e], schedule.stamp_v[s:e],
                       schedule.stamp_rho[s:e])
@@ -519,23 +623,14 @@ def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
     padded to the fleet-wide widest chunk (``pad_plan``) so chunk c
     occupies waves ``[c·cmax, (c+1)·cmax)`` in every lane, then stacked
     and flattened (``stack_plans`` / ``flatten_plans``)."""
-    K = schedules[0].K
-    H = max(int(s.D) for s in schedules) + 2
-    kw = max(pl.kw for pl in plans)
-    ka = max(pl.ka for pl in plans)
-    ko = max(pl.ko for pl in plans)
-    e_a = max(max(1, pl.n_edges_a) for pl in plans)
-    wfs = [build_wavefront_plan(sc, pad_comm_plan(pl, kw=kw, ka=ka, ko=ko),
-                                H, break_every=eval_every, e_a=e_a)
-           for pl, sc in zip(plans, schedules)]
-    bounds = [_chunk_waves(wf, K, eval_every) for wf in wfs]
-    n_chunks = len(bounds[0]) - 1
-    cmax = max(b[c + 1] - b[c] for b in bounds for c in range(n_chunks))
-    B = max(wf.width for wf in wfs)
-    rechunked = [concat_plans([pad_plan(slice_plan(wf, b[c], b[c + 1]),
-                                        width=B, n_waves=cmax, e_a=e_a)
-                               for c in range(n_chunks)])
-                 for wf, b in zip(wfs, bounds)]
+    H, kw, ka, ko, e_a = _shape_maxima(plans, schedules)
+    lanes = [_chunked_plan(sc, pad_comm_plan(pl, kw=kw, ka=ka, ko=ko), H,
+                           e_a, eval_every)
+             for pl, sc in zip(plans, schedules)]
+    cmax = max(b1 - b0 for _, b in lanes for b0, b1 in zip(b, b[1:]))
+    B = max(wf.width for wf, _ in lanes)
+    rechunked = [_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a)
+                 for wf, b in lanes]
     return SweepPlan(fleet=flatten_plans(stack_plans(rechunked)), H=H,
                      ko=ko, e_a=e_a, cmax=cmax)
 
@@ -566,6 +661,7 @@ def run_sweep(
     eval_fn: Callable[[RFASTState, float], dict] | None = None,
     impl: str = "kernel",
     device=None,
+    states0=None,
 ) -> tuple[list[RFASTState], list[list[dict]]]:
     """Run a fleet of S independent experiments as ONE wavefront run.
 
@@ -587,6 +683,9 @@ def run_sweep(
         slots — in ONE ``commit_grid`` launch; ``"plain"`` in PyTorch
         ops.
       device: ``cuda`` unless the caller asks for another.
+      states0: S lane states at one common ``k`` to resume from, as
+        ``run_rfast``'s ``state0`` (the lane's real ρ layout and the
+        fleet's history depth); ``x0`` is then unused.
 
     Returns ``(states, metrics)``: the final per-lane :class:`RFASTState`
     views (ρ state cut to each lane's real A-edge count) and the
@@ -619,36 +718,320 @@ def run_sweep(
     if eval_every <= 0:
         eval_every = K
 
-    x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
-    if x0.dim() == 3 and x0.shape[0] != S:
-        raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
-                         f"expected {S}")
-    p = int(x0.shape[-1])
+    if states0 is None:
+        x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
+        if x0.dim() == 3 and x0.shape[0] != S:
+            raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
+                             f"expected {S}")
+        p = int(x0.shape[-1])
+    else:
+        states0 = list(states0)
+        if len(states0) != S:
+            raise ValueError(f"{len(states0)} resume states for {S} lanes")
+        p = int(states0[0].x.shape[-1])
     sp = sweep_plan(plans, schedules, eval_every)
     e_a = sp.e_a
-    # the paper init per lane, from the lane's own generators, in the
-    # flat fleet layout
     packed = _zeros_packed(S * n, S * e_a, p, sp.H, device)
-    packed.nodes[:, 0].view(S, n, p).copy_(x0.expand(S, n, p))
-    for s in range(S):
-        _paper_init(packed.nodes[s * n:(s + 1) * n], grad_fn, seeds[s])
-    waves = wave_inputs(sp.fleet, sp.ko, device, seeds)
     e_a_lane = [max(1, pl.n_edges_a) for pl in plans]
     lane_state = lambda s, k: _lane_state(packed, s, k, S=S, n=n, e_a=e_a,
                                           e_a_lane=e_a_lane[s])
+    n_chunks = -(-K // eval_every)
+    if states0 is None:
+        # the paper init per lane, from the lane's own generators, in
+        # the flat fleet layout
+        packed.nodes[:, 0].view(S, n, p).copy_(x0.expand(S, n, p))
+        for s in range(S):
+            _paper_init(packed.nodes[s * n:(s + 1) * n], grad_fn, seeds[s])
+        skip = 0
+    else:
+        k0s = {_resume_k(st, sp.H, K, eval_every) for st in states0}
+        if len(k0s) != 1:
+            raise ValueError(f"resume states at different k: {sorted(k0s)}")
+        k0 = k0s.pop()
+        for s, st in enumerate(states0):
+            for f, t in zip(RFASTState._fields[1:], lane_state(s, k0)[1:]):
+                t.copy_(getattr(st, f))
+        skip = n_chunks if k0 >= K else k0 // eval_every
+    waves = wave_inputs(sp.fleet, sp.ko, device, seeds)
 
     metrics: list[list[dict]] = [[] for _ in range(S)]
-    for ci in range(-(-K // eval_every)):
-        chunk = [w for w in waves[ci * sp.cmax:(ci + 1) * sp.cmax]
-                 if w.agent.shape[0]]
-        for w in chunk:
-            _wave_step(packed, w, grad_fn=grad_fn, gamma=gamma, ko=sp.ko,
-                       impl=impl)
+    for ci, n_run in _run_chunks(packed, waves, sp.cmax, n_chunks, skip=skip,
+                                 grad_fn=grad_fn, gamma=gamma, ko=sp.ko,
+                                 impl=impl):
         e = min(K, (ci + 1) * eval_every)
         if eval_fn is not None:
             for s in range(S):
                 m = eval_fn(lane_state(s, e), float(schedules[s].times[e - 1]))
                 m["k"] = e
-                m["waves"] = len(chunk)
+                m["waves"] = n_run
                 metrics[s].append(m)
     return [lane_state(s, K) for s in range(S)], metrics
+
+
+# --------------------------------------------------------------------- #
+# epochized runs: dynamic membership / time-varying topologies
+# --------------------------------------------------------------------- #
+def _migrate(st: RFASTState, rho: torch.Tensor, rho_buf: torch.Tensor,
+             prev_topo, epoch) -> None:
+    """:func:`migrate_state`'s arithmetic, in place on ``st``: its x, v,
+    z, g_prev hold the state to migrate, ``rho`` / ``rho_buf`` its ρ and
+    ρ̃ in ``prev_topo``'s A-edge layout (padded tails are inert zeros;
+    they may be ``st``'s own ρ rows, which are read before they are
+    zeroed).  Its ρ, ρ̃ and rings are reset, and ``v_hist[0] = v``."""
+    prev_plan = as_comm_plan(prev_topo)
+    dev = st.x.device
+    root = int(epoch.root)
+    joined = np.asarray(epoch.joined, bool)
+    if joined.any():
+        carried = epoch.topology.active_mask() & ~joined
+        if not carried.any():
+            raise ValueError("epoch has no carried-over member to "
+                             "donate an iterate to its joiners")
+        donor = root if not joined[root] else int(np.nonzero(carried)[0][0])
+
+    # (1) settle ρ − ρ̃ at each receiver: a scatter-add, several A-edges
+    # may share a receiver
+    e = prev_plan.n_edges_a
+    if e:
+        st.z.index_add_(0, torch.as_tensor(prev_plan.dst_a[:e], device=dev,
+                                           dtype=torch.int64),
+                        rho[:e] - rho_buf[:e])
+
+    # (2) departures: move the tracked surplus to the new root
+    departed = np.asarray(epoch.departed, bool)
+    if departed.any():
+        dep = torch.as_tensor(departed, device=dev)[:, None]
+        d_mass = torch.where(dep, st.z - st.g_prev, 0.0).sum(0)
+        st.z.masked_fill_(dep, 0.0)
+        st.z[root] += d_mass
+        st.g_prev.masked_fill_(dep, 0.0)
+
+    # (3) joiners adopt the donor's iterate, zero tracking
+    if joined.any():
+        j = torch.as_tensor(np.nonzero(joined)[0], device=dev)
+        x_d = st.x[donor].clone()
+        for row, val in ((st.x, x_d), (st.v, x_d), (st.z, 0.0),
+                         (st.g_prev, 0.0)):
+            row[j] = val
+
+    # (4) fresh rings; slot 0 carries v
+    for t in (st.rho, st.rho_buf, st.v_hist, st.rho_hist):
+        t.zero_()
+    st.v_hist[0].copy_(st.v)
+
+
+def migrate_state(state: RFASTState, prev_topo, epoch, *,
+                  H: int) -> RFASTState:
+    """Carry an :class:`RFASTState` across a membership-epoch boundary.
+
+    The migration preserves the Lemma-3 invariant exactly, by
+    construction:
+
+    1. **Settle in-flight mass.**  Every A-edge's undelivered running-sum
+       difference ρ_e − ρ̃_e is added to its receiver's z (an instant
+       final delivery), then ρ/ρ̃ and both history rings reset to zero.
+    2. **Re-absorb departures.**  A departed node's tracked surplus
+       ``z_d − g_prev_d`` moves to the new epoch's root and its z/g_prev
+       zero out, so Σz − Σg_prev stays 0.
+    3. **Adopt joiners.**  A joining node copies the donor's iterate
+       into x and v (the donor is the new root, or the first carried-over
+       member when the root itself is joining) with ``z = g_prev = 0``.
+    4. **v continuity.**  The new epoch's ``v_hist[0]`` holds the carried
+       v: slot 0 is the engines' "no write yet" read.
+
+    ``prev_topo`` identifies the A-edge layout of the state's ρ rows.
+    Returns a new state in the NEW epoch's ρ layout with ``H``-deep
+    rings and ``k = 0`` (epoch-local).  :func:`run_epochs` runs the same
+    arithmetic in place on its packed state.
+    """
+    n, p = state.x.shape
+    e_a = max(1, as_comm_plan(epoch.topology).n_edges_a)
+    out = unpack_state(_zeros_packed(n, e_a, p, H, state.x.device), 0)
+    for f in ("x", "v", "z", "g_prev"):
+        getattr(out, f).copy_(getattr(state, f))
+    _migrate(out, state.rho, state.rho_buf, prev_topo, epoch)
+    return out
+
+
+def _epoch_lane_plans(epochs, eval_every: int, *, H: int, kw: int, ka: int,
+                      ko: int, e_a: int):
+    """Per epoch of one lane: its real CommPlan, and its WavefrontPlan
+    (built on the degree-padded plan at the shared H and ρ layout) with
+    its chunk wave bounds."""
+    out = []
+    for ep in epochs:
+        plan = as_comm_plan(ep.topology)
+        out.append((plan, *_chunked_plan(
+            ep.trace.schedule, pad_comm_plan(plan, kw=kw, ka=ka, ko=ko), H,
+            e_a, eval_every)))
+    return out
+
+
+def _epoch_shapes(epochs):
+    """Shape maxima over epochs (:func:`_shape_maxima`)."""
+    return _shape_maxima([as_comm_plan(ep.topology) for ep in epochs],
+                         [ep.trace.schedule for ep in epochs])
+
+
+def _scan_epochs(epochs, lane, packed: PackedState, *, seed: int, B: int,
+                 cmax: int, e_a: int, ko: int, eval_every: int, eval_fn,
+                 chunk_cb, **step) -> tuple[RFASTState, list[dict]]:
+    """Drive one epochized lane through the chunk loop: each epoch's
+    chunks padded to the shared ``(cmax, B)`` wave shape, its events
+    drawing from the trace's global event index, and the packed state
+    migrated in place at every boundary (no copy of a state that may
+    fill most of the card)."""
+    device = packed.nodes.device
+    metrics: list[dict] = []
+    for i, (ep, (_plan, wf, b)) in enumerate(zip(epochs, lane)):
+        if i:
+            st = unpack_state(packed, ep.k0)
+            _migrate(st, st.rho, st.rho_buf, epochs[i - 1].topology, ep)
+        waves = wave_inputs(_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a), ko,
+                            device, (seed,), k0=ep.k0)
+        times = ep.trace.schedule.times
+        for ci, n_run in _run_chunks(packed, waves, cmax, len(b) - 1, ko=ko,
+                                     **step):
+            e_loc = min(ep.K, (ci + 1) * eval_every)
+            kg = ep.k0 + e_loc
+            if eval_fn is not None:
+                m = eval_fn(unpack_state(packed, kg),
+                            ep.t0 + float(times[e_loc - 1]))
+                m["k"] = kg
+                m["waves"] = n_run
+                metrics.append(m)
+            if chunk_cb is not None:
+                chunk_cb(unpack_state(packed, kg), kg)
+    final = unpack_state(packed, epochs[-1].k0 + epochs[-1].K)
+    # cut the trace-wide ρ padding back to the last epoch's real layout
+    e_fin = max(1, lane[-1][0].n_edges_a)
+    return final._replace(rho=final.rho[:e_fin],
+                          rho_buf=final.rho_buf[:e_fin],
+                          rho_hist=final.rho_hist[:, :e_fin]), metrics
+
+
+def run_epochs(
+    epoch_trace,
+    grad_fn,
+    x0: torch.Tensor,
+    gamma: float,
+    *,
+    seed: int = 0,
+    eval_every: int = 0,
+    eval_fn: Callable[[RFASTState, float], dict] | None = None,
+    impl: str = "kernel",
+    chunk_cb: Callable[[RFASTState, int], None] | None = None,
+    device=None,
+) -> tuple[RFASTState, list[dict]]:
+    """Run an epochized trace (:meth:`NetworkScenario.realize_epochs`)
+    through the wavefront engine.
+
+    Every epoch's CommPlan is degree-normalized (``pad_comm_plan``) and
+    its WavefrontPlan padded (``pad_plan``) to the trace-wide maxima —
+    history depth H, in/out degrees, ρ layout ``e_a``, wave width B and
+    chunk wave count — so the packed state keeps one shape for the whole
+    trace and ``impl="kernel"`` commits every non-empty wave of every
+    epoch in one ``commit_grid`` launch.  At each boundary the packed
+    state is migrated (:func:`migrate_state`'s arithmetic, in place).
+
+    Event k of epoch e draws from ``event_generator(seed, e.k0 + k, i)``
+    (the trace's global event index), so a single-epoch (static) trace
+    reproduces :func:`run_rfast` on the same schedule bit for bit.
+    ``eval_every`` counts events; evaluation also lands on every epoch
+    boundary, each metrics entry stamped with the global event count
+    ``k``, the global virtual time ``t0 + t_local`` and the chunk's wave
+    count ``waves``.  ``device`` defaults to ``cuda``.  Returns the final
+    state (views, ρ cut to the last epoch's real A-edge count) and the
+    metrics.
+    """
+    epochs = list(epoch_trace.epochs)
+    if not epochs:
+        raise ValueError("epoch trace has no epochs")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    device = dispatch.resolve_device(device)
+    grad_fn = as_grad_fn(grad_fn)
+    K = int(epoch_trace.K)
+    if eval_every <= 0:
+        eval_every = K
+    H, kw, ka, ko, e_a = _epoch_shapes(epochs)
+    lane = _epoch_lane_plans(epochs, eval_every, H=H, kw=kw, ka=ka, ko=ko,
+                             e_a=e_a)
+    x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
+    packed = _fresh_packed(epoch_trace.n, e_a, H, x0, grad_fn, seed)
+    return _scan_epochs(
+        epochs, lane, packed, seed=seed,
+        B=max(wf.width for _, wf, _ in lane),
+        cmax=max(b1 - b0 for *_, b in lane for b0, b1 in zip(b, b[1:])),
+        e_a=e_a, ko=ko, eval_every=eval_every, eval_fn=eval_fn,
+        chunk_cb=chunk_cb, grad_fn=grad_fn, gamma=gamma, impl=impl)
+
+
+def run_sweep_epochs(
+    epoch_traces,
+    grad_fn,
+    x0: torch.Tensor,
+    gamma: float,
+    *,
+    seeds=None,
+    eval_every: int = 0,
+    eval_fn: Callable[[RFASTState, float], dict] | None = None,
+    impl: str = "kernel",
+    device=None,
+    mesh=None,
+) -> tuple[list[RFASTState], list[list[dict]]]:
+    """A fleet of epochized lanes (e.g. one scenario × many seeds from
+    :func:`repro_torch.core.scenario.realize_epochs_batch`).
+
+    Membership timelines are lane-local (epoch cuts and regional draws
+    differ per seed), so lanes run one after another, every epoch of
+    every lane padded to the fleet-wide shape maxima.  Lane s equals
+    :func:`run_epochs` of its trace and ``seeds[s]``.  ``x0`` is
+    ``(p,)``, ``(n, p)`` or per lane ``(S, n, p)``.  ``mesh`` (a
+    parameter-sharded run) is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("run_sweep_epochs(mesh=...) is not ported "
+                                  "yet (multi-device, ROADMAP Queue 1 "
+                                  "item 7)")
+    traces = list(epoch_traces)
+    S = len(traces)
+    if S == 0:
+        raise ValueError("run_sweep_epochs needs at least one lane")
+    seeds = [0] * S if seeds is None else [int(s) for s in seeds]
+    if len(seeds) != S:
+        raise ValueError(f"{len(seeds)} seeds for {S} lanes")
+    n = traces[0].n
+    if any(t.n != n for t in traces):
+        raise ValueError("all lanes must share the node count n")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    device = dispatch.resolve_device(device)
+    grad_fn = as_grad_fn(grad_fn)
+    if eval_every <= 0:
+        eval_every = max(int(t.K) for t in traces)
+
+    H, kw, ka, ko, e_a = _epoch_shapes([ep for t in traces
+                                        for ep in t.epochs])
+    lanes = [_epoch_lane_plans(list(t.epochs), eval_every, H=H, kw=kw,
+                               ka=ka, ko=ko, e_a=e_a) for t in traces]
+    B = max(wf.width for lane in lanes for _, wf, _ in lane)
+    cmax = max(b1 - b0 for lane in lanes for *_, b in lane
+               for b0, b1 in zip(b, b[1:]))
+    x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
+    if x0.dim() == 3 and x0.shape[0] != S:
+        raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
+                         f"expected {S}")
+    states: list[RFASTState] = []
+    metrics: list[list[dict]] = []
+    for s, (trace, lane) in enumerate(zip(traces, lanes)):
+        packed = _fresh_packed(n, e_a, H, x0[s] if x0.dim() == 3 else x0,
+                               grad_fn, seeds[s])
+        st, ms = _scan_epochs(list(trace.epochs), lane, packed,
+                              seed=seeds[s], B=B, cmax=cmax, e_a=e_a, ko=ko,
+                              eval_every=eval_every, eval_fn=eval_fn,
+                              chunk_cb=None, grad_fn=grad_fn, gamma=gamma,
+                              impl=impl)
+        states.append(st)
+        metrics.append(ms)
+    return states, metrics

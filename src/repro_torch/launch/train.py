@@ -9,18 +9,30 @@ Counterpart of ``src/repro/launch/train.py``, in its two regimes:
   Batches are the reference's ``node_batch`` and masks its
   ``default_rng(seed + 1)`` draws, so only the initial weights differ
   from a reference run.
-* **fully asynchronous** (``--scenario <name>``) — a static
+* **fully asynchronous** (``--scenario <name>``) — a
   :class:`~repro_torch.core.scenario.NetworkScenario` (stragglers,
   latency, loss, crash/recovery) is realized into a per-event trace,
   and the LM trains through the wavefront engine on the flat-parameter
   substrate.  ``--steps N`` means N activations per node
-  (K = N·nodes events).
+  (K = N·nodes events).  A dynamic scenario (joins, leaves, regional
+  failures, root failover) is realized into membership epochs and runs
+  through ``run_epochs``, which migrates the state at every boundary.
+
+``--ckpt DIR`` saves every ``--ckpt-every`` rounds (sync) or at the
+chunk boundaries it falls on and at the end (async) in the JAX
+package's checkpoint format, and resumes from the latest checkpoint in
+DIR.  ``--publish-dir DIR`` (async) saves the consensus average x̄ as
+the model's parameter tree at every chunk boundary.
+``--list-scenarios`` prints the scenario registry.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --nodes 4 --steps 20 --loss-prob 0.2 --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --nodes 4 --steps 20 --scenario straggler --device cpu
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --nodes 4 --steps 20 --scenario churn --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no GPU
 is present and the CPU was not asked for.  ``--impl kernel`` (default)
@@ -33,9 +45,9 @@ attention), ``hymba-1.5b`` (hybrid attention + Mamba heads) and
 ``falcon-mamba-7b`` (attention-free); every SSM mixer's scan forward runs
 the hand-written ``ssm_scan`` kernel on the card.
 
-Not ported yet, each rejected with an error: ``--ckpt``, and with
-``--scenario`` also ``--publish-dir``, ``--param-shards`` and dynamic
-(membership) scenarios.
+Not ported yet, rejected with an error: ``--param-shards`` (the
+parameter-sharded async run).  The reference's ``--verify-plans`` and
+``--host-devices`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -45,13 +57,17 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.paramvec import make_ravel_spec, ravel, value_and_grad
+from repro_torch.core.paramvec import (make_ravel_spec, ravel, unravel,
+                                       value_and_grad)
 from repro_torch.core.protocol import IMPLS
 from repro_torch.core.runtime import (edge_arrays, init_node_state,
                                       make_rfast_round, runtime_tracked_mass)
 from repro_torch.core.scenario import SCENARIOS, get_scenario
-from repro_torch.core.simulator import run_rfast, tracked_mass
+from repro_torch.core.simulator import (run_epochs, run_rfast,
+                                        tracked_mass, zeros_state)
 from repro_torch.core.topology import get_topology
 from repro_torch.data.objectives import make_lm_problem
 from repro_torch.data.pipeline import LMShardConfig, node_batch
@@ -78,24 +94,41 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--momentum", type=float, default=0.0)
     ap.add_argument("--loss-prob", type=float, default=0.0)
     ap.add_argument("--scenario", default="", metavar="NAME",
-                    help="train asynchronously under a named static "
+                    help="train asynchronously under a named "
                          f"NetworkScenario ({', '.join(sorted(SCENARIOS))}); "
                          "default: synchronous rounds")
+    ap.add_argument("--list-scenarios", action="store_true",
+                    help="print the SCENARIOS registry (dynamic entries "
+                         "marked) and exit")
     ap.add_argument("--impl", default="kernel", choices=IMPLS,
                     help="commit backend: kernel (hand-written CUDA "
                          "commit_grid) or plain (PyTorch ops)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--ckpt", default="")
-    ap.add_argument("--publish-dir", default="")
+    ap.add_argument("--publish-dir", default="",
+                    help="publish the consensus average x̄ as the model's "
+                         "parameter tree at every chunk boundary (async), "
+                         "in checkpoint/ckpt.py's format")
     ap.add_argument("--param-shards", type=int, default=1)
     ap.add_argument("--metrics", default="", help="JSONL metrics path")
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.list_scenarios:
+        return args
 
-    if args.ckpt:
-        ap.error(f"--ckpt {_NOT_PORTED}")
+    if args.publish_dir:
+        if not args.scenario:
+            ap.error("--publish-dir publishes the async consensus "
+                     "average at chunk boundaries; the synchronous "
+                     "rounds have no flat-parameter chunk hook (pass "
+                     "--scenario)")
+        if args.param_shards > 1:
+            ap.error("--publish-dir rides the wavefront chunk callback, "
+                     "which the mesh-mapped run_sweep path does not "
+                     "expose; drop --param-shards or --publish-dir")
     if args.scenario:
         if args.loss_prob:
             ap.error("--loss-prob models loss in the synchronous rounds; "
@@ -105,28 +138,36 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error("--momentum applies to the synchronous round engine "
                      "only; the event-level Algorithm 2 recursion has no "
                      "momentum term")
-        for flag, on in (("--publish-dir", args.publish_dir),
-                         ("--param-shards", args.param_shards > 1)):
-            if on:
-                ap.error(f"{flag} {_NOT_PORTED}")
-        if get_scenario(args.scenario, args.nodes).dynamic:
-            ap.error(f"dynamic scenario {args.scenario!r}: membership "
-                     "epochs are not ported yet")
-    else:
-        if args.publish_dir:
-            ap.error("--publish-dir publishes the async consensus "
-                     "average at chunk boundaries; the synchronous "
-                     "rounds have no flat-parameter chunk hook (pass "
-                     "--scenario)")
+        dynamic = get_scenario(args.scenario, args.nodes).dynamic
+        if args.ckpt and dynamic:
+            ap.error("--ckpt resume is not supported for dynamic "
+                     "(membership) scenarios: the packed state layout "
+                     "changes at every epoch boundary, so a mid-schedule "
+                     "snapshot is not replayable")
         if args.param_shards > 1:
-            ap.error("--param-shards shards the wavefront engine's flat "
-                     "parameter axis (pass --scenario for the async "
-                     "regime)")
+            if args.ckpt:
+                ap.error("--param-shards trains through run_sweep(mesh="
+                         "...), which has no mid-schedule resume; drop "
+                         "--ckpt or --param-shards")
+            if dynamic:
+                ap.error("--param-shards is not supported for dynamic "
+                         "(membership) scenarios yet")
+            ap.error(f"--param-shards {_NOT_PORTED} (multi-device, "
+                     "ROADMAP Queue 1 item 7)")
+    elif args.param_shards > 1:
+        ap.error("--param-shards shards the wavefront engine's flat "
+                 "parameter axis (pass --scenario for the async regime)")
     return args
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.list_scenarios:
+        for name in sorted(SCENARIOS):
+            tag = ("  [dynamic: joins/leaves/regional failures]"
+                   if get_scenario(name, 7).dynamic else "")
+            print(f"{name}{tag}")
+        return {"mode": "list", "scenarios": sorted(SCENARIOS)}
     device = dispatch.resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,7 +205,8 @@ def sync_setup(cfg, n: int, topology: str, *, batch_per_node: int, seq: int,
                seed: int, device, robust: bool, momentum: float):
     """A synchronous run's plan, initial protocol state (flat, on
     ``device``; weights from a ``torch.Generator`` seeded with ``seed``),
-    per-node gradient and batch source ``step -> batches``."""
+    per-node gradient, batch source ``step -> batches`` and the model's
+    :class:`~repro_torch.core.paramvec.RavelSpec`."""
     from repro_torch.models.transformer import init_params
     spec = edge_arrays(get_topology(topology, n))
     shard_cfg = LMShardConfig(vocab=cfg.vocab, batch_per_node=batch_per_node,
@@ -177,16 +219,38 @@ def sync_setup(cfg, n: int, topology: str, *, batch_per_node: int, seq: int,
     batches = lambda step: sync_batches(shard_cfg, step, device)
     state = init_node_state(spec, x0, grad_fn, batches(0), robust=robust,
                             momentum=momentum)
-    return spec, state, grad_fn, batches
+    return spec, state, grad_fn, batches, rspec
+
+
+def sync_tree(rspec, state):
+    """The synchronous state as the JAX package's ``ProtocolState``
+    tree: every flat ``(rows, p)`` field as the model's nested dict of
+    ``(rows, *shape)`` views (the pad tail cut), the step an int."""
+    return state._replace(**{f: None if t is None else unravel(rspec, t)
+                             for f, t in zip(state._fields[1:], state[1:])})
+
+
+def load_sync_state(ckpt_dir: str, rspec, state):
+    """The latest checkpoint of ``ckpt_dir`` (the JAX package's
+    ``ProtocolState`` file) as a flat state shaped like ``state``, on its
+    device (the pad tail zero)."""
+    tree = load_checkpoint(ckpt_dir, sync_tree(rspec, state))
+    return tree._replace(**{f: None if t is None else ravel(rspec, t)
+                            for f, t in zip(tree._fields[1:], tree[1:])})
 
 
 def _train_sync(args, cfg, device) -> dict:
     n = args.nodes
     robust = args.loss_prob > 0
-    spec, state, grad_fn, batches = sync_setup(
+    spec, state, grad_fn, batches, rspec = sync_setup(
         cfg, n, args.topology, batch_per_node=args.batch_per_node,
         seq=args.seq, seed=args.seed, device=device, robust=robust,
         momentum=args.momentum)
+    start = 0
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        start = latest_step(args.ckpt)
+        state = load_sync_state(args.ckpt, rspec, state)
+        print(f"resumed from step {start}", flush=True)
     gamma = warmup_cosine(args.gamma, warmup=max(1, args.steps // 20),
                           total=args.steps)
     # donate=True: the protocol state updates in place; the loop below
@@ -200,31 +264,36 @@ def _train_sync(args, cfg, device) -> dict:
           f"robust={robust} momentum={args.momentum} impl={args.impl} "
           f"device={device}", flush=True)
 
+    # as the reference does, a resumed run draws its loss masks afresh
+    # from this generator: a resumed lossy run is not the uninterrupted
+    # one
     rng = np.random.default_rng(args.seed + 1)
     logger = MetricsLogger(args.metrics) if args.metrics else None
     timer = StepTimer()
     t0 = time.perf_counter()
     losses: list[float] = []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         masks = None
         if robust:
             masks = torch.from_numpy(
                 (rng.uniform(size=spec.e_pad) >= args.loss_prob)
                 .astype(np.float32)).to(device)
         state, metrics = round_fn(state, batches(step), None, masks)
-        if step == 0:
+        if step == start:
             memory["round1"] = _cuda_memory(device)
         timer.tick()
         if logger:
             logger.log(step + 1, loss=metrics["loss"],
                        sps=timer.steps_per_sec)
-        if (step == 0 or (step + 1) % args.log_every == 0
+        if (step == start or (step + 1) % args.log_every == 0
                 or step + 1 == args.steps):
             loss = float(metrics["loss"])
             losses.append(loss)
             print(f"step {step + 1:5d} loss {loss:.4f} "
                   f"({time.perf_counter() - t0:.1f}s, "
                   f"{timer.steps_per_sec:.2f} it/s)", flush=True)
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt, step + 1, sync_tree(rspec, state))
     if logger:
         logger.close()
     # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
@@ -236,7 +305,8 @@ def _train_sync(args, cfg, device) -> dict:
     print(f"done: {args.steps} rounds, lemma3 rel {mass_rel:.3e}",
           flush=True)
     return {"mode": "sync", "losses": losses, "steps": args.steps,
-            "p": p, "rounds": args.steps, "mass_rel": mass_rel,
+            "p": p, "rounds": args.steps, "start": start,
+            "mass_rel": mass_rel,
             "state_bytes": state_bytes,
             "memory": {k: v for k, v in memory.items() if v is not None}}
 
@@ -260,8 +330,11 @@ def _train_async(args, cfg, device) -> dict:
     topo = get_topology(args.topology, n)
     prob = make_lm_problem(cfg, n, batch_per_node=args.batch_per_node,
                            seq_len=args.seq, seed=args.seed, device=device)
+    sc = get_scenario(args.scenario, n)
     K = args.steps * n
-    trace = get_scenario(args.scenario, n).realize(topo, K, seed=args.seed)
+    if sc.dynamic:
+        return _train_async_dynamic(args, cfg, prob, topo, sc, K, device)
+    trace = sc.realize(topo, K, seed=args.seed)
     sched = trace.schedule
     # delivered fraction over *attempted* sends (the active agent's
     # out-edges per event), not over the all-False inactive rows
@@ -278,6 +351,94 @@ def _train_async(args, cfg, device) -> dict:
           f"impl={args.impl} device={device}", flush=True)
 
     x0 = prob.x0_flat
+    # chunk (= eval/ckpt) boundaries: log_every activations per node
+    eval_every = max(n, min(K, args.log_every * n))
+    save_every_chunks = max(1, args.ckpt_every // max(1, args.log_every))
+    state0 = None
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        template = zeros_state(topo, prob.p, int(sched.D) + 2,
+                               device=device)
+        state0 = load_checkpoint(args.ckpt, template)
+        del template
+        print(f"resumed from event {state0.k}/{K}", flush=True)
+    start = 0 if state0 is None else state0.k
+    t0 = time.perf_counter()
+    losses: list[float] = [prob.mean_loss(x0)]
+    print(f"event {0:6d} loss {losses[0]:.4f} (init)", flush=True)
+
+    def eval_and_log(state, t):
+        loss = prob.mean_loss(state.x.mean(0))
+        losses.append(loss)
+        print(f"event {state.k:6d} loss {loss:.4f} vtime {t:8.1f} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        return {"loss": loss, "t": t}
+
+    published: list[int] = []
+
+    def chunk_cb(state, k):
+        if args.ckpt and (k >= K
+                          or (k // eval_every) % save_every_chunks == 0):
+            save_checkpoint(args.ckpt, k, state)
+        if args.publish_dir:
+            # serving checkpoint: the consensus average x̄ as the model's
+            # parameter tree
+            save_checkpoint(args.publish_dir, k,
+                            unravel(prob.spec, state.x.mean(0)))
+            published.append(k)
+
+    state, metrics = run_rfast(
+        topo, sched, prob, x0, args.gamma, seed=args.seed,
+        eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
+        state0=state0,
+        chunk_cb=chunk_cb if args.ckpt or args.publish_dir else None,
+        device=device)
+    del x0, state0
+    # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
+    g_sum = state.g_prev.sum(0)
+    mass_rel = float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)
+                     / torch.linalg.vector_norm(g_sum))
+    packed_bytes = 4 * (4 * state.x.numel() + 2 * state.rho.numel()
+                        + state.v_hist.numel() + state.rho_hist.numel())
+    if len(losses) > 1:
+        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} "
+              f"events ({float(sched.times[-1]):.1f} vtime), lemma3 rel "
+              f"{mass_rel:.3e}", flush=True)
+    else:
+        print("done (schedule already complete)", flush=True)
+    return {"mode": "async", "scenario": args.scenario, "losses": losses,
+            "events": K, "vtime": float(sched.times[-1]),
+            "send_ok": delivered, "p": prob.p, "start": start,
+            "published": published,
+            "waves": sum(m["waves"] for m in metrics),
+            "mass_rel": mass_rel, "packed_bytes": packed_bytes}
+
+
+# --------------------------------------------------------------------- #
+# dynamic scenarios (membership epochs through run_epochs)
+# --------------------------------------------------------------------- #
+def _train_async_dynamic(args, cfg, prob, topo, sc, K, device) -> dict:
+    """Train under a dynamic-membership scenario: the realized trace is
+    partitioned into topology epochs (joins, leaves, regional failures,
+    root re-election when a common root enters a crash window) and run
+    through :func:`run_epochs`, which migrates the packed state across
+    every plan change.  ``--ckpt`` is rejected in :func:`parse_args`."""
+    n = args.nodes
+    et = sc.realize_epochs(topo, K, seed=args.seed)
+    print(f"arch={cfg.name} p={prob.p} ({prob.spec.p_model} model) "
+          f"nodes={n} topo={topo.name} scenario={args.scenario} "
+          f"K={K} epochs={len(et.epochs)} impl={args.impl} device={device}",
+          flush=True)
+    table = []
+    for i, ep in enumerate(et.epochs):
+        table.append({"k0": ep.k0, "events": ep.K, "t0": ep.t0,
+                      "root": ep.root,
+                      "active": int(ep.topology.active_mask().sum()),
+                      "graph": ep.topology.name})
+        print(f"  epoch {i}: t0={ep.t0:7.1f} events {ep.k0}..{ep.k0 + ep.K} "
+              f"root={ep.root} active={table[-1]['active']}/{n} "
+              f"graph={ep.topology.name}", flush=True)
+
+    x0 = prob.x0_flat
     eval_every = max(n, min(K, args.log_every * n))
     t0 = time.perf_counter()
     losses: list[float] = [prob.mean_loss(x0)]
@@ -286,30 +447,34 @@ def _train_async(args, cfg, device) -> dict:
     def eval_and_log(state, t):
         loss = prob.mean_loss(state.x.mean(0))
         losses.append(loss)
-        ev = min(K, (len(losses) - 1) * eval_every)
-        print(f"event {ev:6d} loss {loss:.4f} vtime {t:8.1f} "
+        print(f"event {state.k:6d} loss {loss:.4f} vtime {t:8.1f} "
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
         return {"loss": loss, "t": t}
 
-    state, metrics = run_rfast(
-        topo, sched, prob, x0, args.gamma, seed=args.seed,
-        eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
-        device=device)
+    published: list[int] = []
+
+    def publish(state, k):
+        save_checkpoint(args.publish_dir, k,
+                        unravel(prob.spec, state.x.mean(0)))
+        published.append(k)
+
+    state, metrics = run_epochs(
+        et, prob, x0, args.gamma, seed=args.seed, eval_every=eval_every,
+        eval_fn=eval_and_log, impl=args.impl,
+        chunk_cb=publish if args.publish_dir else None, device=device)
     del x0
-    # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
     g_sum = state.g_prev.sum(0)
     mass_rel = float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)
                      / torch.linalg.vector_norm(g_sum))
-    packed_bytes = 4 * (4 * state.x.numel() + 2 * state.rho.numel()
-                        + state.v_hist.numel() + state.rho_hist.numel())
-    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} events "
-          f"({float(sched.times[-1]):.1f} vtime), lemma3 rel {mass_rel:.3e}",
-          flush=True)
-    return {"mode": "async", "scenario": args.scenario, "losses": losses,
-            "events": K, "vtime": float(sched.times[-1]),
-            "send_ok": delivered, "p": prob.p,
-            "waves": sum(m["waves"] for m in metrics),
-            "mass_rel": mass_rel, "packed_bytes": packed_bytes}
+    vtime = metrics[-1]["t"]
+    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} "
+          f"events, {len(et.epochs)} epochs ({vtime:.1f} vtime), lemma3 "
+          f"rel {mass_rel:.3e}", flush=True)
+    return {"mode": "async-dynamic", "scenario": args.scenario,
+            "losses": losses, "events": K, "epochs": len(et.epochs),
+            "epoch_table": table, "published": published,
+            "vtime": float(vtime), "p": prob.p,
+            "waves": sum(m["waves"] for m in metrics), "mass_rel": mass_rel}
 
 
 if __name__ == "__main__":

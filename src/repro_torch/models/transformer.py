@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.paramvec import make_ravel_spec, unravel
+from ..kernels.rfast_update.dispatch import resolve_device
 from . import attention as attn
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -69,11 +70,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
 
 
 def params_from_jax(np_tree: dict, *, pad_to: int = 1,
-                    device="cpu") -> tuple[dict, torch.Tensor]:
+                    device=None) -> tuple[dict, torch.Tensor]:
     """JAX ``init_params`` tree (nested dicts of numpy arrays) ->
     ``(params, flat)``: ``flat`` is the ``(p,)`` fp32 vector in the JAX
     ravel order (sorted key paths, zero tail to a multiple of
-    ``pad_to``), and ``params`` are views into it."""
+    ``pad_to``) on ``device`` (``cuda`` unless the caller asks for
+    another), and ``params`` are views into it."""
+    device = resolve_device(device)
     spec = make_ravel_spec(np_tree, pad_to=pad_to)
     flat = torch.zeros(spec.p, dtype=torch.float32)
     params = unravel(spec, flat)

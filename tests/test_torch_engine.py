@@ -25,6 +25,20 @@ PAIRS = {"plain": "jnp", "kernel": "pallas"}
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads for the module's tests (autouse here and in
+    the modules that import it).  The suite runs in several processes at
+    once; torch's default of one thread per core in each oversubscribes
+    the cores, and the many small ops of these engine and train runs
+    then wait at thread barriers (6 processes of a train test file: 673
+    s at 8 threads each, 21 s at 2)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def quad(n, p, seed=0):
     """f_i = ½ s_i |x − c_i|² (tests/test_simulator.py's quad_grad_fn
     with noise=0), as a JAX and a torch gradient on the same numbers."""

@@ -35,7 +35,7 @@ def test_engine_matches_jax_reduced_lm(impl):
     jparams = jt.init_params(jcfg, jax.random.PRNGKey(0))
     jspec = j_spec(jparams, pad_to=128)
     params, flat = tt.params_from_jax(jax.tree.map(np.asarray, jparams),
-                                      pad_to=128)
+                                      pad_to=128, device="cpu")
     spec = make_ravel_spec(params, pad_to=128)
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (n, 2, 9))
     jt_toks, tt_toks = jnp.asarray(toks, jnp.int32), torch.from_numpy(toks)

@@ -37,7 +37,11 @@ and a reduced hymba-1.5b sync train launches both once per layer per
 gradient.  The fleet sweep launches one ``commit_grid`` per fleet wave
 and its lanes match the plain backend and ``run_rfast`` at 1e-5; the
 event engine launches nothing and matches the wavefront kernel route at
-1e-4.
+1e-4.  The epochized engine (``run_epochs`` on ``root_failover`` and
+``churn``) launches one ``commit_grid`` per non-empty wave of every
+epoch and matches its plain backend at 1e-5; card tensors survive a
+checkpoint round trip bitwise, back on the card, and a run resumed from
+a chunk boundary on the card is bitwise the uninterrupted one.
 """
 import numpy as np
 import pytest
@@ -796,3 +800,64 @@ def test_hymba_sync_train_launches_the_scan_per_layer_and_gradient(cuda):
     assert dispatch.stats()["by_kernel"] == {"ssm_scan": 2 * 4 * 3,
                                              "ssm_scan_bwd": 2 * 4 * 3,
                                              "commit_grid": 2}
+
+
+@pytest.mark.parametrize("scen,topo_name,n", [
+    ("root_failover", "robust_tree", 8), ("churn", "binary_tree", 4)])
+def test_run_epochs_kernel_matches_plain_on_card(cuda, scen, topo_name, n):
+    from repro_torch.core.simulator import run_epochs
+    from repro_torch.data import make_logistic_problem
+    prob = make_logistic_problem(n, m=700, d=12, batch=8, heterogeneous=True)
+    et = get_scenario(scen, n).realize_epochs(get_topology(topo_name, n),
+                                              40 * n, seed=0)
+    assert len(et.epochs) > 1
+    finals = {}
+    for impl in ("plain", "kernel"):
+        dispatch.clear()
+        st, m = run_epochs(et, prob, torch.zeros(prob.p), 2e-3, seed=1,
+                           eval_every=5 * n, eval_fn=lambda s, t: {},
+                           impl=impl)
+        waves = sum(x["waves"] for x in m)
+        assert dispatch.launches("commit_grid") == (
+            waves if impl == "kernel" else 0)
+        assert st.x.is_cuda
+        torch.testing.assert_close(tracked_mass(st), st.g_prev.sum(0),
+                                   rtol=1e-4, atol=1e-4)
+        finals[impl] = [t.clone() for t in st[1:7]]
+    for a, b in zip(finals["kernel"], finals["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.simulator import zeros_state
+    topo = get_topology("binary_tree", 4)
+    like = zeros_state(topo, 1000, 6)
+    assert like.x.is_cuda
+    g = torch.Generator(device="cuda").manual_seed(0)
+    st = like._replace(k=12, **{f: torch.randn(getattr(like, f).shape,
+                                               generator=g, device="cuda")
+                                for f in like._fields[1:]})
+    save_checkpoint(str(tmp_path), 12, st)
+    back = load_checkpoint(str(tmp_path), like)
+    assert back.k == 12
+    for f in like._fields[1:]:
+        assert getattr(back, f).is_cuda
+        assert torch.equal(getattr(back, f), getattr(st, f)), f
+
+
+def test_resumed_run_is_bitwise_on_card(cuda):
+    prob, topo, scheds = _logistic_fleet()
+    saved = {}
+
+    def keep(st, k):
+        if k == 70:
+            saved["st"] = st._replace(**{f: getattr(st, f).clone()
+                                         for f in st._fields[1:]})
+
+    st, _ = run_rfast(topo, scheds[0], prob, torch.zeros(prob.p), 2e-3,
+                      seed=2, eval_every=35, chunk_cb=keep)
+    st2, _ = run_rfast(topo, scheds[0], prob, None, 2e-3, seed=2,
+                       eval_every=35, state0=saved["st"])
+    for f in st._fields[1:]:
+        assert torch.equal(getattr(st, f), getattr(st2, f)), f

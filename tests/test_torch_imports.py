@@ -42,7 +42,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     port = ROOT / "src" / "repro_torch"
     for mod in ("models/ssm.py", "kernels/ssm_scan/ops.py",
                 "kernels/ssm_scan/kernel.py", "kernels/ssm_scan/ref.py",
-                "configs/hymba_1_5b.py", "configs/falcon_mamba_7b.py"):
+                "configs/hymba_1_5b.py", "configs/falcon_mamba_7b.py",
+                "checkpoint/ckpt.py", "checkpoint/__init__.py"):
         assert port / mod in FILES
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f)
                                       if _forbidden(n)]
@@ -60,6 +61,7 @@ def test_entry_point_loads_no_jax_module():
     code = ("import json, sys; import repro_torch.launch.train; "
             "import repro_torch.core.simulator; "
             "import repro_torch.core.runtime; "
+            "import repro_torch.checkpoint; "
             "import repro_torch.kernels.rfast_update.ops; "
             "import repro_torch.kernels.ssm_scan.ops; "
             "import repro_torch.models.ssm; "

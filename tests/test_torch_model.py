@@ -30,7 +30,7 @@ def setup():
         get_config("rfast-100m").reduced()
     jparams = jt.init_params(jcfg, jax.random.PRNGKey(0))
     np_tree = jax.tree.map(np.asarray, jparams)
-    params, flat = tt.params_from_jax(np_tree, pad_to=PAD)
+    params, flat = tt.params_from_jax(np_tree, pad_to=PAD, device="cpu")
     r = np.random.default_rng(1)
     toks = r.integers(0, cfg.vocab, (3, 17)).astype(np.int32)
     return jcfg, cfg, jparams, params, flat, toks
@@ -53,6 +53,35 @@ def test_ravel_order_matches_jax(setup):
                                          .manual_seed(0)), pad_to=PAD)
     jspec = j_make_ravel_spec(jparams, pad_to=PAD)
     assert own.shapes == jspec.shapes and own.p == jspec.p
+
+
+def test_node_stacked_rows_ravel_as_jax_does(setup):
+    """``(N, p)`` rows <-> a tree of ``(N, *shape)`` leaves (the
+    reference's synchronous state): row i is JAX's ravel of node i's
+    tree, the pad tail zero, and unravel's leaves are views."""
+    jcfg, cfg, jparams, params, flat, _ = setup
+    jspec = j_make_ravel_spec(jparams, pad_to=PAD)
+    stacked = jax.tree.map(lambda l: jnp.stack([l, 2 * l, -l]), jparams)
+    spec = make_ravel_spec(params, pad_to=PAD)
+    rows = ravel(spec, jax.tree.map(lambda l: torch.from_numpy(
+        np.asarray(l)), stacked))
+    assert rows.shape == (3, spec.p)
+    for i in range(3):
+        np.testing.assert_array_equal(rows[i].numpy(), np.asarray(j_ravel(
+            jspec, jax.tree.map(lambda l: l[i], stacked))))
+    tree = unravel(spec, rows)
+    assert tree["embed"].shape == (3,) + tuple(params["embed"].shape)
+    rows[1, 0] = 5.0
+    assert float(tree["embed"][1, 0, 0]) == 5.0
+
+
+def test_params_from_jax_needs_a_gpu_unless_cpu_is_asked_for(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    np_tree = jax.tree.map(np.asarray, setup[2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.params_from_jax(np_tree)
+    assert tt.params_from_jax(np_tree, device="cpu")[1].device.type == "cpu"
 
 
 def test_port_init_distributions(setup):

@@ -41,7 +41,7 @@ def setup(request):
     jparams = jax.jit(lambda k: jt.init_params(jcfg, k))(
         jax.random.PRNGKey(0))
     params, flat = tt.params_from_jax(jax.tree.map(np.asarray, jparams),
-                                      pad_to=PAD)
+                                      pad_to=PAD, device="cpu")
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (3, 17)).astype(
         np.int32)
     return jcfg, cfg, jparams, params, flat, toks

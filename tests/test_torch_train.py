@@ -12,6 +12,7 @@ import torch
 
 from repro.launch import train as jax_train
 from repro_torch.launch import train
+from test_torch_engine import two_torch_threads  # noqa: F401
 
 ARGS = ["--reduced", "--nodes", "4", "--steps", "3", "--seq", "16",
         "--batch-per-node", "2", "--scenario", "straggler", "--log-every",
@@ -36,14 +37,18 @@ def test_train_plain_backend_matches_kernel_backend_on_cpu():
     assert a["losses"] == pytest.approx(b["losses"], rel=1e-5)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--scenario", "", "--ckpt", "ck"], ["--ckpt", "ck"],
-    ["--publish-dir", "pub"], ["--param-shards", "2"],
-    ["--scenario", "churn"]])
-def test_train_rejects_what_is_not_ported(extra, capsys):
+@pytest.mark.parametrize("extra,msg", [
+    (["--scenario", "churn", "--ckpt", "ck"],
+     "--ckpt resume is not supported for dynamic"),
+    (["--scenario", "", "--publish-dir", "pub"], "(pass --scenario)"),
+    (["--scenario", "root_failover", "--param-shards", "2"],
+     "--param-shards is not supported for dynamic"),
+    (["--loss-prob", "0.1"], "--loss-prob models loss"),
+    (["--param-shards", "2"], "not ported yet")])
+def test_train_rejects_what_is_not_ported(extra, msg, capsys):
     with pytest.raises(SystemExit):
         train.main(ARGS + ["--device", "cpu"] + extra)
-    assert "not ported yet" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 def test_train_needs_a_gpu_unless_cpu_is_asked_for():

@@ -37,6 +37,7 @@ from repro_torch.data.pipeline import LMShardConfig, node_batch
 from repro_torch.launch import train
 from repro_torch.models.transformer import params_from_jax
 from repro_torch.optim.schedules import warmup_cosine
+from test_torch_engine import two_torch_threads  # noqa: F401
 
 N, STEPS, LOSS_PROB, MOMENTUM, GAMMA = 4, 3, 0.3, 0.5, 3e-3
 SHARD = LMShardConfig(vocab=512, batch_per_node=2, seq_len=16, n_nodes=N,
@@ -95,7 +96,7 @@ def jax_runs():
 def _port_run(arch, np_params, impl, robust):
     """The port's rounds from JAX's weights: (final state, losses)."""
     cfg = get_config(arch).reduced()
-    _, x0 = params_from_jax(np_params)
+    _, x0 = params_from_jax(np_params, device="cpu")
     spec = edge_arrays(get_topology("binary_tree", N))
     rspec = make_ravel_spec(np_params)
     grad_fn = train.sync_grad_fn(cfg, rspec)
@@ -213,7 +214,8 @@ def test_train_main_runs_sync_rounds(extra, tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--ckpt", "ck"], "not ported yet"),
+    (["--scenario", "straggler", "--param-shards", "2", "--ckpt", "ck"],
+     "no mid-schedule resume"),
     (["--scenario", "straggler", "--loss-prob", "0.2"], "--loss-prob"),
     (["--scenario", "straggler", "--momentum", "0.9"], "--momentum"),
     (["--publish-dir", "pub"], "--scenario"),
