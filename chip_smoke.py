@@ -157,7 +157,47 @@ run.  Phases:
    equal step-32 file, and a rerun with nothing to redo; each file's
    bytes and its write and read GB/s.
 
-Each of phases 17–21 prints its wall seconds, peak memory or
+22. serving, publish and hot swap — phase 4's run with ``--log-every 2
+   --publish-dir`` (the consensus average published at k 8 and 16, one
+   ``commit_grid`` launch per wave); ``ServeEngine`` (B 4, max_len 64,
+   buckets (4, 8, 16), ``drain``, ``poll_every`` 2) on full-width
+   rfast-100m from the first published step, the last re-published with
+   every slot busy: every request done, served by {first, last} (the
+   in-flight ones by the first), the last step loaded once however often
+   the drain polls, 1 decode + one prefill entry per bucket used and none
+   added across the swap; every request teacher-forced
+   through a B = 1 ``prefill_cache`` + ``decode_step`` loop against one
+   ``forward`` (1e-4 of each step's largest |logit|), each engine token
+   that loop's argmax or a tie within that tolerance (ties counted); the
+   step's and the decode-only step's p50 and p99 µs, ``SERVE_TIMED_STEPS``
+   decode-only steps with every slot busy (n, p50, p99, max), the kernels
+   per decode step and the card's busy share in a ``torch.profiler`` trace of
+   ``PROFILE_STEPS`` steps with every slot busy, and the step's bytes
+   bound (every parameter but the embedding table, the KV cache);
+23. llama3-8b serving — ``launch.serve.main`` at full width and depth
+   (8,030,261,248 parameters drawn on the card by a CUDA generator; B 4,
+   max_len 64, 16 requests, prompts ≤ 16, ≤ 16 tokens each): every
+   request served, 1 decode + one prefill entry per bucket used; then an
+   ``immediate`` engine of the same arguments with a 0.9× copy offered
+   with every slot busy (two 32 GB trees at the peak): the in-flight
+   requests finish on the new weights and no cache entry is added; that
+   engine's decode-only steps with every slot busy, ``SERVE_TIMED_STEPS``
+   before the swap and as many after (n, p50, p99, max), beside the
+   step's bytes bound (30.0 GB);
+24. hybrid decode — full-width hymba-1.5b, all 32 layers (B 2, prompt
+   192): ``prefill_cache`` and 64 ``decode_step`` calls against one
+   teacher-forced ``forward`` at tests/test_serve.py's 2e-3; ``ssm_scan``
+   launched 32 times by ``prefill_cache`` and by ``forward``, never by a
+   decode step (its SSM step is PyTorch ops, as the reference's decode
+   runs ``selective_scan_ref`` outside any kernel); every one of those
+   64 calls' inputs (B 2, S 192 and 256, di 3200, N 16, B and C slices
+   of the model's projection) recorded and the kernel, called as the
+   path calls it, held to ``ssm_scan_plain`` at 1e-4, layer 0's also
+   unsplit and split in 3 with the checkpoints.  Phases 22–24 are the
+   functions ``phase_serve_rfast``, ``phase_serve_llama`` and
+   ``phase_serve_hymba``.
+
+Each of phases 17–24 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -283,6 +323,21 @@ HYMBA_ARGS = ["--arch", "hymba-1.5b", "--nodes", "4", "--topology",
               "binary_tree", "--steps", "3", "--batch-per-node", "4",
               "--seq", "128", "--seed", "0", "--log-every", "1", "--impl",
               "kernel"]
+# phases 22-24: serving.  Phase 4's run with a chunk every 2 steps a node:
+# the consensus average published at k 8 and 16
+PUBLISH_ARGS = TRAIN_ARGS + ["--log-every", "2"]
+SERVE_B, SERVE_MAX_LEN, SERVE_BUCKETS = 4, 64, (4, 8, 16)
+SERVE_REQUESTS = 24          # the first four fill the slots, one of each
+SERVE_FIRST_PROMPTS = [3, 7, 12, 16]    # bucket, when the swap is staged
+SERVE_TOL = 1e-4             # loop vs forward, of each step's max |logit|
+PROFILE_STEPS = 5            # decode steps in the launch-count trace
+SERVE_TIMED_STEPS = 100      # decode-only steps timed with every slot busy
+TOP_KERNELS = 6              # kernels by device time a trace reports
+LLAMA_SERVE_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--max-len",
+                    "64", "--requests", "16", "--max-prompt", "16",
+                    "--max-gen", "16", "--seed", "0"]
+HYMBA_SERVE_B, HYMBA_PROMPT, HYMBA_DECODE = 2, 192, 64
+SERVE_TF_TOL = 2e-3          # tests/test_serve.py's teacher-forced rtol/atol
 
 
 def emit(phase: str, **kw) -> None:
@@ -560,8 +615,10 @@ def device_busy(fn) -> dict:
     """Run ``fn()`` under ``torch.profiler`` and measure the share of its
     span (a user annotation around it, the card synchronized inside) in
     which the card ran a kernel, a copy or a memset: the union of their
-    intervals in the trace.  ``device_busy_share`` is None when the trace
-    holds no device events."""
+    intervals in the trace, how many kernels and copies it ran
+    (``kernels``, ``copies``) and the ``TOP_KERNELS`` kernels with the
+    most device time (name, launches, ms).  ``device_busy_share`` is
+    None when the trace holds no device events."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -579,9 +636,22 @@ def device_busy(fn) -> dict:
     dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                  for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    counts = {c: sum(e.get("cat") == c for e in events)
+              for c in ("kernel", "gpu_memcpy")}
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            row = by_name.setdefault(e.get("name", "")[:90], [0, 0.0])
+            row[0] += 1
+            row[1] += float(e["dur"]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    counts = dict(kernels=counts["kernel"], copies=counts["gpu_memcpy"],
+                  top_kernels=[dict(name=k, launches=n, ms=ms)
+                               for k, (n, ms) in top])
     if not span or not dev:
         return dict(device_busy_share=None, device_events=len(dev),
-                    note="not measured: no span or no device events")
+                    note="not measured: no span or no device events",
+                    **counts)
     t0 = float(span[0]["ts"])
     t1 = t0 + float(span[0]["dur"])
     busy, cur = 0.0, None
@@ -598,7 +668,452 @@ def device_busy(fn) -> dict:
     if cur is not None:
         busy += cur[1] - cur[0]
     return dict(span_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
-                device_busy_share=busy / (t1 - t0), device_events=len(dev))
+                device_busy_share=busy / (t1 - t0), device_events=len(dev),
+                **counts)
+
+
+# --------------------------------------------------------------------- #
+# serving
+# --------------------------------------------------------------------- #
+def step_percentiles(us: list[float]) -> dict:
+    """n, p50, p99 and the largest of step times in µs (with n ≤ 100 the
+    p99 is within one step of the largest)."""
+    import numpy as np
+    if not us:
+        return dict(n=0, p50_us=None, p99_us=None, max_us=None)
+    return dict(n=len(us), p50_us=float(np.percentile(us, 50)),
+                p99_us=float(np.percentile(us, 99)), max_us=float(max(us)))
+
+
+def decode_only_us(records: list[dict]) -> list[float]:
+    """The host times of the engine steps that only decoded (no
+    admission's prefill, no poll or flip)."""
+    return [r["us"] for r in records
+            if r["active"] and not r["admitted"] and not r["swap"]]
+
+
+def decode_bound(params: dict, cache: dict, B: int) -> dict:
+    """Least time of one decode step of B tokens: the bytes it must move
+    (every parameter but the embedding table read once, B embedding rows,
+    the KV cache read once) at the HBM rate; its operations (2 per
+    weight per token) at the fp32 rate are far below."""
+    from repro_torch.core.paramvec import tree_leaves
+    embed = params["embed"]
+    w = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+            if t is not embed)
+    kv = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    nbytes = w + kv + B * embed.shape[1] * embed.element_size()
+    flops = 2 * B * (w // 4)
+    return dict(bytes=nbytes, param_bytes=w, cache_bytes=kv,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             flops / FP32_FLOP_PER_S) * 1e3,
+                bound_by="bytes")
+
+
+def teacher_forced(cfg, params, toks, n_prompt: int, max_len: int) -> dict:
+    """``prefill_cache`` of ``toks[:, :n_prompt]`` and ``decode_step`` over
+    the rest of ``toks`` (B, S) on the card, against one ``forward`` over
+    all of ``toks``: the loop's logits (B, S − n_prompt + 1, V), the
+    forward's at the same positions, and each decode step's host time
+    (the card synchronized)."""
+    import torch
+    from repro_torch.models import transformer as tt
+    cache, lg = tt.prefill_cache(cfg, params, toks[:, :n_prompt], max_len)
+    out, us = [lg[:, 0]], []
+    for t in range(n_prompt, toks.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = tt.decode_step(cfg, params, cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e6)
+        out.append(lg[:, 0])
+    ref = tt.forward(cfg, params, toks)[0][:, n_prompt - 1:]
+    return dict(loop=torch.stack(out, 1), ref=ref, step_us=us)
+
+
+def busy_decode_us(eng, steps: int, prompt: int, rid0: int) -> list[float]:
+    """Host µs of at least ``steps`` engine steps that only decode with
+    every slot busy: rounds of B requests of ``prompt`` tokens, each
+    generating to the end of ``max_len``, admitted together (the steps
+    that admit are not counted).  ``prompt`` picks a bucket the engine
+    has used, so no cache entry is added."""
+    import numpy as np
+    from repro_torch.serve import Request, Scheduler
+    us, rid = [], rid0
+    while len(us) < steps:
+        sched = Scheduler([Request(
+            rid=rid + i, prompt=np.arange(prompt, dtype=np.int32),
+            gen=eng.max_len - prompt, arrive_s=0.0) for i in range(eng.B)])
+        rid += eng.B
+        n0 = len(eng.step_records)
+        while len(sched) or eng.in_flight:
+            eng.step(sched)
+        us += decode_only_us(eng.step_records[n0:])
+    return us
+
+
+def scan_calls(fn) -> list[tuple]:
+    """``fn()`` run with the model's scan recorded: the arguments of every
+    ``ssm_scan`` call ``SelectiveScanFn`` makes in it, as that path lays
+    them out (B and C column slices of one projection)."""
+    from repro_torch.kernels.ssm_scan import ops
+    calls, real = [], ops.ssm_scan
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    ops.ssm_scan = record
+    try:
+        fn()
+    finally:
+        ops.ssm_scan = real
+    return calls
+
+
+def phase_serve_rfast(name: str, smi: str) -> dict:
+    """Phase 22: publish at full-width rfast-100m, serve from the first
+    published step and hot-swap to the last.  Returns the publishing
+    run's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import (Request, Scheduler, ServeEngine,
+                                   WeightStore, cache as serve_cache)
+    cfg = get_config("rfast-100m")
+    serve_root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(serve_root, ignore_errors=True)
+    pub, live = serve_root / "pub", serve_root / "live"
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    pres = train.main(PUBLISH_ARGS + ["--publish-dir", str(pub)])
+    publish_wall = time.perf_counter() - t0
+    publish_launches = dispatch.stats()["by_kernel"]
+    published = pres["published"]
+    emit("serve_publish", p=pres["p"], events=pres["events"],
+         published=published, losses=pres["losses"], wall_s=publish_wall,
+         launches=publish_launches,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(len(published) >= 2 and published[-1] == pres["events"],
+          "train.py --publish-dir publishes at two chunk boundaries or more")
+    check(publish_launches.get("commit_grid", 0) == pres["waves"],
+          "one commit_grid launch per wave of the publishing run")
+    torch.cuda.empty_cache()
+
+    first, last = published[0], published[-1]
+    template = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    trees = {k: load_checkpoint(str(pub), template, step=k)
+             for k in (first, last)}
+    del template
+    save_checkpoint(str(live), first, trees[first])
+    store = WeightStore(trees[first], step=first)
+    serve_cache.clear()
+    eng = ServeEngine(cfg, store, batch=SERVE_B, max_len=SERVE_MAX_LEN,
+                      buckets=SERVE_BUCKETS, swap_mode="drain", poll_every=2,
+                      ckpt_dir=str(live))
+    rng = np.random.default_rng(0)
+    lens = SERVE_FIRST_PROMPTS + rng.integers(
+        1, 17, SERVE_REQUESTS - len(SERVE_FIRST_PROMPTS)).tolist()
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), gen=int(rng.integers(4, 13)), arrive_s=0.0)
+        for i, n in enumerate(lens)]
+    sched = Scheduler(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    eng._t0 = t0
+    eng.step(sched)
+    in_flight = {r.rid for r in eng._slot_req if r is not None}
+    check(len(in_flight) == SERVE_B, "the first step fills every slot")
+    entries_before = serve_cache.stats()
+    save_checkpoint(str(live), last, trees[last])
+    while len(sched) or eng.in_flight or store.staged:
+        eng.step(sched)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = dispatch.stats()["by_kernel"]
+    entries_after = serve_cache.stats()
+    buckets_used = sorted({eng.bucket_for(len(r.prompt)) for r in reqs})
+    served_by = sorted({r.weights_step for r in reqs})
+    all_steps = step_percentiles([r["us"] for r in eng.step_records])
+    dec_steps = step_percentiles(decode_only_us(eng.step_records))
+    check(all(r.done for r in reqs), "every request served")
+    check(set(served_by) <= {first, last} and store.step == last
+          and len(store.swaps) == 1 and store.loads == 1,
+          "served by the first published step, then the last after one "
+          f"live swap, loaded once: {served_by}, {store.swaps}, "
+          f"{store.loads} loads")
+    # every request teacher-forced through a B = 1 loop on the weights
+    # that served it, against one forward
+    worst, ties, mismatches, loop_us = 0.0, 0, [], []
+    for r in reqs:
+        toks = torch.from_numpy(np.concatenate(
+            [r.prompt, np.asarray(r.tokens[:-1], np.int32)]))[None].cuda()
+        tf = teacher_forced(cfg, trees[r.weights_step], toks, len(r.prompt),
+                            SERVE_MAX_LEN)
+        loop, ref = tf["loop"][0], tf["ref"][0]
+        loop_us += tf["step_us"]
+        worst = max(worst, float(((loop - ref).abs().amax(-1)
+                                  / ref.abs().amax(-1)).max()))
+        for i, tok in enumerate(r.tokens):
+            if int(loop[i].argmax()) == tok:
+                continue
+            top = torch.topk(loop[i], 2).values
+            if top[0] - top[1] <= SERVE_TOL * loop[i].abs().max():
+                ties += 1
+            else:
+                mismatches.append((r.rid, i))
+        del tf, loop, ref
+    # decode-only steps with every slot busy, timed; then a few under the
+    # profiler
+    busy_us = busy_decode_us(eng, SERVE_TIMED_STEPS, len(reqs[0].prompt),
+                             1000)
+    bsched = Scheduler([Request(rid=100 + i, prompt=rng.integers(
+        0, cfg.vocab, 4).astype(np.int32), gen=PROFILE_STEPS + 8,
+        arrive_s=0.0) for i in range(SERVE_B)])
+    for _ in range(3):
+        eng.step(bsched)
+    prof = device_busy(lambda: [eng.step(bsched)
+                                for _ in range(PROFILE_STEPS)])
+    rbound = decode_bound(store.params, eng._cache["layers"], SERVE_B)
+    emit("serve_rfast", p=sum(t.numel() for t in tree_leaves(store.params)),
+         batch=SERVE_B, max_len=SERVE_MAX_LEN, C=eng.C,
+         buckets=list(SERVE_BUCKETS), requests=len(reqs),
+         tokens=sum(len(r.tokens) for r in reqs), engine_steps=eng._step,
+         wall_s=serve_wall, swaps=store.swaps, loads=store.loads,
+         polls=store.polls, served_by=served_by,
+         buckets_used=buckets_used, cache_before_swap=entries_before,
+         cache_after=entries_after, step=all_steps, decode_step=dec_steps,
+         decode_step_busy=step_percentiles(busy_us),
+         b1_loop_decode_step=step_percentiles(loop_us),
+         launches=serve_launches, max_rel_err=worst, tol=SERVE_TOL,
+         argmax_ties=ties, argmax_mismatches=mismatches,
+         profiled_steps=PROFILE_STEPS,
+         kernels_per_decode_step=prof["kernels"] / PROFILE_STEPS,
+         copies_per_decode_step=prof["copies"] / PROFILE_STEPS,
+         profile=prof, **rbound,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(all(r.weights_step == first for r in reqs if r.rid in in_flight),
+          "drain: the requests in flight at the re-publish finish on the "
+          "old weights")
+    check(entries_after["entries"] == 1 + len(buckets_used)
+          and entries_after["misses"] == entries_before["misses"],
+          "1 decode + one prefill entry per bucket used, none added across "
+          "the swap")
+    check(worst <= SERVE_TOL and not mismatches,
+          f"B = 1 loop vs forward within {SERVE_TOL}; every engine token is "
+          f"its argmax or a tie: {worst}, {mismatches}")
+    check(not serve_launches and prof["kernels"] > 0,
+          "the attention path launches no kernel of the port")
+    del eng, store, trees, bsched
+    shutil.rmtree(serve_root)
+    torch.cuda.empty_cache()
+    return publish_launches
+
+
+def phase_serve_llama(name: str, smi: str) -> None:
+    """Phase 23: llama3-8b at full width and depth through
+    ``launch/serve.main``, then an ``immediate`` engine timed with every
+    slot busy before and after a live swap."""
+    import numpy as np
+    import torch
+    from repro_torch.core.paramvec import tree_leaves, tree_map
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.serve import (DEFAULT_BUCKETS, Request, Scheduler,
+                                   cache as serve_cache)
+    serve_cache.clear()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    lres = serve.main(LLAMA_SERVE_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.stats()["by_kernel"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reqs = lres["report"]["requests"]
+    buckets = sorted({next(b for b in DEFAULT_BUCKETS if len(r.prompt) <= b)
+                      for r in reqs})
+    entries = serve_cache.stats()
+    dec = step_percentiles(decode_only_us(lres["report"]["steps"]))
+    del lres
+    torch.cuda.empty_cache()
+    # an immediate engine of the same arguments: decode-only steps with
+    # every slot busy, one live swap (a 0.9x copy offered with every slot
+    # busy), the same busy steps again
+    sargs = serve.parse_args(LLAMA_SERVE_ARGS + ["--swap-mode", "immediate"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serve.make_engine(sargs)
+    init_s = time.perf_counter() - t0
+    p = sum(t.numel() for t in tree_leaves(eng.store.params))
+    plen = len(reqs[0].prompt)
+    before_us = busy_decode_us(eng, SERVE_TIMED_STEPS, plen, 1000)
+    sreqs = serve.make_requests(sargs, eng.cfg.vocab)
+    sched = Scheduler(sreqs)
+    eng._t0 = time.perf_counter()
+    while eng.in_flight < eng.B and len(sched):
+        eng.step(sched)
+    in_flight = {r.rid for r in eng._slot_req if r is not None}
+    eng.store.offer(tree_map(lambda t: t * 0.9, eng.store.params), step=1,
+                    published_at=time.time())
+    offer_peak = torch.cuda.max_memory_allocated() / 1e9
+    while len(sched) or eng.in_flight or eng.store.staged:
+        eng.step(sched)
+    torch.cuda.synchronize()
+    swap_wall = time.perf_counter() - eng._t0
+    after_us = busy_decode_us(eng, SERVE_TIMED_STEPS, plen, 2000)
+    swap_entries = serve_cache.stats()
+    step_bound = decode_bound(eng.store.params, eng._cache["layers"], eng.B)
+    busy = Scheduler([Request(rid=100 + i, prompt=np.arange(
+        4, dtype=np.int32), gen=PROFILE_STEPS + 8, arrive_s=0.0)
+        for i in range(eng.B)])
+    for _ in range(3):
+        eng.step(busy)
+    prof = device_busy(lambda: [eng.step(busy)
+                                for _ in range(PROFILE_STEPS)])
+    emit("serve_llama", p=p, param_gb=p * 4 / 1e9, batch=eng.B, C=eng.C,
+         requests=len(reqs), served=sum(r.done for r in reqs),
+         tokens=sum(len(r.tokens) for r in reqs), wall_s=wall,
+         buckets_used=buckets, cache=entries, decode_step=dec,
+         launches=launches, max_memory_allocated_gb=peak,
+         decode_step_busy=step_percentiles(before_us + after_us),
+         swap=dict(init_s=init_s, wall_s=swap_wall, swaps=eng.store.swaps,
+                   in_flight=sorted(in_flight),
+                   served_by=sorted({r.weights_step for r in sreqs}),
+                   cache=swap_entries,
+                   decode_step_busy_before=step_percentiles(before_us),
+                   decode_step_busy_after=step_percentiles(after_us),
+                   peak_gb_at_offer=offer_peak,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9),
+         kernels_per_decode_step=prof["kernels"] / PROFILE_STEPS,
+         profile=prof, **step_bound, device=name, nvidia_smi=smi)
+    check(p == 8_030_261_248, f"llama3-8b has 8,030,261,248 parameters: {p}")
+    check(all(r.done for r in reqs) and len(reqs) == 16,
+          "serve.main serves every request")
+    check(entries["entries"] == 1 + len(buckets),
+          "1 decode + one prefill entry per bucket used")
+    check(all(r.done for r in sreqs) and len(eng.store.swaps) == 1
+          and in_flight and all(
+              r.weights_step == 1 for r in sreqs if r.rid in in_flight),
+          "an immediate swap lands with every slot busy; the in-flight "
+          "requests finish on the new weights")
+    check(swap_entries["misses"] == entries["misses"],
+          "no cache entry added by the second engine or across the swap")
+    del eng, sreqs, sched, reqs, busy
+    torch.cuda.empty_cache()
+
+
+def phase_serve_hymba(name: str, smi: str) -> dict:
+    """Phase 24: hybrid decode with the scan kernel at full-width
+    hymba-1.5b.  Returns ``ssm_scan``'s launches by ``prefill_cache`` and
+    by ``forward``, and its errors against ``ssm_scan_plain`` on the
+    inputs those calls gave it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.kernels.ssm_scan import kernel as scan_k
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("hymba-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    p = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (HYMBA_SERVE_B, HYMBA_PROMPT + HYMBA_DECODE))).cuda()
+    hmax = HYMBA_PROMPT + HYMBA_DECODE
+    prefill = lambda: tt.prefill_cache(cfg, params, toks[:, :HYMBA_PROMPT],
+                                       hmax)
+
+    def forward():
+        with torch.no_grad():
+            tt.forward(cfg, params, toks)
+
+    dispatch.clear()
+    cache, _ = prefill()
+    torch.cuda.synchronize()
+    prefill_launches = dispatch.stats()["by_kernel"]
+    dispatch.clear()
+    tt.decode_step(cfg, params, cache, toks[:, HYMBA_PROMPT:
+                                            HYMBA_PROMPT + 1])
+    torch.cuda.synchronize()
+    decode_launches = dispatch.stats()["by_kernel"]
+    del cache
+    dispatch.clear()
+    forward()
+    torch.cuda.synchronize()
+    forward_launches = dispatch.stats()["by_kernel"]
+    # the kernel against its plain twin on every layer's inputs of both
+    # paths (the path's own call, then layer 0 unsplit and split with the
+    # checkpoints); these launches are not counted above
+    err_by_shape = {}
+    for what, run in (("prefill_cache", prefill), ("forward", forward)):
+        calls = scan_calls(run)
+        check(len(calls) == cfg.n_layers, f"{what}: one scan a layer")
+        errs = []
+        for li, args in enumerate(calls):
+            want = scan_k.ssm_scan_plain(*args)
+            errs.append(max(held(g, w, SCAN_FP32_TOL,
+                                 f"ssm_scan, hymba {what} layer {li} {n}")
+                            for g, w, n in zip(scan_k.ssm_scan(*args), want,
+                                               ("y", "h_last"))))
+        errs.append(compare_scan(calls[0], SCAN_FP32_TOL,
+                                 f"ssm_scan, hymba {what} layer 0"))
+        Bsz, S, di = calls[0][0].shape
+        err_by_shape[f"hymba serving {what} ({Bsz}, {S}, {di}, "
+                     f"{calls[0][2].shape[1]})"] = max(errs)
+        del calls
+    tf = teacher_forced(cfg, params, toks, HYMBA_PROMPT, hmax)
+    viol = float(((tf["loop"] - tf["ref"]).abs()
+                  - SERVE_TF_TOL * tf["ref"].abs()).max())
+    rel = float(((tf["loop"] - tf["ref"]).abs().amax(-1)
+                 / tf["ref"].abs().amax(-1)).max())
+    cache, _ = prefill()
+    step_bound = decode_bound(params, cache["layers"], HYMBA_SERVE_B)
+    prof = device_busy(lambda: [tt.decode_step(
+        cfg, params, cache, toks[:, t:t + 1]) for t in range(
+            HYMBA_PROMPT, HYMBA_PROMPT + PROFILE_STEPS)])
+    del cache
+    wall = time.perf_counter() - t0
+    emit("serve_hymba", p=p, layers=cfg.n_layers, batch=HYMBA_SERVE_B,
+         prompt=HYMBA_PROMPT, decode_steps=len(tf["step_us"]),
+         C=tt.cache_capacity(cfg, hmax), wall_s=wall,
+         launches=dict(prefill_cache=prefill_launches,
+                       decode_step=decode_launches,
+                       forward=forward_launches),
+         ssm_scan_max_abs_err=err_by_shape, ssm_scan_tol=SCAN_FP32_TOL,
+         max_abs_err_beyond_rtol=viol, max_rel_err=rel, tol=SERVE_TF_TOL,
+         decode_step=step_percentiles(tf["step_us"]),
+         kernels_per_decode_step=prof["kernels"] / PROFILE_STEPS,
+         profile=prof, **step_bound,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(viol <= SERVE_TF_TOL, f"prefill_cache + decode_step vs one forward "
+          f"within rtol = atol = {SERVE_TF_TOL}")
+    check(prefill_launches == {"ssm_scan": cfg.n_layers}
+          and forward_launches == {"ssm_scan": cfg.n_layers}
+          and not decode_launches,
+          "ssm_scan: one launch per layer in prefill_cache and in forward, "
+          "none in a decode step")
+    del params, toks, tf
+    torch.cuda.empty_cache()
+    return dict(prefill_cache=prefill_launches["ssm_scan"],
+                forward=forward_launches["ssm_scan"],
+                max_abs_err=max(err_by_shape.values()),
+                err_by_shape=err_by_shape)
 
 
 # --------------------------------------------------------------------- #
@@ -2214,6 +2729,11 @@ def main() -> int:
     check(async_resume_launches == ar1["waves"] + ar2["waves"] > 0
           and ar3["waves"] == 0, "one commit_grid launch per wave run")
 
+    # 22-24. serving -------------------------------------------------------
+    publish_launches = phase_serve_rfast(name, smi)
+    phase_serve_llama(name, smi)
+    hymba_serve = phase_serve_hymba(name, smi)
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -2227,7 +2747,8 @@ def main() -> int:
         "epochs_root_failover": rf_runs["kernel"]["commit_grid_launches"],
         "epochs_logistic": reelect_launches,
         "sync_resume": sync_resume_launches,
-        "async_resume": async_resume_launches}
+        "async_resume": async_resume_launches,
+        "serve_publish": publish_launches.get("commit_grid", 0)}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),
@@ -2285,10 +2806,17 @@ def main() -> int:
         "source": str(scan_k.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:62",
         "launches": sum(v.get("ssm_scan", 0)
-                        for v in hymba_launches.values()),
-        "launches_by_path": {f"hymba_sync_train_{t}": v.get("ssm_scan", 0)
-                             for t, v in hymba_launches.items()},
-        "max_abs_err": scan_err, **train_row, "library_ms": None,
+                        for v in hymba_launches.values())
+        + hymba_serve["prefill_cache"] + hymba_serve["forward"],
+        "launches_by_path": {
+            **{f"hymba_sync_train_{t}": v.get("ssm_scan", 0)
+               for t, v in hymba_launches.items()},
+            "hymba_serve_prefill_cache": hymba_serve["prefill_cache"],
+            "hymba_serve_forward": hymba_serve["forward"]},
+        "max_abs_err": max(scan_err, hymba_serve["max_abs_err"]),
+        "max_abs_err_by_shape": {"train": scan_err,
+                                 **hymba_serve["err_by_shape"]},
+        **train_row, "library_ms": None,
         "op_widths": {k: v for k, v in scan_rows.items()
                       if k != SCAN_TRAIN[0]}})
     kernels.append({

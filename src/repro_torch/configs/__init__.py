@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-``rfast-100m``, ``hymba-1.5b`` and ``falcon-mamba-7b`` are ported so far
-(their modules are copies of ``src/repro/configs/``); the JAX package's
-other architectures raise a "not ported yet" error.
+``rfast-100m``, ``llama3-8b``, ``hymba-1.5b`` and ``falcon-mamba-7b`` are
+ported so far (their modules are copies of ``src/repro/configs/``); the
+JAX package's other architectures raise a "not ported yet" error.
 """
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["falcon-mamba-7b", "hymba-1.5b", "rfast-100m"]
+ARCHS = ["falcon-mamba-7b", "hymba-1.5b", "llama3-8b", "rfast-100m"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

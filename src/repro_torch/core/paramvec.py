@@ -39,10 +39,25 @@ import torch
 
 __all__ = ["RavelSpec", "make_ravel_spec", "ravel", "unravel",
            "GradProvider", "ModelGradProvider", "as_grad_fn",
-           "value_and_grad"]
+           "value_and_grad", "tree_map", "tree_leaves"]
 
 FlatGradFn = Callable[[int, torch.Tensor, torch.Generator], torch.Tensor]
 # (node_id, x_flat, generator) -> g_flat
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a nested dict (and the same leaves of
+    ``rest``): the counterpart of ``jax.tree.map``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a nested dict in sorted key order, as
+    ``jax.tree.leaves`` gives them."""
+    return [leaf for _, leaf in _flatten(tree)]
 
 
 def _flatten(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:

@@ -17,15 +17,18 @@ __all__ = ["dense_init", "norm_init", "norm_apply", "mlp_init", "mlp_apply",
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                lead: tuple = (), scale: float | None = None) -> torch.Tensor:
     """N(0, 1)·d_in^-½ weights of shape ``lead + (d_in, d_out)`` (fp32,
-    CPU, drawn from ``gen``)."""
+    drawn from ``gen`` on its device: the CPU unless ``gen`` is a CUDA
+    generator)."""
     scale = scale if scale is not None else d_in ** -0.5
-    return torch.randn(*lead, d_in, d_out, generator=gen) * scale
+    return torch.randn(*lead, d_in, d_out, generator=gen,
+                       device=gen.device).mul_(scale)
 
 
-def norm_init(cfg: ModelConfig, *, lead: tuple = ()) -> dict:
+def norm_init(cfg: ModelConfig, *, lead: tuple = (),
+              device=None) -> dict:
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm={cfg.norm!r} is not ported yet")
-    return {"scale": torch.ones(*lead, cfg.d_model)}
+    return {"scale": torch.ones(*lead, cfg.d_model, device=device)}
 
 
 def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -60,8 +63,12 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x (B,S,H,D); cos/sin (S,D/2): rotate the two halves of D."""
+    """x (B,S,H,D); cos/sin (S,D/2), or (B,S,D/2) for a position per
+    batch row (the serving engine's slots): rotate the two halves of D."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)

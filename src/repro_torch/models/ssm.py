@@ -14,8 +14,12 @@ h0 = 0, which is how ``ssm_apply`` calls it.
 ``x_proj``'s B and C columns are slices of one projection; the kernel
 takes their row strides, so they reach it without a copy.
 
-The decode path (``ssm_cache``, ``ssm_decode``) waits for serving and
-raises.
+Decode (``ssm_cache``, ``ssm_decode``, counterparts of the reference's)
+carries the conv window and the fp32 state h, and takes one step from h
+with :func:`selective_scan_ref` in PyTorch ops, as the reference's decode
+runs its ``selective_scan_ref`` in jnp outside any kernel: neither the
+TPU kernel nor ``ssm_scan.cu`` takes an initial state.  Prefill
+(``ssm_apply(return_state=True)``) runs the kernel, which returns h_last.
 """
 from __future__ import annotations
 
@@ -28,27 +32,26 @@ from .layers import dense_init
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "ssm_cache",
            "selective_scan_ref"]
 
-_NOT_PORTED = "is not ported yet (serving, ROADMAP Queue 1 item 6)"
-
-
 def ssm_init(cfg: ModelConfig, gen: torch.Generator, *,
              lead: tuple = ()) -> dict:
-    """fp32 CPU parameters of shape ``lead + ...`` drawn from ``gen``, in
-    the JAX package's distributions: N(0,1)·d_in^-½ projections,
-    N(0,1)·K^-½ conv taps, zero conv bias, ``dt_bias`` −4.6
+    """fp32 parameters of shape ``lead + ...`` drawn from ``gen`` on its
+    device, in the JAX package's distributions: N(0,1)·d_in^-½
+    projections, N(0,1)·K^-½ conv taps, zero conv bias, ``dt_bias`` −4.6
     (softplus⁻¹(0.01)), ``A_log = log(1..N)`` per channel, D ones."""
     d, di, N, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    K = cfg.ssm_conv
-    A = torch.arange(1, N + 1, dtype=torch.float32).expand(*lead, di, N)
+    K, dev = cfg.ssm_conv, gen.device
+    A = torch.arange(1, N + 1, dtype=torch.float32,
+                     device=dev).expand(*lead, di, N)
     return {
         "in_proj": dense_init(gen, d, 2 * di, lead=lead),
-        "conv_w": torch.randn(*lead, K, di, generator=gen) * K ** -0.5,
-        "conv_b": torch.zeros(*lead, di),
+        "conv_w": torch.randn(*lead, K, di, generator=gen,
+                              device=dev).mul_(K ** -0.5),
+        "conv_b": torch.zeros(*lead, di, device=dev),
         "x_proj": dense_init(gen, di, dtr + 2 * N, lead=lead),
         "dt_proj": dense_init(gen, dtr, di, lead=lead),
-        "dt_bias": torch.full((*lead, di), -4.6),
+        "dt_bias": torch.full((*lead, di), -4.6, device=dev),
         "A_log": torch.log(A),
-        "D": torch.ones(*lead, di),
+        "D": torch.ones(*lead, di, device=dev),
         "out_proj": dense_init(gen, di, d, lead=lead),
     }
 
@@ -83,7 +86,11 @@ def _conv_causal(x, w, b):
     return y + b[None, None]
 
 
-def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn):
+def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn,
+               h0=None):
+    """The block between the two projections.  From h0 = 0 (``h0`` None)
+    the scan is :class:`SelectiveScanFn` (the kernel on the card); from a
+    decode state it is :func:`selective_scan_ref`."""
     from ..kernels.ssm_scan.ops import SelectiveScanFn
     di = cfg.d_inner
     x, z = xz[..., :di], xz[..., di:]
@@ -94,7 +101,10 @@ def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn):
     Bc = proj[..., dtr:dtr + N]
     Cc = proj[..., dtr + N:]
     A = -torch.exp(p["A_log"])
-    y, h = SelectiveScanFn.apply(x, dt, A, Bc, Cc, p["D"])
+    if h0 is None:
+        y, h = SelectiveScanFn.apply(x, dt, A, Bc, Cc, p["D"])
+    else:
+        y, h = selective_scan_ref(x, dt, A, Bc, Cc, p["D"], h0)
     y = (y * F.silu(z.to(torch.float32))).to(xz.dtype)
     return y, h, x
 
@@ -117,9 +127,30 @@ def ssm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return out
 
 
-def ssm_cache(cfg: ModelConfig, batch: int, dtype):
-    raise NotImplementedError(f"ssm_cache {_NOT_PORTED}")
+def ssm_cache(cfg: ModelConfig, batch: int, dtype, *, lead: tuple = (),
+              device=None) -> dict:
+    """Zero decode state ``lead + ...``: the conv window (batch, K−1, di)
+    in ``dtype`` and h (batch, di, N) in fp32."""
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "conv": torch.zeros((*lead, batch, K - 1, di), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((*lead, batch, di, N), dtype=torch.float32,
+                         device=device),
+    }
 
 
-def ssm_decode(cfg: ModelConfig, p: dict, x, cache):
-    raise NotImplementedError(f"ssm_decode {_NOT_PORTED}")
+def ssm_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
+    """One-token decode: x (B,1,D) -> (out (B,1,D), new {"conv", "h"})."""
+    di, K = cfg.d_inner, cfg.ssm_conv
+    xz = x @ p["in_proj"]
+
+    def conv_fn(u):                                   # u (B,1,di)
+        win = torch.cat([cache["conv"], u], dim=1)    # (B,K,di)
+        y = torch.einsum("bkd,kd->bd", win, p["conv_w"]) + p["conv_b"]
+        return y[:, None, :]
+
+    y, h, _ = _ssm_inner(cfg, p, xz, conv_fn, cache["h"])
+    conv = (torch.cat([cache["conv"][:, 1:], xz[..., :di]], dim=1)
+            if K > 1 else cache["conv"])
+    return y @ p["out_proj"], {"conv": conv, "h": h}

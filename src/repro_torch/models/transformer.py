@@ -1,15 +1,24 @@
 """Decoder-only transformer with attention, SSM or hybrid mixers: init,
-forward, loss.
+forward, loss, and the serving side's KV-cache decode and prefill.
 
 Counterpart of the decoder-only part of ``src/repro/models/
 transformer.py`` (``init_params``, ``_layer_init``, ``_mixer_full``,
-``forward``, ``loss_fn``) for the RoPE GQA attention mixer
-(``rfast-100m``), the Mamba-1 SSM mixer (``falcon-mamba-7b``, no MLP when
+``forward``, ``loss_fn``; ``cache_capacity``, ``init_cache``,
+``decode_step``, ``decode_step_slots``, ``prefill``, ``prefill_cache``,
+``prefill_rows``) for the RoPE GQA attention mixer (``rfast-100m``,
+``llama3-8b``), the Mamba-1 SSM mixer (``falcon-mamba-7b``, no MLP when
 ``d_ff`` is 0) and the hybrid of the two (``hymba-1.5b``: the mean of
 attention and SSM on the same input).  Parameters are a nested dict in
 the JAX package's layout: per-layer weights are stacked on a leading
 ``n_layers`` axis under ``"layers"``, and a Python loop over that axis
-takes the place of ``lax.scan``.
+takes the place of ``lax.scan``.  Decode caches are laid out as the
+reference's ``vmap`` over layers builds them: every leaf ``(L, B, ...)``
+under ``"layers"``, beside ``idx`` and ``slot_pos``.
+
+Decode and prefill run without autograd.  The decode steps update the
+cache they are given in place (the reference donates it) and return it;
+``decode_step_slots`` is the reference's ``vmap`` of ``decode_step``
+over serving slots written as one batched step, a position per row.
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -23,14 +32,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.paramvec import make_ravel_spec, unravel
+from ..core.paramvec import make_ravel_spec, tree_map, unravel
 from ..kernels.rfast_update.dispatch import resolve_device
 from . import attention as attn
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import dense_init, mlp_apply, mlp_init, norm_apply, norm_init
 
-__all__ = ["init_params", "forward", "loss_fn", "params_from_jax"]
+__all__ = ["init_params", "forward", "loss_fn", "params_from_jax",
+           "cache_capacity", "init_cache", "decode_step",
+           "decode_step_slots", "prefill", "prefill_cache", "prefill_rows"]
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -40,30 +51,35 @@ def _check(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only decoders with RoPE GQA attention, SSM or "
             "hybrid mixers, an optional dense MLP and an untied head "
-            "(rfast-100m, falcon-mamba-7b, hymba-1.5b) are ported yet")
+            "(rfast-100m, llama3-8b, falcon-mamba-7b, hymba-1.5b) are "
+            "ported yet")
 
 
 def _layer_init(cfg: ModelConfig, gen: torch.Generator,
                 lead: tuple) -> dict[str, Any]:
-    p: dict[str, Any] = {"ln1": norm_init(cfg, lead=lead)}
+    p: dict[str, Any] = {"ln1": norm_init(cfg, lead=lead,
+                                          device=gen.device)}
     if cfg.mixer in ("attn", "hybrid"):
         p["attn"] = attn.gqa_init(cfg, gen, lead=lead)
     if cfg.mixer in ("ssm", "hybrid"):
         p["ssm"] = ssm_mod.ssm_init(cfg, gen, lead=lead)
     if cfg.d_ff:
-        p["ln2"] = norm_init(cfg, lead=lead)
+        p["ln2"] = norm_init(cfg, lead=lead, device=gen.device)
         p["mlp"] = mlp_init(cfg, gen, lead=lead)
     return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
-    """fp32 CPU parameters drawn from ``gen``: N(0,1)·0.02 embedding,
-    N(0,1)·d_in^-½ dense weights, unit norm scales and the SSM's own
-    initial values (the JAX package's distributions; not its numbers)."""
+    """fp32 parameters drawn from ``gen`` on its device (the CPU unless
+    ``gen`` is a CUDA generator, which draws a full-width model on the
+    card without a host copy): N(0,1)·0.02 embedding, N(0,1)·d_in^-½
+    dense weights, unit norm scales and the SSM's own initial values
+    (the JAX package's distributions; not its numbers)."""
     _check(cfg)
     return {
-        "embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen) * 0.02,
-        "final_norm": norm_init(cfg),
+        "embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                             device=gen.device).mul_(0.02),
+        "final_norm": norm_init(cfg, device=gen.device),
         "layers": _layer_init(cfg, gen, (cfg.n_layers,)),
         "lm_head": dense_init(gen, cfg.d_model, cfg.vocab),
     }
@@ -89,6 +105,16 @@ def params_from_jax(np_tree: dict, *, pad_to: int = 1,
     return unravel(spec, flat), flat
 
 
+def _index(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a nested dict of layer-stacked tensors (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees: list[dict]) -> dict:
+    """The nested dicts of ``trees`` stacked on a new leading axis."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
 def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     if cfg.mixer == "ssm":
@@ -112,11 +138,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     _check(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
-    layers = params["layers"]
     for li in range(cfg.n_layers):
-        lp = {name: {k: v[li] for k, v in sub.items()}
-              for name, sub in layers.items()}
-        x = _layer(cfg, lp, x, positions)
+        x = _layer(cfg, _index(params["layers"], li), x, positions)
     x = norm_apply(cfg, params["final_norm"], x)
     return x @ params["lm_head"], torch.zeros((), device=x.device)
 
@@ -129,3 +152,236 @@ def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
     tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (lse - tgt.to(torch.float32)).mean() + aux
+
+
+# --------------------------------------------------------------------- #
+# decode (serve_step)
+# --------------------------------------------------------------------- #
+def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.mixer == "ssm":
+        return 1                                  # no KV cache at all
+    return min(cfg.attn_window or max_len, max_len)
+
+
+def _mixer_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
+                 lead: tuple = (), device=None) -> dict:
+    c: dict[str, Any] = {}
+    if cfg.mixer in ("attn", "hybrid"):
+        c["attn"] = attn.gqa_cache(cfg, batch, capacity, dtype, lead=lead,
+                                   device=device)
+    if cfg.mixer in ("ssm", "hybrid"):
+        c["ssm"] = ssm_mod.ssm_cache(cfg, batch, dtype, lead=lead,
+                                     device=device)
+    return c
+
+
+def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
+               dtype=torch.float32) -> dict:
+    """Empty decode cache on the parameters' device: ``idx`` () int32,
+    ``slot_pos`` (C,) int32 all −1, ``layers`` leaves (L, batch, ...)."""
+    _check(cfg)
+    dev = params["embed"].device
+    C = cache_capacity(cfg, max_len)
+    return {"idx": torch.zeros((), dtype=torch.int32, device=dev),
+            "slot_pos": torch.full((C,), -1, dtype=torch.int32, device=dev),
+            "layers": _mixer_cache(cfg, batch, C, dtype,
+                                   lead=(cfg.n_layers,), device=dev)}
+
+
+def _ssm_step(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor):
+    y, new = ssm_mod.ssm_decode(cfg, lp["ssm"], h, lc["ssm"])
+    for k, t in new.items():
+        lc["ssm"][k].copy_(t)
+    return y
+
+
+def _mixer_decode(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor,
+                  pos: torch.Tensor, slot_pos: torch.Tensor) -> torch.Tensor:
+    """One token through the layer's mixer; ``lc`` (the layer's cache
+    views) is written in place."""
+    if cfg.mixer == "ssm":
+        return _ssm_step(cfg, lp, lc, h)
+    a, _ = attn.gqa_decode(cfg, lp["attn"], h, lc["attn"], pos, slot_pos,
+                           window=cfg.attn_window)
+    if cfg.mixer == "hybrid":
+        a = 0.5 * (a + _ssm_step(cfg, lp, lc, h))
+    return a
+
+
+def _decode(cfg: ModelConfig, params: dict, layers: dict,
+            tokens: torch.Tensor, pos: torch.Tensor,
+            slot_pos: torch.Tensor) -> torch.Tensor:
+    """tokens (B, 1) at positions ``pos`` (B,) over ``slot_pos`` (B, C)
+    -> logits (B, 1, V); the layer caches are written in place."""
+    x = params["embed"][tokens]
+    for li in range(cfg.n_layers):
+        lp = _index(params["layers"], li)
+        h = norm_apply(cfg, lp["ln1"], x)
+        x = x + _mixer_decode(cfg, lp, _index(layers, li), h, pos, slot_pos)
+        if "mlp" in lp:
+            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+    return norm_apply(cfg, params["final_norm"], x) @ params["lm_head"]
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                token: torch.Tensor):
+    """token (B, 1) -> (logits (B, 1, V), cache): every row at position
+    ``cache["idx"]``; ``cache`` is updated in place and returned."""
+    _check(cfg)
+    pos = cache["idx"]
+    slot_pos = cache["slot_pos"]
+    C = slot_pos.shape[0]
+    slot_pos[pos % C] = pos
+    B = token.shape[0]
+    logits = _decode(cfg, params, cache["layers"], token, pos.expand(B),
+                     slot_pos.expand(B, C))
+    cache["idx"] = pos + 1
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step_slots(cfg: ModelConfig, params: dict, cache: dict,
+                      tokens: torch.Tensor):
+    """Continuous-batching decode: every batch slot advances its OWN
+    position.  Same cache layout as :func:`init_cache` except ``idx`` is
+    ``(B,)`` and ``slot_pos`` is ``(B, C)``.  The reference defines it as
+    a ``vmap`` of :func:`decode_step` over slots; here one batched step
+    writes each row's ring slot ``idx[b] % C`` and masks each row by its
+    own ``slot_pos``.  tokens (B, 1) -> (logits (B, 1, V), cache), the
+    cache updated in place."""
+    if cfg.enc_dec:
+        raise ValueError("decode_step_slots serves decoder-only archs; "
+                         f"{cfg.name} is enc-dec (cross caches have no "
+                         "per-slot position)")
+    _check(cfg)
+    pos = cache["idx"]
+    slot_pos = cache["slot_pos"]
+    B, C = slot_pos.shape
+    slot_pos[torch.arange(B, device=pos.device), pos % C] = pos
+    logits = _decode(cfg, params, cache["layers"], tokens, pos, slot_pos)
+    cache["idx"] = pos + 1
+    return logits, cache
+
+
+def _ring(true_len: int, S: int, C: int, device):
+    """Where the first ``true_len`` of S prefilled positions land in a
+    C-slot ring, as decode writes position p at slot p % C: slot c holds
+    the largest p < true_len with p % C == c, p_c = q − ((q − c) mod C),
+    q = true_len − 1, and stays empty where p_c < 0.  Returns
+    (slot_pos (C,) int32, −1 = empty, and ``place``: (B, S, ...) ->
+    (B, C, ...) rows in ``dtype``, zeros in the empty slots)."""
+    q = int(true_len) - 1
+    p_c = q - ((q - torch.arange(C, device=device)) % C)
+    valid = p_c >= 0
+    rows = p_c.clamp(0, S - 1)
+
+    def place(kv, dtype):
+        mask = valid.reshape((1, C) + (1,) * (kv.ndim - 2))
+        return torch.where(mask, kv[:, rows], 0).to(dtype)
+
+    return torch.where(valid, p_c, -1).to(torch.int32), place
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, cache: dict,
+            tokens: torch.Tensor):
+    """Token-by-token prefill (test helper): ``(cache, logits (B, S, V))``."""
+    logits = []
+    for t in range(tokens.shape[1]):
+        lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        logits.append(lg[:, 0])
+    return cache, torch.stack(logits, 1)
+
+
+@torch.no_grad()
+def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  max_len: int, dtype=torch.float32):
+    """Batched prefill: ONE full forward fills the decode cache.
+
+    Returns (cache with idx = S, last-position logits (B, 1, V)).  The
+    SSM layers' scans run the ``ssm_scan`` kernel on the card, which
+    returns each layer's h_last."""
+    _check(cfg)
+    x = params["embed"][tokens]
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    C = cache_capacity(cfg, max_len)
+    slot_pos, place = _ring(S, S, C, x.device)
+    caches = []
+    for li in range(cfg.n_layers):
+        lp = _index(params["layers"], li)
+        h = norm_apply(cfg, lp["ln1"], x)
+        lc: dict[str, Any] = {}
+        if cfg.mixer == "ssm":
+            y, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
+                                             return_state=True)
+        else:
+            y, (k, v) = attn.gqa_apply(cfg, lp["attn"], h, positions,
+                                       window=cfg.attn_window,
+                                       return_kv=True)
+            lc["attn"] = {"k": place(k, dtype), "v": place(v, dtype)}
+            if cfg.mixer == "hybrid":
+                sy, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
+                                                  return_state=True)
+                y = 0.5 * (y + sy)
+        x = x + y
+        if "mlp" in lp:
+            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+        caches.append(lc)
+    x = norm_apply(cfg, params["final_norm"], x[:, -1:])
+    logits = x @ params["lm_head"]
+
+    cache = {"idx": torch.tensor(S, dtype=torch.int32, device=x.device),
+             "slot_pos": slot_pos, "layers": _stack(caches)}
+    return cache, logits
+
+
+@torch.no_grad()
+def prefill_rows(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 true_len: int, capacity: int, dtype=torch.float32):
+    """Bucketized prefill for ONE serving slot: tokens (B, Sb) are
+    right-padded to a bucket length and ``true_len`` (1 <= true_len <=
+    Sb) marks the valid prefix.
+
+    Causality makes the padding inert where it matters: position i's KV
+    row depends only on tokens <= i, so rows at positions < true_len are
+    those of an unpadded prefill, and the contaminated tail (>= true_len)
+    is never selected below.  ``true_len`` is an argument, so every
+    prompt length inside a bucket runs through one cached callable of
+    the serving engine (keyed by arch, B, C, Sb and dtype).
+
+    Returns ``(ring_layers, slot_pos (C,), logits (B, V))``:
+    ``ring_layers`` leaves are ``(L, B, C, ...)`` decode-cache rows (the
+    last min(true_len, C) valid positions at slots pos % C, zeros
+    elsewhere), ``slot_pos`` the per-slot absolute positions (−1 =
+    empty), and ``logits`` the next-token logits at position
+    true_len − 1.
+    """
+    if cfg.mixer != "attn":
+        raise ValueError(
+            f"prefill_rows requires an attention mixer; {cfg.name} is "
+            f"{cfg.mixer!r} — an SSM carry absorbs the pad tail, so "
+            "bucketized prefill cannot recover the true_len state")
+    if cfg.enc_dec or cfg.frontend:
+        raise ValueError("prefill_rows serves decoder-only text archs; "
+                         f"{cfg.name} has enc_dec/frontend stages")
+    _check(cfg)
+    x = params["embed"][tokens]
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    slot_pos, place = _ring(true_len, S, capacity, x.device)
+    rings = []
+    for li in range(cfg.n_layers):
+        lp = _index(params["layers"], li)
+        a, (k, v) = attn.gqa_apply(cfg, lp["attn"],
+                                   norm_apply(cfg, lp["ln1"], x), positions,
+                                   window=cfg.attn_window, return_kv=True)
+        rings.append({"k": place(k, dtype), "v": place(v, dtype)})
+        x = x + a
+        if "mlp" in lp:
+            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+    q = int(true_len) - 1
+    last = norm_apply(cfg, params["final_norm"], x[:, q:q + 1])
+    logits = (last @ params["lm_head"])[:, 0]
+    return {"attn": _stack(rings)}, slot_pos, logits

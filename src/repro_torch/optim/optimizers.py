@@ -18,6 +18,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..core.paramvec import tree_map
+
 __all__ = ["Optimizer", "sgd", "momentum", "adamw"]
 
 
@@ -25,14 +27,6 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
     # update(grads, opt_state, params, step) -> (new_params, new_opt_state)
-
-
-def _map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the same leaves of
-    ``rest``): the dict counterpart of ``jax.tree.map``."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
 
 
 def _lr_at(lr, step):
@@ -48,7 +42,7 @@ def sgd(lr, weight_decay: float = 0.0) -> Optimizer:
 
     def update(grads, state, params, step):
         g = _lr_at(lr, step)
-        new = _map(lambda p, gr: p - g * (gr + weight_decay * p),
+        new = tree_map(lambda p, gr: p - g * (gr + weight_decay * p),
                    params, grads)
         return new, state
 
@@ -59,13 +53,13 @@ def momentum(lr, beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
     """Polyak heavy-ball, the paper's ResNet-50 setup (β=0.9, wd=1e-4)."""
 
     def init(params):
-        return _map(torch.zeros_like, params)
+        return tree_map(torch.zeros_like, params)
 
     def update(grads, m, params, step):
         g = _lr_at(lr, step)
-        m = _map(lambda mm, gr, p: beta * mm + gr + weight_decay * p,
+        m = tree_map(lambda mm, gr, p: beta * mm + gr + weight_decay * p,
                  m, grads, params)
-        new = _map(lambda p, mm: p - g * mm, params, m)
+        new = tree_map(lambda p, mm: p - g * mm, params, m)
         return new, m
 
     return Optimizer(init, update)
@@ -74,18 +68,18 @@ def momentum(lr, beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
     def init(params):
-        return (_map(torch.zeros_like, params),
-                _map(torch.zeros_like, params))
+        return (tree_map(torch.zeros_like, params),
+                tree_map(torch.zeros_like, params))
 
     def update(grads, state, params, step):
         m, v = state
         g = _lr_at(lr, step)
         t = torch.as_tensor(step, dtype=torch.float32) + 1.0
-        m = _map(lambda mm, gr: b1 * mm + (1 - b1) * gr, m, grads)
-        v = _map(lambda vv, gr: b2 * vv + (1 - b2) * gr * gr, v, grads)
+        m = tree_map(lambda mm, gr: b1 * mm + (1 - b1) * gr, m, grads)
+        v = tree_map(lambda vv, gr: b2 * vv + (1 - b2) * gr * gr, v, grads)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
-        new = _map(lambda p, mm, vv: p - g * (
+        new = tree_map(lambda p, mm, vv: p - g * (
             (mm / bc1) / (torch.sqrt(vv / bc2) + eps) + weight_decay * p),
             params, m, v)
         return new, (m, v)

@@ -41,7 +41,13 @@ event engine launches nothing and matches the wavefront kernel route at
 ``churn``) launches one ``commit_grid`` per non-empty wave of every
 epoch and matches its plain backend at 1e-5; card tensors survive a
 checkpoint round trip bitwise, back on the card, and a run resumed from
-a chunk boundary on the card is bitwise the uninterrupted one.
+a chunk boundary on the card is bitwise the uninterrupted one.  Serving:
+``init_params`` draws on a CUDA generator's device; ``prefill_cache`` +
+``decode_step`` on the card match the CPU at 1e-4 of the largest |logit|
+(reduced rfast-100m, hymba-1.5b, falcon-mamba-7b), the SSM layers'
+prefill launching ``ssm_scan`` once each and a decode step none; and the
+serving engine on the card serves the CPU's tokens (one argmax tie
+allowed) with 1 decode + one prefill entry per bucket used.
 """
 import numpy as np
 import pytest
@@ -861,3 +867,72 @@ def test_resumed_run_is_bitwise_on_card(cuda):
                        eval_every=35, state0=saved["st"])
     for f in st._fields[1:]:
         assert torch.equal(getattr(st, f), getattr(st2, f)), f
+
+
+def _to_card(tree: dict) -> dict:
+    return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
+
+
+def _serve_model(arch: str):
+    """A reduced arch's weights on the CPU and the same on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, cpu, _to_card(cpu)
+
+
+def test_init_params_draws_on_a_cuda_generator(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("hymba-1.5b").reduced()
+    p = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = [p["embed"], p["lm_head"], p["final_norm"]["scale"]] + [
+        t for sub in p["layers"].values() for t in sub.values()]
+    assert all(t.is_cuda and t.dtype == torch.float32 for t in leaves)
+    assert abs(float(p["embed"].std()) - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("arch", ["rfast-100m", "hymba-1.5b",
+                                  "falcon-mamba-7b"])
+def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """prefill_cache + decode_step on the card against the same on the
+    CPU (the scan's plain twin there) at 1e-4 of the largest |logit|; the
+    SSM layers' prefill launches ssm_scan once each, decode none."""
+    from repro_torch.models import transformer as tt
+    cfg, cpu, card = _serve_model(arch)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)))
+    c0, l0 = tt.prefill_cache(cfg, cpu, toks[:, :6], 12)
+    dispatch.clear()
+    c1, l1 = tt.prefill_cache(cfg, card, toks[:, :6].cuda(), 12)
+    ssm_layers = cfg.n_layers if cfg.mixer != "attn" else 0
+    assert dispatch.launches("ssm_scan") == ssm_layers
+    assert (l1.cpu() - l0).abs().max() <= 1e-4 * l0.abs().max()
+    for t in range(6, 12):
+        l0, c0 = tt.decode_step(cfg, cpu, c0, toks[:, t:t + 1])
+        l1, c1 = tt.decode_step(cfg, card, c1, toks[:, t:t + 1].cuda())
+        assert (l1.cpu() - l0).abs().max() <= 1e-4 * l0.abs().max(), t
+    assert dispatch.launches("ssm_scan") == ssm_layers
+
+
+def test_engine_on_the_card_serves_the_cpus_tokens(cuda):
+    from repro_torch.serve import ServeEngine, cache as serve_cache
+    from repro_torch.serve import make_workload
+    cfg, cpu, card = _serve_model("rfast-100m")
+    kw = dict(n_requests=20, vocab=cfg.vocab, max_prompt=16, max_gen=6,
+              seed=2)
+    out = {}
+    for name, params in (("cpu", cpu), ("cuda", card)):
+        serve_cache.clear()
+        reqs = make_workload(**kw)
+        eng = ServeEngine(cfg, params, batch=4, max_len=32,
+                          buckets=(4, 8, 16))
+        eng.run(reqs)
+        assert eng.device.type == name and all(r.done for r in reqs)
+        assert serve_cache.stats()["entries"] == 1 + len(
+            {eng.bucket_for(len(r.prompt)) for r in reqs})
+        out[name] = [r.tokens for r in reqs]
+    same = sum(a == b for a, b in zip(out["cpu"], out["cuda"]))
+    assert same >= len(out["cpu"]) - 1      # an argmax tie may flip one

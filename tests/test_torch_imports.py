@@ -43,7 +43,10 @@ def test_no_jax_or_reference_imports_in_the_port():
     for mod in ("models/ssm.py", "kernels/ssm_scan/ops.py",
                 "kernels/ssm_scan/kernel.py", "kernels/ssm_scan/ref.py",
                 "configs/hymba_1_5b.py", "configs/falcon_mamba_7b.py",
-                "checkpoint/ckpt.py", "checkpoint/__init__.py"):
+                "checkpoint/ckpt.py", "checkpoint/__init__.py",
+                "serve/engine.py", "serve/weights.py", "serve/cache.py",
+                "serve/scheduler.py", "serve/traffic.py",
+                "launch/serve.py", "configs/llama3_8b.py"):
         assert port / mod in FILES
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f)
                                       if _forbidden(n)]
@@ -62,6 +65,7 @@ def test_entry_point_loads_no_jax_module():
             "import repro_torch.core.simulator; "
             "import repro_torch.core.runtime; "
             "import repro_torch.checkpoint; "
+            "import repro_torch.launch.serve; "
             "import repro_torch.kernels.rfast_update.ops; "
             "import repro_torch.kernels.ssm_scan.ops; "
             "import repro_torch.models.ssm; "
