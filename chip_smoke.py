@@ -197,7 +197,32 @@ run.  Phases:
    functions ``phase_serve_rfast``, ``phase_serve_llama`` and
    ``phase_serve_hymba``.
 
-Each of phases 17–24 prints its wall seconds, peak memory or
+25. zoo serving — the model zoo's decoders at full width, weights drawn
+   on the card by a CUDA generator (fp32): olmo-1b (16 layers),
+   qwen2.5-3b (36), deepseek-7b (30), phi3.5-moe-42b-a6.6b cut to 8 of
+   32 layers and deepseek-v2-236b to 3 of 60 (depth only; every width,
+   expert count and top-k as published).  For each: ``prefill_cache`` +
+   ``decode_step`` (B 2, S 16, prompt 6; the MoE capacity lifted to 100,
+   as tests/test_serve.py lifts it) against one teacher-forced
+   ``forward`` at 2e-3; a ``ServeEngine`` (B 4, max_len 64, buckets (4,
+   8, 16)) serving 8 requests, one prefill entry per bucket and one
+   decode entry; at least ``ZOO_BUSY_STEPS`` decode-only steps with
+   every slot busy (p50, p99); kernels per decode step and the card's
+   busy share from ``torch.profiler``; peak memory; the step's bound
+   (``decode_bound``: a tied head reads the whole table; with MoE every
+   expert's bytes, as the dense capacity buffer multiplies them all,
+   beside the routed and shared experts' alone);
+26. zoo training through ``commit_grid`` — each zoo arch at
+   ``--reduced`` through ``launch.train``'s sync rounds (4 nodes, 3
+   rounds, ``--loss-prob 0.2``) and deepseek-v2-236b also
+   asynchronously (``--scenario straggler``), ``impl kernel`` against
+   ``impl plain`` (the last checkpoint's x and z within phase 5's 1e-5),
+   ``commit_grid`` launched once per round or wave; then full-width
+   olmo-1b cut to 2 of 16 layers (p = 237,240,320) in 3 sync rounds:
+   wall s, peak GB and the losses.  Phases 25–26 are the functions
+   ``phase_zoo_serve`` and ``phase_zoo_train``.
+
+Each of phases 17–26 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -338,6 +363,36 @@ LLAMA_SERVE_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--max-len",
                     "--max-gen", "16", "--seed", "0"]
 HYMBA_SERVE_B, HYMBA_PROMPT, HYMBA_DECODE = 2, 192, 64
 SERVE_TF_TOL = 2e-3          # tests/test_serve.py's teacher-forced rtol/atol
+# phases 25-26: the model zoo.  (arch, layers kept or None for all): the
+# MoE archs cut in depth only (166 GB and 957 GB at full depth)
+ZOO_SERVE = [("olmo-1b", None), ("qwen2.5-3b", None), ("deepseek-7b", None),
+             ("phi3.5-moe-42b-a6.6b", 8), ("deepseek-v2-236b", 3)]
+# their parameters at those depths, every leaf (norms and biases too)
+ZOO_PARAMS = {"olmo-1b": 1_176_764_416, "qwen2.5-3b": 3_085_938_688,
+              "deepseek-7b": 6_910_365_696,
+              "phi3.5-moe-42b-a6.6b": 10_665_205_760,
+              "deepseek-v2-236b": 12_964_930_560}
+ZOO_TF_B, ZOO_TF_S, ZOO_TF_PROMPT = 2, 16, 6   # tests/test_serve.py's
+ZOO_TF_CAPACITY = 100.0      # tests/test_serve.py lifts the MoE capacity
+ZOO_PROMPTS = [3, 7, 12, 16, 2, 5, 9, 14]      # every bucket used
+ZOO_GEN = 6                  # tokens a request
+ZOO_BUSY_STEPS = 20          # busy decode-only steps timed, at least
+ZOO_TRAIN = [a for a, _ in ZOO_SERVE]
+ZOO_TRAIN_ARGS = ["--reduced", "--nodes", "4", "--topology", "binary_tree",
+                  "--steps", "3", "--batch-per-node", "4", "--seq", "64",
+                  "--seed", "0", "--log-every", "1", "--ckpt-every", "3"]
+# (tag, extra arguments, archs): every zoo arch in lossy sync rounds, the
+# MLA + MoE arch also asynchronously
+ZOO_TRAIN_RUNS = [("sync", ["--loss-prob", "0.2"], ZOO_TRAIN),
+                  ("async", ["--scenario", "straggler"],
+                   ["deepseek-v2-236b"])]
+BACKEND_TOL = 1e-5           # phase 5's kernel vs plain tolerance
+OLMO_TRAIN_LAYERS = 2        # of olmo-1b's 16 at full width: ≈ 57 GB peak
+OLMO_TRAIN_P = 237_240_320
+OLMO_TRAIN_ARGS = ["--arch", "olmo-1b", "--nodes", "4", "--topology",
+                   "binary_tree", "--steps", "3", "--batch-per-node", "4",
+                   "--seq", "128", "--seed", "0", "--log-every", "1",
+                   "--impl", "kernel"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -692,22 +747,45 @@ def decode_only_us(records: list[dict]) -> list[float]:
             if r["active"] and not r["admitted"] and not r["swap"]]
 
 
-def decode_bound(params: dict, cache: dict, B: int) -> dict:
-    """Least time of one decode step of B tokens: the bytes it must move
-    (every parameter but the embedding table read once, B embedding rows,
-    the KV cache read once) at the HBM rate; its operations (2 per
-    weight per token) at the fp32 rate are far below."""
+def decode_bound(cfg, params: dict, cache: dict, B: int) -> dict:
+    """Least time of one decode step of B tokens, the larger of its bytes
+    at the HBM rate and its fp32 operations (2 per weight per row it
+    multiplies): every parameter but the embedding table read once, the
+    KV cache read once, and of the table B rows, or the whole table when
+    the head is tied (it is the head, read whole).  With MoE the step's
+    dense capacity buffer (the reference's) multiplies every expert's
+    weights by C = 8 slots a row: ``bound_ms`` counts all E experts, and
+    ``routed_bound_ms`` beside it only the routed ones (at most B·top_k a
+    layer) and the shared ones, what a step that skipped the unrouted
+    experts would read."""
     from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.models.moe import _capacity
     embed = params["embed"]
+    item = embed.element_size()
     w = sum(t.numel() * t.element_size() for t in tree_leaves(params)
             if t is not embed)
+    tied = "lm_head" not in params
+    table = embed.numel() * item if tied else B * embed.shape[1] * item
     kv = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
-    nbytes = w + kv + B * embed.shape[1] * embed.element_size()
-    flops = 2 * B * (w // 4)
-    return dict(bytes=nbytes, param_bytes=w, cache_bytes=kv,
-                bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                             flops / FP32_FLOP_PER_S) * 1e3,
-                bound_by="bytes")
+    nbytes = w + table + kv
+    flops = 2 * B * (w // item) + (2 * B * embed.numel() if tied else 0)
+    out = dict(param_bytes=w, table_bytes=table, tied_head=tied,
+               cache_bytes=kv)
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        ex = sum(t.numel() * t.element_size() for t in tree_leaves(
+            params["layers"]["mlp"]["experts"]))
+        rows = B * _capacity(cfg, 1)          # the slots step's buffer
+        flops += 2 * (rows - B) * (ex // item)
+        used = min(E, B * cfg.moe_top_k)
+        routed = nbytes - ex + ex * used // E
+        out.update(expert_bytes=ex, experts_read=E,
+                   routed_experts_at_most=used, routed_bytes=routed,
+                   routed_bound_ms=routed / HBM_BYTES_PER_S * 1e3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops)
+                * 1e3, bound_by="bytes" if t_bytes >= t_ops
+                else "operations", **out)
 
 
 def teacher_forced(cfg, params, toks, n_prompt: int, max_len: int) -> dict:
@@ -883,7 +961,7 @@ def phase_serve_rfast(name: str, smi: str) -> dict:
         eng.step(bsched)
     prof = device_busy(lambda: [eng.step(bsched)
                                 for _ in range(PROFILE_STEPS)])
-    rbound = decode_bound(store.params, eng._cache["layers"], SERVE_B)
+    rbound = decode_bound(cfg, store.params, eng._cache["layers"], SERVE_B)
     emit("serve_rfast", p=sum(t.numel() for t in tree_leaves(store.params)),
          batch=SERVE_B, max_len=SERVE_MAX_LEN, C=eng.C,
          buckets=list(SERVE_BUCKETS), requests=len(reqs),
@@ -973,7 +1051,8 @@ def phase_serve_llama(name: str, smi: str) -> None:
     swap_wall = time.perf_counter() - eng._t0
     after_us = busy_decode_us(eng, SERVE_TIMED_STEPS, plen, 2000)
     swap_entries = serve_cache.stats()
-    step_bound = decode_bound(eng.store.params, eng._cache["layers"], eng.B)
+    step_bound = decode_bound(eng.cfg, eng.store.params,
+                              eng._cache["layers"], eng.B)
     busy = Scheduler([Request(rid=100 + i, prompt=np.arange(
         4, dtype=np.int32), gen=PROFILE_STEPS + 8, arrive_s=0.0)
         for i in range(eng.B)])
@@ -1082,7 +1161,7 @@ def phase_serve_hymba(name: str, smi: str) -> dict:
     rel = float(((tf["loop"] - tf["ref"]).abs().amax(-1)
                  / tf["ref"].abs().amax(-1)).max())
     cache, _ = prefill()
-    step_bound = decode_bound(params, cache["layers"], HYMBA_SERVE_B)
+    step_bound = decode_bound(cfg, params, cache["layers"], HYMBA_SERVE_B)
     prof = device_busy(lambda: [tt.decode_step(
         cfg, params, cache, toks[:, t:t + 1]) for t in range(
             HYMBA_PROMPT, HYMBA_PROMPT + PROFILE_STEPS)])
@@ -1114,6 +1193,215 @@ def phase_serve_hymba(name: str, smi: str) -> dict:
                 forward=forward_launches["ssm_scan"],
                 max_abs_err=max(err_by_shape.values()),
                 err_by_shape=err_by_shape)
+
+
+def zoo_serve(arch: str, layers, name: str, smi: str) -> None:
+    """Phase 25 for one arch: its weights drawn on the card at full width
+    (``layers`` of them, or all), ``prefill_cache`` + ``decode_step``
+    against one teacher-forced ``forward`` (the MoE capacity lifted as
+    tests/test_serve.py lifts it), a ``ServeEngine`` run, busy decode-only
+    steps, a profiled window and the step's bytes bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import (Request, Scheduler, ServeEngine,
+                                   WeightStore, cache as serve_cache)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    tf_cfg = (dataclasses.replace(cfg, capacity_factor=ZOO_TF_CAPACITY)
+              if cfg.moe_experts else cfg)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ZOO_TF_B, ZOO_TF_S))).cuda()
+    dispatch.clear()
+    tf = teacher_forced(tf_cfg, params, toks, ZOO_TF_PROMPT, ZOO_TF_S)
+    viol = float(((tf["loop"] - tf["ref"]).abs()
+                  - SERVE_TF_TOL * tf["ref"].abs()).max())
+    rel = float(((tf["loop"] - tf["ref"]).abs().amax(-1)
+                 / tf["ref"].abs().amax(-1)).max())
+    tf_us = tf["step_us"]
+    del tf
+    serve_cache.clear()
+    eng = ServeEngine(cfg, WeightStore(params), batch=SERVE_B,
+                      max_len=SERVE_MAX_LEN, buckets=SERVE_BUCKETS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), gen=ZOO_GEN, arrive_s=0.0)
+        for i, n in enumerate(ZOO_PROMPTS)]
+    t0 = time.perf_counter()
+    report = eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    launches = dispatch.stats()["by_kernel"]
+    entries = serve_cache.stats()
+    buckets_used = sorted({eng.bucket_for(len(r.prompt)) for r in reqs})
+    busy_us = busy_decode_us(eng, ZOO_BUSY_STEPS, 4, 1000)
+    busy = Scheduler([Request(rid=100 + i, prompt=np.arange(
+        4, dtype=np.int32), gen=PROFILE_STEPS + 8, arrive_s=0.0)
+        for i in range(eng.B)])
+    for _ in range(3):
+        eng.step(busy)
+    prof = device_busy(lambda: [eng.step(busy)
+                                for _ in range(PROFILE_STEPS)])
+    step_bound = decode_bound(cfg, params, eng._cache["layers"], eng.B)
+    emit("zoo_serve", arch=arch, layers=cfg.n_layers,
+         of_layers=full.n_layers,
+         cut=None if layers is None else f"depth: {layers} of "
+         f"{full.n_layers} layers", p=p, param_gb=p * 4 / 1e9,
+         init_s=init_s, tf_batch=ZOO_TF_B, tf_seq=ZOO_TF_S,
+         tf_prompt=ZOO_TF_PROMPT, tf_capacity_factor=tf_cfg.capacity_factor,
+         max_abs_err_beyond_rtol=viol, max_rel_err=rel, tol=SERVE_TF_TOL,
+         tf_decode_step=step_percentiles(tf_us), batch=eng.B, C=eng.C,
+         buckets=list(SERVE_BUCKETS), requests=len(reqs),
+         served=sum(r.done for r in reqs),
+         tokens=sum(len(r.tokens) for r in reqs), serve_wall_s=serve_wall,
+         buckets_used=buckets_used, cache=entries,
+         decode_step=step_percentiles(decode_only_us(report["steps"])),
+         decode_step_busy=step_percentiles(busy_us), launches=launches,
+         kernels_per_decode_step=prof["kernels"] / PROFILE_STEPS,
+         profile=prof, **step_bound,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(p == ZOO_PARAMS[arch], f"{arch}: {ZOO_PARAMS[arch]:,} parameters "
+          f"at {cfg.n_layers} layers: {p:,}")
+    check(viol <= SERVE_TF_TOL, f"{arch}: prefill_cache + decode_step vs "
+          f"one forward within rtol = atol = {SERVE_TF_TOL}")
+    check(all(r.done for r in reqs) and len(reqs) >= 8,
+          f"{arch}: the engine serves every request")
+    check(entries["entries"] == 1 + len(buckets_used) == 1 + len(
+        SERVE_BUCKETS), f"{arch}: 1 decode + one prefill entry per bucket "
+          f"used: {entries}")
+    check(len(busy_us) >= ZOO_BUSY_STEPS,
+          f"{arch}: {ZOO_BUSY_STEPS} busy decode-only steps timed")
+    check(not launches and prof["kernels"] > 0,
+          f"{arch}: the attention path launches no kernel of the port")
+    del eng, params, report, busy, toks
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_serve(name: str, smi: str) -> None:
+    """Phase 25: every zoo arch served at full width."""
+    for arch, layers in ZOO_SERVE:
+        zoo_serve(arch, layers, name, smi)
+
+
+def ckpt_rows(path, field: str):
+    """The ``field`` leaves of a checkpoint file (``.x``, or the ``.x/``
+    subtree of a model tree) flattened into one float64 vector."""
+    import numpy as np
+    with np.load(path) as f:
+        keys = sorted(k for k in f.files
+                      if k == field or k.startswith(field + "/"))
+        return np.concatenate([f[k].astype(np.float64).ravel()
+                               for k in keys])
+
+
+def phase_zoo_train(name: str, smi: str) -> dict:
+    """Phase 26: the zoo archs at ``--reduced`` through ``launch.train``,
+    ``impl kernel`` against ``impl plain`` (their last checkpoints' x and
+    z within phase 5's tolerance), then full-width olmo-1b cut to
+    ``OLMO_TRAIN_LAYERS`` layers in sync rounds.  Returns the runs'
+    ``commit_grid`` launches by path."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import train
+    root = ROOT / "build" / "chip_smoke_zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    paths = {}
+    for tag, extra, archs in ZOO_TRAIN_RUNS:
+        for arch in archs:
+            runs = {}
+            for impl in ("kernel", "plain"):
+                d = root / f"{tag}-{arch}-{impl}"
+                torch.cuda.reset_peak_memory_stats()
+                dispatch.clear()
+                t0 = time.perf_counter()
+                res = train.main(["--arch", arch] + ZOO_TRAIN_ARGS + extra
+                                 + ["--impl", impl, "--ckpt", str(d)])
+                torch.cuda.synchronize()
+                last = sorted(d.glob("step_*.npz"))[-1]
+                runs[impl] = dict(
+                    res=res, wall_s=time.perf_counter() - t0,
+                    launches=dispatch.stats()["by_kernel"],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    x=ckpt_rows(last, ".x"), z=ckpt_rows(last, ".z"))
+                shutil.rmtree(d)
+                torch.cuda.empty_cache()
+            k, pl = runs["kernel"], runs["plain"]
+            rel = {f: float(np.linalg.norm(k[f] - pl[f])
+                            / np.linalg.norm(pl[f])) for f in ("x", "z")}
+            steps = (k["res"]["rounds"] if tag == "sync"
+                     else k["res"]["waves"])
+            emit("zoo_train", arch=arch, regime=tag, args=extra,
+                 reduced=True, p=k["res"]["p"],
+                 rounds=k["res"].get("rounds"),
+                 events=k["res"].get("events"), waves=k["res"].get("waves"),
+                 losses={i: r["res"]["losses"] for i, r in runs.items()},
+                 wall_s={i: r["wall_s"] for i, r in runs.items()},
+                 max_memory_allocated_gb={i: r["peak_gb"]
+                                          for i, r in runs.items()},
+                 launches={i: r["launches"] for i, r in runs.items()},
+                 x_rel=rel["x"], z_rel=rel["z"], tol=BACKEND_TOL,
+                 lemma3_rel=k["res"]["mass_rel"], device=name,
+                 nvidia_smi=smi)
+            check(all(math.isfinite(v) for r in runs.values()
+                      for v in r["res"]["losses"]),
+                  f"zoo {tag} {arch}: finite losses")
+            check(max(rel.values()) <= BACKEND_TOL,
+                  f"zoo {tag} {arch}: kernel and plain agree to "
+                  f"{BACKEND_TOL}: {rel}")
+            check(steps > 0 and k["launches"] == {"commit_grid": steps}
+                  and not pl["launches"],
+                  f"zoo {tag} {arch}: one commit_grid launch per "
+                  f"{'round' if tag == 'sync' else 'wave'} (plain none): "
+                  f"{k['launches']}, {pl['launches']}")
+            paths[f"zoo_{tag}_{arch}"] = steps
+            del runs, k, pl
+    shutil.rmtree(root, ignore_errors=True)
+    # olmo-1b at full width, OLMO_TRAIN_LAYERS of its 16 layers, sync
+    cfg_o = dataclasses.replace(get_config("olmo-1b"),
+                                n_layers=OLMO_TRAIN_LAYERS)
+    args = train.parse_args(OLMO_TRAIN_ARGS)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    ores = train._train_sync(args, cfg_o, torch.device("cuda"))
+    torch.cuda.synchronize()
+    owall = time.perf_counter() - t0
+    olaunches = dispatch.stats()["by_kernel"]
+    emit("zoo_train_olmo", layers=OLMO_TRAIN_LAYERS, of_layers=16,
+         cut=f"depth: {OLMO_TRAIN_LAYERS} of 16 layers", p=ores["p"],
+         rounds=ores["rounds"], losses=ores["losses"], wall_s=owall,
+         state_gb=ores["state_bytes"] / 1e9,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         memory_gb={k: {m: b / 1e9 for m, b in v.items()}
+                    for k, v in ores["memory"].items()},
+         resident_before_gb=resident / 1e9, launches=olaunches,
+         lemma3_rel=ores["mass_rel"], device=name, nvidia_smi=smi)
+    check(ores["p"] == OLMO_TRAIN_P, f"olmo-1b at {OLMO_TRAIN_LAYERS} "
+          f"layers has {OLMO_TRAIN_P:,} parameters: {ores['p']:,}")
+    check(all(math.isfinite(v) for v in ores["losses"]),
+          "olmo-1b sync: finite losses")
+    check(olaunches == {"commit_grid": ores["rounds"]},
+          f"olmo-1b sync: one commit_grid launch per round: {olaunches}")
+    check(ores["mass_rel"] <= 1e-4, "olmo-1b sync: Lemma-3 <= 1e-4")
+    paths["zoo_sync_olmo-1b_full_width"] = ores["rounds"]
+    torch.cuda.empty_cache()
+    return paths
 
 
 # --------------------------------------------------------------------- #
@@ -2734,6 +3022,10 @@ def main() -> int:
     phase_serve_llama(name, smi)
     hymba_serve = phase_serve_hymba(name, smi)
 
+    # 25-26. the model zoo -------------------------------------------------
+    phase_zoo_serve(name, smi)
+    zoo_launches = phase_zoo_train(name, smi)
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -2748,7 +3040,8 @@ def main() -> int:
         "epochs_logistic": reelect_launches,
         "sync_resume": sync_resume_launches,
         "async_resume": async_resume_launches,
-        "serve_publish": publish_launches.get("commit_grid", 0)}
+        "serve_publish": publish_launches.get("commit_grid", 0),
+        **zoo_launches}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),

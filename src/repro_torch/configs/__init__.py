@@ -1,8 +1,12 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-``rfast-100m``, ``llama3-8b``, ``hymba-1.5b`` and ``falcon-mamba-7b`` are
-ported so far (their modules are copies of ``src/repro/configs/``); the
-JAX package's other architectures raise a "not ported yet" error.
+Every decoder-only text architecture of the JAX package is ported: the
+dense ``rfast-100m``, ``llama3-8b``, ``deepseek-7b``, ``olmo-1b`` and
+``qwen2.5-3b``, the MoE ``phi3.5-moe-42b-a6.6b`` and ``deepseek-v2-236b``
+(MLA), the hybrid ``hymba-1.5b`` and the SSM ``falcon-mamba-7b`` (their
+modules are copies of ``src/repro/configs/``).  The enc-dec and frontend
+archs (``whisper-large-v3``, ``pixtral-12b``) raise a "not ported yet"
+error.
 """
 from __future__ import annotations
 
@@ -10,7 +14,9 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["falcon-mamba-7b", "hymba-1.5b", "llama3-8b", "rfast-100m"]
+ARCHS = ["olmo-1b", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
+         "qwen2.5-3b", "llama3-8b", "hymba-1.5b", "deepseek-7b",
+         "deepseek-v2-236b", "rfast-100m"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

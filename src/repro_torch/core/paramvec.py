@@ -70,12 +70,25 @@ def _flatten(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
     return [(prefix, tree)]
 
 
+def _empty_paths(tree: Any, prefix: tuple = ()) -> list[tuple]:
+    """Key paths of the empty dicts in a nested dict (a layer norm with
+    no parameters): they hold no leaf, but belong to the structure."""
+    if not isinstance(tree, dict):
+        return []
+    if not tree and prefix:
+        return [prefix]
+    return [p for k in sorted(tree) for p in _empty_paths(tree[k],
+                                                          prefix + (k,))]
+
+
 @dataclasses.dataclass(frozen=True)
 class RavelSpec:
     """Static plan flattening one nested-dict layout to a ``(p,)`` buffer.
 
     ``p`` includes the tail padding (``p = ceil(p_model / pad_to) *
-    pad_to``); ``p_model`` is the true parameter count.
+    pad_to``); ``p_model`` is the true parameter count.  ``empty`` holds
+    the key paths of the tree's empty dicts, which :func:`unravel`
+    rebuilds, so the tree keeps the JAX package's structure.
     """
 
     paths: tuple[tuple[str, ...], ...]
@@ -86,6 +99,7 @@ class RavelSpec:
     p: int
     pad_to: int
     dtype: torch.dtype = torch.float32
+    empty: tuple[tuple[str, ...], ...] = ()
 
     def __repr__(self) -> str:
         return (f"RavelSpec(leaves={len(self.shapes)}, "
@@ -110,7 +124,7 @@ def make_ravel_spec(tree: Any, *, pad_to: int = 1,
     return RavelSpec(paths=tuple(p for p, _ in items), shapes=shapes,
                      dtypes=dtypes, offsets=offsets, p_model=p_model,
                      p=-(-p_model // pad_to) * pad_to, pad_to=pad_to,
-                     dtype=dtype)
+                     dtype=dtype, empty=tuple(_empty_paths(tree)))
 
 
 def ravel(spec: RavelSpec, tree: Any) -> torch.Tensor:
@@ -134,7 +148,8 @@ def ravel(spec: RavelSpec, tree: Any) -> torch.Tensor:
 def unravel(spec: RavelSpec, vec: torch.Tensor) -> dict:
     """``(*lead, spec.p)`` buffer -> nested dict of ``(*lead, *shape)``
     views into ``vec`` (no copies: autograd through the views lands in
-    ``vec``'s gradient; the pad tail is in no view)."""
+    ``vec``'s gradient; the pad tail is in no view), the spec's empty
+    dicts in their places."""
     lead = tuple(vec.shape[:-1])
     tree: dict = {}
     for path, shape, off in zip(spec.paths, spec.shapes, spec.offsets):
@@ -143,6 +158,10 @@ def unravel(spec: RavelSpec, vec: torch.Tensor) -> dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = vec[..., off:off + size].view(*lead, *shape)
+    for path in spec.empty:
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
     return tree
 
 

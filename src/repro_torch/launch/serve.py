@@ -17,8 +17,10 @@ between decode steps.  DESIGN.md §14 has the architecture.
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no GPU
 is present and the CPU was not asked for; on the card float32 matmuls
 run in full float32 (TF32 off), as the reference does.  ``--arch`` takes
-the port's attention archs (``rfast-100m``, ``llama3-8b``): the engine
-refuses SSM and hybrid mixers, as the reference's does.
+every attention arch of the port (``rfast-100m``, ``llama3-8b``,
+``deepseek-7b``, ``olmo-1b``, ``qwen2.5-3b``, the MoE
+``phi3.5-moe-42b-a6.6b`` and the MLA + MoE ``deepseek-v2-236b``): the
+engine refuses SSM and hybrid mixers, as the reference's does.
 
 RNG: the reference splits one JAX key into a parameter key and a traffic
 key; torch cannot reproduce JAX's keys (ROADMAP ground rules), so the
@@ -49,7 +51,9 @@ def _percentile(xs: list[float], q: float) -> float:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=ARCHS)
+    ap.add_argument("--arch", default="llama3-8b", choices=ARCHS,
+                    help="an attention arch (SSM and hybrid mixers are "
+                         "refused by the engine)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots B (fixed batch shape)")

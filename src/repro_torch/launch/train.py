@@ -40,10 +40,13 @@ commits through the hand-written ``commit_grid`` kernel (one launch per
 round, or per wave); ``--impl plain`` through PyTorch ops.  On the card,
 float32 matmuls run in full float32 (TF32 off), as the reference does.
 
-``--arch`` takes the port's architectures: ``rfast-100m`` (dense
-attention), ``hymba-1.5b`` (hybrid attention + Mamba heads) and
-``falcon-mamba-7b`` (attention-free); every SSM mixer's scan forward runs
-the hand-written ``ssm_scan`` kernel on the card.
+``--arch`` takes the port's architectures: the dense attention decoders
+``rfast-100m``, ``llama3-8b``, ``deepseek-7b``, ``olmo-1b`` and
+``qwen2.5-3b``, the MoE ``phi3.5-moe-42b-a6.6b`` and ``deepseek-v2-236b``
+(MLA; the router loss enters every gradient), ``hymba-1.5b`` (hybrid
+attention + Mamba heads) and ``falcon-mamba-7b`` (attention-free); every
+SSM mixer's scan forward runs the hand-written ``ssm_scan`` kernel on
+the card.
 
 Not ported yet, rejected with an error: ``--param-shards`` (the
 parameter-sharded async run).  The reference's ``--verify-plans`` and

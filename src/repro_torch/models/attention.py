@@ -1,21 +1,26 @@
-"""Grouped-query attention: full sequence (train, prefill) and one-token
-decode over a ring KV cache.
+"""Attention mixers: grouped-query (GQA, with optional q/k/v biases) and
+multi-head latent attention (MLA, deepseek-v2), over the full sequence
+(train, prefill) and one-token decode over a ring cache.
 
 Counterpart of ``_sdpa``, ``_causal_mask``, ``gqa_init``, ``_qkv``,
-``gqa_apply``, ``gqa_cache`` and ``gqa_decode`` in
-``src/repro/models/attention.py``.  As there, scores are an einsum, a
-masked softmax and an einsum over grouped heads (no KV repeat is
-materialized), so the two packages agree numerically; the port does not
-call ``scaled_dot_product_attention``.
+``gqa_apply``, ``gqa_cache``, ``gqa_decode``, ``mla_init``, ``_rms``,
+``_mla_q``, ``_mla_compress``, ``_mla_attend``, ``mla_apply``,
+``mla_cache`` and ``mla_decode`` in ``src/repro/models/attention.py``.
+As there, scores are an einsum, a masked softmax and an einsum over
+grouped heads (no KV repeat is materialized), so the two packages agree
+numerically; the port does not call ``scaled_dot_product_attention``.
+MLA caches the compressed latent ``c`` (B, C, kv_lora_rank) and the
+roped key part ``kr`` (B, C, qk_rope_dim), and expands both into keys
+and values at every step, as the reference does.
 
 The decode cache stores K roped at absolute positions in a ring of ``C``
 slots, written at ``pos % C``; ``slot_pos`` holds the absolute position
 in each slot (−1 = empty), so a sliding window needs no shifts.
-:func:`gqa_decode` takes a position per batch row, ``pos`` (B,) and
-``slot_pos`` (B, C): the reference's single sequence is the case of
-equal rows, and its ``vmap`` over serving slots the general one.  It
-writes the new k, v into the cache in place (the reference donates the
-cache to its decode step).
+:func:`gqa_decode` and :func:`mla_decode` take a position per batch
+row, ``pos`` (B,) and ``slot_pos`` (B, C): the reference's single
+sequence is the case of equal rows, and its ``vmap`` over serving slots
+the general one.  They write the new rows into the cache in place (the
+reference donates the cache to its decode step).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import torch
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rope_cos_sin
 
-__all__ = ["gqa_init", "gqa_apply", "gqa_cache", "gqa_decode"]
+__all__ = ["gqa_init", "gqa_apply", "gqa_cache", "gqa_decode",
+           "mla_init", "mla_apply", "mla_cache", "mla_decode"]
 
 NEG = -1e30
 
@@ -51,22 +57,27 @@ def _causal_mask(Sq: int, Sk: int, window, device) -> torch.Tensor:
 
 def gqa_init(cfg: ModelConfig, gen: torch.Generator, *,
              lead: tuple = ()) -> dict:
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported yet")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"wq": dense_init(gen, d, H * hd, lead=lead),
-            "wk": dense_init(gen, d, KV * hd, lead=lead),
-            "wv": dense_init(gen, d, KV * hd, lead=lead),
-            "wo": dense_init(gen, H * hd, d, lead=lead)}
+    dev = gen.device
+    p = {"wq": dense_init(gen, d, H * hd, lead=lead),
+         "wk": dense_init(gen, d, KV * hd, lead=lead),
+         "wv": dense_init(gen, d, KV * hd, lead=lead),
+         "wo": dense_init(gen, H * hd, d, lead=lead)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(*lead, H * hd, device=dev)
+        p["bk"] = torch.zeros(*lead, KV * hd, device=dev)
+        p["bv"] = torch.zeros(*lead, KV * hd, device=dev)
+    return p
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, KV, H // KV, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    return q, k, v
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, KV, H // KV, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
 
 
 def _rope(cfg: ModelConfig, q, k, cos, sin):
@@ -127,3 +138,120 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
         valid &= slot_pos > pos - window
     o = _sdpa(q, k, v, valid[:, None, None, None, :], cfg.hd ** -0.5)
     return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------- #
+# MLA (deepseek-v2)
+# --------------------------------------------------------------------- #
+def mla_init(cfg: ModelConfig, gen: torch.Generator, *,
+             lead: tuple = ()) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    hd, vd, r, rd = cfg.hd, cfg.v_hd, cfg.kv_lora_rank, cfg.qk_rope_dim
+    dev = gen.device
+    p = {"w_dkv": dense_init(gen, d, r, lead=lead),
+         "c_scale": torch.ones(*lead, r, device=dev),
+         "w_kr": dense_init(gen, d, rd, lead=lead),
+         "k_up": dense_init(gen, r, H * hd, lead=lead),
+         "v_up": dense_init(gen, r, H * vd, lead=lead),
+         "wo": dense_init(gen, H * vd, d, lead=lead)}
+    if cfg.q_lora_rank:
+        p["q_a"] = dense_init(gen, d, cfg.q_lora_rank, lead=lead)
+        p["q_scale"] = torch.ones(*lead, cfg.q_lora_rank, device=dev)
+        p["q_b"] = dense_init(gen, cfg.q_lora_rank, H * (hd + rd), lead=lead)
+    else:
+        p["wq"] = dense_init(gen, d, H * (hd + rd), lead=lead)
+    return p
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    return (xf * r).to(x.dtype) * scale
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
+    """(qn (B,S,H,hd), qr (B,S,H,rd) roped by ``cos``/``sin``: (S, rd/2),
+    or (B, S, rd/2) for a position per row)."""
+    B, S, _ = x.shape
+    H, hd, rd = cfg.n_heads, cfg.hd, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = _rms(x @ p["q_a"], p["q_scale"]) @ p["q_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, hd + rd)
+    return q[..., :hd], apply_rope(q[..., hd:], cos, sin)
+
+
+def _mla_compress(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
+    """(c (B,S,r), kr (B,S,rd)): the latent the cache keeps and the
+    key's roped part, shared by every head."""
+    c = _rms(x @ p["w_dkv"], p["c_scale"])
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c, kr
+
+
+def _mla_attend(cfg: ModelConfig, p: dict, qn, qr, c, kr, mask):
+    """qn (B,Sq,H,hd) qr (B,Sq,H,rd); c (B,Sk,r), kr (B,Sk,rd); mask
+    bool, broadcast to the scores (B,H,Sq,Sk)."""
+    B, Sk, _ = c.shape
+    H, hd, vd = cfg.n_heads, cfg.hd, cfg.v_hd
+    kn = (c @ p["k_up"]).reshape(B, Sk, H, hd)
+    v = (c @ p["v_up"]).reshape(B, Sk, H, vd)
+    scale = (hd + cfg.qk_rope_dim) ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qn, kn)
+    s = s + torch.einsum("bqhd,bkd->bhqk", qr, kr)
+    s = torch.where(mask, s.to(torch.float32) * scale,
+                    torch.tensor(NEG, dtype=torch.float32, device=s.device))
+    pr = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", pr, v)
+    return o.reshape(B, -1, H * vd) @ p["wo"]
+
+
+def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, *, window=None, return_kv=False):
+    """Causal full-sequence MLA of ``x`` (B, S, d).  ``return_kv`` also
+    returns (c (B, S, r), kr (B, S, rd)) for cache filling."""
+    S = x.shape[1]
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    qn, qr = _mla_q(cfg, p, x, cos, sin)
+    c, kr = _mla_compress(cfg, p, x, cos, sin)
+    mask = _causal_mask(S, S, window, x.device)[None, None]
+    out = _mla_attend(cfg, p, qn, qr, c, kr, mask)
+    if return_kv:
+        return out, (c, kr)
+    return out
+
+
+def mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
+              lead: tuple = (), device=None) -> dict:
+    """Zero rings ``lead + (batch, capacity, r)`` for the latent ``c`` and
+    ``lead + (batch, capacity, rd)`` for the roped key part ``kr``."""
+    shape = (*lead, batch, capacity)
+    return {"c": torch.zeros(*shape, cfg.kv_lora_rank, dtype=dtype,
+                             device=device),
+            "kr": torch.zeros(*shape, cfg.qk_rope_dim, dtype=dtype,
+                              device=device)}
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor, slot_pos: torch.Tensor, window=None):
+    """One-token MLA decode of ``x`` (B, 1, d), a position per row as
+    :func:`gqa_decode` takes it: writes the new c and kr at slot
+    ``pos % C`` of each row of ``cache`` in place and returns
+    ``(out (B, 1, d), cache)``."""
+    B = x.shape[0]
+    cos, sin = rope_cos_sin(pos, cfg.qk_rope_dim, cfg.rope_theta)
+    cos, sin = cos[:, None], sin[:, None]                 # (B, 1, rd/2)
+    qn, qr = _mla_q(cfg, p, x, cos, sin)
+    c_new, kr_new = _mla_compress(cfg, p, x, cos, sin)
+    c, kr = cache["c"], cache["kr"]
+    rows = torch.arange(B, device=x.device)
+    slot = pos % c.shape[1]
+    c[rows, slot] = c_new[:, 0].to(c.dtype)
+    kr[rows, slot] = kr_new[:, 0].to(kr.dtype)
+    pos = pos[:, None]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        valid &= slot_pos > pos - window
+    o = _mla_attend(cfg, p, qn, qr, c, kr, valid[:, None, None, :])
+    return o, cache

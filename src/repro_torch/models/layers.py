@@ -1,8 +1,10 @@
-"""Layer primitives of the dense decoder: init, RMSNorm, SwiGLU, RoPE.
+"""Layer primitives of the decoders: init, the three norms, SwiGLU, RoPE.
 
-Counterpart of the parts of ``src/repro/models/layers.py`` that
-``rfast-100m`` uses, as plain functions on tensors in the JAX package's
-layouts (weights ``(d_in, d_out)``, activations ``(B, S, ...)``).
+Counterpart of the parts of ``src/repro/models/layers.py`` that the
+decoder-only archs use (RMSNorm, LayerNorm and OLMo's non-parametric
+LayerNorm; the bias-free SwiGLU MLP; rotary positions), as plain
+functions on tensors in the JAX package's layouts (weights
+``(d_in, d_out)``, activations ``(B, S, ...)``).
 """
 from __future__ import annotations
 
@@ -26,16 +28,30 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def norm_init(cfg: ModelConfig, *, lead: tuple = (),
               device=None) -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm={cfg.norm!r} is not ported yet")
-    return {"scale": torch.ones(*lead, cfg.d_model, device=device)}
+    d = cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones(*lead, d, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(*lead, d, device=device),
+                "bias": torch.zeros(*lead, d, device=device)}
+    if cfg.norm == "nonparam_ln":      # OLMo: no affine parameters
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm with the JAX package's epsilon (1e-6), in fp32."""
+    """RMSNorm, LayerNorm or the non-parametric LayerNorm, in fp32 with
+    the JAX package's epsilon (1e-6) and its population variance."""
     xf = x.to(torch.float32)
-    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
-    return (xf * r).to(x.dtype) * p["scale"]
+    if cfg.norm == "rmsnorm":
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+        return (xf * r).to(x.dtype) * p["scale"]
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + 1e-6)
+    if cfg.norm == "layernorm":
+        return y.to(x.dtype) * p["scale"] + p["bias"]
+    return y.to(x.dtype)               # nonparam_ln
 
 
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, *,

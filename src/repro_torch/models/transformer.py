@@ -5,10 +5,16 @@ Counterpart of the decoder-only part of ``src/repro/models/
 transformer.py`` (``init_params``, ``_layer_init``, ``_mixer_full``,
 ``forward``, ``loss_fn``; ``cache_capacity``, ``init_cache``,
 ``decode_step``, ``decode_step_slots``, ``prefill``, ``prefill_cache``,
-``prefill_rows``) for the RoPE GQA attention mixer (``rfast-100m``,
-``llama3-8b``), the Mamba-1 SSM mixer (``falcon-mamba-7b``, no MLP when
-``d_ff`` is 0) and the hybrid of the two (``hymba-1.5b``: the mean of
-attention and SSM on the same input).  Parameters are a nested dict in
+``prefill_rows``) for the RoPE attention mixers, GQA (``rfast-100m``,
+``llama3-8b``, ``deepseek-7b``, ``olmo-1b``, ``qwen2.5-3b`` with q/k/v
+biases, ``phi3.5-moe-42b-a6.6b``) and MLA (``deepseek-v2-236b``, whose
+cache keeps the compressed latent), the Mamba-1 SSM mixer
+(``falcon-mamba-7b``, no MLP when ``d_ff`` is 0) and the hybrid of the
+two (``hymba-1.5b``: the mean of attention and SSM on the same input);
+with a dense SwiGLU or a MoE MLP (:mod:`.moe`, whose router loss
+``forward`` returns summed over layers and ``loss_fn`` adds), any of the
+three norms, and an untied head or the tied one (``x @ embed.T``, no
+``lm_head`` leaf).  Parameters are a nested dict in
 the JAX package's layout: per-layer weights are stacked on a leading
 ``n_layers`` axis under ``"layers"``, and a Python loop over that axis
 takes the place of ``lax.scan``.  Decode caches are laid out as the
@@ -18,7 +24,10 @@ under ``"layers"``, beside ``idx`` and ``slot_pos``.
 Decode and prefill run without autograd.  The decode steps update the
 cache they are given in place (the reference donates it) and return it;
 ``decode_step_slots`` is the reference's ``vmap`` of ``decode_step``
-over serving slots written as one batched step, a position per row.
+over serving slots written as one batched step, a position per row, its
+MoE layers routing each row alone (each slot's capacity is that of one
+token, as under the vmap).  ``decode_step`` and ``prefill_cache``, like
+the reference's, route all B·S tokens together.
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -35,6 +44,7 @@ import torch
 from ..core.paramvec import make_ravel_spec, tree_map, unravel
 from ..kernels.rfast_update.dispatch import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import dense_init, mlp_apply, mlp_init, norm_apply, norm_init
@@ -45,14 +55,14 @@ __all__ = ["init_params", "forward", "loss_fn", "params_from_jax",
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.attention != "gqa" or cfg.moe_experts or cfg.enc_dec
-            or cfg.frontend or cfg.tie_embeddings
-            or (cfg.mixer != "ssm" and not cfg.use_rope)):
+    if (cfg.enc_dec or cfg.frontend
+            or (cfg.mixer != "ssm" and not cfg.use_rope)
+            or (cfg.d_ff and (cfg.mlp != "swiglu" or cfg.mlp_bias))):
         raise NotImplementedError(
-            f"{cfg.name}: only decoders with RoPE GQA attention, SSM or "
-            "hybrid mixers, an optional dense MLP and an untied head "
-            "(rfast-100m, llama3-8b, falcon-mamba-7b, hymba-1.5b) are "
-            "ported yet")
+            f"{cfg.name}: only decoder-only text archs with RoPE "
+            "attention (GQA or MLA), SSM or hybrid mixers and a bias-free "
+            "SwiGLU MLP (dense or MoE) are ported yet; enc-dec, "
+            "frontends, absolute positions and the GELU/bias MLP are not")
 
 
 def _layer_init(cfg: ModelConfig, gen: torch.Generator,
@@ -60,10 +70,14 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator,
     p: dict[str, Any] = {"ln1": norm_init(cfg, lead=lead,
                                           device=gen.device)}
     if cfg.mixer in ("attn", "hybrid"):
-        p["attn"] = attn.gqa_init(cfg, gen, lead=lead)
+        init = attn.mla_init if cfg.attention == "mla" else attn.gqa_init
+        p["attn"] = init(cfg, gen, lead=lead)
     if cfg.mixer in ("ssm", "hybrid"):
         p["ssm"] = ssm_mod.ssm_init(cfg, gen, lead=lead)
-    if cfg.d_ff:
+    if cfg.moe_experts:
+        p["ln2"] = norm_init(cfg, lead=lead, device=gen.device)
+        p["mlp"] = moe_mod.moe_init(cfg, gen, lead=lead)
+    elif cfg.d_ff:
         p["ln2"] = norm_init(cfg, lead=lead, device=gen.device)
         p["mlp"] = mlp_init(cfg, gen, lead=lead)
     return p
@@ -74,15 +88,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     ``gen`` is a CUDA generator, which draws a full-width model on the
     card without a host copy): N(0,1)·0.02 embedding, N(0,1)·d_in^-½
     dense weights, unit norm scales and the SSM's own initial values
-    (the JAX package's distributions; not its numbers)."""
+    (the JAX package's distributions; not its numbers).  A tied head
+    has no ``lm_head``: the embedding is the head."""
     _check(cfg)
-    return {
-        "embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
-                             device=gen.device).mul_(0.02),
-        "final_norm": norm_init(cfg, device=gen.device),
-        "layers": _layer_init(cfg, gen, (cfg.n_layers,)),
-        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab),
-    }
+    p = {"embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                              device=gen.device).mul_(0.02),
+         "final_norm": norm_init(cfg, device=gen.device),
+         "layers": _layer_init(cfg, gen, (cfg.n_layers,))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    return p
 
 
 def params_from_jax(np_tree: dict, *, pad_to: int = 1,
@@ -115,33 +130,71 @@ def _stack(trees: list[dict]) -> dict:
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
+def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits of ``x``: the ``lm_head``, or the embedding when tied."""
+    head = params.get("lm_head")
+    return x @ head if head is not None else x @ params["embed"].T
+
+
+def _attn_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+               positions: torch.Tensor, return_kv: bool = False):
+    """The layer's attention over the whole sequence; with ``return_kv``
+    also its cache rows as a dict of (B, S, ...) tensors (GQA: k, v;
+    MLA: c, kr)."""
+    if cfg.attention == "mla":
+        out = attn.mla_apply(cfg, lp["attn"], h, positions,
+                             window=cfg.attn_window, return_kv=return_kv)
+        names = ("c", "kr")
+    else:
+        out = attn.gqa_apply(cfg, lp["attn"], h, positions,
+                             window=cfg.attn_window, return_kv=return_kv)
+        names = ("k", "v")
+    if not return_kv:
+        return out
+    return out[0], dict(zip(names, out[1]))
+
+
 def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     if cfg.mixer == "ssm":
         return ssm_mod.ssm_apply(cfg, lp["ssm"], h)
-    a = attn.gqa_apply(cfg, lp["attn"], h, positions, window=cfg.attn_window)
+    a = _attn_full(cfg, lp, h, positions)
     if cfg.mixer == "hybrid":
         return 0.5 * (a + ssm_mod.ssm_apply(cfg, lp["ssm"], h))
     return a
 
 
+def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+         rows: bool = False):
+    """The residual MLP of ``x`` and its router loss: (x', aux), aux 0
+    without MoE.  ``rows`` routes each batch row alone (aux (B,))."""
+    if "mlp" not in lp:
+        return x, 0.0
+    h = norm_apply(cfg, lp["ln2"], x)
+    if not cfg.moe_experts:
+        return x + mlp_apply(cfg, lp["mlp"], h), 0.0
+    moe = moe_mod.moe_apply_rows if rows else moe_mod.moe_apply
+    y, aux = moe(cfg, lp["mlp"], h)
+    return x + y, aux
+
+
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor):
     x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x), positions)
-    if "mlp" in lp:
-        x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
-    return x
+    return _mlp(cfg, lp, x)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """tokens (B, S) -> (logits (B, S, vocab), aux loss 0)."""
+    """tokens (B, S) -> (logits (B, S, vocab), the MoE layers' router
+    loss summed, 0 without MoE)."""
     _check(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), device=x.device)
     for li in range(cfg.n_layers):
-        x = _layer(cfg, _index(params["layers"], li), x, positions)
-    x = norm_apply(cfg, params["final_norm"], x)
-    return x @ params["lm_head"], torch.zeros((), device=x.device)
+        x, a = _layer(cfg, _index(params["layers"], li), x, positions)
+        aux = aux + a
+    return _head(params, norm_apply(cfg, params["final_norm"], x)), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -167,8 +220,9 @@ def _mixer_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
                  lead: tuple = (), device=None) -> dict:
     c: dict[str, Any] = {}
     if cfg.mixer in ("attn", "hybrid"):
-        c["attn"] = attn.gqa_cache(cfg, batch, capacity, dtype, lead=lead,
-                                   device=device)
+        make = attn.mla_cache if cfg.attention == "mla" else attn.gqa_cache
+        c["attn"] = make(cfg, batch, capacity, dtype, lead=lead,
+                         device=device)
     if cfg.mixer in ("ssm", "hybrid"):
         c["ssm"] = ssm_mod.ssm_cache(cfg, batch, dtype, lead=lead,
                                      device=device)
@@ -201,8 +255,9 @@ def _mixer_decode(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor,
     views) is written in place."""
     if cfg.mixer == "ssm":
         return _ssm_step(cfg, lp, lc, h)
-    a, _ = attn.gqa_decode(cfg, lp["attn"], h, lc["attn"], pos, slot_pos,
-                           window=cfg.attn_window)
+    dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+    a, _ = dec(cfg, lp["attn"], h, lc["attn"], pos, slot_pos,
+               window=cfg.attn_window)
     if cfg.mixer == "hybrid":
         a = 0.5 * (a + _ssm_step(cfg, lp, lc, h))
     return a
@@ -210,17 +265,17 @@ def _mixer_decode(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor,
 
 def _decode(cfg: ModelConfig, params: dict, layers: dict,
             tokens: torch.Tensor, pos: torch.Tensor,
-            slot_pos: torch.Tensor) -> torch.Tensor:
+            slot_pos: torch.Tensor, *, rows: bool) -> torch.Tensor:
     """tokens (B, 1) at positions ``pos`` (B,) over ``slot_pos`` (B, C)
-    -> logits (B, 1, V); the layer caches are written in place."""
+    -> logits (B, 1, V); the layer caches are written in place.
+    ``rows`` routes each row's MoE alone (the slots step)."""
     x = params["embed"][tokens]
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
         h = norm_apply(cfg, lp["ln1"], x)
         x = x + _mixer_decode(cfg, lp, _index(layers, li), h, pos, slot_pos)
-        if "mlp" in lp:
-            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
-    return norm_apply(cfg, params["final_norm"], x) @ params["lm_head"]
+        x, _ = _mlp(cfg, lp, x, rows=rows)
+    return _head(params, norm_apply(cfg, params["final_norm"], x))
 
 
 @torch.no_grad()
@@ -235,7 +290,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     slot_pos[pos % C] = pos
     B = token.shape[0]
     logits = _decode(cfg, params, cache["layers"], token, pos.expand(B),
-                     slot_pos.expand(B, C))
+                     slot_pos.expand(B, C), rows=False)
     cache["idx"] = pos + 1
     return logits, cache
 
@@ -247,9 +302,10 @@ def decode_step_slots(cfg: ModelConfig, params: dict, cache: dict,
     position.  Same cache layout as :func:`init_cache` except ``idx`` is
     ``(B,)`` and ``slot_pos`` is ``(B, C)``.  The reference defines it as
     a ``vmap`` of :func:`decode_step` over slots; here one batched step
-    writes each row's ring slot ``idx[b] % C`` and masks each row by its
-    own ``slot_pos``.  tokens (B, 1) -> (logits (B, 1, V), cache), the
-    cache updated in place."""
+    writes each row's ring slot ``idx[b] % C``, masks each row by its
+    own ``slot_pos`` and routes each row's MoE alone (capacity of one
+    token, the expert weights still read once for all rows).  tokens
+    (B, 1) -> (logits (B, 1, V), cache), the cache updated in place."""
     if cfg.enc_dec:
         raise ValueError("decode_step_slots serves decoder-only archs; "
                          f"{cfg.name} is enc-dec (cross caches have no "
@@ -259,7 +315,8 @@ def decode_step_slots(cfg: ModelConfig, params: dict, cache: dict,
     slot_pos = cache["slot_pos"]
     B, C = slot_pos.shape
     slot_pos[torch.arange(B, device=pos.device), pos % C] = pos
-    logits = _decode(cfg, params, cache["layers"], tokens, pos, slot_pos)
+    logits = _decode(cfg, params, cache["layers"], tokens, pos, slot_pos,
+                     rows=True)
     cache["idx"] = pos + 1
     return logits, cache
 
@@ -317,20 +374,15 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             y, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
                                              return_state=True)
         else:
-            y, (k, v) = attn.gqa_apply(cfg, lp["attn"], h, positions,
-                                       window=cfg.attn_window,
-                                       return_kv=True)
-            lc["attn"] = {"k": place(k, dtype), "v": place(v, dtype)}
+            y, kv = _attn_full(cfg, lp, h, positions, return_kv=True)
+            lc["attn"] = {k: place(t, dtype) for k, t in kv.items()}
             if cfg.mixer == "hybrid":
                 sy, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
                                                   return_state=True)
                 y = 0.5 * (y + sy)
-        x = x + y
-        if "mlp" in lp:
-            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+        x, _ = _mlp(cfg, lp, x + y)
         caches.append(lc)
-    x = norm_apply(cfg, params["final_norm"], x[:, -1:])
-    logits = x @ params["lm_head"]
+    logits = _head(params, norm_apply(cfg, params["final_norm"], x[:, -1:]))
 
     cache = {"idx": torch.tensor(S, dtype=torch.int32, device=x.device),
              "slot_pos": slot_pos, "layers": _stack(caches)}
@@ -374,14 +426,11 @@ def prefill_rows(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     rings = []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
-        a, (k, v) = attn.gqa_apply(cfg, lp["attn"],
-                                   norm_apply(cfg, lp["ln1"], x), positions,
-                                   window=cfg.attn_window, return_kv=True)
-        rings.append({"k": place(k, dtype), "v": place(v, dtype)})
-        x = x + a
-        if "mlp" in lp:
-            x = x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+        a, kv = _attn_full(cfg, lp, norm_apply(cfg, lp["ln1"], x),
+                           positions, return_kv=True)
+        rings.append({k: place(t, dtype) for k, t in kv.items()})
+        x, _ = _mlp(cfg, lp, x + a)
     q = int(true_len) - 1
     last = norm_apply(cfg, params["final_norm"], x[:, q:q + 1])
-    logits = (last @ params["lm_head"])[:, 0]
+    logits = _head(params, last)[:, 0]
     return {"attn": _stack(rings)}, slot_pos, logits

@@ -395,10 +395,15 @@ def test_ssm_prefill_runs_the_scan_wrapper_and_decode_does_not(monkeypatch):
 
 
 def test_decode_rejects_what_is_not_ported():
+    """MoE, MLA and tied heads decode since the model zoo's decoders were
+    ported; enc-dec, frontends, attention without RoPE and the GELU or
+    biased MLP still raise."""
     cfg = ModelConfig(**TINY)
-    for bad in (dict(attention="mla", kv_lora_rank=16, qk_rope_dim=8),
-                dict(moe_experts=4, moe_top_k=2),
-                dict(tie_embeddings=True)):
+    for bad in (dict(enc_dec=True, n_enc_layers=1),
+                dict(frontend="vision", frontend_seq=4, frontend_dim=16),
+                dict(use_rope=False),
+                dict(mlp="gelu"),
+                dict(mlp_bias=True)):
         c = dataclasses.replace(cfg, **bad)
         with pytest.raises(NotImplementedError, match="ported yet"):
             tt.init_cache(c, {"embed": torch.zeros(1)}, 1, 8)

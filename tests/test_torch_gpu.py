@@ -47,7 +47,12 @@ a chunk boundary on the card is bitwise the uninterrupted one.  Serving:
 (reduced rfast-100m, hymba-1.5b, falcon-mamba-7b), the SSM layers'
 prefill launching ``ssm_scan`` once each and a decode step none; and the
 serving engine on the card serves the CPU's tokens (one argmax tie
-allowed) with 1 decode + one prefill entry per bucket used.
+allowed) with 1 decode + one prefill entry per bucket used.  The model
+zoo: reduced olmo-1b, phi3.5-moe-42b-a6.6b (MoE) and deepseek-v2-236b
+(MLA + MoE) decode on the card as on the CPU, ``decode_step_slots``
+(each slot's MoE routed alone) too, and the stable sort that assigns a
+token its slot in an expert, and so the tokens a full expert drops,
+agrees with the CPU's on the card.
 """
 import numpy as np
 import pytest
@@ -895,7 +900,9 @@ def test_init_params_draws_on_a_cuda_generator(cuda):
 
 
 @pytest.mark.parametrize("arch", ["rfast-100m", "hymba-1.5b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "olmo-1b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
 def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
     """prefill_cache + decode_step on the card against the same on the
     CPU (the scan's plain twin there) at 1e-4 of the largest |logit|; the
@@ -936,3 +943,62 @@ def test_engine_on_the_card_serves_the_cpus_tokens(cuda):
         out[name] = [r.tokens for r in reqs]
     same = sum(a == b for a, b in zip(out["cpu"], out["cuda"]))
     assert same >= len(out["cpu"]) - 1      # an argmax tie may flip one
+
+
+def test_decode_step_slots_on_the_card_matches_the_cpu(cuda):
+    """MLA + MoE: three slots at their own positions, each slot's MoE
+    routed alone, five steps on the card against the same on the CPU at
+    1e-4 of the largest |logit|."""
+    from repro_torch.models import transformer as tt
+    cfg, cpu, card = _serve_model("deepseek-v2-236b")
+    rng = np.random.default_rng(1)
+    idx = [0, 3, 11]
+    C = 8
+    sp = np.full((3, C), -1, np.int32)
+    for b, n in enumerate(idx):
+        for p in range(max(0, n - C), n):
+            sp[b, p % C] = p
+    layers = tt.init_cache(cfg, cpu, 3, C)["layers"]
+    for t in layers["attn"].values():
+        t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape))
+                                 .astype(np.float32)))
+    c0 = {"idx": torch.tensor(idx, dtype=torch.int32),
+          "slot_pos": torch.from_numpy(sp), "layers": layers}
+    c1 = {"idx": c0["idx"].cuda(), "slot_pos": c0["slot_pos"].cuda(),
+          "layers": _to_card({"attn": {k: v.clone() for k, v in
+                                       layers["attn"].items()}})}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (5, 3, 1)))
+    for t in range(5):
+        l0, c0 = tt.decode_step_slots(cfg, cpu, c0, toks[t])
+        l1, c1 = tt.decode_step_slots(cfg, card, c1, toks[t].cuda())
+        assert (l1.cpu() - l0).abs().max() <= 1e-4 * l0.abs().max(), t
+    assert torch.equal(c1["idx"].cpu(), c0["idx"])
+
+
+def test_stable_sort_and_moe_dispatch_on_the_card_match_the_cpu(cuda):
+    """``torch.argsort(stable=True)`` of expert ids with many ties gives
+    the CPU's order on the card, so a capacity-bound MoE drops the same
+    tokens: its output on the card matches the CPU's at 1e-5."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(rng.integers(0, 6, 100_003))
+    assert torch.equal(torch.argsort(keys.cuda(), stable=True).cpu(),
+                       torch.argsort(keys, stable=True))
+    cfg = ModelConfig(name="moe-card", n_layers=1, d_model=64, n_heads=4,
+                      n_kv_heads=4, d_ff=96, vocab=64, moe_experts=8,
+                      moe_top_k=2, moe_shared=1, capacity_factor=0.5)
+    p = moe.moe_init(cfg, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(rng.standard_normal((4, 96, 64)).astype(
+        np.float32))
+    y0, a0 = moe.moe_apply(cfg, p, x)
+    y1, a1 = moe.moe_apply(cfg, _to_card(p), x.cuda())
+    assert (y1.cpu() - y0).abs().max() <= 1e-5 * y0.abs().max()
+    assert abs(float(a1) - float(a0)) <= 1e-6
+    lifted, _ = moe.moe_apply(dataclasses.replace(cfg, capacity_factor=100),
+                              p, x)
+    assert (lifted - y0).abs().max() > 1e-3        # tokens were dropped
+    r0, _ = moe.moe_apply_rows(cfg, p, x)
+    r1, _ = moe.moe_apply_rows(cfg, _to_card(p), x.cuda())
+    assert (r1.cpu() - r0).abs().max() <= 1e-5 * r0.abs().max()

@@ -46,7 +46,11 @@ def test_no_jax_or_reference_imports_in_the_port():
                 "checkpoint/ckpt.py", "checkpoint/__init__.py",
                 "serve/engine.py", "serve/weights.py", "serve/cache.py",
                 "serve/scheduler.py", "serve/traffic.py",
-                "launch/serve.py", "configs/llama3_8b.py"):
+                "launch/serve.py", "configs/llama3_8b.py",
+                "models/moe.py", "configs/olmo_1b.py",
+                "configs/qwen2_5_3b.py", "configs/deepseek_7b.py",
+                "configs/phi3_5_moe_42b_a6_6b.py",
+                "configs/deepseek_v2_236b.py"):
         assert port / mod in FILES
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f)
                                       if _forbidden(n)]
@@ -69,6 +73,8 @@ def test_entry_point_loads_no_jax_module():
             "import repro_torch.kernels.rfast_update.ops; "
             "import repro_torch.kernels.ssm_scan.ops; "
             "import repro_torch.models.ssm; "
+            "import repro_torch.models.moe; "
+            "import repro_torch.configs.deepseek_v2_236b; "
             "import repro_torch.configs.hymba_1_5b; "
             "import repro_torch.configs.falcon_mamba_7b; "
             "print(json.dumps(sorted(m for m in sys.modules "

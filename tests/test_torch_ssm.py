@@ -162,12 +162,23 @@ def test_model_scan_goes_through_the_kernel_wrapper(setup, monkeypatch):
 
 def test_what_is_not_ported_raises():
     cfg = get_config("falcon-mamba-7b").reduced()
-    # the decode state is ported (serving); MoE and tied heads are not
+    # the decode state is ported (serving), and so are MoE MLPs and tied
+    # heads; enc-dec, frontends and attention without RoPE are not
     assert tuple(tssm.ssm_cache(cfg, 1, torch.float32)["h"].shape) == (
         1, cfg.d_inner, cfg.ssm_state)
-    moe = dataclasses.replace(cfg, moe_experts=4, moe_top_k=2)
+    enc_dec = dataclasses.replace(cfg, enc_dec=True, n_enc_layers=1)
     with pytest.raises(NotImplementedError, match="ported yet"):
-        tt.init_params(moe, torch.Generator())
-    tied = dataclasses.replace(cfg, tie_embeddings=True)
+        tt.init_params(enc_dec, torch.Generator())
+    front = dataclasses.replace(cfg, frontend="audio", frontend_seq=4)
     with pytest.raises(NotImplementedError, match="ported yet"):
-        tt.init_params(tied, torch.Generator())
+        tt.init_params(front, torch.Generator())
+    no_rope = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                                  use_rope=False)
+    with pytest.raises(NotImplementedError, match="ported yet"):
+        tt.init_params(no_rope, torch.Generator())
+    tied_moe = dataclasses.replace(cfg, moe_experts=4, moe_top_k=2,
+                                   d_ff=32, tie_embeddings=True)
+    p = tt.init_params(tied_moe, torch.Generator())
+    assert "lm_head" not in p
+    assert tuple(p["layers"]["mlp"]["experts"]["wi"].shape) == (
+        cfg.n_layers, 4, cfg.d_model, 32)
