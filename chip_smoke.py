@@ -222,7 +222,34 @@ run.  Phases:
    wall s, peak GB and the losses.  Phases 25–26 are the functions
    ``phase_zoo_serve`` and ``phase_zoo_train``.
 
-Each of phases 17–26 prints its wall seconds, peak memory or
+27. whisper-large-v3 — the enc-dec arch at full width and depth (32
+   decoder + 32 encoder layers, 1,603,614,720 parameters drawn on the
+   card; 1500 frames drawn with numpy): ``prefill_cache(frontend=)`` +
+   ``decode_step`` (B 2, S 16, prompt 6) against one teacher-forced
+   ``forward(toks, frames)`` at 2e-3; ``init_cache(frontend=)`` (the
+   encoder and the cross caches) + token-wise ``prefill`` against
+   ``prefill_cache`` and a decode step from each (tests/
+   test_arch_smoke.py's check at full width); at B 4 the encoder's ms a
+   call, ``FRONT_STEPS`` decode steps (p50, p99), kernels and device ms
+   a step and the busy share, peak memory and the step's bytes bound
+   (the decoder's weights without the cross k/v projections, the head,
+   the self-KV ring and the cross k/v, ≈ 0.49 GB a batch row); then the
+   same arch cut to 2 decoder and 2 encoder layers (226,245,120
+   parameters, frames not cut) in 3 lossy sync rounds on 4 nodes
+   through ``make_rfast_round`` with ``sync_grad_fn`` and batches of
+   (toks, labels, frames), ``impl kernel`` against ``impl plain`` (x and
+   z within 1e-5, one ``commit_grid`` launch a round);
+28. pixtral-12b — the vision-frontend arch at full width and depth (40
+   layers, 12,777,313,280 parameters, 51.1 GB, head dim 160):
+   ``prefill_cache`` with 256 patches + ``decode_step`` against
+   ``forward(toks, patches)`` at 2e-3 (tests/test_arch_smoke.py's VLM
+   check at full width); at B 4 after the 256-patch prefix,
+   ``FRONT_STEPS`` decode steps with the same readings as phase 27;
+   then ``--reduced`` through ``launch.train`` as phase 26 runs its
+   archs (text only, as the reference's train CLI trains it).  Phases
+   27–28 are the functions ``phase_whisper`` and ``phase_pixtral``.
+
+Each of phases 17–28 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -393,6 +420,22 @@ OLMO_TRAIN_ARGS = ["--arch", "olmo-1b", "--nodes", "4", "--topology",
                    "binary_tree", "--steps", "3", "--batch-per-node", "4",
                    "--seq", "128", "--seed", "0", "--log-every", "1",
                    "--impl", "kernel"]
+# phases 27-28: the enc-dec and frontend archs at full width and depth;
+# their parameters, every leaf
+WHISPER_PARAMS = 1_603_614_720
+PIXTRAL_PARAMS = 12_777_313_280
+FRONT_B = 4                  # the timed decode batch
+FRONT_PROMPT = 4             # text tokens prefilled before the timed steps
+FRONT_STEPS = 40             # decode steps timed (at least ZOO_BUSY_STEPS)
+WHISPER_MAX_LEN = 64         # 4 + 3 + 40 + 5 decode positions fit
+PIXTRAL_MAX_LEN = 320        # 256 patches + the same
+ENCODER_REPS = 5             # init_cache calls timed (the encoder at B 4)
+WHISPER_TOKENWISE = 8        # prompt of the token-wise prefill check
+WHISPER_TRAIN_LAYERS = 2     # decoder and encoder layers of 32 each
+WHISPER_TRAIN_P = 226_245_120
+WHISPER_TRAIN_NODES, WHISPER_TRAIN_ROUNDS = 4, 3
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 64
+WHISPER_TRAIN_LOSS = 0.2
 
 
 def emit(phase: str, **kw) -> None:
@@ -750,9 +793,13 @@ def decode_only_us(records: list[dict]) -> list[float]:
 def decode_bound(cfg, params: dict, cache: dict, B: int) -> dict:
     """Least time of one decode step of B tokens, the larger of its bytes
     at the HBM rate and its fp32 operations (2 per weight per row it
-    multiplies): every parameter but the embedding table read once, the
-    KV cache read once, and of the table B rows, or the whole table when
-    the head is tied (it is the head, read whole).  With MoE the step's
+    multiplies, 2 per cached cross k or v element): every parameter the
+    decoder reads once (not the embedding table, the frontend's
+    projection or the encoder, and of the cross attention only wq, bq and
+    wo: its k and v are cached), the cache read once (``cache``: the
+    ring's layers, and an enc-dec arch's ``cross_k`` / ``cross_v``), and
+    of the table B rows, or the whole table when the head is tied (it is
+    the head, read whole).  With MoE the step's
     dense capacity buffer (the reference's) multiplies every expert's
     weights by C = 8 slots a row: ``bound_ms`` counts all E experts, and
     ``routed_bound_ms`` beside it only the routed ones (at most B·top_k a
@@ -762,15 +809,23 @@ def decode_bound(cfg, params: dict, cache: dict, B: int) -> dict:
     from repro_torch.models.moe import _capacity
     embed = params["embed"]
     item = embed.element_size()
-    w = sum(t.numel() * t.element_size() for t in tree_leaves(params)
-            if t is not embed)
+    read = {k: v for k, v in params.items()
+            if k not in ("embed", "frontend_proj", "enc_layers", "enc_norm")}
+    if "cross" in params["layers"]:
+        read["layers"] = {**params["layers"], "cross": {
+            k: v for k, v in params["layers"]["cross"].items()
+            if k in ("wq", "bq", "wo")}}
+    w = sum(t.numel() * t.element_size() for t in tree_leaves(read))
     tied = "lm_head" not in params
     table = embed.numel() * item if tied else B * embed.shape[1] * item
     kv = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    cross = sum(cache[k].numel() for k in ("cross_k", "cross_v")
+                if k in cache)
     nbytes = w + table + kv
-    flops = 2 * B * (w // item) + (2 * B * embed.numel() if tied else 0)
+    flops = (2 * B * (w // item) + (2 * B * embed.numel() if tied else 0)
+             + 2 * cross * (cfg.n_heads // max(1, cfg.n_kv_heads)))
     out = dict(param_bytes=w, table_bytes=table, tied_head=tied,
-               cache_bytes=kv)
+               cache_bytes=kv, cross_cache_bytes=cross * item)
     if cfg.moe_experts:
         E = cfg.moe_experts
         ex = sum(t.numel() * t.element_size() for t in tree_leaves(
@@ -788,15 +843,18 @@ def decode_bound(cfg, params: dict, cache: dict, B: int) -> dict:
                 else "operations", **out)
 
 
-def teacher_forced(cfg, params, toks, n_prompt: int, max_len: int) -> dict:
-    """``prefill_cache`` of ``toks[:, :n_prompt]`` and ``decode_step`` over
+def teacher_forced(cfg, params, toks, n_prompt: int, max_len: int,
+                   frontend=None) -> dict:
+    """``prefill_cache`` of ``toks[:, :n_prompt]`` (and ``frontend``: a
+    prefix of patches, or an encoder's frames) and ``decode_step`` over
     the rest of ``toks`` (B, S) on the card, against one ``forward`` over
-    all of ``toks``: the loop's logits (B, S − n_prompt + 1, V), the
-    forward's at the same positions, and each decode step's host time
-    (the card synchronized)."""
+    all of ``toks`` and ``frontend``: the loop's logits (B, S − n_prompt +
+    1, V), the forward's at the same positions, and each decode step's
+    host time (the card synchronized)."""
     import torch
     from repro_torch.models import transformer as tt
-    cache, lg = tt.prefill_cache(cfg, params, toks[:, :n_prompt], max_len)
+    cache, lg = tt.prefill_cache(cfg, params, toks[:, :n_prompt], max_len,
+                                 frontend=frontend)
     out, us = [lg[:, 0]], []
     for t in range(n_prompt, toks.shape[1]):
         torch.cuda.synchronize()
@@ -805,8 +863,21 @@ def teacher_forced(cfg, params, toks, n_prompt: int, max_len: int) -> dict:
         torch.cuda.synchronize()
         us.append((time.perf_counter() - t0) * 1e6)
         out.append(lg[:, 0])
-    ref = tt.forward(cfg, params, toks)[0][:, n_prompt - 1:]
+    ref = tt.forward(cfg, params, toks, frontend)[0][:, n_prompt - 1:]
     return dict(loop=torch.stack(out, 1), ref=ref, step_us=us)
+
+
+def beyond_rtol(got, want) -> float:
+    """Largest |got − want| beyond ``SERVE_TF_TOL``·|want|: ≤ SERVE_TF_TOL
+    is tests/test_serve.py's rtol = atol check."""
+    return float(((got - want).abs() - SERVE_TF_TOL * want.abs()).max())
+
+
+def tf_rel(tf: dict) -> float:
+    """A teacher-forced loop's largest error over each step's largest
+    |logit|."""
+    return float(((tf["loop"] - tf["ref"]).abs().amax(-1)
+                  / tf["ref"].abs().amax(-1)).max())
 
 
 def busy_decode_us(eng, steps: int, prompt: int, rid0: int) -> list[float]:
@@ -1226,10 +1297,7 @@ def zoo_serve(arch: str, layers, name: str, smi: str) -> None:
         0, cfg.vocab, (ZOO_TF_B, ZOO_TF_S))).cuda()
     dispatch.clear()
     tf = teacher_forced(tf_cfg, params, toks, ZOO_TF_PROMPT, ZOO_TF_S)
-    viol = float(((tf["loop"] - tf["ref"]).abs()
-                  - SERVE_TF_TOL * tf["ref"].abs()).max())
-    rel = float(((tf["loop"] - tf["ref"]).abs().amax(-1)
-                 / tf["ref"].abs().amax(-1)).max())
+    viol, rel = beyond_rtol(tf["loop"], tf["ref"]), tf_rel(tf)
     tf_us = tf["step_us"]
     del tf
     serve_cache.clear()
@@ -1306,14 +1374,65 @@ def ckpt_rows(path, field: str):
                                for k in keys])
 
 
-def phase_zoo_train(name: str, smi: str) -> dict:
-    """Phase 26: the zoo archs at ``--reduced`` through ``launch.train``,
-    ``impl kernel`` against ``impl plain`` (their last checkpoints' x and
-    z within phase 5's tolerance), then full-width olmo-1b cut to
-    ``OLMO_TRAIN_LAYERS`` layers in sync rounds.  Returns the runs'
-    ``commit_grid`` launches by path."""
+def zoo_train_pair(tag: str, extra: list, arch: str, root: Path, name: str,
+                   smi: str) -> int:
+    """One reduced zoo arch through ``launch.train`` (``ZOO_TRAIN_ARGS`` +
+    ``extra``), ``impl kernel`` against ``impl plain``: their last
+    checkpoints' x and z within phase 5's tolerance, ``commit_grid``
+    launched once per round or wave.  Returns the kernel run's launches."""
     import shutil
     import numpy as np
+    import torch
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import train
+    runs = {}
+    for impl in ("kernel", "plain"):
+        d = root / f"{tag}-{arch}-{impl}"
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        res = train.main(["--arch", arch] + ZOO_TRAIN_ARGS + extra
+                         + ["--impl", impl, "--ckpt", str(d)])
+        torch.cuda.synchronize()
+        last = sorted(d.glob("step_*.npz"))[-1]
+        runs[impl] = dict(
+            res=res, wall_s=time.perf_counter() - t0,
+            launches=dispatch.stats()["by_kernel"],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            x=ckpt_rows(last, ".x"), z=ckpt_rows(last, ".z"))
+        shutil.rmtree(d)
+        torch.cuda.empty_cache()
+    k, pl = runs["kernel"], runs["plain"]
+    rel = {f: float(np.linalg.norm(k[f] - pl[f]) / np.linalg.norm(pl[f]))
+           for f in ("x", "z")}
+    steps = k["res"]["rounds"] if tag == "sync" else k["res"]["waves"]
+    emit("zoo_train", arch=arch, regime=tag, args=extra, reduced=True,
+         p=k["res"]["p"], rounds=k["res"].get("rounds"),
+         events=k["res"].get("events"), waves=k["res"].get("waves"),
+         losses={i: r["res"]["losses"] for i, r in runs.items()},
+         wall_s={i: r["wall_s"] for i, r in runs.items()},
+         max_memory_allocated_gb={i: r["peak_gb"] for i, r in runs.items()},
+         launches={i: r["launches"] for i, r in runs.items()},
+         x_rel=rel["x"], z_rel=rel["z"], tol=BACKEND_TOL,
+         lemma3_rel=k["res"]["mass_rel"], device=name, nvidia_smi=smi)
+    check(all(math.isfinite(v) for r in runs.values()
+              for v in r["res"]["losses"]), f"zoo {tag} {arch}: finite losses")
+    check(max(rel.values()) <= BACKEND_TOL,
+          f"zoo {tag} {arch}: kernel and plain agree to {BACKEND_TOL}: {rel}")
+    check(steps > 0 and k["launches"] == {"commit_grid": steps}
+          and not pl["launches"],
+          f"zoo {tag} {arch}: one commit_grid launch per "
+          f"{'round' if tag == 'sync' else 'wave'} (plain none): "
+          f"{k['launches']}, {pl['launches']}")
+    return steps
+
+
+def phase_zoo_train(name: str, smi: str) -> dict:
+    """Phase 26: the zoo archs at ``--reduced`` through ``launch.train``,
+    ``impl kernel`` against ``impl plain`` (``zoo_train_pair``), then
+    full-width olmo-1b cut to ``OLMO_TRAIN_LAYERS`` layers in sync
+    rounds.  Returns the runs' ``commit_grid`` launches by path."""
+    import shutil
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.rfast_update import dispatch
@@ -1323,53 +1442,8 @@ def phase_zoo_train(name: str, smi: str) -> dict:
     paths = {}
     for tag, extra, archs in ZOO_TRAIN_RUNS:
         for arch in archs:
-            runs = {}
-            for impl in ("kernel", "plain"):
-                d = root / f"{tag}-{arch}-{impl}"
-                torch.cuda.reset_peak_memory_stats()
-                dispatch.clear()
-                t0 = time.perf_counter()
-                res = train.main(["--arch", arch] + ZOO_TRAIN_ARGS + extra
-                                 + ["--impl", impl, "--ckpt", str(d)])
-                torch.cuda.synchronize()
-                last = sorted(d.glob("step_*.npz"))[-1]
-                runs[impl] = dict(
-                    res=res, wall_s=time.perf_counter() - t0,
-                    launches=dispatch.stats()["by_kernel"],
-                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                    x=ckpt_rows(last, ".x"), z=ckpt_rows(last, ".z"))
-                shutil.rmtree(d)
-                torch.cuda.empty_cache()
-            k, pl = runs["kernel"], runs["plain"]
-            rel = {f: float(np.linalg.norm(k[f] - pl[f])
-                            / np.linalg.norm(pl[f])) for f in ("x", "z")}
-            steps = (k["res"]["rounds"] if tag == "sync"
-                     else k["res"]["waves"])
-            emit("zoo_train", arch=arch, regime=tag, args=extra,
-                 reduced=True, p=k["res"]["p"],
-                 rounds=k["res"].get("rounds"),
-                 events=k["res"].get("events"), waves=k["res"].get("waves"),
-                 losses={i: r["res"]["losses"] for i, r in runs.items()},
-                 wall_s={i: r["wall_s"] for i, r in runs.items()},
-                 max_memory_allocated_gb={i: r["peak_gb"]
-                                          for i, r in runs.items()},
-                 launches={i: r["launches"] for i, r in runs.items()},
-                 x_rel=rel["x"], z_rel=rel["z"], tol=BACKEND_TOL,
-                 lemma3_rel=k["res"]["mass_rel"], device=name,
-                 nvidia_smi=smi)
-            check(all(math.isfinite(v) for r in runs.values()
-                      for v in r["res"]["losses"]),
-                  f"zoo {tag} {arch}: finite losses")
-            check(max(rel.values()) <= BACKEND_TOL,
-                  f"zoo {tag} {arch}: kernel and plain agree to "
-                  f"{BACKEND_TOL}: {rel}")
-            check(steps > 0 and k["launches"] == {"commit_grid": steps}
-                  and not pl["launches"],
-                  f"zoo {tag} {arch}: one commit_grid launch per "
-                  f"{'round' if tag == 'sync' else 'wave'} (plain none): "
-                  f"{k['launches']}, {pl['launches']}")
-            paths[f"zoo_{tag}_{arch}"] = steps
-            del runs, k, pl
+            paths[f"zoo_{tag}_{arch}"] = zoo_train_pair(tag, extra, arch,
+                                                        root, name, smi)
     shutil.rmtree(root, ignore_errors=True)
     # olmo-1b at full width, OLMO_TRAIN_LAYERS of its 16 layers, sync
     cfg_o = dataclasses.replace(get_config("olmo-1b"),
@@ -1402,6 +1476,307 @@ def phase_zoo_train(name: str, smi: str) -> dict:
     paths["zoo_sync_olmo-1b_full_width"] = ores["rounds"]
     torch.cuda.empty_cache()
     return paths
+
+
+def frontend_rows(cfg, batch: int, rng):
+    """Stub frame or patch embeddings (batch, frontend_seq, frontend_dim)
+    drawn with numpy, on the card."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32)).cuda()
+
+
+def timed_decode(cfg, params, cache, rng) -> dict:
+    """``FRONT_STEPS`` ``decode_step`` calls after 3 untimed ones, each
+    timed on the host with the card synchronized, then ``PROFILE_STEPS``
+    steps under ``device_busy``: their percentiles, kernels and device
+    ms a step, the busy share."""
+    import torch
+    from repro_torch.models import transformer as tt
+    B = cache["layers"]["attn"]["k"].shape[1]
+    tok = lambda: torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).cuda()
+    for _ in range(3):
+        tt.decode_step(cfg, params, cache, tok())
+    us = []
+    for _ in range(FRONT_STEPS):
+        t = tok()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.decode_step(cfg, params, cache, t)
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e6)
+    t = tok()
+    prof = device_busy(lambda: [tt.decode_step(cfg, params, cache, t)
+                                for _ in range(PROFILE_STEPS)])
+    busy_ms = prof.get("device_busy_ms")
+    return dict(decode_step=step_percentiles(us),
+                kernels_per_decode_step=prof["kernels"] / PROFILE_STEPS,
+                device_ms_per_step=None if busy_ms is None
+                else busy_ms / PROFILE_STEPS, profile=prof)
+
+
+def whisper_train(name: str, smi: str) -> int:
+    """Phase 27's training: full-width whisper-large-v3 cut to
+    ``WHISPER_TRAIN_LAYERS`` decoder and encoder layers, in lossy sync
+    rounds through the port's ``make_rfast_round`` with ``sync_grad_fn``
+    and batches of (toks, labels, frames): ``impl kernel`` against
+    ``impl plain`` from one start.  Returns the kernel run's rounds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import make_ravel_spec, ravel
+    from repro_torch.core.runtime import (edge_arrays, init_node_state,
+                                          make_rfast_round,
+                                          runtime_tracked_mass)
+    from repro_torch.core.topology import get_topology
+    from repro_torch.data.pipeline import LMShardConfig
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim.schedules import warmup_cosine
+    full = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(full, n_layers=WHISPER_TRAIN_LAYERS,
+                              n_enc_layers=WHISPER_TRAIN_LAYERS)
+    n, rounds, bsz = WHISPER_TRAIN_NODES, WHISPER_TRAIN_ROUNDS, \
+        WHISPER_TRAIN_BATCH
+    params0 = tt.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    rspec = make_ravel_spec(params0)
+    x0 = ravel(rspec, params0)
+    del params0
+    spec = edge_arrays(get_topology("binary_tree", n))
+    shard = LMShardConfig(vocab=cfg.vocab, batch_per_node=bsz,
+                          seq_len=WHISPER_TRAIN_SEQ, n_nodes=n, seed=0)
+    frames = {}
+
+    def batches(step):
+        toks, labels = train.sync_batches(shard, step, "cuda")
+        if step not in frames:
+            frames[step] = torch.from_numpy(np.random.default_rng(
+                (shard.seed, step)).standard_normal(
+                (n, bsz, cfg.frontend_seq, cfg.frontend_dim)).astype(
+                np.float32)).cuda()
+        return toks, labels, frames[step]
+
+    mrng = np.random.default_rng(1)
+    masks = [torch.from_numpy((mrng.uniform(size=spec.e_pad)
+                               >= WHISPER_TRAIN_LOSS).astype(np.float32))
+             .cuda() for _ in range(rounds)]
+    grad_fn = train.sync_grad_fn(cfg, rspec)
+    gamma = warmup_cosine(3e-3, warmup=max(1, rounds // 20), total=rounds)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.clear()
+        t0 = time.perf_counter()
+        st = init_node_state(spec, x0, grad_fn, batches(0), robust=True)
+        rf = make_rfast_round(spec, grad_fn, gamma=gamma, robust=True,
+                              impl=impl, donate=True)
+        losses = []
+        for step in range(rounds):
+            st, met = rf(st, batches(step), None, masks[step])
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        g_sum = st.g_prev.sum(0)
+        runs[impl] = dict(
+            wall_s=time.perf_counter() - t0, losses=losses,
+            launches=dispatch.stats()["by_kernel"],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            state_gb=sum(t.numel() * t.element_size() for t in st[1:]
+                         if t is not None) / 1e9,
+            lemma3_rel=float(torch.linalg.vector_norm(
+                runtime_tracked_mass(st) - g_sum)
+                / torch.linalg.vector_norm(g_sum)),
+            x=st.x, z=st.z)
+        del st, rf, met, g_sum
+    k, pl = runs["kernel"], runs["plain"]
+    rel = {f: float(torch.linalg.vector_norm(k[f] - pl[f])
+                    / torch.linalg.vector_norm(pl[f])) for f in ("x", "z")}
+    keep = ("wall_s", "losses", "launches", "peak_gb", "state_gb",
+            "lemma3_rel")
+    emit("whisper_train", layers=WHISPER_TRAIN_LAYERS,
+         enc_layers=WHISPER_TRAIN_LAYERS, of_layers=full.n_layers,
+         cut=f"depth: {WHISPER_TRAIN_LAYERS} of {full.n_layers} decoder "
+         f"and encoder layers; widths and the {cfg.frontend_seq} frames "
+         "as published", p=int(x0.numel()), nodes=n, rounds=rounds,
+         batch_per_node=bsz, seq=WHISPER_TRAIN_SEQ,
+         loss_prob=WHISPER_TRAIN_LOSS,
+         runs={i: {f: r[f] for f in keep} for i, r in runs.items()},
+         x_rel=rel["x"], z_rel=rel["z"], tol=BACKEND_TOL, device=name,
+         nvidia_smi=smi)
+    check(x0.numel() == WHISPER_TRAIN_P, f"whisper-large-v3 at "
+          f"{WHISPER_TRAIN_LAYERS} + {WHISPER_TRAIN_LAYERS} layers has "
+          f"{WHISPER_TRAIN_P:,} parameters: {x0.numel():,}")
+    check(all(math.isfinite(v) for r in runs.values() for v in r["losses"]),
+          "whisper sync: finite losses")
+    check(max(rel.values()) <= BACKEND_TOL,
+          f"whisper sync: kernel and plain agree to {BACKEND_TOL}: {rel}")
+    check(k["launches"] == {"commit_grid": rounds} and not pl["launches"],
+          f"whisper sync: one commit_grid launch per round (plain none): "
+          f"{k['launches']}, {pl['launches']}")
+    check(k["lemma3_rel"] <= 1e-4, "whisper sync: Lemma-3 <= 1e-4")
+    del runs, k, pl, frames, masks, x0
+    torch.cuda.empty_cache()
+    return rounds
+
+
+def phase_whisper(name: str, smi: str) -> dict:
+    """Phase 27: whisper-large-v3 at full width and depth (the encoder
+    over 1500 frames, cross attention, absolute positions, the GELU MLP
+    with biases), then ``whisper_train``.  Returns the ``commit_grid``
+    launches by path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.models import transformer as tt
+    cfg = get_config("whisper-large-v3")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ZOO_TF_B, ZOO_TF_S))).cuda()
+    frames = frontend_rows(cfg, ZOO_TF_B, rng)
+    dispatch.clear()
+    tf = teacher_forced(cfg, params, toks, ZOO_TF_PROMPT, ZOO_TF_S, frames)
+    viol, rel = beyond_rtol(tf["loop"], tf["ref"]), tf_rel(tf)
+    del tf
+    # token-wise prefill over init_cache's cross caches vs prefill_cache
+    n = WHISPER_TOKENWISE
+    c_ref, l_ref = tt.prefill(cfg, params, tt.init_cache(
+        cfg, params, ZOO_TF_B, ZOO_TF_S, frontend=frames), toks[:, :n])
+    c_new, last = tt.prefill_cache(cfg, params, toks[:, :n], ZOO_TF_S,
+                                   frontend=frames)
+    cross_rel = max(float((c_new[k] - c_ref[k]).abs().max()
+                          / c_ref[k].abs().max())
+                    for k in ("cross_k", "cross_v"))
+    l1, _ = tt.decode_step(cfg, params, c_ref, toks[:, n:n + 1])
+    l2, _ = tt.decode_step(cfg, params, c_new, toks[:, n:n + 1])
+    tw_viol = max(beyond_rtol(last[:, 0], l_ref[:, -1]),
+                  beyond_rtol(l2, l1))
+    del c_ref, c_new, l_ref, last, l1, l2, frames
+    torch.cuda.empty_cache()
+    # the encoder's time, then FRONT_STEPS decode steps, at FRONT_B
+    frames = frontend_rows(cfg, FRONT_B, rng)
+    enc_ms = cuda_ms(lambda: tt.init_cache(cfg, params, FRONT_B,
+                                           WHISPER_MAX_LEN, frontend=frames),
+                     reps=ENCODER_REPS, warmup=1)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (FRONT_B, FRONT_PROMPT))).cuda()
+    cache, _ = tt.prefill_cache(cfg, params, prompt, WHISPER_MAX_LEN,
+                                frontend=frames)
+    dec = timed_decode(cfg, params, cache, rng)
+    launches = dispatch.stats()["by_kernel"]
+    step_bound = decode_bound(cfg, params, {
+        k: cache[k] for k in ("layers", "cross_k", "cross_v")}, FRONT_B)
+    emit("whisper_serve", arch=cfg.name, layers=cfg.n_layers,
+         enc_layers=cfg.n_enc_layers, frames=cfg.frontend_seq, p=p,
+         param_gb=p * 4 / 1e9, init_s=init_s, tf_batch=ZOO_TF_B,
+         tf_seq=ZOO_TF_S, tf_prompt=ZOO_TF_PROMPT,
+         max_abs_err_beyond_rtol=viol, max_rel_err=rel, tol=SERVE_TF_TOL,
+         tokenwise_prompt=n, tokenwise_beyond_rtol=tw_viol,
+         cross_cache_rel=cross_rel, batch=FRONT_B, max_len=WHISPER_MAX_LEN,
+         encoder_ms=enc_ms, **dec, launches=launches, **step_bound,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(p == WHISPER_PARAMS, f"whisper-large-v3: {WHISPER_PARAMS:,} "
+          f"parameters: {p:,}")
+    check(viol <= SERVE_TF_TOL, f"whisper: prefill_cache + decode_step vs "
+          f"one forward within rtol = atol = {SERVE_TF_TOL}")
+    check(tw_viol <= SERVE_TF_TOL and cross_rel <= SERVE_TOL,
+          "whisper: init_cache + token-wise prefill vs prefill_cache, and "
+          "a decode step from each")
+    check(dec["decode_step"]["n"] >= ZOO_BUSY_STEPS,
+          f"whisper: {ZOO_BUSY_STEPS} decode steps timed")
+    check(not launches and dec["profile"]["kernels"] > 0,
+          "whisper: the serving path launches no kernel of the port")
+    del params, cache, frames, prompt, toks
+    torch.cuda.empty_cache()
+    return {"zoo_sync_whisper-large-v3_full_width": whisper_train(name, smi)}
+
+
+def phase_pixtral(name: str, smi: str) -> dict:
+    """Phase 28: pixtral-12b at full width and depth, its patches
+    prepended to the text, then at ``--reduced`` through
+    ``zoo_train_pair``.  Returns the ``commit_grid`` launches by path."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import tree_leaves
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.models import transformer as tt
+    cfg = get_config("pixtral-12b")
+    F = cfg.frontend_seq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ZOO_TF_B, ZOO_TF_S))).cuda()
+    dispatch.clear()
+    tf = teacher_forced(cfg, params, toks, ZOO_TF_PROMPT, F + ZOO_TF_S,
+                        frontend_rows(cfg, ZOO_TF_B, rng))
+    viol, rel = beyond_rtol(tf["loop"], tf["ref"]), tf_rel(tf)
+    del tf
+    torch.cuda.empty_cache()
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (FRONT_B, FRONT_PROMPT))).cuda()
+    patches = frontend_rows(cfg, FRONT_B, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, _ = tt.prefill_cache(cfg, params, prompt, PIXTRAL_MAX_LEN,
+                                frontend=patches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    idx0 = int(cache["idx"])
+    dec = timed_decode(cfg, params, cache, rng)
+    launches = dispatch.stats()["by_kernel"]
+    step_bound = decode_bound(cfg, params, cache["layers"], FRONT_B)
+    emit("pixtral_serve", arch=cfg.name, layers=cfg.n_layers, patches=F,
+         head_dim=cfg.hd, p=p, param_gb=p * 4 / 1e9, init_s=init_s,
+         resident_before_gb=resident / 1e9, tf_batch=ZOO_TF_B,
+         tf_seq=ZOO_TF_S, tf_prompt=ZOO_TF_PROMPT,
+         max_abs_err_beyond_rtol=viol, max_rel_err=rel, tol=SERVE_TF_TOL,
+         batch=FRONT_B, max_len=PIXTRAL_MAX_LEN, prompt=FRONT_PROMPT,
+         prefill_ms=prefill_ms, idx_after_prefill=idx0, **dec,
+         launches=launches, **step_bound,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(p == PIXTRAL_PARAMS, f"pixtral-12b: {PIXTRAL_PARAMS:,} "
+          f"parameters: {p:,}")
+    check(viol <= SERVE_TF_TOL, f"pixtral: prefill_cache with the patches "
+          f"+ decode_step vs one forward within rtol = atol = "
+          f"{SERVE_TF_TOL}")
+    check(idx0 == F + FRONT_PROMPT, "pixtral: the patch rows are prefilled "
+          "before the prompt")
+    check(dec["decode_step"]["n"] >= ZOO_BUSY_STEPS,
+          f"pixtral: {ZOO_BUSY_STEPS} decode steps timed")
+    check(not launches and dec["profile"]["kernels"] > 0,
+          "pixtral: the serving path launches no kernel of the port")
+    del params, cache, patches, prompt, toks
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "chip_smoke_zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = zoo_train_pair("sync", ["--loss-prob", "0.2"], "pixtral-12b",
+                           root, name, smi)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"zoo_sync_pixtral-12b": steps}
 
 
 # --------------------------------------------------------------------- #
@@ -3025,6 +3400,10 @@ def main() -> int:
     # 25-26. the model zoo -------------------------------------------------
     phase_zoo_serve(name, smi)
     zoo_launches = phase_zoo_train(name, smi)
+
+    # 27-28. the enc-dec and frontend archs -------------------------------
+    zoo_launches.update(phase_whisper(name, smi))
+    zoo_launches.update(phase_pixtral(name, smi))
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),

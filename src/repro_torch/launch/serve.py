@@ -17,10 +17,13 @@ between decode steps.  DESIGN.md §14 has the architecture.
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no GPU
 is present and the CPU was not asked for; on the card float32 matmuls
 run in full float32 (TF32 off), as the reference does.  ``--arch`` takes
-every attention arch of the port (``rfast-100m``, ``llama3-8b``,
-``deepseek-7b``, ``olmo-1b``, ``qwen2.5-3b``, the MoE
-``phi3.5-moe-42b-a6.6b`` and the MLA + MoE ``deepseek-v2-236b``): the
-engine refuses SSM and hybrid mixers, as the reference's does.
+every arch of the port; the engine serves the decoder-only attention
+archs (``rfast-100m``, ``llama3-8b``, ``deepseek-7b``, ``olmo-1b``,
+``qwen2.5-3b``, the MoE ``phi3.5-moe-42b-a6.6b`` and the MLA + MoE
+``deepseek-v2-236b``) and refuses SSM and hybrid mixers, enc-dec
+(``whisper-large-v3``) and frontend archs (``pixtral-12b``), as the
+reference's does: those decode through ``models.transformer``'s
+``prefill_cache(frontend=)`` and ``decode_step``.
 
 RNG: the reference splits one JAX key into a parameter key and a traffic
 key; torch cannot reproduce JAX's keys (ROADMAP ground rules), so the
@@ -52,8 +55,8 @@ def _percentile(xs: list[float], q: float) -> float:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=ARCHS,
-                    help="an attention arch (SSM and hybrid mixers are "
-                         "refused by the engine)")
+                    help="a decoder-only attention arch (the engine "
+                         "refuses SSM, hybrid, enc-dec and frontend archs)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots B (fixed batch shape)")

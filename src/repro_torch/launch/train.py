@@ -40,13 +40,19 @@ commits through the hand-written ``commit_grid`` kernel (one launch per
 round, or per wave); ``--impl plain`` through PyTorch ops.  On the card,
 float32 matmuls run in full float32 (TF32 off), as the reference does.
 
-``--arch`` takes the port's architectures: the dense attention decoders
-``rfast-100m``, ``llama3-8b``, ``deepseek-7b``, ``olmo-1b`` and
-``qwen2.5-3b``, the MoE ``phi3.5-moe-42b-a6.6b`` and ``deepseek-v2-236b``
-(MLA; the router loss enters every gradient), ``hymba-1.5b`` (hybrid
-attention + Mamba heads) and ``falcon-mamba-7b`` (attention-free); every
-SSM mixer's scan forward runs the hand-written ``ssm_scan`` kernel on
-the card.
+``--arch`` takes every architecture of the reference: the dense
+attention decoders ``rfast-100m``, ``llama3-8b``, ``deepseek-7b``,
+``olmo-1b`` and ``qwen2.5-3b``, the MoE ``phi3.5-moe-42b-a6.6b`` and
+``deepseek-v2-236b`` (MLA; the router loss enters every gradient),
+``hymba-1.5b`` (hybrid attention + Mamba heads) and ``falcon-mamba-7b``
+(attention-free), whose SSM mixers' scans run the hand-written
+``ssm_scan`` kernel on the card, and the frontend archs as the
+reference's train CLI runs them: its batches hold tokens only, so
+``pixtral-12b`` trains on text (its patch projection gets no gradient)
+and ``whisper-large-v3``'s encoder, given no frames, fails at the first
+gradient (a ``ValueError`` here, a ``TypeError`` there).  A whisper
+round trains through :func:`sync_grad_fn` with batches of ``(toks,
+labels, frames)``, as the reference's library API does.
 
 Not ported yet, rejected with an error: ``--param-shards`` (the
 parameter-sharded async run).  The reference's ``--verify-plans`` and
@@ -188,8 +194,8 @@ def main(argv=None) -> dict:
 # --------------------------------------------------------------------- #
 def sync_grad_fn(cfg, spec):
     """Per-node gradient of the LM on the flat lane: ``(x_flat, (toks,
-    labels), key) -> (loss, g_flat)``; the key is unused (the reference
-    drops it too)."""
+    labels[, frontend]), key) -> (loss, g_flat)``; the key is unused (the
+    reference drops it too)."""
     from repro_torch.models.transformer import loss_fn
     return value_and_grad(
         spec, lambda params, batch, _key: loss_fn(cfg, params, *batch))

@@ -1,11 +1,14 @@
-"""Attention mixers: grouped-query (GQA, with optional q/k/v biases) and
-multi-head latent attention (MLA, deepseek-v2), over the full sequence
-(train, prefill) and one-token decode over a ring cache.
+"""Attention mixers: grouped-query (GQA, with optional q/k/v biases),
+multi-head latent attention (MLA, deepseek-v2) and the enc-dec cross
+attention (whisper), over the full sequence (train, prefill) and
+one-token decode over a ring cache.
 
-Counterpart of ``_sdpa``, ``_causal_mask``, ``gqa_init``, ``_qkv``,
-``gqa_apply``, ``gqa_cache``, ``gqa_decode``, ``mla_init``, ``_rms``,
-``_mla_q``, ``_mla_compress``, ``_mla_attend``, ``mla_apply``,
-``mla_cache`` and ``mla_decode`` in ``src/repro/models/attention.py``.
+Counterpart of ``src/repro/models/attention.py``: ``_sdpa``,
+``_causal_mask``, ``gqa_init``, ``_qkv``, ``gqa_apply`` (causal, or
+the encoder's full mask), ``gqa_cache``, ``gqa_decode``, ``mla_init``,
+``_rms``, ``_mla_q``, ``_mla_compress``, ``_mla_attend``,
+``mla_apply``, ``mla_cache``, ``mla_decode``, ``cross_init``,
+``cross_kv``, ``cross_apply`` and ``cross_decode``.
 As there, scores are an einsum, a masked softmax and an einsum over
 grouped heads (no KV repeat is materialized), so the two packages agree
 numerically; the port does not call ``scaled_dot_product_attention``.
@@ -30,7 +33,8 @@ from .config import ModelConfig
 from .layers import apply_rope, dense_init, rope_cos_sin
 
 __all__ = ["gqa_init", "gqa_apply", "gqa_cache", "gqa_decode",
-           "mla_init", "mla_apply", "mla_cache", "mla_decode"]
+           "mla_init", "mla_apply", "mla_cache", "mla_decode",
+           "cross_init", "cross_kv", "cross_apply", "cross_decode"]
 
 NEG = -1e30
 
@@ -88,16 +92,21 @@ def _rope(cfg: ModelConfig, q, k, cos, sin):
 
 
 def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              positions: torch.Tensor, *, window=None, return_kv=False):
-    """Causal full-sequence attention of ``x`` (B, S, d).  ``return_kv``
-    also returns the roped (k, v), (B, S, KV, hd) each, for cache
-    filling."""
+              positions: torch.Tensor, *, causal=True, window=None,
+              return_kv=False):
+    """Full-sequence attention of ``x`` (B, S, d), causal or (the
+    encoder's) over every position.  ``return_kv`` also returns the
+    roped (k, v), (B, S, KV, hd) each, for cache filling."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if cfg.use_rope:
         q, k = _rope(cfg, q, k, *rope_cos_sin(positions, cfg.hd,
                                               cfg.rope_theta))
-    mask = _causal_mask(S, S, window, x.device)[None, None, None]
+    if causal:
+        mask = _causal_mask(S, S, window, x.device)[None, None, None]
+    else:
+        mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool,
+                          device=x.device)
     o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
     out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
     if return_kv:
@@ -255,3 +264,45 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
         valid &= slot_pos > pos - window
     o = _mla_attend(cfg, p, qn, qr, c, kr, valid[:, None, None, :])
     return o, cache
+
+
+# --------------------------------------------------------------------- #
+# cross attention (enc-dec)
+# --------------------------------------------------------------------- #
+def cross_init(cfg: ModelConfig, gen: torch.Generator, *,
+               lead: tuple = ()) -> dict:
+    return gqa_init(cfg, gen, lead=lead)
+
+
+def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
+    """The encoder output ``enc`` (B, F, d) as cross-attention keys and
+    values, (B, F, KV, hd) each (with the k/v biases when ``qkv_bias``)."""
+    B, F, _ = enc.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc @ p["wk"]).reshape(B, F, KV, hd)
+    v = (enc @ p["wv"]).reshape(B, F, KV, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].reshape(KV, hd)
+        v = v + p["bv"].reshape(KV, hd)
+    return k, v
+
+
+def cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) queries over the fixed encoder k/v (no positions: the
+    absolute embeddings were added upstream; every key unmasked)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, KV, H // KV, hd)
+    mask = torch.ones((1, 1, 1, S, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    o = _sdpa(q, k, v, mask, hd ** -0.5)
+    return o.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return cross_apply(cfg, p, x, k, v)

@@ -1,10 +1,12 @@
-"""Layer primitives of the decoders: init, the three norms, SwiGLU, RoPE.
+"""Layer primitives of the models: init, the three norms, the MLPs,
+rotary and sinusoidal positions.
 
-Counterpart of the parts of ``src/repro/models/layers.py`` that the
-decoder-only archs use (RMSNorm, LayerNorm and OLMo's non-parametric
-LayerNorm; the bias-free SwiGLU MLP; rotary positions), as plain
-functions on tensors in the JAX package's layouts (weights
-``(d_in, d_out)``, activations ``(B, S, ...)``).
+Counterpart of ``src/repro/models/layers.py`` (RMSNorm, LayerNorm and
+OLMo's non-parametric LayerNorm; the SwiGLU MLP and whisper's GELU MLP,
+either with the biases ``bi``/``bo``; rotary positions and the
+absolute sinusoidal ones), as plain functions on tensors in the JAX
+package's layouts (weights ``(d_in, d_out)``, activations
+``(B, S, ...)``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from .config import ModelConfig
 
 __all__ = ["dense_init", "norm_init", "norm_apply", "mlp_init", "mlp_apply",
-           "rope_cos_sin", "apply_rope"]
+           "rope_cos_sin", "apply_rope", "sinusoidal_positions"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -56,17 +58,31 @@ def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, *,
              lead: tuple = ()) -> dict:
-    if cfg.mlp != "swiglu" or cfg.mlp_bias:
-        raise NotImplementedError("only the bias-free SwiGLU MLP is ported")
     d, ff = cfg.d_model, cfg.d_ff
-    return {"wi": dense_init(gen, d, ff, lead=lead),
-            "wo": dense_init(gen, ff, d, lead=lead),
-            "wg": dense_init(gen, d, ff, lead=lead)}
+    p = {"wi": dense_init(gen, d, ff, lead=lead),
+         "wo": dense_init(gen, ff, d, lead=lead)}
+    if cfg.mlp == "swiglu":
+        p["wg"] = dense_init(gen, d, ff, lead=lead)
+    if cfg.mlp_bias:
+        p["bi"] = torch.zeros(*lead, ff, device=gen.device)
+        p["bo"] = torch.zeros(*lead, d, device=gen.device)
+    return p
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    """SwiGLU, or the GELU MLP in the tanh form (``jax.nn.gelu``'s
+    default, ``approximate=True``; the erf form differs by 1.5e-4 at 1)."""
+    h = x @ p["wi"]
+    if cfg.mlp_bias:
+        h = h + p["bi"]
+    if cfg.mlp == "swiglu":
+        h = torch.nn.functional.silu(x @ p["wg"]) * h
+    else:
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    y = h @ p["wo"]
+    if cfg.mlp_bias:
+        y = y + p["bo"]
+    return y
 
 
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
@@ -88,3 +104,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (...,) -> absolute embeddings (..., d) in fp32: the sines
+    of the ``d // 2`` frequencies 10000^(−i / (d/2)), then their cosines."""
+    half = d // 2
+    log_base = torch.log(torch.tensor(10_000.0, device=positions.device))
+    freq = torch.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

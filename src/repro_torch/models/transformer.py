@@ -1,25 +1,35 @@
-"""Decoder-only transformer with attention, SSM or hybrid mixers: init,
-forward, loss, and the serving side's KV-cache decode and prefill.
+"""Decoder-only and enc-dec transformers with attention, SSM or hybrid
+mixers and stub modality frontends: init, forward, loss, and the
+serving side's KV-cache decode and prefill.
 
-Counterpart of the decoder-only part of ``src/repro/models/
-transformer.py`` (``init_params``, ``_layer_init``, ``_mixer_full``,
-``forward``, ``loss_fn``; ``cache_capacity``, ``init_cache``,
-``decode_step``, ``decode_step_slots``, ``prefill``, ``prefill_cache``,
-``prefill_rows``) for the RoPE attention mixers, GQA (``rfast-100m``,
-``llama3-8b``, ``deepseek-7b``, ``olmo-1b``, ``qwen2.5-3b`` with q/k/v
-biases, ``phi3.5-moe-42b-a6.6b``) and MLA (``deepseek-v2-236b``, whose
-cache keeps the compressed latent), the Mamba-1 SSM mixer
-(``falcon-mamba-7b``, no MLP when ``d_ff`` is 0) and the hybrid of the
-two (``hymba-1.5b``: the mean of attention and SSM on the same input);
-with a dense SwiGLU or a MoE MLP (:mod:`.moe`, whose router loss
-``forward`` returns summed over layers and ``loss_fn`` adds), any of the
-three norms, and an untied head or the tied one (``x @ embed.T``, no
-``lm_head`` leaf).  Parameters are a nested dict in
-the JAX package's layout: per-layer weights are stacked on a leading
-``n_layers`` axis under ``"layers"``, and a Python loop over that axis
-takes the place of ``lax.scan``.  Decode caches are laid out as the
-reference's ``vmap`` over layers builds them: every leaf ``(L, B, ...)``
-under ``"layers"``, beside ``idx`` and ``slot_pos``.
+Counterpart of ``src/repro/models/transformer.py`` (``init_params``,
+``_layer_init``, ``_enc_layer_init``, ``_mixer_full``, ``_layer_full``,
+``_run_encoder``, ``forward``, ``loss_fn``; ``cache_capacity``,
+``init_cache``, ``decode_step``, ``decode_step_slots``, ``prefill``,
+``prefill_cache``, ``prefill_rows``) for every arch of the JAX
+package: the attention mixers GQA (``rfast-100m``, ``llama3-8b``,
+``deepseek-7b``, ``olmo-1b``, ``qwen2.5-3b`` with q/k/v biases,
+``phi3.5-moe-42b-a6.6b``, ``pixtral-12b``) and MLA
+(``deepseek-v2-236b``, whose cache keeps the compressed latent), the
+Mamba-1 SSM mixer (``falcon-mamba-7b``, no MLP when ``d_ff`` is 0), the
+hybrid of the two (``hymba-1.5b``: the mean of attention and SSM on the
+same input), and the enc-dec ``whisper-large-v3``: frames projected by
+``frontend_proj`` into a non-causal encoder, cross attention in every
+decoder layer, sinusoidal absolute positions (``use_rope=False``) and
+the GELU MLP with biases.  A decoder-only frontend (``pixtral-12b``'s
+patches) is projected and prepended to the tokens.  MLPs are dense
+(SwiGLU or GELU) or MoE (:mod:`.moe`, whose router loss ``forward``
+returns summed over layers and ``loss_fn`` adds), with any of the three
+norms and an untied head or the tied one (``x @ embed.T``, no
+``lm_head`` leaf).  Parameters are a nested dict in the JAX package's
+layout: per-layer weights are stacked on a leading ``n_layers`` axis
+under ``"layers"`` (``n_enc_layers`` under ``"enc_layers"``), and a
+Python loop over that axis takes the place of ``lax.scan``; ``remat``
+wraps each layer in ``torch.utils.checkpoint`` where the reference
+wraps it in ``jax.checkpoint``.  Decode caches are laid out as the
+reference's ``vmap`` over layers builds them: every leaf ``(L, B,
+...)`` under ``"layers"``, beside ``idx``, ``slot_pos`` and, for
+enc-dec, ``cross_k`` / ``cross_v``.
 
 Decode and prefill run without autograd.  The decode steps update the
 cache they are given in place (the reference donates it) and return it;
@@ -27,7 +37,10 @@ cache they are given in place (the reference donates it) and return it;
 over serving slots written as one batched step, a position per row, its
 MoE layers routing each row alone (each slot's capacity is that of one
 token, as under the vmap).  ``decode_step`` and ``prefill_cache``, like
-the reference's, route all B·S tokens together.
+the reference's, route all B·S tokens together.  As in the reference,
+``decode_step_slots`` refuses enc-dec archs and ``prefill_rows`` both
+enc-dec and frontend archs; an enc-dec arch given no frontend raises a
+``ValueError`` (the reference fails there with a ``TypeError``).
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -40,6 +53,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core.paramvec import make_ravel_spec, tree_map, unravel
 from ..kernels.rfast_update.dispatch import resolve_device
@@ -47,26 +61,16 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import dense_init, mlp_apply, mlp_init, norm_apply, norm_init
+from .layers import (dense_init, mlp_apply, mlp_init, norm_apply, norm_init,
+                     sinusoidal_positions)
 
 __all__ = ["init_params", "forward", "loss_fn", "params_from_jax",
            "cache_capacity", "init_cache", "decode_step",
            "decode_step_slots", "prefill", "prefill_cache", "prefill_rows"]
 
 
-def _check(cfg: ModelConfig) -> None:
-    if (cfg.enc_dec or cfg.frontend
-            or (cfg.mixer != "ssm" and not cfg.use_rope)
-            or (cfg.d_ff and (cfg.mlp != "swiglu" or cfg.mlp_bias))):
-        raise NotImplementedError(
-            f"{cfg.name}: only decoder-only text archs with RoPE "
-            "attention (GQA or MLA), SSM or hybrid mixers and a bias-free "
-            "SwiGLU MLP (dense or MoE) are ported yet; enc-dec, "
-            "frontends, absolute positions and the GELU/bias MLP are not")
-
-
-def _layer_init(cfg: ModelConfig, gen: torch.Generator,
-                lead: tuple) -> dict[str, Any]:
+def _layer_init(cfg: ModelConfig, gen: torch.Generator, lead: tuple, *,
+                cross: bool = False) -> dict[str, Any]:
     p: dict[str, Any] = {"ln1": norm_init(cfg, lead=lead,
                                           device=gen.device)}
     if cfg.mixer in ("attn", "hybrid"):
@@ -74,6 +78,9 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator,
         p["attn"] = init(cfg, gen, lead=lead)
     if cfg.mixer in ("ssm", "hybrid"):
         p["ssm"] = ssm_mod.ssm_init(cfg, gen, lead=lead)
+    if cross:
+        p["ln_cross"] = norm_init(cfg, lead=lead, device=gen.device)
+        p["cross"] = attn.cross_init(cfg, gen, lead=lead)
     if cfg.moe_experts:
         p["ln2"] = norm_init(cfg, lead=lead, device=gen.device)
         p["mlp"] = moe_mod.moe_init(cfg, gen, lead=lead)
@@ -83,20 +90,39 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
+def _enc_layer_init(cfg: ModelConfig, gen: torch.Generator,
+                    lead: tuple) -> dict[str, Any]:
+    """Encoder layer: full (non-causal) self-attention + dense MLP."""
+    dev = gen.device
+    return {"ln1": norm_init(cfg, lead=lead, device=dev),
+            "attn": attn.gqa_init(cfg, gen, lead=lead),
+            "ln2": norm_init(cfg, lead=lead, device=dev),
+            "mlp": mlp_init(cfg, gen, lead=lead)}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     """fp32 parameters drawn from ``gen`` on its device (the CPU unless
     ``gen`` is a CUDA generator, which draws a full-width model on the
     card without a host copy): N(0,1)·0.02 embedding, N(0,1)·d_in^-½
-    dense weights, unit norm scales and the SSM's own initial values
-    (the JAX package's distributions; not its numbers).  A tied head
-    has no ``lm_head``: the embedding is the head."""
-    _check(cfg)
+    dense weights, unit norm scales, zero biases and the SSM's own
+    initial values (the JAX package's distributions; not its numbers).
+    A tied head has no ``lm_head``: the embedding is the head.  A
+    frontend arch has ``frontend_proj`` (frontend_dim, d); an enc-dec
+    one the stacked ``enc_layers``, ``enc_norm`` and, in every decoder
+    layer, ``ln_cross`` and ``cross``."""
     p = {"embed": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
                               device=gen.device).mul_(0.02),
          "final_norm": norm_init(cfg, device=gen.device),
-         "layers": _layer_init(cfg, gen, (cfg.n_layers,))}
+         "layers": _layer_init(cfg, gen, (cfg.n_layers,),
+                               cross=cfg.enc_dec)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    if cfg.frontend:
+        p["frontend_proj"] = dense_init(gen, cfg.frontend_dim or cfg.d_model,
+                                        cfg.d_model)
+    if cfg.enc_dec:
+        p["enc_layers"] = _enc_layer_init(cfg, gen, (cfg.n_enc_layers,))
+        p["enc_norm"] = norm_init(cfg, device=gen.device)
     return p
 
 
@@ -178,32 +204,111 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     return x + y, aux
 
 
+def _cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    """The residual cross attention of ``x`` over the encoder's k, v."""
+    hc = norm_apply(cfg, lp["ln_cross"], x)
+    return x + attn.cross_apply(cfg, lp["cross"], hc, k, v)
+
+
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, enc: torch.Tensor | None):
     x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x), positions)
+    if enc is not None:
+        x = _cross(cfg, lp, x, *attn.cross_kv(cfg, lp["cross"], enc))
     return _mlp(cfg, lp, x)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """tokens (B, S) -> (logits (B, S, vocab), the MoE layers' router
-    loss summed, 0 without MoE)."""
-    _check(cfg)
+def _enc_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = norm_apply(cfg, lp["ln1"], x)
+    x = x + attn.gqa_apply(cfg, lp["attn"], h, positions, causal=False)
+    return x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, or under activation checkpointing (the reference's
+    ``jax.checkpoint``): its activations recomputed in the backward."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _run_encoder(cfg: ModelConfig, params: dict, frontend,
+                 remat: bool = False) -> torch.Tensor:
+    """The enc-dec encoder over ``frontend`` (B, F, frontend_dim):
+    projected, absolute positions added, ``n_enc_layers`` non-causal
+    layers, ``enc_norm``.  (B, F, d)."""
+    if frontend is None:
+        raise ValueError(
+            f"{cfg.name} is enc-dec: its encoder needs the frontend "
+            f"(B, F, {cfg.frontend_dim or cfg.d_model}) and none was given")
+    e = frontend @ params["frontend_proj"]
+    positions = torch.arange(e.shape[1], device=e.device)
+    e = e + sinusoidal_positions(positions, cfg.d_model).to(e.dtype)
+    for li in range(cfg.n_enc_layers):
+        e = _run(remat, _enc_layer, cfg, _index(params["enc_layers"], li),
+                 e, positions)
+    return norm_apply(cfg, params["enc_norm"], e)
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
+           remat: bool = False):
+    """The decoder's input rows: ``(x (B, S, d), positions (S,), n_front,
+    enc)``.  A decoder-only frontend's projected rows come first (S =
+    n_front + S_text); an enc-dec frontend goes through the encoder
+    (``enc`` (B, F, d), else None); without RoPE the absolute positions
+    are added."""
     x = params["embed"][tokens]
+    enc, n_front = None, 0
+    if cfg.frontend and not cfg.enc_dec and frontend is not None:
+        fx = frontend @ params["frontend_proj"]
+        x = torch.cat([fx.to(x.dtype), x], dim=1)
+        n_front = frontend.shape[1]
+    if cfg.enc_dec:
+        enc = _run_encoder(cfg, params, frontend, remat)
     positions = torch.arange(x.shape[1], device=x.device)
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x, positions, n_front, enc
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend=None, *, remat: bool = False, last_only: bool = False):
+    """tokens (B, S_text); frontend (B, F, frontend_dim) stub embeddings
+    (a decoder-only arch's are prepended to the tokens, an enc-dec
+    arch's feed the encoder) -> (logits (B, S_text, vocab), or at the
+    last position only with ``last_only``; the MoE layers' router loss
+    summed, 0 without MoE).  ``remat`` recomputes each layer's
+    activations in the backward."""
+    x, positions, n_front, enc = _embed(cfg, params, tokens, frontend,
+                                        remat)
     aux = torch.zeros((), device=x.device)
     for li in range(cfg.n_layers):
-        x, a = _layer(cfg, _index(params["layers"], li), x, positions)
+        x, a = _run(remat, _layer, cfg, _index(params["layers"], li), x,
+                    positions, enc)
         aux = aux + a
-    return _head(params, norm_apply(cfg, params["final_norm"], x)), aux
+    x = norm_apply(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:]
+    elif n_front:
+        x = x[:, n_front:]
+    return _head(params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy via logsumexp (the JAX package's
-    ``ce="lse"``)."""
-    logits, aux = forward(cfg, params, tokens)
+            labels: torch.Tensor, frontend=None, *, remat: bool = False,
+            ce: str = "lse") -> torch.Tensor:
+    """Mean next-token cross entropy plus the router loss.  ``ce="lse"``
+    via logsumexp (no fp32 (B, S, V) log-prob tensor); ``ce="full"``
+    the plain fp32 log-softmax, as the JAX package keeps both."""
+    logits, aux = forward(cfg, params, tokens, frontend, remat=remat)
+    labels = labels[..., None].long()
+    if ce == "full":
+        ll = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return -torch.gather(ll, -1, labels)[..., 0].mean() + aux
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    tgt = torch.gather(logits, -1, labels)[..., 0]
     return (lse - tgt.to(torch.float32)).mean() + aux
 
 
@@ -229,17 +334,34 @@ def _mixer_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
     return c
 
 
+def _cross_caches(cfg: ModelConfig, params: dict, enc: torch.Tensor):
+    """Every decoder layer's cross k and v of the encoder output ``enc``:
+    ``(cross_k, cross_v)``, (L, B, F, KV, hd) each."""
+    kvs = [attn.cross_kv(cfg, _index(params["layers"]["cross"], li), enc)
+           for li in range(cfg.n_layers)]
+    return tuple(torch.stack(t) for t in zip(*kvs))
+
+
+@torch.no_grad()
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
-               dtype=torch.float32) -> dict:
+               dtype=torch.float32, frontend=None) -> dict:
     """Empty decode cache on the parameters' device: ``idx`` () int32,
-    ``slot_pos`` (C,) int32 all −1, ``layers`` leaves (L, batch, ...)."""
-    _check(cfg)
+    ``slot_pos`` (C,) int32 all −1, ``layers`` leaves (L, batch, ...).
+    An enc-dec arch runs its encoder over ``frontend`` here and keeps
+    ``cross_k`` / ``cross_v`` (L, batch, F, KV, hd) beside the ring; a
+    decoder-only arch ignores ``frontend`` (its patch rows enter through
+    :func:`prefill_cache`)."""
     dev = params["embed"].device
     C = cache_capacity(cfg, max_len)
-    return {"idx": torch.zeros((), dtype=torch.int32, device=dev),
-            "slot_pos": torch.full((C,), -1, dtype=torch.int32, device=dev),
-            "layers": _mixer_cache(cfg, batch, C, dtype,
-                                   lead=(cfg.n_layers,), device=dev)}
+    cache = {"idx": torch.zeros((), dtype=torch.int32, device=dev),
+             "slot_pos": torch.full((C,), -1, dtype=torch.int32,
+                                    device=dev),
+             "layers": _mixer_cache(cfg, batch, C, dtype,
+                                    lead=(cfg.n_layers,), device=dev)}
+    if cfg.enc_dec:
+        cache["cross_k"], cache["cross_v"] = _cross_caches(
+            cfg, params, _run_encoder(cfg, params, frontend))
+    return cache
 
 
 def _ssm_step(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor):
@@ -265,15 +387,21 @@ def _mixer_decode(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor,
 
 def _decode(cfg: ModelConfig, params: dict, layers: dict,
             tokens: torch.Tensor, pos: torch.Tensor,
-            slot_pos: torch.Tensor, *, rows: bool) -> torch.Tensor:
+            slot_pos: torch.Tensor, *, rows: bool,
+            cross: tuple | None = None) -> torch.Tensor:
     """tokens (B, 1) at positions ``pos`` (B,) over ``slot_pos`` (B, C)
     -> logits (B, 1, V); the layer caches are written in place.
-    ``rows`` routes each row's MoE alone (the slots step)."""
+    ``rows`` routes each row's MoE alone (the slots step); ``cross``
+    holds an enc-dec arch's (cross_k, cross_v)."""
     x = params["embed"][tokens]
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(pos, cfg.d_model)[:, None].to(x.dtype)
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
         h = norm_apply(cfg, lp["ln1"], x)
         x = x + _mixer_decode(cfg, lp, _index(layers, li), h, pos, slot_pos)
+        if cross is not None:
+            x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
         x, _ = _mlp(cfg, lp, x, rows=rows)
     return _head(params, norm_apply(cfg, params["final_norm"], x))
 
@@ -282,15 +410,16 @@ def _decode(cfg: ModelConfig, params: dict, layers: dict,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor):
     """token (B, 1) -> (logits (B, 1, V), cache): every row at position
-    ``cache["idx"]``; ``cache`` is updated in place and returned."""
-    _check(cfg)
+    ``cache["idx"]``; ``cache`` is updated in place and returned.  An
+    enc-dec arch's token attends to the cache's cross k and v too."""
     pos = cache["idx"]
     slot_pos = cache["slot_pos"]
     C = slot_pos.shape[0]
     slot_pos[pos % C] = pos
     B = token.shape[0]
+    cross = (cache["cross_k"], cache["cross_v"]) if cfg.enc_dec else None
     logits = _decode(cfg, params, cache["layers"], token, pos.expand(B),
-                     slot_pos.expand(B, C), rows=False)
+                     slot_pos.expand(B, C), rows=False, cross=cross)
     cache["idx"] = pos + 1
     return logits, cache
 
@@ -310,7 +439,6 @@ def decode_step_slots(cfg: ModelConfig, params: dict, cache: dict,
         raise ValueError("decode_step_slots serves decoder-only archs; "
                          f"{cfg.name} is enc-dec (cross caches have no "
                          "per-slot position)")
-    _check(cfg)
     pos = cache["idx"]
     slot_pos = cache["slot_pos"]
     B, C = slot_pos.shape
@@ -353,18 +481,20 @@ def prefill(cfg: ModelConfig, params: dict, cache: dict,
 
 @torch.no_grad()
 def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                  max_len: int, dtype=torch.float32):
+                  max_len: int, dtype=torch.float32, frontend=None):
     """Batched prefill: ONE full forward fills the decode cache.
 
-    Returns (cache with idx = S, last-position logits (B, 1, V)).  The
-    SSM layers' scans run the ``ssm_scan`` kernel on the card, which
-    returns each layer's h_last."""
-    _check(cfg)
-    x = params["embed"][tokens]
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)
+    Returns (cache with idx = S, last-position logits (B, 1, V)).  A
+    decoder-only frontend's rows are prepended to the tokens (S = F +
+    S_text; token-wise prefill cannot take them); an enc-dec frontend
+    feeds the encoder, whose cross k and v the cache keeps.  The SSM
+    layers' scans run the ``ssm_scan`` kernel on the card, which returns
+    each layer's h_last."""
+    x, positions, _, enc = _embed(cfg, params, tokens, frontend)
+    S = x.shape[1]
     C = cache_capacity(cfg, max_len)
     slot_pos, place = _ring(S, S, C, x.device)
+    cross = _cross_caches(cfg, params, enc) if enc is not None else None
     caches = []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
@@ -380,12 +510,17 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 sy, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
                                                   return_state=True)
                 y = 0.5 * (y + sy)
-        x, _ = _mlp(cfg, lp, x + y)
+        x = x + y
+        if cross is not None:
+            x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
+        x, _ = _mlp(cfg, lp, x)
         caches.append(lc)
     logits = _head(params, norm_apply(cfg, params["final_norm"], x[:, -1:]))
 
     cache = {"idx": torch.tensor(S, dtype=torch.int32, device=x.device),
              "slot_pos": slot_pos, "layers": _stack(caches)}
+    if cross is not None:
+        cache["cross_k"], cache["cross_v"] = cross
     return cache, logits
 
 
@@ -418,10 +553,8 @@ def prefill_rows(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if cfg.enc_dec or cfg.frontend:
         raise ValueError("prefill_rows serves decoder-only text archs; "
                          f"{cfg.name} has enc_dec/frontend stages")
-    _check(cfg)
-    x = params["embed"][tokens]
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)
+    x, positions, _, _ = _embed(cfg, params, tokens, None)
+    S = x.shape[1]
     slot_pos, place = _ring(true_len, S, capacity, x.device)
     rings = []
     for li in range(cfg.n_layers):

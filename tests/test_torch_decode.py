@@ -395,20 +395,40 @@ def test_ssm_prefill_runs_the_scan_wrapper_and_decode_does_not(monkeypatch):
 
 
 def test_decode_rejects_what_is_not_ported():
-    """MoE, MLA and tied heads decode since the model zoo's decoders were
-    ported; enc-dec, frontends, attention without RoPE and the GELU or
-    biased MLP still raise."""
-    cfg = ModelConfig(**TINY)
-    for bad in (dict(enc_dec=True, n_enc_layers=1),
+    """Nothing of the decode path is left unported: each variant that
+    raised before the enc-dec and frontend archs were ported (enc-dec,
+    a frontend, absolute positions, the GELU MLP, MLP biases) inits a
+    cache (the encoder's over a frontend), prefills and decodes a step
+    within 1e-4 of JAX's."""
+    rng = np.random.default_rng(11)
+    toks = tokens(ModelConfig(**TINY), (2, 4), seed=12)
+    for var in (dict(enc_dec=True, n_enc_layers=1, use_rope=False,
+                     frontend="audio", frontend_seq=5, frontend_dim=16),
                 dict(frontend="vision", frontend_seq=4, frontend_dim=16),
                 dict(use_rope=False),
                 dict(mlp="gelu"),
                 dict(mlp_bias=True)):
-        c = dataclasses.replace(cfg, **bad)
-        with pytest.raises(NotImplementedError, match="ported yet"):
-            tt.init_cache(c, {"embed": torch.zeros(1)}, 1, 8)
-        with pytest.raises(NotImplementedError, match="ported yet"):
-            tt.decode_step(c, {}, {}, None)
+        kw = dict(TINY, **var)
+        jcfg, cfg = JModelConfig(**kw), ModelConfig(**kw)
+        jp = jt.init_params(jcfg, jax.random.PRNGKey(1))
+        params, _ = tt.params_from_jax(jax.tree.map(np.asarray, jp),
+                                       device="cpu")
+        front = (rng.standard_normal((2, cfg.frontend_seq, 16))
+                 .astype(np.float32) if cfg.frontend else None)
+        jcache = jt.init_cache(jcfg, jp, 2, 8, frontend=None if front is None
+                               else jnp.asarray(front))
+        cache = tt.init_cache(cfg, params, 2, 8, frontend=None
+                              if front is None else torch.from_numpy(front))
+        jcache, jl = jt.prefill(jcfg, jp, jcache, jnp.asarray(toks[:, :3]))
+        cache, logits = tt.prefill(cfg, params, cache,
+                                   torch.from_numpy(toks[:, :3]))
+        assert rel(logits, jl) <= TOL, var
+        jl, jcache = jt.decode_step(jcfg, jp, jcache,
+                                    jnp.asarray(toks[:, 3:]))
+        logits, cache = tt.decode_step(cfg, params, cache,
+                                       torch.from_numpy(toks[:, 3:]))
+        assert rel(logits, jl) <= TOL, var
+        assert_cache_close(cache, jcache)
 
 
 def test_cpu_init_draws_are_unchanged():

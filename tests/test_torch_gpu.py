@@ -902,18 +902,29 @@ def test_init_params_draws_on_a_cuda_generator(cuda):
 @pytest.mark.parametrize("arch", ["rfast-100m", "hymba-1.5b",
                                   "falcon-mamba-7b", "olmo-1b",
                                   "phi3.5-moe-42b-a6.6b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "whisper-large-v3",
+                                  "pixtral-12b"])
 def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
     """prefill_cache + decode_step on the card against the same on the
     CPU (the scan's plain twin there) at 1e-4 of the largest |logit|; the
-    SSM layers' prefill launches ssm_scan once each, decode none."""
+    SSM layers' prefill launches ssm_scan once each, decode none.  A
+    frontend arch prefills with its frames (whisper: the encoder and the
+    cross caches) or patches (pixtral: prepended to the prompt)."""
     from repro_torch.models import transformer as tt
     cfg, cpu, card = _serve_model(arch)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 12)))
-    c0, l0 = tt.prefill_cache(cfg, cpu, toks[:, :6], 12)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))
+    front, max_len = None, 12
+    if cfg.frontend:
+        front = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32))
+        max_len += 0 if cfg.enc_dec else cfg.frontend_seq
+    c0, l0 = tt.prefill_cache(cfg, cpu, toks[:, :6], max_len,
+                              frontend=front)
     dispatch.clear()
-    c1, l1 = tt.prefill_cache(cfg, card, toks[:, :6].cuda(), 12)
+    c1, l1 = tt.prefill_cache(cfg, card, toks[:, :6].cuda(), max_len,
+                              frontend=None if front is None
+                              else front.cuda())
     ssm_layers = cfg.n_layers if cfg.mixer != "attn" else 0
     assert dispatch.launches("ssm_scan") == ssm_layers
     assert (l1.cpu() - l0).abs().max() <= 1e-4 * l0.abs().max()

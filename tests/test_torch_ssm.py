@@ -161,21 +161,33 @@ def test_model_scan_goes_through_the_kernel_wrapper(setup, monkeypatch):
 
 
 def test_what_is_not_ported_raises():
+    """Nothing of the model is left unported: the enc-dec, frontend and
+    no-RoPE variants of the hybrid and SSM configs init with the
+    reference's leaves (the encoder's attention layers beside the
+    hybrid decoder, ``frontend_proj``), and the no-RoPE one runs."""
     cfg = get_config("falcon-mamba-7b").reduced()
     # the decode state is ported (serving), and so are MoE MLPs and tied
-    # heads; enc-dec, frontends and attention without RoPE are not
+    # heads, enc-dec, frontends and attention without RoPE
     assert tuple(tssm.ssm_cache(cfg, 1, torch.float32)["h"].shape) == (
         1, cfg.d_inner, cfg.ssm_state)
-    enc_dec = dataclasses.replace(cfg, enc_dec=True, n_enc_layers=1)
-    with pytest.raises(NotImplementedError, match="ported yet"):
-        tt.init_params(enc_dec, torch.Generator())
-    front = dataclasses.replace(cfg, frontend="audio", frontend_seq=4)
-    with pytest.raises(NotImplementedError, match="ported yet"):
-        tt.init_params(front, torch.Generator())
-    no_rope = dataclasses.replace(get_config("hymba-1.5b").reduced(),
-                                  use_rope=False)
-    with pytest.raises(NotImplementedError, match="ported yet"):
-        tt.init_params(no_rope, torch.Generator())
+    hybrid = get_config("hymba-1.5b").reduced()
+    enc_dec = dataclasses.replace(hybrid, enc_dec=True, n_enc_layers=1,
+                                  frontend="audio", frontend_seq=4)
+    p = tt.init_params(enc_dec, torch.Generator())
+    assert tuple(p["enc_layers"]["attn"]["wq"].shape) == (
+        1, hybrid.d_model, hybrid.n_heads * hybrid.hd)
+    assert "cross" in p["layers"] and "ssm" in p["layers"]
+    assert tuple(p["frontend_proj"].shape) == (hybrid.d_model,
+                                               hybrid.d_model)
+    front = dataclasses.replace(cfg, frontend="audio", frontend_seq=4,
+                                frontend_dim=16)
+    p = tt.init_params(front, torch.Generator())
+    assert tuple(p["frontend_proj"].shape) == (16, cfg.d_model)
+    assert "enc_layers" not in p
+    no_rope = dataclasses.replace(hybrid, use_rope=False)
+    p = tt.init_params(no_rope, torch.Generator())
+    logits, _ = tt.forward(no_rope, p, torch.zeros(1, 5, dtype=torch.int64))
+    assert torch.isfinite(logits).all()
     tied_moe = dataclasses.replace(cfg, moe_experts=4, moe_top_k=2,
                                    d_ff=32, tie_embeddings=True)
     p = tt.init_params(tied_moe, torch.Generator())

@@ -61,7 +61,8 @@ B, S, S_PROMPT = 2, 16, 6
 TOL = 1e-4          # of the largest |entry|: fp32 on both sides
 TF_TOL = 2e-3       # tests/test_serve.py's teacher-forced rtol and atol
 # leaves that init sets to 0 or 1: drawn at random before comparing
-RANDOMIZED = ("bq", "bk", "bv", "bias", "scale", "c_scale", "q_scale")
+RANDOMIZED = ("bq", "bk", "bv", "bi", "bo", "bias", "scale", "c_scale",
+              "q_scale")
 
 
 def randomize(tree, rng, key=None):
@@ -109,15 +110,18 @@ _j_prefill_rows = jax.jit(jt.prefill_rows, static_argnums=(0, 4))
 
 
 def test_every_decoder_only_text_arch_is_ported():
+    """Every arch of the reference is ported since the enc-dec and
+    frontend archs were: the port's ``ARCHS`` is the reference's list in
+    its order, every config equals JAX's, and an unknown arch raises the
+    reference's ``KeyError``."""
     from repro.configs import ARCHS as J_ARCHS
-    text = [a for a in J_ARCHS if not (j_get_config(a).enc_dec
-                                       or j_get_config(a).frontend)]
-    assert ARCHS == text
+    assert ARCHS == J_ARCHS
+    assert set(ZOO) < set(ARCHS)
     for a in ARCHS:
         assert get_config(a) == ModelConfig(
             **dataclasses.asdict(j_get_config(a)))
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-large-v3")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large-v2")
 
 
 # ------------------------------------------------------------------ #
