@@ -249,13 +249,34 @@ run.  Phases:
    archs (text only, as the reference's train CLI trains it).  Phases
    27–28 are the functions ``phase_whisper`` and ``phase_pixtral``.
 
-Each of phases 17–28 prints its wall seconds, peak memory or
+29. static analysis (``repro_torch.analysis``, the function
+   ``phase_analysis``) — (a) phase 4's run with ``--verify-plans``: the
+   same losses, bitwise, and the same ``commit_grid`` launches, its wall
+   seconds and the lint's host ms over its plans (``sweep_plan`` with the
+   lint against without, median of 5 each); (b) ``run_rfast`` on an
+   RF105-corrupted CommPlan raises ``PlanInvariantError`` with no
+   ``commit_grid`` launch; (c) ``torchlint.audit_engines`` on the card,
+   the kernel route included: 0 diagnostics, nothing skipped; its wave
+   loops with the kernel route run again under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync, RF201),
+   a gradient that calls ``.item()`` raises there and is RF201 to the
+   audit, and two replays of the one-lane loop launch ``commit_grid``
+   once per non-empty wave and load no library (RF205); (d)
+   ``audit_ops`` over one chunk of (a)'s full-width wave loop, the LM
+   gradient's host reads counted apart from the engine's (the engine's
+   own must be 0), and the host syncs the sync debug mode sees in one
+   more pass and in one gradient, by source line (every one of the
+   loop's must be a gradient's); (e) ``python -m repro_torch.analysis
+   --all --quick`` in a subprocess: exit 0, 0 diagnostics.
+
+Each of phases 17–29 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -634,7 +655,8 @@ def fleet_wave_case(sp, seeds, n: int, p: int, seed: int):
 def epoch_plans(et, eval_every: int):
     """The plans ``run_epochs`` builds for the epoch trace ``et``: the
     trace-wide ``(H, kw, ka, ko, e_a)`` and, per epoch, its CommPlan,
-    WavefrontPlan and chunk bounds (the engine's own planner)."""
+    padded CommPlan, WavefrontPlan and chunk bounds (the engine's own
+    planner)."""
     from repro_torch.core.simulator import _epoch_lane_plans, _epoch_shapes
     shapes = _epoch_shapes(et.epochs)
     H, kw, ka, ko, e_a = shapes
@@ -646,7 +668,7 @@ def epoch_waves(et, eval_every: int) -> list[int]:
     """Per epoch, the waves with a real lane: the ``commit_grid``
     launches ``run_epochs(impl="kernel")`` makes for it."""
     return [int((wf.sizes > 0).sum())
-            for _, wf, _ in epoch_plans(et, eval_every)[1]]
+            for *_, wf, _ in epoch_plans(et, eval_every)[1]]
 
 
 def epoch_wave_case(et, eval_every: int, n: int, p: int, seed: int):
@@ -654,7 +676,7 @@ def epoch_wave_case(et, eval_every: int, n: int, p: int, seed: int):
     each with its trace offset), with the trace-wide row counts."""
     from repro_torch.core.simulator import wave_inputs
     (H, _, _, ko, e_a), lane = epoch_plans(et, eval_every)
-    w = max((wv for (_, wf, _), ep in zip(lane, et.epochs)
+    w = max((wv for (*_, wf, _), ep in zip(lane, et.epochs)
              for wv in wave_inputs(wf, ko, "cuda", (0,), k0=ep.k0)),
             key=lambda w: w.agent.shape[0])
     return wave_case(w, {"nodes": n * 4, "rho_hist": H * e_a,
@@ -1782,6 +1804,237 @@ def phase_pixtral(name: str, smi: str) -> dict:
 # --------------------------------------------------------------------- #
 # flash attention cases
 # --------------------------------------------------------------------- #
+def _sync_free(fn) -> None:
+    """Run ``fn()`` with CUDA's sync debug mode raising on any host
+    synchronisation (RF201 on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_analysis(name: str, smi: str, train_res: dict,
+                   train_launches: int) -> dict:
+    """Phase 29: the static analysis on the card (``repro_torch.analysis``).
+
+    (a) phase 4's run with ``--verify-plans``: the same losses and
+    ``commit_grid`` launches, with the lint's host ms over the same
+    plans (``sweep_plan`` with and without it) beside the wall seconds;
+    (b) ``run_rfast`` on an RF105-corrupted CommPlan raises
+    ``PlanInvariantError`` before any launch; (c) ``audit_engines`` on
+    the card, kernel route included, with no diagnostic and nothing
+    skipped; its kernel wave loops run again under
+    ``set_sync_debug_mode("error")`` (no host sync; a gradient calling
+    ``.item()`` raises there and is RF201 to the audit), and the
+    one-lane loop's launches and loaded libraries over two replays
+    (RF205); (d) ``audit_ops`` over one chunk of (a)'s full-width wave
+    loop (the LM gradient's host reads counted apart from the engine's),
+    and the host syncs CUDA's sync debug mode sees in one more pass of
+    the loop and in one gradient, by source line (the engine's own must
+    be none); (e) ``python -m repro_torch.analysis --all --quick`` in a
+    subprocess.  Returns the ``commit_grid`` launches by path."""
+    import dataclasses as dc
+    import os
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.analysis import PlanInvariantError, torchlint
+    from repro_torch.core.plan import build_comm_plan
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.core.simulator import (event_generator, run_rfast,
+                                            sweep_plan)
+    from repro_torch.core.topology import get_topology
+    from repro_torch.data.objectives import make_lm_problem
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import train
+    codes = lambda diags: sorted({d.code for d in diags})
+
+    # (a) the main path with its plans linted first, and the lint's host
+    # seconds over the same plans (phase 4's schedule, one eval chunk):
+    # sweep_plan with the lint against without it, median of 5 each
+    n, p = 4, 4096
+    topo = get_topology("binary_tree", n)
+    sched = get_scenario("uniform", n).realize(topo, 16, seed=0).schedule
+    comm = build_comm_plan(topo)
+
+    def plan_s(verify: str) -> float:
+        t0 = time.perf_counter()
+        sweep_plan([comm], [sched], 16, verify=verify, topos=[topo])
+        return time.perf_counter() - t0
+
+    plan_ms = {k: 1e3 * statistics.median(plan_s(v) for _ in range(5))
+               for k, v in (("linted", "phase 29"), ("unlinted", ""))}
+    torch.cuda.empty_cache()
+    dispatch.clear()
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_ARGS + ["--verify-plans"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    verify_launches = dispatch.launches("commit_grid")
+    emit("analysis_verify_train", losses=res["losses"],
+         losses_phase4=train_res["losses"], waves=res["waves"],
+         commit_grid_launches=verify_launches,
+         commit_grid_launches_phase4=train_launches, wall_s=wall,
+         sweep_plan_ms=plan_ms,
+         lint_ms=plan_ms["linted"] - plan_ms["unlinted"], device=name,
+         nvidia_smi=smi)
+    check(res["losses"] == train_res["losses"],
+          "--verify-plans trains phase 4's losses")
+    check(verify_launches == train_launches == res["waves"] > 0,
+          "--verify-plans launches commit_grid once per wave, as phase 4")
+    torch.cuda.empty_cache()
+
+    # (b) a corrupted CommPlan is refused before any launch
+    we = np.array(comm.w_edge)
+    we[0] += 0.25
+    C = torch.randn(n, p, generator=torch.Generator(device="cuda")
+                    .manual_seed(0), device="cuda")
+    dispatch.clear()
+    try:
+        run_rfast(dc.replace(comm, w_edge=we), sched,
+                  lambda i, x, gen: x - C[i], torch.zeros(p, device="cuda"),
+                  1e-2, verify_plans=True, device="cuda")
+        raised = []
+    except PlanInvariantError as e:
+        raised = codes(e.diagnostics)
+    emit("analysis_corrupt_plan", raised=raised,
+         commit_grid_launches=dispatch.launches("commit_grid"))
+    check(raised == ["RF105"] and dispatch.launches("commit_grid") == 0,
+          "an RF105-corrupted CommPlan raises before any commit_grid launch")
+
+    # (c) the engine audit on the card, kernel route included
+    t0 = time.perf_counter()
+    diags, audited, skipped = torchlint.audit_engines(device="cuda")
+    audit_s = time.perf_counter() - t0
+    loops = torchlint.engine_loops(device="cuda", impls=("kernel",))
+    for loop in loops:
+        _sync_free(lambda: loop.run(loop.state))
+    one = loops[0]
+    replays = []
+    for _ in range(2):
+        dispatch.clear()
+        one.run(one.state)
+        torch.cuda.synchronize()
+        replays.append({"commit_grid": dispatch.launches("commit_grid"),
+                        "loaded_libraries": len(_build._loaded)})
+    item = torchlint.wave_loop(
+        "m", [build_comm_plan(topo)], [sched],
+        lambda i, x, gen: x - C[i] * (1 + 0 * x.sum().item()), p,
+        impl="kernel", device="cuda")
+    _, records = torchlint.trace_ops(item.run, item.state, in_loop=True)
+    item_codes = codes(torchlint.audit_ops(records, subject="m"))
+    try:
+        _sync_free(lambda: item.run(item.state))
+        item_raised = False
+    except RuntimeError:
+        item_raised = True
+    torch.cuda.set_sync_debug_mode(0)
+    dispatch.clear()
+    emit("analysis_audit", diagnostics=[d.to_json() for d in diags],
+         audited=audited, skipped=skipped, seconds=audit_s,
+         sync_free_kernel_loops=[lp.subject for lp in loops],
+         rf205_replays=replays, rf205_waves=one.waves,
+         item_mutation={"codes": item_codes, "sync_debug_raised":
+                        item_raised}, device=name, nvidia_smi=smi)
+    check(diags == [] and skipped == [], "the card's audit reports 0 "
+          "diagnostics and skips nothing")
+    check(all(r == {"commit_grid": one.waves,
+                    "loaded_libraries": replays[0]["loaded_libraries"]}
+              for r in replays), "RF205: one launch per non-empty wave and "
+          "no library loaded on a replay")
+    check(item_codes == ["RF201"] and item_raised,
+          "a gradient calling .item() is RF201 and raises in sync debug "
+          "mode")
+    del loops, one, item, records
+    torch.cuda.empty_cache()
+
+    # (d) the audit over one chunk of (a)'s full-width wave loop
+    from repro_torch.configs import get_config
+    cfg = get_config("rfast-100m")
+    prob = make_lm_problem(cfg, n, batch_per_node=4, seq_len=128, seed=0,
+                           device="cuda")
+    g = prob.grad_fn()
+    K = len(sched.agent)
+    loop = torchlint.wave_loop("train[wave loop]", [build_comm_plan(topo)],
+                               [sched], g, prob.p, impl="kernel",
+                               device="cuda", seeds=[0])
+    t0 = time.perf_counter()
+    dispatch.clear()
+    _, records = torchlint.trace_ops(loop.run, loop.state, in_loop=True)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    full = torchlint.audit_ops(records, subject=loop.subject)
+    full_launches = dispatch.launches("commit_grid")
+    _, grad_records = torchlint.trace_ops(
+        g, 0, loop.state.nodes[0, 0], event_generator(0, 0, 0), in_loop=True)
+    per_grad = {d.data["op"]: d.data["count"] for d in torchlint.audit_ops(
+        grad_records, subject="grad") if d.code == "RF201"}
+    in_loop = {d.data["op"]: d.data["count"] for d in full
+               if d.code == "RF201"}
+    engine_own = {op: c - K * per_grad.get(op, 0) for op, c in in_loop.items()}
+
+    def host_syncs(fn) -> collections.Counter:
+        """The host syncs CUDA's sync debug mode sees in ``fn()``, by
+        the source line of the Python frame that made each."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return collections.Counter(
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message))
+
+    loop_syncs = host_syncs(lambda: loop.run(loop.state))
+    grad_syncs = host_syncs(lambda: g(0, loop.state.nodes[0, 0],
+                                      event_generator(0, 0, 0)))
+    emit("analysis_full_width_ops", p=prob.p, events=K, ops=len(records),
+         trace_s=trace_s, ops_by_count=collections.Counter(
+             r.name for r in records).most_common(8),
+         diagnostics=[d.to_json() for d in full],
+         rf201_per_gradient=per_grad, rf201_engine_own=engine_own,
+         commit_grid_launches=full_launches, waves=loop.waves,
+         host_syncs_in_loop=dict(loop_syncs),
+         host_syncs_per_gradient=dict(grad_syncs),
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         device=name, nvidia_smi=smi)
+    check(all(v == 0 for v in engine_own.values()),
+          "every host read in the full-width wave loop is the gradient's")
+    check(loop_syncs == collections.Counter(
+        {k: K * v for k, v in grad_syncs.items()}),
+          "every host sync in the full-width wave loop is the gradient's")
+    check(full_launches == loop.waves, "one commit_grid launch per wave "
+          "under the trace")
+    del loop, prob, g, records, grad_records
+    dispatch.clear()
+    torch.cuda.empty_cache()
+
+    # (e) the CLI, as a user runs it
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--all", "--quick"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    cli_s = time.perf_counter() - t0
+    report = json.loads(out.stdout) if out.returncode == 0 else {}
+    emit("analysis_cli", returncode=out.returncode, seconds=cli_s,
+         summary=report.get("summary"), stderr_tail=out.stderr[-600:])
+    check(out.returncode == 0 and report["summary"]["diagnostics"] == 0
+          and report["summary"]["skipped_programs"] == [],
+          "python -m repro_torch.analysis --all --quick exits 0 on the card")
+    return {"analysis_verify_train": verify_launches,
+            "analysis_full_width_trace": full_launches}
+
+
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
     """q (B,H,Sq,D), k, v (B,KV,Sk,D) and a cotangent of q's shape in
     ``dtype``, random on the card."""
@@ -3405,6 +3658,10 @@ def main() -> int:
     zoo_launches.update(phase_whisper(name, smi))
     zoo_launches.update(phase_pixtral(name, smi))
 
+    # 29. the static analysis -----------------------------------------------
+    analysis_launches = phase_analysis(name, smi, res,
+                                       launches.get("commit_grid", 0))
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -3420,7 +3677,7 @@ def main() -> int:
         "sync_resume": sync_resume_launches,
         "async_resume": async_resume_launches,
         "serve_publish": publish_launches.get("commit_grid", 0),
-        **zoo_launches}
+        **zoo_launches, **analysis_launches}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),

@@ -26,6 +26,16 @@ the formulas live in :mod:`repro_torch.core.protocol`.
   (:func:`migrate_state`'s arithmetic).  :func:`run_sweep_epochs` runs
   a fleet of such traces one lane after another.
 
+``verify_plans=True`` on any of the four entry points runs the
+:mod:`repro_torch.analysis.planlint` passes (RF101–RF106) over the
+tables the engine is about to consume — each lane's padded CommPlan,
+its chunked and rechunked WavefrontPlan against its schedule, the
+stacked and flattened fleet, the ``commit_grid`` gather tables as
+:func:`wave_inputs` builds them, and an epoch trace with every epoch's
+plans — and raises :class:`~repro_torch.analysis.PlanInvariantError`
+before anything is moved to the device.  It changes nothing else: a
+verified run is the unverified one, bit for bit.
+
 ``run_rfast`` and ``run_sweep`` resume from a saved state (``state0`` /
 ``states0``, e.g. from :mod:`repro_torch.checkpoint`) at an eval-chunk
 boundary; the generators are counter-based, so a resumed run is the
@@ -333,6 +343,19 @@ class _WaveInputs(NamedTuple):
     seed_h: np.ndarray       # (s,) the experiment's seed
 
 
+def _grid_tables(wf: WavefrontPlan, ko: int):
+    """``(real, cut, agent, tables)``: the real-lane mask of ``wf``
+    (agent not the sentinel ``wf.n``), the function that compacts a
+    per-lane table to those lanes, their agents, and ``commit_grid``'s
+    five row tables built from the compacted lanes."""
+    real = wf.agent != wf.n                                 # (NW, B)
+    cut = lambda a: np.ascontiguousarray(np.asarray(a)[real])
+    agent = cut(wf.agent).astype(np.int64)
+    return real, cut, agent, grid_gather_tables(
+        agent, cut(wf.rslot_rho), cut(wf.hist_epos), cut(wf.rho_gidx),
+        e_a_flat=wf.e_a, ko=ko)
+
+
 def wave_inputs(wf: WavefrontPlan, ko: int, device,
                 seeds=(0,), k0: int = 0) -> list[_WaveInputs]:
     """Per-wave real-lane tables of a WavefrontPlan: a single run's
@@ -349,16 +372,13 @@ def wave_inputs(wf: WavefrontPlan, ko: int, device,
     trace)."""
     S = len(seeds)
     n_lane, K_lane = wf.n // S, wf.K // S
-    real = wf.agent != wf.n                                 # (NW, B)
+    real, cut, agent, tables = _grid_tables(wf, ko)
     off = np.concatenate([[0], np.cumsum(real.sum(1))])
-    cut = lambda a: np.ascontiguousarray(np.asarray(a)[real])
     dev = lambda a, dt: torch.as_tensor(cut(a).astype(dt), device=device)
-    agent, kidx = cut(wf.agent).astype(np.int64), cut(wf.kidx)
+    kidx = cut(wf.kidx)
     lane = kidx // K_lane
     grid = [torch.as_tensor(np.ascontiguousarray(g, np.int32), device=device)
-            for g in grid_gather_tables(
-                agent, cut(wf.rslot_rho), cut(wf.hist_epos),
-                cut(wf.rho_gidx), e_a_flat=wf.e_a, ko=ko)]
+            for g in tables]
     t = dict(agent=dev(wf.agent, np.int64),
              w_self=dev(wf.w_self, np.float32),
              a_self=dev(wf.a_self, np.float32),
@@ -469,6 +489,23 @@ def _pad_chunks(wf: WavefrontPlan, bounds: list[int], *, B: int, cmax: int,
                          for b0, b1 in zip(bounds, bounds[1:])])
 
 
+def _check_plans(context: str, lint) -> None:
+    """Run ``lint(planlint) -> diagnostics`` and raise
+    :class:`~repro_torch.analysis.PlanInvariantError` (via
+    ``planlint.check_or_raise``) with ``context`` on any diagnostic."""
+    from ..analysis import planlint
+    planlint.check_or_raise(lint(planlint), context)
+
+
+def _grid_diags(pl, wf: WavefrontPlan, ko: int, H: int,
+                subject: str) -> list:
+    """RF103 over ``commit_grid``'s gather tables as :func:`wave_inputs`
+    builds them from ``wf``'s real lanes: the tables the kernel reads."""
+    _, _, agent, tables = _grid_tables(wf, ko)
+    return pl.lint_grid_tables(tables, agent=agent, n=wf.n, e_a=wf.e_a, H=H,
+                               subject=subject)
+
+
 def _shape_maxima(plans: list[CommPlan], schedules: list[Schedule]):
     """``(H, kw, ka, ko, e_a)``: the history depth, in/out degrees and ρ
     layout every plan of a fleet or an epoch trace is padded to."""
@@ -523,6 +560,7 @@ def run_rfast(
     state0: RFASTState | None = None,
     chunk_cb: Callable[[RFASTState, int], None] | None = None,
     device=None,
+    verify_plans: bool = False,
 ) -> tuple[RFASTState, list[dict]]:
     """Run the full schedule; evaluate every ``eval_every`` events.
 
@@ -546,6 +584,10 @@ def run_rfast(
     ``mode`` (the two engines' history *representations* differ, their
     shapes do not, so a cross-mode resume is not detected).  The first
     ``state0.k // eval_every`` chunks are skipped; ``x0`` is unused.
+
+    ``verify_plans=True`` lints the plans before the first wave (the
+    event engine: its CommPlan) and raises
+    :class:`~repro_torch.analysis.PlanInvariantError` on any diagnostic.
     """
     if mode not in ("wavefront", "event"):
         raise ValueError(f"mode must be 'wavefront' or 'event', got {mode!r}")
@@ -569,12 +611,16 @@ def run_rfast(
             eval_every=eval_every,
             eval_fn=None if eval_fn is None and chunk_cb is None else hook,
             impl=impl, device=device,
-            states0=None if state0 is None else [state0])
+            states0=None if state0 is None else [state0],
+            verify_plans="run_rfast(verify_plans)" if verify_plans else False)
         return states[0], metrics[0] if eval_fn is not None else []
 
     device = dispatch.resolve_device(device)
     grad_fn = as_grad_fn(grad_fn)
     plan = as_comm_plan(topo)
+    if verify_plans:
+        _check_plans("run_rfast(verify_plans)", lambda pl: pl.lint_comm_plan(
+            plan, topo if isinstance(topo, Topology) else None))
     H = int(schedule.D) + 2
     K = schedule.K
     if eval_every <= 0:
@@ -616,23 +662,54 @@ class SweepPlan(NamedTuple):
 
 
 def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
-               eval_every: int) -> SweepPlan:
+               eval_every: int, *, verify: str = "",
+               topos=None) -> SweepPlan:
     """The fleet's one wavefront plan: each lane's CommPlan degree-padded
     to the fleet maxima (``pad_comm_plan``), its WavefrontPlan built at
     the fleet's H and ρ layout and cut into eval chunks, every chunk
     padded to the fleet-wide widest chunk (``pad_plan``) so chunk c
     occupies waves ``[c·cmax, (c+1)·cmax)`` in every lane, then stacked
-    and flattened (``stack_plans`` / ``flatten_plans``)."""
+    and flattened (``stack_plans`` / ``flatten_plans``).
+
+    ``verify`` (a context such as ``"run_sweep(verify_plans)"``) lints
+    every one of those tables and the fleet's ``commit_grid`` gather
+    tables, raising :class:`~repro_torch.analysis.PlanInvariantError`
+    on any diagnostic; ``topos`` (the lanes' Topologies, where known)
+    lets the CommPlan lint check the tables against their graphs."""
     H, kw, ka, ko, e_a = _shape_maxima(plans, schedules)
-    lanes = [_chunked_plan(sc, pad_comm_plan(pl, kw=kw, ka=ka, ko=ko), H,
-                           e_a, eval_every)
-             for pl, sc in zip(plans, schedules)]
+    padded = [pad_comm_plan(pl, kw=kw, ka=ka, ko=ko) for pl in plans]
+    lanes = [_chunked_plan(sc, pc, H, e_a, eval_every)
+             for pc, sc in zip(padded, schedules)]
     cmax = max(b1 - b0 for _, b in lanes for b0, b1 in zip(b, b[1:]))
     B = max(wf.width for wf, _ in lanes)
     rechunked = [_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a)
                  for wf, b in lanes]
-    return SweepPlan(fleet=flatten_plans(stack_plans(rechunked)), H=H,
-                     ko=ko, e_a=e_a, cmax=cmax)
+    stacked = stack_plans(rechunked)
+    fleet = flatten_plans(stacked)
+    if verify:
+        topos = list(topos) if topos is not None else [None] * len(plans)
+
+        def lint(pl):
+            diags = []
+            for s, (pc, (wf, _), rc, sc, topo) in enumerate(zip(
+                    padded, lanes, rechunked, schedules, topos)):
+                diags += pl.lint_comm_plan(
+                    pc, topo if isinstance(topo, Topology) else None,
+                    subject=f"lane{s}/comm")
+                diags += pl.lint_wavefront_plan(
+                    wf, comm=pc, schedule=sc, H=H, subject=f"lane{s}")
+                diags += pl.lint_wavefront_plan(
+                    rc, comm=pc, schedule=sc, H=H,
+                    subject=f"lane{s}/rechunked")
+            diags += pl.lint_wavefront_plan(stacked, comm=padded,
+                                            schedule=schedules, H=H,
+                                            subject="fleet/stacked")
+            diags += pl.lint_flatten(stacked, fleet, subject="fleet")
+            diags += pl.lint_wavefront_plan(fleet, H=H, subject="fleet/flat")
+            return diags + _grid_diags(pl, fleet, ko, H, "fleet/grid_tables")
+
+        _check_plans(verify, lint)
+    return SweepPlan(fleet=fleet, H=H, ko=ko, e_a=e_a, cmax=cmax)
 
 
 def _lane_state(packed: PackedState, s: int, k: int, *, S: int, n: int,
@@ -662,6 +739,7 @@ def run_sweep(
     impl: str = "kernel",
     device=None,
     states0=None,
+    verify_plans: bool | str = False,
 ) -> tuple[list[RFASTState], list[list[dict]]]:
     """Run a fleet of S independent experiments as ONE wavefront run.
 
@@ -686,6 +764,10 @@ def run_sweep(
       states0: S lane states at one common ``k`` to resume from, as
         ``run_rfast``'s ``state0`` (the lane's real ρ layout and the
         fleet's history depth); ``x0`` is then unused.
+      verify_plans: lint the fleet's plans (:func:`sweep_plan`) before
+        anything moves to the device, raising ``PlanInvariantError``
+        with the context ``"run_sweep(verify_plans)"`` (a string is the
+        context itself: ``run_rfast`` passes its own).
 
     Returns ``(states, metrics)``: the final per-lane :class:`RFASTState`
     views (ρ state cut to each lane's real A-edge count) and the
@@ -729,7 +811,10 @@ def run_sweep(
         if len(states0) != S:
             raise ValueError(f"{len(states0)} resume states for {S} lanes")
         p = int(states0[0].x.shape[-1])
-    sp = sweep_plan(plans, schedules, eval_every)
+    if verify_plans is True:
+        verify_plans = "run_sweep(verify_plans)"
+    sp = sweep_plan(plans, schedules, eval_every, verify=verify_plans or "",
+                    topos=topos)
     e_a = sp.e_a
     packed = _zeros_packed(S * n, S * e_a, p, sp.H, device)
     e_a_lane = [max(1, pl.n_edges_a) for pl in plans]
@@ -855,16 +940,42 @@ def migrate_state(state: RFASTState, prev_topo, epoch, *,
 
 def _epoch_lane_plans(epochs, eval_every: int, *, H: int, kw: int, ka: int,
                       ko: int, e_a: int):
-    """Per epoch of one lane: its real CommPlan, and its WavefrontPlan
-    (built on the degree-padded plan at the shared H and ρ layout) with
-    its chunk wave bounds."""
+    """Per epoch of one lane: its real CommPlan, that plan degree-padded
+    to the shared maxima, and the WavefrontPlan built on it at the
+    shared H and ρ layout with its chunk wave bounds."""
     out = []
     for ep in epochs:
         plan = as_comm_plan(ep.topology)
-        out.append((plan, *_chunked_plan(
-            ep.trace.schedule, pad_comm_plan(plan, kw=kw, ka=ka, ko=ko), H,
-            e_a, eval_every)))
+        padded = pad_comm_plan(plan, kw=kw, ka=ka, ko=ko)
+        out.append((plan, padded, *_chunked_plan(
+            ep.trace.schedule, padded, H, e_a, eval_every)))
     return out
+
+
+def _rechunk_lane(lane, *, B: int, cmax: int, e_a: int) -> list:
+    """Every epoch's plan of one lane with each chunk padded to the
+    shared ``(cmax, B)`` wave shape (:func:`_pad_chunks`)."""
+    return [_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a)
+            for *_, wf, b in lane]
+
+
+def _epoch_diags(pl, trace, lane, rechunked, *, H: int, ko: int,
+                 prefix: str = "") -> list:
+    """RF101–RF106 over one epochized lane: the trace, and per epoch its
+    padded CommPlan, its chunked and rechunked WavefrontPlan against the
+    epoch's schedule and the rechunked plan's gather tables."""
+    diags = pl.lint_epoch_trace(trace, subject=prefix or "epoch_trace")
+    for i, (ep, (_, padded, wf, _), rc) in enumerate(zip(
+            trace.epochs, lane, rechunked)):
+        sub = f"{prefix}/ep{i}" if prefix else f"ep{i}"
+        sched = ep.trace.schedule
+        diags += pl.lint_comm_plan(padded, subject=f"{sub}/comm")
+        diags += pl.lint_wavefront_plan(wf, comm=padded, schedule=sched,
+                                        H=H, subject=sub)
+        diags += pl.lint_wavefront_plan(rc, comm=padded, schedule=sched,
+                                        H=H, subject=f"{sub}/rechunked")
+        diags += _grid_diags(pl, rc, ko, H, f"{sub}/grid_tables")
+    return diags
 
 
 def _epoch_shapes(epochs):
@@ -873,22 +984,21 @@ def _epoch_shapes(epochs):
                          [ep.trace.schedule for ep in epochs])
 
 
-def _scan_epochs(epochs, lane, packed: PackedState, *, seed: int, B: int,
-                 cmax: int, e_a: int, ko: int, eval_every: int, eval_fn,
+def _scan_epochs(epochs, lane, rechunked, packed: PackedState, *, seed: int,
+                 cmax: int, ko: int, eval_every: int, eval_fn,
                  chunk_cb, **step) -> tuple[RFASTState, list[dict]]:
     """Drive one epochized lane through the chunk loop: each epoch's
-    chunks padded to the shared ``(cmax, B)`` wave shape, its events
-    drawing from the trace's global event index, and the packed state
-    migrated in place at every boundary (no copy of a state that may
-    fill most of the card)."""
+    rechunked plan (:func:`_rechunk_lane`), its events drawing from the
+    trace's global event index, and the packed state migrated in place
+    at every boundary (no copy of a state that may fill most of the
+    card)."""
     device = packed.nodes.device
     metrics: list[dict] = []
-    for i, (ep, (_plan, wf, b)) in enumerate(zip(epochs, lane)):
+    for i, (ep, (*_, b), rc) in enumerate(zip(epochs, lane, rechunked)):
         if i:
             st = unpack_state(packed, ep.k0)
             _migrate(st, st.rho, st.rho_buf, epochs[i - 1].topology, ep)
-        waves = wave_inputs(_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a), ko,
-                            device, (seed,), k0=ep.k0)
+        waves = wave_inputs(rc, ko, device, (seed,), k0=ep.k0)
         times = ep.trace.schedule.times
         for ci, n_run in _run_chunks(packed, waves, cmax, len(b) - 1, ko=ko,
                                      **step):
@@ -922,6 +1032,7 @@ def run_epochs(
     impl: str = "kernel",
     chunk_cb: Callable[[RFASTState, int], None] | None = None,
     device=None,
+    verify_plans: bool = False,
 ) -> tuple[RFASTState, list[dict]]:
     """Run an epochized trace (:meth:`NetworkScenario.realize_epochs`)
     through the wavefront engine.
@@ -942,7 +1053,8 @@ def run_epochs(
     ``k``, the global virtual time ``t0 + t_local`` and the chunk's wave
     count ``waves``.  ``device`` defaults to ``cuda``.  Returns the final
     state (views, ρ cut to the last epoch's real A-edge count) and the
-    metrics.
+    metrics.  ``verify_plans=True`` lints the trace and every epoch's
+    plans first (``"run_epochs(verify_plans)"``).
     """
     epochs = list(epoch_trace.epochs)
     if not epochs:
@@ -957,14 +1069,18 @@ def run_epochs(
     H, kw, ka, ko, e_a = _epoch_shapes(epochs)
     lane = _epoch_lane_plans(epochs, eval_every, H=H, kw=kw, ka=ka, ko=ko,
                              e_a=e_a)
+    cmax = max(b1 - b0 for *_, b in lane for b0, b1 in zip(b, b[1:]))
+    rechunked = _rechunk_lane(lane, B=max(wf.width for *_, wf, _ in lane),
+                              cmax=cmax, e_a=e_a)
+    if verify_plans:
+        _check_plans("run_epochs(verify_plans)", lambda pl: _epoch_diags(
+            pl, epoch_trace, lane, rechunked, H=H, ko=ko))
     x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
     packed = _fresh_packed(epoch_trace.n, e_a, H, x0, grad_fn, seed)
     return _scan_epochs(
-        epochs, lane, packed, seed=seed,
-        B=max(wf.width for _, wf, _ in lane),
-        cmax=max(b1 - b0 for *_, b in lane for b0, b1 in zip(b, b[1:])),
-        e_a=e_a, ko=ko, eval_every=eval_every, eval_fn=eval_fn,
-        chunk_cb=chunk_cb, grad_fn=grad_fn, gamma=gamma, impl=impl)
+        epochs, lane, rechunked, packed, seed=seed, cmax=cmax, ko=ko,
+        eval_every=eval_every, eval_fn=eval_fn, chunk_cb=chunk_cb,
+        grad_fn=grad_fn, gamma=gamma, impl=impl)
 
 
 def run_sweep_epochs(
@@ -979,6 +1095,7 @@ def run_sweep_epochs(
     impl: str = "kernel",
     device=None,
     mesh=None,
+    verify_plans: bool = False,
 ) -> tuple[list[RFASTState], list[list[dict]]]:
     """A fleet of epochized lanes (e.g. one scenario × many seeds from
     :func:`repro_torch.core.scenario.realize_epochs_batch`).
@@ -987,7 +1104,9 @@ def run_sweep_epochs(
     differ per seed), so lanes run one after another, every epoch of
     every lane padded to the fleet-wide shape maxima.  Lane s equals
     :func:`run_epochs` of its trace and ``seeds[s]``.  ``x0`` is
-    ``(p,)``, ``(n, p)`` or per lane ``(S, n, p)``.  ``mesh`` (a
+    ``(p,)``, ``(n, p)`` or per lane ``(S, n, p)``.
+    ``verify_plans=True`` lints every lane's trace and plans before the
+    first lane runs (``"run_sweep_epochs(verify_plans)"``).  ``mesh`` (a
     parameter-sharded run) is not ported yet.
     """
     if mesh is not None:
@@ -1015,9 +1134,17 @@ def run_sweep_epochs(
                                         for ep in t.epochs])
     lanes = [_epoch_lane_plans(list(t.epochs), eval_every, H=H, kw=kw,
                                ka=ka, ko=ko, e_a=e_a) for t in traces]
-    B = max(wf.width for lane in lanes for _, wf, _ in lane)
+    B = max(wf.width for lane in lanes for *_, wf, _ in lane)
     cmax = max(b1 - b0 for lane in lanes for *_, b in lane
                for b0, b1 in zip(b, b[1:]))
+    rechunked = [_rechunk_lane(lane, B=B, cmax=cmax, e_a=e_a)
+                 for lane in lanes]
+    if verify_plans:
+        _check_plans("run_sweep_epochs(verify_plans)", lambda pl: [
+            d for s, (trace, lane, rc) in enumerate(zip(traces, lanes,
+                                                        rechunked))
+            for d in _epoch_diags(pl, trace, lane, rc, H=H, ko=ko,
+                                  prefix=f"lane{s}")])
     x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
     if x0.dim() == 3 and x0.shape[0] != S:
         raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
@@ -1027,8 +1154,8 @@ def run_sweep_epochs(
     for s, (trace, lane) in enumerate(zip(traces, lanes)):
         packed = _fresh_packed(n, e_a, H, x0[s] if x0.dim() == 3 else x0,
                                grad_fn, seeds[s])
-        st, ms = _scan_epochs(list(trace.epochs), lane, packed,
-                              seed=seeds[s], B=B, cmax=cmax, e_a=e_a, ko=ko,
+        st, ms = _scan_epochs(list(trace.epochs), lane, rechunked[s], packed,
+                              seed=seeds[s], cmax=cmax, ko=ko,
                               eval_every=eval_every, eval_fn=eval_fn,
                               chunk_cb=None, grad_fn=grad_fn, gamma=gamma,
                               impl=impl)

@@ -54,9 +54,14 @@ gradient (a ``ValueError`` here, a ``TypeError`` there).  A whisper
 round trains through :func:`sync_grad_fn` with batches of ``(toks,
 labels, frames)``, as the reference's library API does.
 
+``--verify-plans`` (async) lints every plan the engine is about to
+consume with :mod:`repro_torch.analysis.planlint` before the first wave
+and raises ``PlanInvariantError`` on any diagnostic; the run is
+otherwise the same, bit for bit.
+
 Not ported yet, rejected with an error: ``--param-shards`` (the
-parameter-sharded async run).  The reference's ``--verify-plans`` and
-``--host-devices`` have no counterpart.
+parameter-sharded async run).  The reference's ``--host-devices`` has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -124,6 +129,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify-plans", action="store_true",
+                    help="run the repro_torch.analysis plan-invariant "
+                         "linter over every plan before training "
+                         "(raises PlanInvariantError on any diagnostic)")
     args = ap.parse_args(argv)
     if args.list_scenarios:
         return args
@@ -400,7 +409,7 @@ def _train_async(args, cfg, device) -> dict:
         eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
         state0=state0,
         chunk_cb=chunk_cb if args.ckpt or args.publish_dir else None,
-        device=device)
+        device=device, verify_plans=args.verify_plans)
     del x0, state0
     # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
     g_sum = state.g_prev.sum(0)
@@ -470,7 +479,8 @@ def _train_async_dynamic(args, cfg, prob, topo, sc, K, device) -> dict:
     state, metrics = run_epochs(
         et, prob, x0, args.gamma, seed=args.seed, eval_every=eval_every,
         eval_fn=eval_and_log, impl=args.impl,
-        chunk_cb=publish if args.publish_dir else None, device=device)
+        chunk_cb=publish if args.publish_dir else None, device=device,
+        verify_plans=args.verify_plans)
     del x0
     g_sum = state.g_prev.sum(0)
     mass_rel = float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)

@@ -1013,3 +1013,44 @@ def test_stable_sort_and_moe_dispatch_on_the_card_match_the_cpu(cuda):
     r0, _ = moe.moe_apply_rows(cfg, p, x)
     r1, _ = moe.moe_apply_rows(cfg, _to_card(p), x.cuda())
     assert (r1.cpu() - r0).abs().max() <= 1e-5 * r0.abs().max()
+
+
+def test_audit_engines_clean_on_the_card(cuda):
+    """torchlint over the engines on the card, the kernel route included:
+    no diagnostic, nothing skipped, ``commit_grid`` launched once per
+    non-empty wave of every replay; the kernel wave loops run with no
+    host synchronisation (``set_sync_debug_mode("error")``)."""
+    from repro_torch.analysis import torchlint
+    diags, audited, skipped = torchlint.audit_engines(device="cuda")
+    assert diags == [] and skipped == []
+    assert {"wave_loop[kernel]", "fleet_wave_loop[kernel]",
+            "commit_grid[dispatch]"} <= set(audited)
+    for loop in torchlint.engine_loops(device="cuda", impls=("kernel",)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.run(loop.state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def test_verify_plans_kernel_route_is_the_same_run_on_the_card(cuda):
+    n, p = 5, 3000
+    rng = np.random.default_rng(0)
+    C = torch.from_numpy(rng.normal(0, 1, (n, p)).astype(np.float32)).cuda()
+    gfn = lambda i, x, gen: x - C[i]
+    topo = get_topology("binary_tree", n)
+    sched = get_scenario("straggler", n).realize(topo, 6 * n,
+                                                 seed=1).schedule
+    x0 = torch.zeros(p, device="cuda")
+    finals, launches = [], []
+    for verify in (True, False):
+        dispatch.clear()
+        st, _ = run_rfast(topo, sched, gfn, x0, 0.05, eval_every=2 * n,
+                          verify_plans=verify)
+        launches.append(dispatch.launches("commit_grid"))
+        finals.append([t.clone() for t in st[1:]])
+    assert launches[0] == launches[1] > 0
+    for a, b in zip(*finals):
+        assert torch.equal(a, b)

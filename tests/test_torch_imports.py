@@ -50,7 +50,10 @@ def test_no_jax_or_reference_imports_in_the_port():
                 "models/moe.py", "configs/olmo_1b.py",
                 "configs/qwen2_5_3b.py", "configs/deepseek_7b.py",
                 "configs/phi3_5_moe_42b_a6_6b.py",
-                "configs/deepseek_v2_236b.py"):
+                "configs/deepseek_v2_236b.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/diagnostics.py",
+                "analysis/planlint.py", "analysis/runner.py",
+                "analysis/torchlint.py"):
         assert port / mod in FILES
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f)
                                       if _forbidden(n)]
@@ -77,6 +80,8 @@ def test_entry_point_loads_no_jax_module():
             "import repro_torch.configs.deepseek_v2_236b; "
             "import repro_torch.configs.hymba_1_5b; "
             "import repro_torch.configs.falcon_mamba_7b; "
+            "import repro_torch.analysis.runner; "
+            "import repro_torch.analysis.__main__; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0].startswith('jax') "
             "or m.split('.')[0] == 'repro')))")
