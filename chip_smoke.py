@@ -269,7 +269,26 @@ run.  Phases:
    loop's must be a gradient's); (e) ``python -m repro_torch.analysis
    --all --quick`` in a subprocess: exit 0, 0 diagnostics.
 
-Each of phases 17–29 prints its wall seconds, peak memory or
+30. multi-device (the function ``phase_mesh``; NCCL refuses two ranks
+   on one card, so ranks share it over a gloo group asked for
+   explicitly) — (a) a world-1 NCCL group: phase 4's cell at full width
+   and depth through ``run_sweep(mesh=make_sweep_mesh())`` (1 x 1), 7
+   ``commit_grid`` launches, every state field against the unsharded
+   ``run_sweep`` of the same lane on the card (2e-5; bitwise or not);
+   (b) two gloo ranks on cuda:0: the same cell on a (1, 2) mesh (half
+   the flat state a rank, ``commit_grid`` at Pf = p_loc, one gather a
+   wave), then phase 18(b)'s two lanes at 2 layers on a (2, 1) mesh,
+   each rank's lanes held to the unsharded run of the same lanes (the
+   ranks take turns at it), with each rank's launches, Pf, collective
+   calls, bytes a wave, staged bytes, peak and wall; (c) four gloo ranks:
+   the ppermute round (tests/helpers/sharded_equiv.py's sizes) against
+   the dense ``make_rfast_round`` (1e-4), Lemma 3 on the slotted layout,
+   convergence, and robust mode at 30 % loss (point-to-point staged
+   through pinned host buffers); (d) ``audit_engines`` with the mesh
+   body (in (b)'s group also its 1 x 2 mesh): 0 diagnostics, and a body
+   altered to gather the lane group's node state is RF206.
+
+Each of phases 17–30 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -457,6 +476,17 @@ WHISPER_TRAIN_P = 226_245_120
 WHISPER_TRAIN_NODES, WHISPER_TRAIN_ROUNDS = 4, 3
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 64
 WHISPER_TRAIN_LOSS = 0.2
+# phase 30: multi-device on this card
+MESH_FIELDS = ("x", "v", "z", "g_prev", "rho", "rho_buf", "v_hist",
+               "rho_hist")
+MESH_TOL = 2e-5              # tests/helpers/mesh_sweep_equiv.py's tolerance
+MESH_GAMMA = 3e-3            # train.py's default --gamma, as phase 4 runs
+MESH_TIMEOUT_S = 900.0       # a rank's collectives (its turn at a barrier)
+MESH_JOIN_S = 900.0          # a spawn's ranks, all of them
+ROUND_TOL = 1e-4             # tests/helpers/sharded_equiv.py's tolerance
+SHARDED_N, SHARDED_P = 4, 16             # and its sizes: a binary tree of
+SHARDED_ROUNDS, SHARDED_GAMMA = 200, 0.06    # 4, p 16, 200 rounds; robust
+ROBUST_P, ROBUST_ROUNDS, ROBUST_GAMMA, ROBUST_LOSS = 8, 300, 0.05, 0.3
 
 
 def emit(phase: str, **kw) -> None:
@@ -2033,6 +2063,425 @@ def phase_analysis(name: str, smi: str, train_res: dict,
           "python -m repro_torch.analysis --all --quick exits 0 on the card")
     return {"analysis_verify_train": verify_launches,
             "analysis_full_width_trace": full_launches}
+
+
+# --------------------------------------------------------------------- #
+# phase 30: multi-device (ranks of this one card)
+# --------------------------------------------------------------------- #
+def mesh_cell(layers, seeds):
+    """Phase 4's cell (rfast-100m, 4 nodes, binary tree, uniform, K 16,
+    batch 4 x 128, weights from seed 0) at ``layers`` layers (None: all
+    12), one lane per schedule seed."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.core.topology import get_topology
+    from repro_torch.data.objectives import make_lm_problem
+    cfg = get_config("rfast-100m")
+    if layers is not None:
+        cfg = dc.replace(cfg, n_layers=layers)
+    prob = make_lm_problem(cfg, 4, batch_per_node=4, seq_len=128, seed=0,
+                           device="cuda")
+    topo = get_topology("binary_tree", 4)
+    scheds = [get_scenario("uniform", 4).realize(topo, 16, seed=s).schedule
+              for s in seeds]
+    return prob, topo, scheds
+
+
+def rows_err(host, ref, cols) -> tuple[float, bool, bool]:
+    """max |host − ref[..., cols]| row by row on the card (one row of the
+    field on the card at a time), whether every entry is within
+    ``MESH_TOL`` (absolute and relative, as the reference's
+    ``assert_allclose``) and whether the two are bitwise equal."""
+    import torch
+    h = host.reshape(-1, host.shape[-1])
+    r = ref.reshape(-1, ref.shape[-1])
+    err, ok, same = 0.0, True, True
+    for i in range(h.shape[0]):
+        a, b = h[i].to(r.device), r[i, cols]
+        d = (a - b).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= MESH_TOL * (1 + b.abs())).all())
+        same = same and bool(torch.equal(a, b))
+    return err, ok, same
+
+
+def held_to_unsharded(host: dict, ref_state, cols) -> dict:
+    """Each field of ``host`` (this rank's final lane state, on the host)
+    against the unsharded run's ``ref_state`` on the card."""
+    out = {f: rows_err(host[f], getattr(ref_state, f), cols)
+           for f in MESH_FIELDS}
+    return {"max_abs_err": {f: v[0] for f, v in out.items()},
+            "within_tol": all(v[1] for v in out.values()),
+            "bitwise": all(v[2] for v in out.values())}
+
+
+def mesh_run(prob, topo, scheds, mesh) -> dict:
+    """One ``run_sweep(mesh=...)`` of the cell on this rank, the counters
+    zeroed just before and read just after: the lane states it holds
+    copied to the host (the card is freed for the reference), its
+    ``commit_grid`` launches and the widths ``Pf`` they launched at, the
+    fleet waves, the collectives, its wall and peak."""
+    import torch
+    from repro_torch.core import simulator
+    from repro_torch.core.runtime_sharded import (clear_collectives,
+                                                  collective_stats)
+    from repro_torch.kernels.rfast_update import dispatch
+    seeds = list(range(len(scheds)))
+    widths, launch = set(), simulator.commit_grid
+
+    def seen(*a, **k):                 # the sources' width, as launched
+        widths.add(int(a[8].shape[-1]))
+        return launch(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    simulator.commit_grid = seen
+    dispatch.clear()
+    clear_collectives()
+    t0 = time.perf_counter()
+    try:
+        states, metrics = simulator.run_sweep(
+            topo, scheds, prob, prob.x0_flat, MESH_GAMMA, seeds=seeds,
+            device="cuda", mesh=mesh,
+            eval_fn=lambda st, t: {})
+        torch.cuda.synchronize()
+    finally:
+        simulator.commit_grid = launch
+    wall = time.perf_counter() - t0
+    launches = dispatch.launches("commit_grid")
+    stats = collective_stats()
+    own = [s for s, st in enumerate(states) if st is not None]
+    waves = sum(m["waves"] for m in metrics[own[0]])
+    host = {s: {f: getattr(states[s], f).to("cpu") for f in MESH_FIELDS}
+            for s in own}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del states
+    torch.cuda.empty_cache()
+    gathers = stats["by_name"].get("all_gather_flat",
+                                   {"calls": 0, "bytes": 0, "seconds": 0.0})
+    return {"host": host, "row": {
+        "lanes": own, "commit_grid_launches": launches, "fleet_waves": waves,
+        "Pf": sorted(widths), "collective_calls": stats["calls"],
+        "gathers": gathers["calls"],
+        "gather_bytes_per_wave": gathers["bytes"] / max(1, waves),
+        "gather_s": gathers["seconds"],
+        "staged_bytes": stats["staged_bytes"], "wall_s": wall,
+        "max_memory_allocated_gb": peak}}
+
+
+def unsharded_turns(rank: int, world: int, prob, topo, scheds,
+                    check_lanes) -> dict:
+    """The ranks take turns (one full-width fleet on the card at a time)
+    at the unsharded ``run_sweep`` of the same lanes, each holding its
+    own lanes' host states to it (``check_lanes(ref_states) -> dict``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.simulator import run_sweep
+    out = None
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            ref, _ = run_sweep(topo, scheds, prob, prob.x0_flat, MESH_GAMMA,
+                               seeds=list(range(len(scheds))),
+                               device="cuda")
+            out = check_lanes(ref)
+            del ref
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def mesh_world1_rank() -> dict:
+    """30(a), a world-1 NCCL group on cuda:0: the cell at full width and
+    depth through ``run_sweep(mesh=make_sweep_mesh())`` (1 x 1), held to
+    the unsharded ``run_sweep`` of the same lane run after it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    prob, topo, scheds = mesh_cell(None, [0])
+    mesh = make_sweep_mesh()
+    run = mesh_run(prob, topo, scheds, mesh)
+    row = dict(run["row"], backend=dist.get_backend(),
+               world=dist.get_world_size(), mesh=[1, 1], p=prob.p)
+    row.update(unsharded_turns(0, 1, prob, topo, scheds, lambda ref:
+                               held_to_unsharded(run["host"][0], ref[0],
+                                                 slice(None))))
+    return row
+
+
+def mesh_gloo_rank() -> dict:
+    """30(b) and (d) on one of two ranks sharing cuda:0 over a gloo group
+    the caller asked for: the cell at full width on a (1, 2) mesh (one
+    lane, half the flat state a rank, one gather a wave), then phase
+    18(b)'s two lanes at 2 layers on a (2, 1) mesh (a lane a rank), each
+    held to the unsharded run of the same lanes; then the engine audit
+    in the group (its 1 x 2 mesh body, RF206) and the body altered to
+    gather the group's node state."""
+    import torch.distributed as dist
+    from repro_torch.analysis import torchlint
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "backend": dist.get_backend()}
+
+    prob, topo, scheds = mesh_cell(None, [0])
+    mesh = make_sweep_mesh(lanes=1, param_shards=2)
+    p_loc = -(-prob.p // 2)
+    cols = slice(rank * p_loc, min(prob.p, (rank + 1) * p_loc))
+    run = mesh_run(prob, topo, scheds, mesh)
+    out["1x2"] = dict(run["row"], p=prob.p, p_loc=p_loc, **unsharded_turns(
+        rank, world, prob, topo, scheds,
+        lambda ref: held_to_unsharded(run["host"][0], ref[0], cols)))
+    del run, prob
+
+    prob, topo, scheds = mesh_cell(2, [0, 1])
+    mesh = make_sweep_mesh(lanes=2, param_shards=1)
+    run = mesh_run(prob, topo, scheds, mesh)
+    out["2x1"] = dict(run["row"], p=prob.p, **unsharded_turns(
+        rank, world, prob, topo, scheds,
+        lambda ref: held_to_unsharded(run["host"][rank], ref[rank],
+                                      slice(None))))
+    del run, prob
+
+    diags, audited, skipped = torchlint.audit_engines(device="cuda")
+    out["audit"] = {"diagnostics": [d.to_json() for d in diags],
+                    "audited": audited, "skipped": skipped,
+                    "altered": mesh_altered_body(
+                        make_sweep_mesh(lanes=1, param_shards=2))}
+    return out
+
+
+def mesh_altered_body(mesh) -> list:
+    """RF206's mutation on ``mesh``: the two-lane fleet of the engine
+    audit with a body that gathers the lane group's whole node state
+    first.  Returns the codes the audit reports."""
+    import torch
+    from repro_torch.analysis import torchlint
+    from repro_torch.core.plan import build_comm_plan
+    from repro_torch.core.runtime_sharded import all_gather_flat
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.core.topology import get_topology
+    n, p, K = 5, 8, 48
+    topo = get_topology("binary_tree", n)
+    sched = get_scenario("uniform", n).realize(topo, K, seed=0).schedule
+    C = torch.linspace(-1, 1, n * p, device="cuda").reshape(n, p)
+    loop = torchlint.wave_loop(
+        "altered", [build_comm_plan(topo)] * 2, [sched] * 2,
+        lambda i, x, gen: x - C[i], p, mesh=mesh, impl="kernel",
+        device="cuda")
+    group = mesh.group("model")
+    diags = torchlint.audit_collectives(
+        lambda st: (all_gather_flat(st.nodes, group), loop.run(st))[1],
+        loop.state, subject="altered",
+        state_bytes_threshold=loop.state_bytes)
+    return sorted({d.code for d in diags})
+
+
+def sharded_problem(device):
+    """tests/helpers/sharded_equiv.py's problems on ``device``: the
+    dense one (C, S of n x p), and the robust one (C of n x p_r, then one
+    0/1 delivery mask of (n, slots) a round at 30 % loss)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import binary_tree
+    from repro_torch.core.plan import as_comm_plan
+    rng = np.random.default_rng(0)
+    C = rng.normal(0, 1, (SHARDED_N, SHARDED_P)).astype(np.float32)
+    S = rng.uniform(0.5, 2.0, (SHARDED_N, 1)).astype(np.float32)
+    plan = as_comm_plan(binary_tree(SHARDED_N))
+    slots = len(plan.slots_w) + len(plan.slots_a)
+    rng = np.random.default_rng(1)
+    Cr = rng.normal(0, 1, (SHARDED_N, ROBUST_P)).astype(np.float32)
+    masks = np.stack([(rng.uniform(size=(SHARDED_N, slots)) > ROBUST_LOSS)
+                      .astype(np.float32) for _ in range(ROBUST_ROUNDS)])
+    put = lambda a: torch.from_numpy(a).to(device)
+    return put(C), put(S), put(Cr), put(masks)
+
+
+def sharded_grad(x, batch, key):
+    c, s = batch
+    return 0.5 * (s * (x - c) ** 2).sum(), s * (x - c)
+
+
+def robust_grad(x, c, key):
+    return 0.5 * ((x - c) ** 2).sum(), x - c
+
+
+def sharded_round_rank() -> dict:
+    """30(c), one node of four sharing cuda:0 over a gloo group: the
+    ppermute round for ``SHARDED_ROUNDS`` rounds, then robust mode for
+    ``ROBUST_ROUNDS`` at 30 % loss.  Returns the node's final state."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import binary_tree
+    from repro_torch.core.runtime_sharded import (clear_collectives,
+                                                  collective_stats,
+                                                  init_sharded_state,
+                                                  make_sharded_round,
+                                                  node_index, shard_state)
+    from repro_torch.launch.mesh import make_sweep_mesh
+    mesh = make_sweep_mesh(lanes=SHARDED_N, param_shards=1)
+    na = ("data",)
+    C, S, Cr, masks = sharded_problem("cuda")
+    topo = binary_tree(SHARDED_N)
+    out = {"rank": dist.get_rank(), "node": node_index(mesh, na),
+           "backend": dist.get_backend()}
+    runs = (("sync", SHARDED_P, (C, S), sharded_grad, SHARDED_GAMMA, False,
+             SHARDED_ROUNDS),
+            ("robust", ROBUST_P, Cr, robust_grad, ROBUST_GAMMA, True,
+             ROBUST_ROUNDS))
+    for tag, p, batch, gfn, gamma, robust, rounds in runs:
+        st = shard_state(init_sharded_state(
+            topo, torch.zeros(p, device="cuda"), gfn, batch, robust=robust),
+            mesh, na)
+        blk = shard_state(batch, mesh, na)
+        rf = make_sharded_round(topo, gfn, mesh, gamma=gamma, node_axes=na,
+                                robust=robust)
+        clear_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(rounds):
+            st, _ = rf(st, blk, None,
+                       shard_state(masks[t], mesh, na) if robust else None)
+        torch.cuda.synchronize()
+        stats = collective_stats()
+        out[tag] = {"wall_s": time.perf_counter() - t0, "rounds": rounds,
+                    "collectives": stats,
+                    "state": {f: getattr(st, f).cpu().numpy().tolist()
+                              for f in ("x", "z", "g_prev", "rho_out",
+                                        "rho_buf")}}
+    return out
+
+
+def phase_mesh(name: str, smi: str) -> dict:
+    """Phase 30: multi-device on one card.  NCCL refuses two ranks on one
+    card, so (a) runs a world-1 NCCL group and (b)–(c) ranks that share
+    cuda:0 over a gloo group asked for explicitly (gloo carries CUDA
+    gathers; its point-to-point ops are staged through pinned host
+    buffers, ``runtime_sharded.STAGED``).  Every rank is a spawned
+    process (``launch.multihost.spawn_local``); a rank that fails fails
+    the run.  (d) the engine audit here (its 1 x 1 mesh body) and the
+    altered body.  Returns ``commit_grid``'s launches by path."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import torchlint
+    from repro_torch.core import binary_tree
+    from repro_torch.core.runtime import (edge_arrays, init_node_state,
+                                          make_rfast_round)
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.launch.multihost import spawn_local
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    emit("mesh_start", parent_allocated_gb=held,
+         parent_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    check(held < 2.0, f"the parent holds {held:.2f} GB on the card before "
+          "its ranks start")
+    t_phase = time.perf_counter()
+
+    # (a) world-1 NCCL
+    t0 = time.perf_counter()
+    a = spawn_local(mesh_world1_rank, 1, backend=None,
+                    timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)[0]
+    emit("mesh_world1", **a, spawn_wall_s=time.perf_counter() - t0,
+         tol=MESH_TOL, device=name, nvidia_smi=smi)
+    check(a["backend"] == "nccl" and a["world"] == 1, "30(a) is NCCL")
+    check(a["commit_grid_launches"] == a["fleet_waves"] == 7
+          and a["Pf"] == [a["p"]], "30(a): 7 commit_grid launches at Pf = p")
+    check(a["within_tol"], f"30(a) within {MESH_TOL} of the unsharded run")
+
+    # (b) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    b = spawn_local(mesh_gloo_rank, 2, backend="gloo",
+                    timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
+    b_wall = time.perf_counter() - t0
+    for r in b:
+        for sub in ("1x2", "2x1"):
+            emit("mesh_rank", sub=sub, rank=r["rank"], backend=r["backend"],
+                 **r[sub], tol=MESH_TOL, device=name, nvidia_smi=smi)
+        emit("mesh_rank_audit", rank=r["rank"], **r["audit"])
+    emit("mesh_gloo", spawn_wall_s=b_wall)
+    for r in b:
+        one, two = r["1x2"], r["2x1"]
+        check(r["backend"] == "gloo", "30(b) is the gloo group asked for")
+        check(one["commit_grid_launches"] == one["fleet_waves"] == 7
+              and one["gathers"] == 7 and one["Pf"] == [one["p_loc"]],
+              "30(b) (1,2): one gather and one commit_grid launch a wave, "
+              "at Pf = p_loc")
+        check(two["commit_grid_launches"] == two["fleet_waves"] > 0
+              and two["gathers"] == 0 and two["Pf"] == [two["p"]],
+              "30(b) (2,1): one commit_grid launch a wave, no collective")
+        check(one["within_tol"] and two["within_tol"],
+              f"30(b) within {MESH_TOL} of the unsharded runs")
+        check(r["audit"]["diagnostics"] == [] and r["audit"]["skipped"] == []
+              and "mesh_wave_loop[1x2,kernel]" in r["audit"]["audited"]
+              and r["audit"]["altered"] == ["RF206"],
+              "30(d) in the group: the 1 x 2 mesh body is clean, the altered "
+              "body is RF206")
+
+    # (c) the ppermute round, four gloo ranks
+    t0 = time.perf_counter()
+    c = spawn_local(sharded_round_rank, SHARDED_N, backend="gloo",
+                    timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
+    c_wall = time.perf_counter() - t0
+    by_node = sorted(c, key=lambda r: r["node"])
+    stacked = lambda tag, f: np.concatenate(
+        [np.asarray(r[tag]["state"][f], np.float32) for r in by_node])
+    C, S, Cr, _ = sharded_problem("cuda")
+    topo = binary_tree(SHARDED_N)
+    spec = edge_arrays(topo)
+    st = init_node_state(spec, torch.zeros(SHARDED_P, device="cuda"),
+                         sharded_grad, (C, S))
+    rf = make_rfast_round(spec, sharded_grad, gamma=SHARDED_GAMMA)
+    for _ in range(SHARDED_ROUNDS):
+        st, _m = rf(st, (C, S), None, None)
+    dense_err = float(np.abs(stacked("sync", "x") - st.x.cpu().numpy()).max())
+    x_star = ((S * C).sum(0) / S.sum(0)).cpu().numpy()
+    res = {}
+    for tag, target in (("sync", x_star), ("robust", Cr.mean(0).cpu()
+                                           .numpy())):
+        mass = stacked(tag, "z").sum(0) + (stacked(tag, "rho_out")
+                                           - stacked(tag, "rho_buf")).sum(
+            (0, 1))
+        res[tag] = {"lemma3_max_abs": float(np.abs(
+            mass - stacked(tag, "g_prev").sum(0)).max()),
+            "conv": float(np.abs(stacked(tag, "x") - target[None]).max()),
+            "wall_s": max(r[tag]["wall_s"] for r in c),
+            "collectives_a_rank": c[0][tag]["collectives"]}
+    emit("mesh_sharded_round", ranks=SHARDED_N, backend=c[0]["backend"],
+         p=SHARDED_P, rounds=SHARDED_ROUNDS, dense_max_abs_err=dense_err,
+         robust_p=ROBUST_P, robust_rounds=ROBUST_ROUNDS, loss=ROBUST_LOSS,
+         **res, spawn_wall_s=c_wall, tol=ROUND_TOL, device=name,
+         nvidia_smi=smi)
+    check(dense_err <= ROUND_TOL, f"30(c): the ppermute round within "
+          f"{ROUND_TOL} of the dense round")
+    check(res["sync"]["lemma3_max_abs"] <= ROUND_TOL
+          and res["robust"]["lemma3_max_abs"] <= ROUND_TOL,
+          "30(c): Lemma 3 on the slotted layout")
+    check(res["sync"]["conv"] < 1e-2 and res["robust"]["conv"] < 5e-2,
+          "30(c): converges (and under 30 % loss)")
+    check(c[0]["robust"]["collectives"]["staged_bytes"] > 0,
+          "30(c): gloo's point-to-point on CUDA tensors is staged")
+    del st, C, S, Cr
+    torch.cuda.empty_cache()
+
+    # (d) RF206 here: the engine audit's 1 x 1 mesh body, the altered one
+    t0 = time.perf_counter()
+    diags, audited, skipped = torchlint.audit_engines(device="cuda")
+    altered = mesh_altered_body(make_sweep_mesh())
+    emit("mesh_rf206", diagnostics=[d.to_json() for d in diags],
+         mesh_subjects=[s for s in audited if s.startswith("mesh_")],
+         skipped=skipped, altered=altered,
+         seconds=time.perf_counter() - t0)
+    check(diags == [] and skipped == [] and {
+        "mesh_wave_loop[1x1,plain]", "mesh_wave_loop[1x1,kernel]"}
+        <= set(audited), "30(d): the mesh body is clean on the card")
+    check(altered == ["RF206"], "30(d): the altered body is RF206")
+    emit("mesh_done", seconds=time.perf_counter() - t_phase)
+    return {"mesh_1x1": a["commit_grid_launches"],
+            **{f"mesh_1x2_rank{r['rank']}": r["1x2"]["commit_grid_launches"]
+               for r in b},
+            **{f"mesh_2x1_rank{r['rank']}": r["2x1"]["commit_grid_launches"]
+               for r in b}}
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
@@ -3662,6 +4111,9 @@ def main() -> int:
     analysis_launches = phase_analysis(name, smi, res,
                                        launches.get("commit_grid", 0))
 
+    # 30. multi-device: ranks of this card ---------------------------------
+    mesh_launches = phase_mesh(name, smi)
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -3677,7 +4129,7 @@ def main() -> int:
         "sync_resume": sync_resume_launches,
         "async_resume": async_resume_launches,
         "serve_publish": publish_launches.get("commit_grid", 0),
-        **zoo_launches, **analysis_launches}
+        **zoo_launches, **analysis_launches, **mesh_launches}
     kernels = [{
         "name": "commit_grid", "route": "cuda",
         "source": str(grid.KERNEL_SOURCE.relative_to(ROOT)),

@@ -7,9 +7,9 @@ them, so a code's meaning never changes once shipped.  The RF1xx entries
 are the reference's word for word (``planlint.py`` is its verbatim
 copy); the RF2xx entries keep their codes, titles and motivations, are
 owned by :mod:`.torchlint`, and state the invariant as the port checks
-it over the aten ops of one eager call instead of a jaxpr.  RF206 (the
-mesh-mapped sweep) is catalogued but not audited until the port has a
-mesh.
+it over the aten ops of one eager call instead of a jaxpr; RF206 over
+the record of the port's collectives (``core/runtime_sharded.py``) that
+one run of the mesh sweep's wave loop issues.
 """
 from __future__ import annotations
 
@@ -130,13 +130,14 @@ CODES: dict[str, CodeInfo] = {c.code: c for c in [
         "recompiles every chunk."),
     CodeInfo(
         "RF206", "torchlint", "state-sized collective in the mesh body",
-        "No collective inside the mesh-mapped sweep body materializes "
-        "output at or above one lane group's full-width node state "
-        "(S_loc*n*4*p_pad bytes) — inside a fully-manual shard_map "
-        "region beyond-shard data can only arrive via a collective, so "
-        "this bounds every path to accidental replication.  The "
-        "designed per-wave gradient all_gather reconstructs at most "
-        "the mixed iterates (<= threshold/4).",
+        "No collective that one run of the mesh sweep's wave loop "
+        "issues outputs as many bytes as one lane group's full-width "
+        "node state (S_loc*n*4*p_pad floats) — a rank gets data beyond "
+        "its shard only through a collective, and every collective of "
+        "the port goes through core/runtime_sharded.py, which records "
+        "its output bytes, so this bounds every path to accidental "
+        "replication.  The designed per-wave gather reconstructs at "
+        "most the mixed iterates (<= threshold/4).",
         "The 'accidentally replicated' failure mode of PR 9's "
         "sharded parameter axis: an all_gather of the packed "
         "(S_loc*n,4,p) state (or a state-sized psum) makes every "

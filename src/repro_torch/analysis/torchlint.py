@@ -34,10 +34,15 @@ The runtime contracts tracing cannot see:
   shapes loads no new kernel library (``kernels/_build.py``) and
   launches ``commit_grid`` exactly once per non-empty wave.
 
+* **RF206** (:func:`audit_collectives`) — every collective of the port
+  goes through ``core/runtime_sharded.py``, which records each call's
+  output bytes; no collective that one run of the mesh sweep's wave loop
+  (:func:`wave_loop` with a mesh) issues may reach one lane group's full-width
+  node state, ``S_loc·n·4·p_pad`` floats.  The designed per-wave gather
+  of the mixed iterates is at most a quarter of that.
+
 ``commit_grid`` itself is a ``ctypes`` launch, not an aten op, so the
 mode does not see it — which is what RF203 wants of the fused path.
-RF206 (the mesh-mapped sweep body) has no port yet: :func:`audit_engines`
-audits no mesh body.
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ from .diagnostics import Diagnostic
 
 __all__ = ["OpRecord", "WaveLoop", "trace_ops", "audit_ops", "audit_inplace",
            "audit_dispatch", "audit_launches", "audit_serve_cache",
-           "wave_loop", "engine_loops", "audit_engines",
+           "audit_collectives", "wave_loop", "engine_loops", "audit_engines",
            "DEFAULT_BROADCAST_THRESHOLD"]
 
 # host reads of a tensor's value (RF201)
@@ -266,6 +271,31 @@ def audit_launches(run_once, *, subject, kernel="commit_grid",
     return diags
 
 
+def audit_collectives(run, state, *, subject, state_bytes_threshold
+                      ) -> list[Diagnostic]:
+    """RF206: ``run(state)`` (a mesh wave loop) issues no collective whose
+    output reaches ``state_bytes_threshold`` — one lane group's node
+    state at full width (``S_loc·n·4·p_pad·4`` bytes in fp32).  A rank
+    gets data beyond its shard only through a collective, and
+    ``core/runtime_sharded.py`` records them all, so this bounds every
+    path to an accidental replication."""
+    from ..core.runtime_sharded import record_collectives
+    with record_collectives() as record:
+        run(state)
+    diags = []
+    for r in record:
+        if r["bytes"] >= state_bytes_threshold:
+            diags.append(Diagnostic(
+                "RF206", subject,
+                f"collective {r['name']!r} materializes {r['bytes']} bytes "
+                f"(shape {r['shape']}) inside the mesh wave loop — >= the "
+                f"{state_bytes_threshold}-byte full-width state threshold: "
+                "the shard layout has degenerated to replication",
+                {"name": r["name"], "shape": r["shape"],
+                 "bytes": r["bytes"], "threshold": state_bytes_threshold}))
+    return diags
+
+
 def audit_serve_cache(*, seed=0, buckets=(4, 8), device=None
                       ) -> tuple[list[Diagnostic], list[str]]:
     """RF205 over the SERVING callable cache (``serve/cache.py``), with
@@ -323,28 +353,35 @@ class WaveLoop:
     state: object
     run: Callable
     waves: int
+    state_bytes: int = 0     # RF206's threshold (see wave_loop)
 
 
 def wave_loop(subject, plans, schedules, grad_fn, p, *, impl, device,
-              seeds=None, gamma=1e-2, eval_every=0) -> WaveLoop:
+              seeds=None, gamma=1e-2, eval_every=0, mesh=None) -> WaveLoop:
     """The wave loop :func:`~repro_torch.core.simulator.run_sweep` drives
     for these lanes (``run_rfast``'s for one lane), built by the engine's
-    own planner (``sweep_plan`` -> ``wave_inputs``) over a packed state
-    with the paper init at x = 0."""
-    from ..core.simulator import (_paper_init, _zeros_packed, sweep_plan,
-                                  wave_inputs)
+    own setup (``_fleet``: ``sweep_plan`` -> ``wave_inputs``) over a
+    packed state with the paper init at x = 0.  With ``mesh`` it is the
+    loop ``run_sweep(mesh=...)`` drives on this rank, over its lane
+    group's state; every rank of ``mesh`` builds and runs it together.
+    ``state_bytes`` is RF206's threshold: the lane group's node state at
+    full width, ``S_loc·n·4·p_pad·4`` bytes."""
+    from ..core.runtime_sharded import packed_sweep_specs
+    from ..core.simulator import _fleet
     S, n, K = len(plans), plans[0].n, schedules[0].K
     seeds = list(range(S)) if seeds is None else list(seeds)
     eval_every = eval_every or K
-    sp = sweep_plan(plans, schedules, eval_every)
-    state = _zeros_packed(S * n, S * sp.e_a, p, sp.H, device)
-    for s in range(S):
-        _paper_init(state.nodes[s * n:(s + 1) * n], grad_fn, seeds[s])
-    waves = wave_inputs(sp.fleet, sp.ko, device, seeds)
-    n_chunks = -(-K // eval_every)
-    return WaveLoop(subject, state, _loop_runner(
-        waves, sp.cmax, n_chunks, grad_fn=grad_fn, gamma=gamma, ko=sp.ko,
-        impl=impl), sum(1 for w in waves if w.agent.shape[0]))
+    lay = packed_sweep_specs(mesh, S, p)
+    fl = _fleet(plans, schedules, list(plans), grad_fn,
+                torch.zeros(p, device=device), lay, seeds=seeds,
+                eval_every=eval_every, device=device, verify="")
+    return WaveLoop(
+        subject, fl.packed,
+        _loop_runner(fl.waves, fl.sp.cmax, -(-K // eval_every),
+                     grad_fn=grad_fn, gamma=gamma, ko=fl.sp.ko, impl=impl,
+                     shard=fl.shard),
+        sum(1 for w in fl.waves if w.agent.shape[0]),
+        state_bytes=lay.S_loc * n * 4 * lay.p_pad * 4)
 
 
 def _loop_runner(waves, cmax, n_chunks, **step):
@@ -422,6 +459,25 @@ def engine_loops(*, n=5, p=8, K=48, seed=0, device=None,
     return loops
 
 
+def _audit_meshes() -> list[tuple[str, object]]:
+    """The meshes the engine audit runs the mesh body on: a 1 x 1 mesh of
+    this rank always, and where the process group has two ranks or more
+    a 1 x 2 mesh of ranks 0 and 1 (every rank of the group must call
+    this together; ranks beyond the mesh get only the first)."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import make_sweep_mesh
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_available() and dist.is_initialized()
+                   else (0, 1))
+    meshes = [("1x1", make_sweep_mesh(ranks=[rank]))]
+    if world >= 2:
+        m2 = make_sweep_mesh(lanes=1, param_shards=2)
+        if m2.coords is not None:
+            meshes.append(("1x2", m2))
+    return meshes
+
+
 # ------------------------------------------------------------------ #
 # the standard engine audit the CLI runs
 # ------------------------------------------------------------------ #
@@ -434,11 +490,15 @@ def audit_engines(*, n=5, p=8, K=48, seed=0, device=None,
     ``impl="plain"`` and ``"kernel"``, the two-lane flattened fleet,
     ``run_epochs``' wave body and the ``commit_grid`` call site.
 
+    Then the mesh sweep's wave loop (:func:`wave_loop` with a mesh, the
+    two-lane fleet) on each of :func:`_audit_meshes` and route: RF201–RF203
+    over its ops and RF206 over its collectives (in a process group,
+    every rank calls this together).
+
     Returns ``(diagnostics, audited_subjects, skipped)``; ``skipped``
     lists ``{"subject", "reason"}`` for the audits ``device`` cannot
-    run (on the CPU, the kernel route).  No mesh body is audited: RF206
-    waits for the port's multi-device layer.  Sizes are tiny on
-    purpose: the properties audited are shape-generic.
+    run (on the CPU, the kernel route).  Sizes are tiny on purpose: the
+    properties audited are shape-generic.
     """
     from ..core.plan import build_comm_plan
     from ..core.scenario import get_scenario
@@ -514,4 +574,24 @@ def audit_engines(*, n=5, p=8, K=48, seed=0, device=None,
     else:
         skipped.append({"subject": "commit_grid[dispatch]",
                         "reason": _KERNEL_SKIP})
+
+    # the mesh sweep's wave loop: RF201-RF203 and RF206
+    topo_b = get_topology("line", n)
+    sched_b = get_scenario("straggler", n).realize(topo_b, K,
+                                                   seed=seed).schedule
+    for tag, mesh in _audit_meshes():
+        if not on_card:
+            skipped.append({"subject": f"mesh_wave_loop[{tag},kernel]",
+                            "reason": _KERNEL_SKIP})
+        for impl in impls:
+            sub = f"mesh_wave_loop[{tag},{impl}]"
+            loop = wave_loop(sub, [plan, build_comm_plan(topo_b)],
+                             [sched, sched_b], gfn, p, mesh=mesh, impl=impl,
+                             device=device, seeds=[seed, seed + 1])
+            _, records = trace_ops(loop.run, loop.state, in_loop=True)
+            diags += audit_ops(records, subject=sub, **kw)
+            diags += audit_collectives(
+                loop.run, loop.state, subject=sub,
+                state_bytes_threshold=loop.state_bytes)
+            audited.append(sub)
     return diags, audited, skipped

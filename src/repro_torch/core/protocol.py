@@ -115,16 +115,24 @@ def init_protocol_state(
     *,
     robust: bool = False,
     momentum: float = 0.0,
+    stacked: bool = False,
 ) -> ProtocolState:
     """Paper init: x_i = x0 (broadcast), z_i = g_prev_i = ∇f_i(x0; ζ0).
 
-    ``params`` is the flat ``(p,)`` start; the state lies on its device,
-    in its dtype."""
+    ``params`` is the flat ``(p,)`` start, or with ``stacked=True`` every
+    node's own ``(N, p)`` start, which the state then takes as its x (no
+    copy); the state lies on its device, in its dtype."""
     n, e = plan.n, plan.e_pad
-    if params.dim() != 1:
+    if stacked:
+        if params.dim() != 2 or params.shape[0] != n:
+            raise ValueError(f"stacked params must be ({n}, p), got "
+                             f"{tuple(params.shape)}")
+        x = params
+    elif params.dim() != 1:
         raise ValueError(f"params must be flat (p,), got "
                          f"{tuple(params.shape)}")
-    x = params.reshape(1, -1).expand(n, -1).clone()
+    else:
+        x = params.reshape(1, -1).expand(n, -1).clone()
     g0 = vgrads(x, batches, keys)[1]
     zeros_e = lambda: x.new_zeros((e, x.shape[1]))
     return ProtocolState(

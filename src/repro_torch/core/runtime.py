@@ -18,9 +18,15 @@ success).  ``masks=None`` is the synchronous special case of Remark 2.
 This module is an engine shell: it turns a per-node gradient
 ``grad_fn(x_flat, batch, key) -> (loss, g_flat)`` into the node-stacked
 ``vgrads`` (a loop over nodes, the reference's ``vmap``) and delegates
-all protocol math to :mod:`repro_torch.core.protocol`.  The reference's
-``node_axes`` (the node axis over a device mesh) has no counterpart yet:
-multi-device is later work.
+all protocol math to :mod:`repro_torch.core.protocol`.
+
+``node_axes``: in the reference it names the mesh axes the node vmap
+runs over (``spmd_axis_name``), so the model's sharding annotations
+compose with the node axis of a dense round that GSPMD partitions.  The
+port's dense round runs every node in this one process, so here it only
+records that intent and changes nothing; a round with one node a rank
+over mesh axes is :func:`repro_torch.core.runtime_sharded.
+make_sharded_round`, whose ``node_axes`` place the nodes.
 """
 from __future__ import annotations
 
@@ -81,15 +87,20 @@ def init_node_state(
     batches: Any,              # (N, ...) pytree: each node's first batch
     keys: Sequence | None = None,
     *,
+    node_axes: Sequence[str] = (),
     robust: bool = False,
     momentum: float = 0.0,
+    stacked: bool = False,
 ) -> RFASTNodeState:
     """Paper init: x_i = x0 (broadcast), z_i = g_prev_i = ∇f_i(x0; ζ0).
 
     ``keys`` (the reference splits one ``jax.random`` key) is None or one
-    key per node, passed to ``grad_fn`` as is."""
+    key per node, passed to ``grad_fn`` as is.  ``stacked=True``: params
+    is every node's ``(N, p)`` start.  ``node_axes``: see the module
+    docstring (no effect in one process)."""
     return init_protocol_state(spec, params, _make_vgrads(grad_fn), batches,
-                               keys, robust=robust, momentum=momentum)
+                               keys, robust=robust, momentum=momentum,
+                               stacked=stacked)
 
 
 def make_rfast_round(
@@ -97,6 +108,7 @@ def make_rfast_round(
     grad_fn: GradFn,
     *,
     gamma,
+    node_axes: Sequence[str] = (),
     robust: bool = False,
     momentum: float = 0.0,
     impl: str = "plain",
@@ -111,7 +123,8 @@ def make_rfast_round(
     ``impl``: "plain" (edge-major scatter/gather) or "kernel" (one fused
     ``commit_grid`` launch per round; ``oracle=True`` one per-node commit
     kernel launch per node).  ``donate=True`` commits x/z/ρ/ρ̃ in place
-    (callers must rebind and not reuse the old state).
+    (callers must rebind and not reuse the old state).  ``node_axes``:
+    see the module docstring (no effect in one process).
     """
     return make_protocol_round(spec, _make_vgrads(grad_fn), gamma=gamma,
                                robust=robust, momentum=momentum, impl=impl,

@@ -25,6 +25,12 @@ the formulas live in :mod:`repro_torch.core.protocol`.
   packed state is migrated in place at each epoch boundary
   (:func:`migrate_state`'s arithmetic).  :func:`run_sweep_epochs` runs
   a fleet of such traces one lane after another.
+* ``mesh=`` on :func:`run_sweep` and :func:`run_sweep_epochs` — the
+  same engines over ranks: lane groups on one mesh axis, slices of the
+  flat parameter axis on the other, one gather of the wave's mixed
+  iterates a wave (:mod:`repro_torch.core.runtime_sharded`); a rank
+  keeps and returns its slice (:func:`gather_lane_state` rebuilds the
+  full width).
 
 ``verify_plans=True`` on any of the four entry points runs the
 :mod:`repro_torch.analysis.planlint` passes (RF101–RF106) over the
@@ -95,6 +101,7 @@ from ..kernels.rfast_update.grid import commit_grid
 from .paramvec import as_grad_fn
 from .plan import CommPlan, as_comm_plan, pad_comm_plan
 from .protocol import IMPLS, consensus_mix, descent_step, tracking_step
+from .runtime_sharded import all_gather_flat, packed_sweep_specs
 from .schedule import (Schedule, WavefrontPlan, build_wavefront_plan,
                        concat_plans, flatten_plans, grid_gather_tables,
                        pad_plan, slice_plan, stack_plans)
@@ -103,7 +110,7 @@ from .topology import Topology
 __all__ = ["RFASTState", "PackedState", "init_state", "init_packed",
            "zeros_state", "pack_state", "unpack_state", "wave_inputs",
            "event_generator", "rfast_scan", "run_rfast", "sweep_plan",
-           "run_sweep", "migrate_state", "run_epochs", "run_sweep_epochs",
+           "run_sweep", "gather_lane_state", "migrate_state", "run_epochs", "run_sweep_epochs",
            "tracked_mass", "IMPLS"]
 
 
@@ -155,22 +162,36 @@ def init_packed(topo: Topology | CommPlan, x0: torch.Tensor, grad_fn,
 
 
 def _fresh_packed(n: int, e_a: int, H: int, x0: torch.Tensor, grad_fn,
-                  seed: int) -> PackedState:
+                  seed: int, shard=None) -> PackedState:
     """A packed state with ``e_a`` ρ rows on ``x0``'s device, x = x0
-    and the paper init of :func:`_paper_init`."""
+    and the paper init of :func:`_paper_init` (a param ``shard``'s
+    slice of them)."""
     p = int(x0.shape[-1])
-    st = _zeros_packed(n, e_a, p, H, x0.device)
-    st.nodes[:, 0].copy_(x0.to(torch.float32).expand(n, p))
-    _paper_init(st.nodes, grad_fn, seed)
+    x_full = x0.to(torch.float32).expand(n, p)
+    lo, hi, width = (0, p, p) if shard is None else (shard.lo, shard.hi,
+                                                     shard.p_loc)
+    st = _zeros_packed(n, e_a, width, H, x0.device)
+    st.nodes[:, 0, :hi - lo].copy_(x_full[:, lo:hi])
+    _paper_init(st.nodes, grad_fn, seed, x_full=x_full, shard=shard)
     return st
 
 
-def _paper_init(nodes: torch.Tensor, grad_fn, seed: int) -> None:
+def _paper_init(nodes: torch.Tensor, grad_fn, seed: int, *,
+                x_full: torch.Tensor | None = None, shard=None) -> None:
     """z = g_prev = ∇f_i(x_i; ζ_i^0) for every node of an ``(n, 4, p)``
     block whose x is set, node ``i`` drawing from
-    ``event_generator(seed, -1, i)``."""
+    ``event_generator(seed, -1, i)``.  A param shard (``shard``, a
+    :class:`~repro_torch.core.runtime_sharded.SweepLayout`) holds the
+    columns ``[lo, hi)``: its gradient is taken at the full-width rows
+    ``x_full`` ``(n, p)`` and cut to them."""
     for i in range(nodes.shape[0]):
-        g = grad_fn(i, nodes[i, 0], event_generator(seed, -1, i))
+        gen = event_generator(seed, -1, i)
+        if shard is None:
+            g = grad_fn(i, nodes[i, 0], gen)
+        else:
+            g = torch.zeros_like(nodes[i, 0])
+            g[:shard.hi - shard.lo] = grad_fn(i, x_full[i], gen)[
+                shard.lo:shard.hi]
         nodes[i, 2].copy_(g)
         nodes[i, 3].copy_(g)
 
@@ -405,9 +426,17 @@ def wave_inputs(wf: WavefrontPlan, ko: int, device,
 
 
 def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
-               ko: int, impl: str) -> None:
+               ko: int, impl: str, shard=None) -> None:
     """One wave, in place: ``s`` independent per-agent updates (distinct
-    agents, pre-wave reads only), committed as disjoint row copies."""
+    agents, pre-wave reads only), committed as disjoint row copies.
+
+    ``shard`` (a :class:`~repro_torch.core.runtime_sharded.SweepLayout`
+    with M > 1): the state holds one slice of the flat axis.  The
+    protocol math is elementwise along it and runs on the slice as is;
+    the gradient needs the full iterate, rebuilt by ONE
+    :func:`~repro_torch.core.runtime_sharded.all_gather_flat` of the
+    wave's mixed iterates over the param group, and the rank keeps its
+    slice of each fresh gradient."""
     nodes, rho2, v_hist, rho_hist = state
     p = nodes.shape[-1]
     s = w.agent.shape[0]
@@ -423,11 +452,24 @@ def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
     del vals_v
 
     # (S.2b) gradient at the mixed point, one lane at a time ------------
-    g_new = torch.empty_like(x_a)
-    for b in range(s):
-        node = int(w.node_h[b])
-        g_new[b] = grad_fn(node, x_a[b], event_generator(
-            int(w.seed_h[b]), int(w.k_h[b]), node))
+    if shard is None:
+        g_new = torch.empty_like(x_a)
+        for b in range(s):
+            node = int(w.node_h[b])
+            g_new[b] = grad_fn(node, x_a[b], event_generator(
+                int(w.seed_h[b]), int(w.k_h[b]), node))
+    else:
+        # the wave's one collective; the zero pad tail sits at the end of
+        # the flat axis, so the tiled gather is the global order
+        x_full = all_gather_flat(x_a, shard.param)         # (s, p_pad)
+        g_new = torch.zeros_like(x_a)
+        for b in range(s):
+            node = int(w.node_h[b])
+            g_new[b, :shard.hi - shard.lo] = grad_fn(
+                node, x_full[b, :shard.p], event_generator(
+                    int(w.seed_h[b]), int(w.k_h[b]), node))[
+                shard.lo:shard.hi]
+        del x_full
 
     if impl == "kernel":
         # one fused launch for the whole wave over the flat state rows
@@ -663,7 +705,7 @@ class SweepPlan(NamedTuple):
 
 def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
                eval_every: int, *, verify: str = "",
-               topos=None) -> SweepPlan:
+               topos=None, lanes=None, name: str = "fleet") -> SweepPlan:
     """The fleet's one wavefront plan: each lane's CommPlan degree-padded
     to the fleet maxima (``pad_comm_plan``), its WavefrontPlan built at
     the fleet's H and ρ layout and cut into eval chunks, every chunk
@@ -671,19 +713,24 @@ def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
     occupies waves ``[c·cmax, (c+1)·cmax)`` in every lane, then stacked
     and flattened (``stack_plans`` / ``flatten_plans``).
 
-    ``verify`` (a context such as ``"run_sweep(verify_plans)"``) lints
-    every one of those tables and the fleet's ``commit_grid`` gather
-    tables, raising :class:`~repro_torch.analysis.PlanInvariantError`
-    on any diagnostic; ``topos`` (the lanes' Topologies, where known)
-    lets the CommPlan lint check the tables against their graphs."""
+    ``lanes`` (a range of lane indices) stacks and flattens only those
+    lanes, at the shape maxima of all of them: a mesh lane group's own
+    fleet, its lanes at group-local offsets.  ``verify`` (a context such
+    as ``"run_sweep(verify_plans)"``) lints every one of those tables
+    and the fleet's ``commit_grid`` gather tables (subjects
+    ``lane{s}...`` and ``{name}...``), raising
+    :class:`~repro_torch.analysis.PlanInvariantError` on any diagnostic;
+    ``topos`` (the lanes' Topologies, where known) lets the CommPlan
+    lint check the tables against their graphs."""
     H, kw, ka, ko, e_a = _shape_maxima(plans, schedules)
     padded = [pad_comm_plan(pl, kw=kw, ka=ka, ko=ko) for pl in plans]
-    lanes = [_chunked_plan(sc, pc, H, e_a, eval_every)
-             for pc, sc in zip(padded, schedules)]
-    cmax = max(b1 - b0 for _, b in lanes for b0, b1 in zip(b, b[1:]))
-    B = max(wf.width for wf, _ in lanes)
-    rechunked = [_pad_chunks(wf, b, B=B, cmax=cmax, e_a=e_a)
-                 for wf, b in lanes]
+    chunked = [_chunked_plan(sc, pc, H, e_a, eval_every)
+               for pc, sc in zip(padded, schedules)]
+    cmax = max(b1 - b0 for _, b in chunked for b0, b1 in zip(b, b[1:]))
+    B = max(wf.width for wf, _ in chunked)
+    lanes = range(len(plans)) if lanes is None else lanes
+    rechunked = [_pad_chunks(*chunked[s], B=B, cmax=cmax, e_a=e_a)
+                 for s in lanes]
     stacked = stack_plans(rechunked)
     fleet = flatten_plans(stacked)
     if verify:
@@ -691,8 +738,9 @@ def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
 
         def lint(pl):
             diags = []
-            for s, (pc, (wf, _), rc, sc, topo) in enumerate(zip(
-                    padded, lanes, rechunked, schedules, topos)):
+            for s, rc in zip(lanes, rechunked):
+                pc, (wf, _), sc, topo = (padded[s], chunked[s],
+                                         schedules[s], topos[s])
                 diags += pl.lint_comm_plan(
                     pc, topo if isinstance(topo, Topology) else None,
                     subject=f"lane{s}/comm")
@@ -701,12 +749,14 @@ def sweep_plan(plans: list[CommPlan], schedules: list[Schedule],
                 diags += pl.lint_wavefront_plan(
                     rc, comm=pc, schedule=sc, H=H,
                     subject=f"lane{s}/rechunked")
-            diags += pl.lint_wavefront_plan(stacked, comm=padded,
-                                            schedule=schedules, H=H,
-                                            subject="fleet/stacked")
-            diags += pl.lint_flatten(stacked, fleet, subject="fleet")
-            diags += pl.lint_wavefront_plan(fleet, H=H, subject="fleet/flat")
-            return diags + _grid_diags(pl, fleet, ko, H, "fleet/grid_tables")
+            diags += pl.lint_wavefront_plan(
+                stacked, comm=[padded[s] for s in lanes],
+                schedule=[schedules[s] for s in lanes], H=H,
+                subject=f"{name}/stacked")
+            diags += pl.lint_flatten(stacked, fleet, subject=name)
+            diags += pl.lint_wavefront_plan(fleet, H=H, subject=f"{name}/flat")
+            return diags + _grid_diags(pl, fleet, ko, H,
+                                       f"{name}/grid_tables")
 
         _check_plans(verify, lint)
     return SweepPlan(fleet=fleet, H=H, ko=ko, e_a=e_a, cmax=cmax)
@@ -740,6 +790,9 @@ def run_sweep(
     device=None,
     states0=None,
     verify_plans: bool | str = False,
+    mesh=None,
+    lane_axis: str = "data",
+    param_axis: str | None = "model",
 ) -> tuple[list[RFASTState], list[list[dict]]]:
     """Run a fleet of S independent experiments as ONE wavefront run.
 
@@ -768,10 +821,30 @@ def run_sweep(
         anything moves to the device, raising ``PlanInvariantError``
         with the context ``"run_sweep(verify_plans)"`` (a string is the
         context itself: ``run_rfast`` passes its own).
+      mesh: a :class:`~repro_torch.launch.mesh.SweepMesh` — distribute
+        the fleet over the ranks that call this together
+        (:func:`_fleet`): the lanes, padded to a multiple of
+        the ``lane_axis`` size D by repeating the last lane (the repeats
+        are dropped), split into D contiguous groups, one a rank row;
+        the flat parameter axis splits over ``param_axis`` when that
+        axis has size M > 1, so a state that one card cannot hold is
+        spread over M: what ``eval_fn`` sees and the run returns are
+        then this rank's ``p_loc``-wide slice of each lane state (views,
+        the zero pad tail in the last shard), and
+        :func:`gather_lane_state` rebuilds the full width where a
+        caller needs it.  Gathered, each lane matches the unsharded
+        engine to fp32 tolerance.  ``None`` (default) is the trivial
+        layout of one process: every lane, full width.  No resume
+        (``states0``) with a mesh.
+      lane_axis / param_axis: the mesh's axis names (``"data"`` /
+        ``"model"``, as :func:`repro_torch.launch.mesh.make_sweep_mesh`
+        names them).
 
     Returns ``(states, metrics)``: the final per-lane :class:`RFASTState`
     views (ρ state cut to each lane's real A-edge count) and the
-    per-lane metrics lists.
+    per-lane metrics lists.  With a mesh a rank returns its own lane
+    group's lanes; the other lanes' entries are None, their metrics
+    empty.
     """
     schedules = list(schedules)
     S = len(schedules)
@@ -799,6 +872,15 @@ def run_sweep(
     grad_fn = as_grad_fn(grad_fn)
     if eval_every <= 0:
         eval_every = K
+    if verify_plans is True:
+        verify_plans = "run_sweep(verify_plans)"
+    if mesh is not None:
+        if lane_axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no lane axis {lane_axis!r} "
+                             f"(axes: {mesh.axis_names})")
+        if states0 is not None:
+            raise ValueError("run_sweep(mesh=...) has no resume: drop "
+                             "states0 or the mesh")
 
     if states0 is None:
         x0 = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
@@ -811,46 +893,111 @@ def run_sweep(
         if len(states0) != S:
             raise ValueError(f"{len(states0)} resume states for {S} lanes")
         p = int(states0[0].x.shape[-1])
-    if verify_plans is True:
-        verify_plans = "run_sweep(verify_plans)"
-    sp = sweep_plan(plans, schedules, eval_every, verify=verify_plans or "",
-                    topos=topos)
-    e_a = sp.e_a
-    packed = _zeros_packed(S * n, S * e_a, p, sp.H, device)
-    e_a_lane = [max(1, pl.n_edges_a) for pl in plans]
-    lane_state = lambda s, k: _lane_state(packed, s, k, S=S, n=n, e_a=e_a,
-                                          e_a_lane=e_a_lane[s])
+    lay = packed_sweep_specs(mesh, S, p, lane_axis=lane_axis,
+                             param_axis=param_axis)
+    fl = _fleet(plans, schedules, topos, grad_fn,
+                x0 if states0 is None else None, lay, seeds=seeds,
+                eval_every=eval_every, device=device,
+                verify=verify_plans or "",
+                name="fleet" if mesh is None else f"fleet/g{lay.g}")
     n_chunks = -(-K // eval_every)
-    if states0 is None:
-        # the paper init per lane, from the lane's own generators, in
-        # the flat fleet layout
-        packed.nodes[:, 0].view(S, n, p).copy_(x0.expand(S, n, p))
-        for s in range(S):
-            _paper_init(packed.nodes[s * n:(s + 1) * n], grad_fn, seeds[s])
-        skip = 0
-    else:
-        k0s = {_resume_k(st, sp.H, K, eval_every) for st in states0}
+    skip = 0
+    if states0 is not None:
+        k0s = {_resume_k(st, fl.sp.H, K, eval_every) for st in states0}
         if len(k0s) != 1:
             raise ValueError(f"resume states at different k: {sorted(k0s)}")
         k0 = k0s.pop()
         for s, st in enumerate(states0):
-            for f, t in zip(RFASTState._fields[1:], lane_state(s, k0)[1:]):
+            for f, t in zip(RFASTState._fields[1:], fl.lane_state(s, k0)[1:]):
                 t.copy_(getattr(st, f))
         skip = n_chunks if k0 >= K else k0 // eval_every
-    waves = wave_inputs(sp.fleet, sp.ko, device, seeds)
 
+    own = [s for s in lay.lanes if s < S]
     metrics: list[list[dict]] = [[] for _ in range(S)]
-    for ci, n_run in _run_chunks(packed, waves, sp.cmax, n_chunks, skip=skip,
-                                 grad_fn=grad_fn, gamma=gamma, ko=sp.ko,
-                                 impl=impl):
+    for ci, n_run in _run_chunks(fl.packed, fl.waves, fl.sp.cmax, n_chunks,
+                                 skip=skip, grad_fn=grad_fn, gamma=gamma,
+                                 ko=fl.sp.ko, impl=impl, shard=fl.shard):
         e = min(K, (ci + 1) * eval_every)
         if eval_fn is not None:
-            for s in range(S):
-                m = eval_fn(lane_state(s, e), float(schedules[s].times[e - 1]))
+            for s in own:
+                m = eval_fn(fl.lane_state(s, e),
+                            float(schedules[s].times[e - 1]))
                 m["k"] = e
                 m["waves"] = n_run
                 metrics[s].append(m)
-    return [lane_state(s, K) for s in range(S)], metrics
+    states: list[RFASTState | None] = [None] * S
+    for s in own:
+        states[s] = fl.lane_state(s, K)
+    return states, metrics
+
+
+def gather_lane_state(state: RFASTState, mesh, p: int, *,
+                      param_axis: str = "model") -> RFASTState:
+    """A lane state that ``run_sweep(mesh=...)`` or
+    ``run_sweep_epochs(mesh=...)`` returned (or showed ``eval_fn``) on a
+    param shard, at full width: every field gathered over the mesh's
+    param group (one :func:`all_gather_flat` a field, in field order;
+    every rank of the group calls this together), the pad tail cut to
+    ``p``.  On a mesh without param shards it is ``state`` itself."""
+    if mesh.axis_size(param_axis) == 1:
+        return state
+    group = mesh.group(param_axis)
+    return RFASTState(state.k, *(all_gather_flat(t, group)[..., :p]
+                                 for t in state[1:]))
+
+
+class _Fleet(NamedTuple):
+    """One rank's share of a fleet sweep, ready to run (:func:`_fleet`);
+    with no mesh, the whole fleet."""
+
+    lay: object              # runtime_sharded.SweepLayout
+    sp: SweepPlan            # the rank's lane group's fleet plan
+    packed: PackedState      # its state, p_loc wide
+    waves: list              # wave_inputs of sp.fleet
+    shard: object            # lay when the param axis has M > 1, else None
+    e_a_lane: list           # real A-edge count of every padded lane
+    n: int
+
+    def lane_state(self, s: int, k: int) -> RFASTState:
+        """Lane ``s`` (a global lane index in the rank's group) as views."""
+        return _lane_state(self.packed, s - self.lay.lanes.start, k,
+                           S=self.lay.S_loc, n=self.n, e_a=self.sp.e_a,
+                           e_a_lane=self.e_a_lane[s])
+
+
+def _fleet(plans, schedules, topos, grad_fn, x0, lay, *, seeds, eval_every,
+           device, verify, name="fleet") -> _Fleet:
+    """The lane group ``lay`` holds (a
+    :class:`~repro_torch.core.runtime_sharded.SweepLayout`, the counterpart
+    of the reference's ``_mesh_sweep_scan`` setup): the lanes padded to
+    the lane axis (the last repeated), the group's flattened plan at the
+    shape maxima of all of them, its state (the ``p_loc`` columns this
+    rank holds) and its wave tables.  With ``x0`` the state gets the
+    paper init per lane, from the lane's own generators (a param shard
+    takes the gradients at full width and keeps its columns); with
+    ``x0=None`` it stays zero, for a resume to fill."""
+    S, n = len(schedules), plans[0].n
+    pad = lay.S_pad - S
+    plans = list(plans) + [plans[-1]] * pad
+    schedules = list(schedules) + [schedules[-1]] * pad
+    seeds = list(seeds) + [seeds[-1]] * pad
+    topos = list(topos) + [topos[-1]] * pad
+    sp = sweep_plan(plans, schedules, eval_every, verify=verify, topos=topos,
+                    lanes=lay.lanes, name=name)
+    shard = lay if lay.M > 1 else None
+    packed = _zeros_packed(lay.S_loc * n, lay.S_loc * sp.e_a, lay.p_loc,
+                           sp.H, device)
+    if x0 is not None:
+        p = int(x0.shape[-1])
+        for j, s in enumerate(lay.lanes):
+            x_full = (x0[min(s, S - 1)] if x0.dim() == 3 else x0).expand(n, p)
+            blk = packed.nodes[j * n:(j + 1) * n]
+            blk[:, 0, :lay.hi - lay.lo].copy_(x_full[:, lay.lo:lay.hi])
+            _paper_init(blk, grad_fn, seeds[s], x_full=x_full, shard=shard)
+    waves = wave_inputs(sp.fleet, sp.ko, device,
+                        [seeds[s] for s in lay.lanes])
+    return _Fleet(lay=lay, sp=sp, packed=packed, waves=waves, shard=shard,
+                  e_a_lane=[max(1, pl.n_edges_a) for pl in plans], n=n)
 
 
 # --------------------------------------------------------------------- #
@@ -991,7 +1138,8 @@ def _scan_epochs(epochs, lane, rechunked, packed: PackedState, *, seed: int,
     rechunked plan (:func:`_rechunk_lane`), its events drawing from the
     trace's global event index, and the packed state migrated in place
     at every boundary (no copy of a state that may fill most of the
-    card)."""
+    card; on a param shard the migration runs on the slice, being linear
+    along p)."""
     device = packed.nodes.device
     metrics: list[dict] = []
     for i, (ep, (*_, b), rc) in enumerate(zip(epochs, lane, rechunked)):
@@ -1096,6 +1244,8 @@ def run_sweep_epochs(
     device=None,
     mesh=None,
     verify_plans: bool = False,
+    lane_axis: str = "data",
+    param_axis: str | None = "model",
 ) -> tuple[list[RFASTState], list[list[dict]]]:
     """A fleet of epochized lanes (e.g. one scenario × many seeds from
     :func:`repro_torch.core.scenario.realize_epochs_batch`).
@@ -1106,13 +1256,17 @@ def run_sweep_epochs(
     :func:`run_epochs` of its trace and ``seeds[s]``.  ``x0`` is
     ``(p,)``, ``(n, p)`` or per lane ``(S, n, p)``.
     ``verify_plans=True`` lints every lane's trace and plans before the
-    first lane runs (``"run_sweep_epochs(verify_plans)"``).  ``mesh`` (a
-    parameter-sharded run) is not ported yet.
+    first lane runs (``"run_sweep_epochs(verify_plans)"``).
+
+    ``mesh`` shards the flat PARAMETER axis over ``param_axis`` (large-p
+    epochized runs), as :func:`run_sweep` does: one gather a wave, the
+    migrations on each rank's slice, and the rank's slice of each lane
+    state for ``eval_fn`` and the return (:func:`gather_lane_state`
+    rebuilds the full width).  The mesh's lane
+    axis must have size 1: lanes stay sequential here because their
+    membership timelines are host-driven and lane-local (lane-parallel
+    meshes go through :func:`run_sweep`).
     """
-    if mesh is not None:
-        raise NotImplementedError("run_sweep_epochs(mesh=...) is not ported "
-                                  "yet (multi-device, ROADMAP Queue 1 "
-                                  "item 7)")
     traces = list(epoch_traces)
     S = len(traces)
     if S == 0:
@@ -1125,6 +1279,11 @@ def run_sweep_epochs(
         raise ValueError("all lanes must share the node count n")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if mesh is not None and mesh.axis_size(lane_axis) != 1:
+        raise ValueError(
+            "run_sweep_epochs shards the parameter axis only; the mesh's "
+            f"{lane_axis!r} axis must have size 1 (lane-parallel meshes go "
+            "through run_sweep)")
     device = dispatch.resolve_device(device)
     grad_fn = as_grad_fn(grad_fn)
     if eval_every <= 0:
@@ -1149,16 +1308,19 @@ def run_sweep_epochs(
     if x0.dim() == 3 and x0.shape[0] != S:
         raise ValueError(f"per-lane x0 has {x0.shape[0]} lanes, "
                          f"expected {S}")
+    lay = packed_sweep_specs(mesh, S, int(x0.shape[-1]),
+                             lane_axis=lane_axis, param_axis=param_axis)
+    shard = lay if lay.M > 1 else None
     states: list[RFASTState] = []
     metrics: list[list[dict]] = []
     for s, (trace, lane) in enumerate(zip(traces, lanes)):
         packed = _fresh_packed(n, e_a, H, x0[s] if x0.dim() == 3 else x0,
-                               grad_fn, seeds[s])
+                               grad_fn, seeds[s], shard=shard)
         st, ms = _scan_epochs(list(trace.epochs), lane, rechunked[s], packed,
                               seed=seeds[s], cmax=cmax, ko=ko,
                               eval_every=eval_every, eval_fn=eval_fn,
-                              chunk_cb=None, grad_fn=grad_fn, gamma=gamma,
-                              impl=impl)
+                              chunk_cb=None, grad_fn=grad_fn,
+                              gamma=gamma, impl=impl, shard=shard)
         states.append(st)
         metrics.append(ms)
     return states, metrics

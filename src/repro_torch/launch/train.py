@@ -59,13 +59,22 @@ consume with :mod:`repro_torch.analysis.planlint` before the first wave
 and raises ``PlanInvariantError`` on any diagnostic; the run is
 otherwise the same, bit for bit.
 
-Not ported yet, rejected with an error: ``--param-shards`` (the
-parameter-sharded async run).  The reference's ``--host-devices`` has no
-counterpart.
+``--param-shards M`` (async, static scenarios) trains the one lane
+through ``run_sweep(mesh=make_sweep_mesh(lanes=1, param_shards=M))``:
+each of M ranks holds 1/M of the flat state and the wave's mixed
+iterates are gathered once a wave for the gradient.  It runs under a
+launcher (``torchrun --nproc-per-node M``: NCCL, one card a rank), or,
+as the CPU dev loop, with ``--host-devices N --device cpu``: ``main``
+spawns N gloo ranks on the CPU itself (one thread each).  Rank 0 alone
+prints and writes metrics; the losses are the unsharded run's.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --scenario uniform --param-shards 2 --host-devices 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -79,8 +88,9 @@ from repro_torch.core.paramvec import (make_ravel_spec, ravel, unravel,
 from repro_torch.core.protocol import IMPLS
 from repro_torch.core.runtime import (edge_arrays, init_node_state,
                                       make_rfast_round, runtime_tracked_mass)
+from repro_torch.core.runtime_sharded import all_gather_flat
 from repro_torch.core.scenario import SCENARIOS, get_scenario
-from repro_torch.core.simulator import (run_epochs, run_rfast,
+from repro_torch.core.simulator import (run_epochs, run_rfast, run_sweep,
                                         tracked_mass, zeros_state)
 from repro_torch.core.topology import get_topology
 from repro_torch.data.objectives import make_lm_problem
@@ -89,12 +99,10 @@ from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.metrics import MetricsLogger, StepTimer
 from repro_torch.optim.schedules import warmup_cosine
 
-_NOT_PORTED = "is not ported yet"
-
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The driver's arguments, with the reference's argument errors and
-    the port's "not ported yet" ones raised (``SystemExit``)."""
+    """The arguments, with the reference's argument errors (and the
+    ``--host-devices`` ones) raised (``SystemExit``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rfast-100m", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true",
@@ -124,7 +132,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="publish the consensus average x̄ as the model's "
                          "parameter tree at every chunk boundary (async), "
                          "in checkpoint/ckpt.py's format")
-    ap.add_argument("--param-shards", type=int, default=1)
+    ap.add_argument("--param-shards", type=int, default=1,
+                    help="shard the flat parameter axis over this many "
+                         "ranks (async regime only: routes through the "
+                         "mesh-mapped run_sweep; on the CPU combine with "
+                         "--host-devices)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="with no process group, spawn this many gloo "
+                         "ranks on the CPU (the dev loop for "
+                         "--param-shards; needs --device cpu)")
     ap.add_argument("--metrics", default="", help="JSONL metrics path")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
@@ -170,15 +186,34 @@ def parse_args(argv=None) -> argparse.Namespace:
             if dynamic:
                 ap.error("--param-shards is not supported for dynamic "
                          "(membership) scenarios yet")
-            ap.error(f"--param-shards {_NOT_PORTED} (multi-device, "
-                     "ROADMAP Queue 1 item 7)")
     elif args.param_shards > 1:
         ap.error("--param-shards shards the wavefront engine's flat "
                  "parameter axis (pass --scenario for the async regime)")
+    if args.host_devices:
+        if args.param_shards < 2:
+            ap.error("--host-devices starts the ranks of a "
+                     "--param-shards run (pass --param-shards M > 1)")
+        if args.host_devices < args.param_shards:
+            ap.error(f"--param-shards {args.param_shards} needs "
+                     f"{args.param_shards} devices, --host-devices gives "
+                     f"{args.host_devices}")
+        if args.device != "cpu":
+            ap.error("--host-devices spawns gloo ranks on the CPU (pass "
+                     "--device cpu; on cards launch with torchrun)")
     return args
 
 
-def main(argv=None) -> dict:
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def main(argv=None, *, timeout_s: float = 300.0,
+         join_s: float = 3600.0) -> dict:
+    """Run the CLI on ``argv``.  With ``--host-devices`` and no process
+    group, the spawned ranks' group bounds every collective by
+    ``timeout_s`` and the ranks must finish within ``join_s`` seconds
+    (``spawn_local``)."""
     args = parse_args(argv)
     if args.list_scenarios:
         for name in sorted(SCENARIOS):
@@ -186,7 +221,18 @@ def main(argv=None) -> dict:
                    if get_scenario(name, 7).dynamic else "")
             print(f"{name}{tag}")
         return {"mode": "list", "scenarios": sorted(SCENARIOS)}
+    if args.host_devices and not _in_group():
+        from repro_torch.launch.multihost import spawn_local
+        # every rank runs main() again, in the group
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return spawn_local(main, args.host_devices, argv, backend="gloo",
+                           timeout_s=timeout_s, join_s=join_s)[0]
     device = dispatch.resolve_device(args.device)
+    if args.param_shards > 1:
+        from repro_torch.launch.multihost import initialize_distributed
+        initialize_distributed(None if device.type == "cuda" else "gloo")
+        if device.type == "cuda" and _in_group():
+            device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -352,6 +398,15 @@ def _train_async(args, cfg, device) -> dict:
     K = args.steps * n
     if sc.dynamic:
         return _train_async_dynamic(args, cfg, prob, topo, sc, K, device)
+    rank, mesh, say = 0, None, print
+    if args.param_shards > 1:
+        from repro_torch.launch.mesh import make_sweep_mesh
+        mesh = make_sweep_mesh(lanes=1, param_shards=args.param_shards)
+        rank = mesh.rank
+        if rank:
+            say = lambda *a, **k: None        # rank 0 alone prints
+        if mesh.coords is None:               # ranks beyond the mesh idle
+            return {"mode": "async", "idle": True, "rank": rank}
     trace = sc.realize(topo, K, seed=args.seed)
     sched = trace.schedule
     # delivered fraction over *attempted* sends (the active agent's
@@ -363,10 +418,15 @@ def _train_async(args, cfg, device) -> dict:
     attempts = outdeg[:, sched.agent].sum()
     delivered = float((trace.send_ok_w.sum() + trace.send_ok_a.sum())
                       / max(1.0, attempts))
-    print(f"arch={cfg.name} p={prob.p} ({prob.spec.p_model} model) "
-          f"nodes={n} topo={topo.name} scenario={args.scenario} "
-          f"K={K} D={sched.D} T={sched.T} send_ok={delivered:.2f} "
-          f"impl={args.impl} device={device}", flush=True)
+    say(f"arch={cfg.name} p={prob.p} ({prob.spec.p_model} model) "
+        f"nodes={n} topo={topo.name} scenario={args.scenario} "
+        f"K={K} D={sched.D} T={sched.T} send_ok={delivered:.2f} "
+        f"impl={args.impl} device={device}", flush=True)
+    if mesh is not None:
+        import torch.distributed as dist
+        say(f"mesh: 1x{args.param_shards} (lane x param shards) of "
+            f"{dist.get_world_size() if _in_group() else 1} ranks",
+            flush=True)
 
     x0 = prob.x0_flat
     # chunk (= eval/ckpt) boundaries: log_every activations per node
@@ -380,15 +440,21 @@ def _train_async(args, cfg, device) -> dict:
         del template
         print(f"resumed from event {state0.k}/{K}", flush=True)
     start = 0 if state0 is None else state0.k
+    logger = MetricsLogger(args.metrics) if args.metrics and not rank \
+        else None
+    timer = StepTimer()
     t0 = time.perf_counter()
     losses: list[float] = [prob.mean_loss(x0)]
-    print(f"event {0:6d} loss {losses[0]:.4f} (init)", flush=True)
+    say(f"event {0:6d} loss {losses[0]:.4f} (init)", flush=True)
 
     def eval_and_log(state, t):
-        loss = prob.mean_loss(state.x.mean(0))
+        loss = prob.mean_loss(_consensus_average(state, mesh, prob.p))
         losses.append(loss)
-        print(f"event {state.k:6d} loss {loss:.4f} vtime {t:8.1f} "
-              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        timer.tick()
+        if logger:
+            logger.log(state.k, loss=loss, sps=timer.steps_per_sec)
+        say(f"event {state.k:6d} loss {loss:.4f} vtime {t:8.1f} "
+            f"({time.perf_counter() - t0:.1f}s)", flush=True)
         return {"loss": loss, "t": t}
 
     published: list[int] = []
@@ -404,31 +470,65 @@ def _train_async(args, cfg, device) -> dict:
                             unravel(prob.spec, state.x.mean(0)))
             published.append(k)
 
-    state, metrics = run_rfast(
-        topo, sched, prob, x0, args.gamma, seed=args.seed,
-        eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
-        state0=state0,
-        chunk_cb=chunk_cb if args.ckpt or args.publish_dir else None,
-        device=device, verify_plans=args.verify_plans)
+    if mesh is None:
+        state, metrics = run_rfast(
+            topo, sched, prob, x0, args.gamma, seed=args.seed,
+            eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
+            state0=state0,
+            chunk_cb=chunk_cb if args.ckpt or args.publish_dir else None,
+            device=device, verify_plans=args.verify_plans)
+    else:
+        # one lane, its flat state split over the mesh's param shards;
+        # --ckpt / --publish-dir were refused in parse_args
+        states, metrics = run_sweep(
+            topo, [sched], prob, x0, args.gamma, seeds=[args.seed],
+            eval_every=eval_every, eval_fn=eval_and_log, impl=args.impl,
+            device=device, verify_plans=args.verify_plans, mesh=mesh)
+        state, metrics = states[0], metrics[0]
     del x0, state0
-    # Lemma 3: Σz + Σ(ρ − ρ̃) == Σ g_prev, relative to |Σ g_prev|
-    g_sum = state.g_prev.sum(0)
-    mass_rel = float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)
-                     / torch.linalg.vector_norm(g_sum))
+    if logger:
+        logger.close()
+    mass_rel = _lemma3_rel(state, mesh)
     packed_bytes = 4 * (4 * state.x.numel() + 2 * state.rho.numel()
                         + state.v_hist.numel() + state.rho_hist.numel())
     if len(losses) > 1:
-        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} "
-              f"events ({float(sched.times[-1]):.1f} vtime), lemma3 rel "
-              f"{mass_rel:.3e}", flush=True)
+        say(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} "
+            f"events ({float(sched.times[-1]):.1f} vtime), lemma3 rel "
+            f"{mass_rel:.3e}", flush=True)
     else:
-        print("done (schedule already complete)", flush=True)
-    return {"mode": "async", "scenario": args.scenario, "losses": losses,
-            "events": K, "vtime": float(sched.times[-1]),
-            "send_ok": delivered, "p": prob.p, "start": start,
-            "published": published,
-            "waves": sum(m["waves"] for m in metrics),
-            "mass_rel": mass_rel, "packed_bytes": packed_bytes}
+        say("done (schedule already complete)", flush=True)
+    out = {"mode": "async", "scenario": args.scenario, "losses": losses,
+           "events": K, "vtime": float(sched.times[-1]),
+           "send_ok": delivered, "p": prob.p, "start": start,
+           "published": published,
+           "waves": sum(m["waves"] for m in metrics),
+           "mass_rel": mass_rel, "packed_bytes": packed_bytes}
+    if mesh is not None:
+        out.update(param_shards=args.param_shards, rank=rank)
+    return out
+
+
+def _consensus_average(state, mesh, p: int) -> torch.Tensor:
+    """x̄ of a lane state, at full width: a param shard gathers its
+    slice's average over the mesh's param group (one row)."""
+    x_bar = state.x.mean(0)
+    if mesh is None:
+        return x_bar
+    return all_gather_flat(x_bar, mesh.group("model"))[:p]
+
+
+def _lemma3_rel(state, mesh=None) -> float:
+    """Lemma 3's residual ``|Σz + Σ(ρ − ρ̃) − Σ g_prev| / |Σ g_prev|``;
+    a param shard sums the squared norms of every shard's slice."""
+    g_sum = state.g_prev.sum(0)
+    if mesh is None:
+        return float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)
+                     / torch.linalg.vector_norm(g_sum))
+    sq = torch.stack([torch.sum((tracked_mass(state) - g_sum) ** 2),
+                      torch.sum(g_sum ** 2)]).to(torch.float32)
+    num, den = all_gather_flat(sq[:, None], mesh.group("model")).sum(
+        1).tolist()
+    return float(np.sqrt(num / den))
 
 
 # --------------------------------------------------------------------- #
@@ -482,9 +582,7 @@ def _train_async_dynamic(args, cfg, prob, topo, sc, K, device) -> dict:
         chunk_cb=publish if args.publish_dir else None, device=device,
         verify_plans=args.verify_plans)
     del x0
-    g_sum = state.g_prev.sum(0)
-    mass_rel = float(torch.linalg.vector_norm(tracked_mass(state) - g_sum)
-                     / torch.linalg.vector_norm(g_sum))
+    mass_rel = _lemma3_rel(state)
     vtime = metrics[-1]["t"]
     print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {K} "
           f"events, {len(et.epochs)} epochs ({vtime:.1f} vtime), lemma3 "

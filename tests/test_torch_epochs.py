@@ -15,7 +15,9 @@
 * A one-epoch (static) trace through ``run_epochs`` is bitwise the
   port's ``run_rfast`` on a stochastic objective; every event of every
   epoch draws the generator of its global event index; a
-  ``run_sweep_epochs`` lane is bitwise ``run_epochs``.
+  ``run_sweep_epochs`` lane is bitwise ``run_epochs``, and a mesh whose
+  lane axis is wider than 1 is refused (tests/test_torch_mesh_sweep.py
+  holds the param-sharded mesh to JAX).
 * The re-election claim of tests/test_epochs.py at its own sizes
   (logistic, robust_tree n 8, 150 rounds): after the crash the
   epochized run keeps descending, the frozen plan stalls.
@@ -217,11 +219,17 @@ def test_sweep_epochs_lane_is_bitwise_run_epochs():
 
 
 def test_sweep_epochs_rejects_a_mesh():
+    """A lane-parallel mesh: run_sweep_epochs shards the parameter axis
+    only (the reference's error), before any rank is asked for."""
+    from repro_torch.launch.mesh import SweepMesh
     et = get_scenario("churn", 4).realize_epochs(
         get_topology("binary_tree", 4), 80, seed=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    mesh = SweepMesh(axis_names=("data", "model"),
+                     shape={"data": 2, "model": 1}, ranks=(0, 1), rank=0,
+                     groups={})
+    with pytest.raises(ValueError, match="parameter axis only"):
         run_sweep_epochs([et], lambda i, x, g: x, torch.zeros(2), 0.1,
-                         mesh=object(), device="cpu")
+                         mesh=mesh, device="cpu")
 
 
 def test_root_failover_epochized_converges_frozen_stalls():

@@ -52,7 +52,12 @@ zoo: reduced olmo-1b, phi3.5-moe-42b-a6.6b (MoE) and deepseek-v2-236b
 (MLA + MoE) decode on the card as on the CPU, ``decode_step_slots``
 (each slot's MoE routed alone) too, and the stable sort that assigns a
 token its slot in an expert, and so the tokens a full expert drops,
-agrees with the CPU's on the card.
+agrees with the CPU's on the card.  Multi-device on the one card: a
+world-1 NCCL group's 1 x 1 mesh sweep is bitwise the unsharded run; two
+ranks sharing the card over a gloo group run a (1, 2) mesh at an odd
+shard width (``commit_grid`` at Pf = p_loc) within 2e-5 of the unsharded
+run, and a two-node ppermute round (point-to-point staged through pinned
+host buffers) within 1e-4 of the dense round.
 """
 import numpy as np
 import pytest
@@ -1054,3 +1059,99 @@ def test_verify_plans_kernel_route_is_the_same_run_on_the_card(cuda):
     assert launches[0] == launches[1] > 0
     for a, b in zip(*finals):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# multi-device: ranks of this one card (spawned, so workers are module
+# functions)
+# --------------------------------------------------------------------- #
+def _mesh_case(mesh, p=3001):
+    """A two-lane fleet (binary tree, line) at ``p``: the mesh run (each
+    lane's fields as the rank holds them) and the unsharded run of the
+    same lanes on the card, with their launches."""
+    from repro_torch.core.plan import build_comm_plan
+    from repro_torch.core.simulator import run_sweep
+    n = 5
+    rng = np.random.default_rng(0)
+    C = torch.from_numpy(rng.normal(0, 1, (n, p)).astype(np.float32)).cuda()
+    gfn = lambda i, x, gen: x - C[i]
+    topos = [get_topology("binary_tree", n), get_topology("line", n)]
+    scheds = [get_scenario(sc, n).realize(t, 40, seed=1).schedule
+              for sc, t in (("uniform", topos[0]), ("straggler", topos[1]))]
+    runs = []
+    for m in (mesh, None):
+        dispatch.clear()
+        sts, _ = run_sweep([build_comm_plan(t) for t in topos], scheds, gfn,
+                           torch.zeros(p, device="cuda"), 0.05, seeds=[0, 1],
+                           eval_every=20, mesh=m)
+        runs.append(([None if st is None else [t.clone() for t in st[1:]]
+                      for st in sts], dispatch.launches("commit_grid")))
+    return runs
+
+
+def _world1_nccl_rank():
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    (got, l_got), (want, l_want) = _mesh_case(make_sweep_mesh())
+    return {"backend": dist.get_backend(), "launches": (l_got, l_want),
+            "bitwise": all(torch.equal(a, b) for g, w in zip(got, want)
+                           for a, b in zip(g, w))}
+
+
+def _gloo_pair_rank():
+    import torch.distributed as dist
+    from repro_torch.core import binary_tree
+    from repro_torch.core.runtime import (edge_arrays, init_node_state,
+                                          make_rfast_round)
+    from repro_torch.core.runtime_sharded import (
+        collective_stats, init_sharded_state, make_sharded_round,
+        node_index, shard_state)
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    (got, l_got), (want, l_want) = _mesh_case(
+        make_sweep_mesh(lanes=1, param_shards=2))
+    p_loc = 1501                                   # p 3001 -> p_pad 3002
+    cols = slice(rank * p_loc, min(3001, (rank + 1) * p_loc))
+    err = max(float((a[..., :cols.stop - cols.start] - b[..., cols]).abs()
+                    .max()) for g, w in zip(got, want)
+              for a, b in zip(g, w))
+    widths = {int(t.shape[-1]) for g in got for t in g}
+    # a two-node ppermute round against the dense round
+    mesh = make_sweep_mesh(lanes=2)
+    topo = binary_tree(2)
+    C = torch.linspace(-1, 1, 2 * 16, device="cuda").reshape(2, 16)
+    gf = lambda x, c, key: (0.5 * ((x - c) ** 2).sum(), x - c)
+    st = shard_state(init_sharded_state(topo, torch.zeros(16, device="cuda"),
+                                        gf, C), mesh, ("data",))
+    rf = make_sharded_round(topo, gf, mesh, gamma=0.1, node_axes=("data",))
+    spec = edge_arrays(topo)
+    dense = init_node_state(spec, torch.zeros(16, device="cuda"), gf, C)
+    drf = make_rfast_round(spec, gf, gamma=0.1)
+    blk = shard_state(C, mesh, ("data",))
+    for _ in range(50):
+        st, _ = rf(st, blk)
+        dense, _ = drf(dense, C, None, None)
+    i = node_index(mesh, ("data",))
+    return {"backend": dist.get_backend(), "launches": (l_got, l_want),
+            "err": err, "widths": sorted(widths),
+            "round_err": float((st.x[0] - dense.x[i]).abs().max()),
+            "staged": collective_stats()["staged_bytes"]}
+
+
+def test_world1_nccl_mesh_is_the_unsharded_run(cuda):
+    from repro_torch.launch.multihost import spawn_local
+    out = spawn_local(_world1_nccl_rank, 1, backend=None, timeout_s=120,
+                      join_s=300)[0]
+    assert out["backend"] == "nccl"
+    assert out["launches"][0] == out["launches"][1] > 0
+    assert out["bitwise"]
+
+
+def test_gloo_ranks_share_the_card(cuda):
+    from repro_torch.launch.multihost import spawn_local
+    for out in spawn_local(_gloo_pair_rank, 2, backend="gloo", timeout_s=120,
+                           join_s=300):
+        assert out["backend"] == "gloo"
+        assert out["launches"][0] == out["launches"][1] > 0
+        assert out["widths"] == [1501] and out["err"] <= 2e-5
+        assert out["round_err"] <= 1e-4 and out["staged"] > 0

@@ -10,7 +10,10 @@ reference's (tests/test_analysis.py), carried to aten ops —
 * RF203: a materialized (B, k, p) stack above a lowered threshold;
 * RF204: an engine that returns a copy of its state;
 * RF205: ``buckets=None`` on the serving cache, a churning cache key,
-  and a kernel launched once too often.
+  and a kernel launched once too often;
+* RF206: a mesh body that gathers its lane group's whole node state
+  (the 1 x 2 mesh's audit runs in tests/test_torch_mesh_sweep.py's
+  spawn).
 
 On the CPU the kernel route is skipped (a wrapper follows its tensors)
 and listed; ``tests/test_torch_gpu.py`` audits it on the card.
@@ -59,10 +62,11 @@ def test_audit_engines_clean_on_the_cpu():
     assert audited == ["rfast_scan", "rfast_scan[inplace]",
                        "wave_loop[plain]", "fleet_wave_loop[plain]",
                        "run_epochs[wave body]", "wave_loop[inplace]",
-                       "fleet_wave_loop[inplace]", "commit_grid[cpu]"]
+                       "fleet_wave_loop[inplace]", "commit_grid[cpu]",
+                       "mesh_wave_loop[1x1,plain]"]
     assert [s["subject"] for s in skipped] == [
         "wave_loop[kernel]", "fleet_wave_loop[kernel]",
-        "commit_grid[dispatch]"]
+        "commit_grid[dispatch]", "mesh_wave_loop[1x1,kernel]"]
 
 
 def test_clean_wave_loop_records_the_engine_gathers():
@@ -153,6 +157,34 @@ def test_rf205_cache_churn_and_kernel_launches():
     assert codes(diags) == ["RF205"] and len(diags) == 2
 
 
+def test_rf206_state_sized_collective_in_the_mesh_body():
+    """The reference's RF206 mutation on the port's 1 x 1 mesh: a body
+    that gathers the group's whole packed node state is reported; the
+    designed flow (one node slot, the iterates) stays below the line."""
+    from repro_torch.core.runtime_sharded import all_gather_flat
+    from repro_torch.launch.mesh import make_sweep_mesh
+    mesh = make_sweep_mesh()
+    topo, topo_b = get_topology("binary_tree", N), get_topology("line", N)
+    scheds = [get_scenario(sc, N).realize(t, K, seed=0).schedule
+              for sc, t in (("uniform", topo), ("straggler", topo_b))]
+    loop = tl.wave_loop("m", [build_comm_plan(t) for t in (topo, topo_b)],
+                        scheds, lambda i, x, gen: x - C[i], P, mesh=mesh,
+                        impl="plain", device="cpu")
+    assert loop.state_bytes == 2 * N * 4 * P * 4 and loop.waves > 0
+    audit = lambda run: tl.audit_collectives(
+        run, loop.state, subject="m", state_bytes_threshold=loop.state_bytes)
+    assert audit(loop.run) == []
+    group = mesh.group("model")
+    # MUTATION: the "accidentally replicated" body
+    diags = audit(lambda st: (all_gather_flat(st.nodes, group),
+                              loop.run(st))[1])
+    assert codes(diags) == ["RF206"]
+    assert diags[0].data["name"] == "all_gather_flat"
+    assert diags[0].data["bytes"] == loop.state_bytes
+    assert audit(lambda st: (all_gather_flat(st.nodes[:, 0], group),
+                             loop.run(st))[1]) == []
+
+
 def test_cli_programs_on_the_cpu(tmp_path):
     from repro_torch.analysis.__main__ import main
     out = tmp_path / "report.json"
@@ -161,7 +193,7 @@ def test_cli_programs_on_the_cpu(tmp_path):
     assert rep["config"]["passes"] == ["torchlint"]
     assert rep["summary"]["diagnostics"] == 0
     assert "serve_engine[cache]" in rep["summary"]["audited_programs"]
-    assert len(rep["summary"]["skipped_programs"]) == 3
+    assert len(rep["summary"]["skipped_programs"]) == 4
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no GPU")

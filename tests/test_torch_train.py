@@ -44,7 +44,7 @@ def test_train_plain_backend_matches_kernel_backend_on_cpu():
     (["--scenario", "root_failover", "--param-shards", "2"],
      "--param-shards is not supported for dynamic"),
     (["--loss-prob", "0.1"], "--loss-prob models loss"),
-    (["--param-shards", "2"], "not ported yet")])
+    (["--param-shards", "2", "--ckpt", "ck"], "no mid-schedule resume")])
 def test_train_rejects_what_is_not_ported(extra, msg, capsys):
     with pytest.raises(SystemExit):
         train.main(ARGS + ["--device", "cpu"] + extra)
@@ -56,3 +56,40 @@ def test_train_needs_a_gpu_unless_cpu_is_asked_for():
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(ARGS)
+
+
+SHARD_ARGS = ["--reduced", "--nodes", "4", "--steps", "3", "--seq", "16",
+              "--batch-per-node", "2", "--scenario", "uniform",
+              "--log-every", "1", "--device", "cpu"]
+
+
+def test_param_shards_on_host_ranks_give_the_unsharded_losses():
+    """--param-shards 2 --host-devices 2: two gloo ranks on the CPU, each
+    holding half of the flat state, train the unsharded run's losses."""
+    want = train.main(SHARD_ARGS)
+    got = train.main(SHARD_ARGS + ["--param-shards", "2",
+                                   "--host-devices", "2"],
+                     timeout_s=60.0, join_s=240.0)
+    assert got["param_shards"] == 2 and got["rank"] == 0
+    assert got["events"] == want["events"] and got["waves"] == want["waves"]
+    assert got["losses"] == pytest.approx(want["losses"], rel=0, abs=2e-5)
+    assert got["mass_rel"] < 1e-4
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (["--scenario", "uniform", "--publish-dir", "pub"],
+     "--publish-dir rides the wavefront chunk callback"),
+    (["--scenario", "uniform", "--ckpt", "ck"],
+     "--param-shards trains through run_sweep(mesh=...), which has no "
+     "mid-schedule resume"),
+    (["--scenario", "churn"],
+     "--param-shards is not supported for dynamic (membership) scenarios"),
+    (["--scenario", ""],
+     "--param-shards shards the wavefront engine's flat parameter axis"),
+    (["--scenario", "uniform", "--host-devices", "1"],
+     "--param-shards 2 needs 2 devices")])
+def test_param_shards_refusals_keep_their_messages(extra, msg, capsys):
+    with pytest.raises(SystemExit):
+        train.parse_args(ARGS + ["--device", "cpu", "--param-shards", "2"]
+                         + extra)
+    assert msg in " ".join(capsys.readouterr().err.split())

@@ -1,0 +1,133 @@
+"""Which torch.distributed ops carry CUDA tensors on this machine.
+
+    python3 tools/dist_probe.py
+
+Starts, one op at a time, two gloo ranks that share cuda:0 (and one
+world-1 NCCL rank) and runs on CUDA tensors: ``all_gather_into_tensor``,
+``all_gather`` into a list, ``batch_isend_irecv`` and ``send`` /
+``recv``; then times a gather of 62,334,336 floats a rank (half of
+rfast-100m's flat vector) directly and through pinned host buffers, 3
+times each.  Prints one JSON line a probe (an op that fails records its
+error: finding that out is the point) after the torch version, whether
+``all_gather_single`` exists, and the card's name and power limit.
+What it finds is what ``core/runtime_sharded.STAGED`` encodes.
+"""
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+OPS = ("all_gather_into_tensor", "all_gather_list", "batch_isend_irecv",
+       "send_recv")
+BIG = 62_334_336
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def probe(rank, world, port, backend, op, q):
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=30),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    out = {"rank": rank}
+    try:
+        t = torch.full((4, 1000), float(rank + 1), device=dev)
+        want = [float(i + 1) for i in range(world)]
+        if op == "all_gather_into_tensor":
+            o = torch.empty((world * 4, 1000), device=dev)
+            dist.all_gather_into_tensor(o, t)
+            out["ok"] = o[::4, 0].tolist() == want
+        elif op == "all_gather_list":
+            os_ = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(os_, t)
+            out["ok"] = [float(x[0, 0]) for x in os_] == want
+        elif op == "batch_isend_irecv":
+            r = torch.zeros_like(t)
+            for w in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, t, (rank + 1) % world),
+                     dist.P2POp(dist.irecv, r, (rank - 1) % world)]):
+                w.wait()
+            out["ok"] = float(r[0, 0]) == want[(rank - 1) % world]
+        elif op == "send_recv":
+            r = torch.zeros_like(t)
+            if rank == 0:
+                dist.send(t, 1)
+                dist.recv(r, 1)
+            else:
+                dist.recv(r, 0)
+                dist.send(t, 0)
+            out["ok"] = float(r[0, 0]) == want[1 - rank]
+        elif op == "gather_timing":
+            x = torch.full((BIG,), float(rank), device=dev)
+            o = torch.empty((world * BIG,), device=dev)
+            hx = torch.empty((BIG,), pin_memory=True)
+            ho = torch.empty((world * BIG,), pin_memory=True)
+            for tag, run in (("direct_s", lambda: dist.all_gather_into_tensor(
+                    o, x)), ("staged_s", lambda: (
+                        hx.copy_(x), dist.all_gather_into_tensor(ho, hx),
+                        o.copy_(ho)))):
+                out[tag] = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    out[tag].append(time.perf_counter() - t0)
+            out["ok"] = True
+        torch.cuda.synchronize()
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 - an op that fails is the finding
+        out["ok"] = False
+        out["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+    q.put(out)
+    dist.destroy_process_group()
+
+
+def run(world, backend, op):
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    ps = [ctx.Process(target=probe, args=(r, world, port, backend, op, q))
+          for r in range(world)]
+    for p in ps:
+        p.start()
+    got = []
+    for _ in ps:
+        try:
+            got.append(q.get(timeout=120))
+        except Exception:  # noqa: BLE001 - a rank that hangs or dies
+            break
+    for p in ps:
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+    print(json.dumps({"world": world, "backend": backend, "op": op,
+                      "results": sorted(got, key=lambda r: r["rank"])}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"python": sys.version.split()[0],
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "all_gather_single": hasattr(dist, "all_gather_single"),
+                      "nvidia_smi": smi}), flush=True)
+    run(1, "nccl", "all_gather_into_tensor")
+    for op in OPS + ("gather_timing",):
+        run(2, "gloo", op)
