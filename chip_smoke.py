@@ -272,7 +272,8 @@ run.  Phases:
 30. multi-device (the function ``phase_mesh``; NCCL refuses two ranks
    on one card, so ranks share it over a gloo group asked for
    explicitly) — (a) a world-1 NCCL group: phase 4's cell at full width
-   and depth through ``run_sweep(mesh=make_sweep_mesh())`` (1 x 1), 7
+   cut to ``MESH_LAYERS`` (1) of its 12 layers through
+   ``run_sweep(mesh=make_sweep_mesh())`` (1 x 1), 7
    ``commit_grid`` launches, every state field against the unsharded
    ``run_sweep`` of the same lane on the card (2e-5; bitwise or not);
    (b) two gloo ranks on cuda:0: the same cell on a (1, 2) mesh (half
@@ -287,8 +288,27 @@ run.  Phases:
    through pinned host buffers); (d) ``audit_engines`` with the mesh
    body (in (b)'s group also its 1 x 2 mesh): 0 diagnostics, and a body
    altered to gather the lane group's node state is RF206.
+31. launch tooling (the function ``phase_launch``) — the meta-device
+   dry-run's predictions held to the card: (a) ``launch.specs.
+   build_train`` of phase 11's cell (full-width rfast-100m, a (4, 1)
+   described mesh, seq 128, global batch 16, ``comm="dense"``, fp32,
+   ``impl="kernel"``) run once on meta under ``launch.dryrun.measure``,
+   then the same case materialized on cuda:0 from seed 0 and run twice
+   (``launch.dryrun.run_live``): the argument bytes equal the meta
+   prediction exactly, each round launches ``commit_grid`` as often as
+   the meta record says, ``FlopCounterMode`` over the real round equals
+   the meta aten FLOPs, and the allocator's peak above the arguments
+   lies within ``LAUNCH_TEMP_BAND`` (15 %) of the meta temp, plus
+   ``LAUNCH_TEMP_SLACK`` (1 MiB) for the allocator's rounding; the round's median
+   wall beside the roofline terms; (b) ``build_decode`` of llama3-8b at
+   full depth (a 1 x 1 mesh, seq 64, global batch 4, fp32) the same way,
+   its meta bytes beside phase 22's ``decode_bound`` and the measured
+   step; (c) ``launch.mesh.HW`` beside the card's SM count, maximum SM
+   clock and ``total_memory``, with the ``nvidia-smi`` name and power
+   limit; (d) ``launch.dryrun.run_case("llama3-8b", "train_4k")`` on meta
+   (the production (32, 8) mesh, one rank) with its roofline row.
 
-Each of phases 17–30 prints its wall seconds, peak memory or
+Each of phases 17–31 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -308,13 +328,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+if (SRC / "repro_torch").is_dir():
+    # the H100 SXM data-sheet rates have one home, the port's
+    # launch/mesh.py (main() refuses to run without the package)
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import (BF16_FLOP_PER_S, FP32_FLOP_PER_S,
+                                         H100_SMS, HBM_BYTES_PER_S,
+                                         MUFU_PER_CLOCK_SM, TF32_FLOP_PER_S)
 TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3   # fp32 products in 3xTF32
 FP32_TOL = 1e-5              # tests/test_kernels.py's commit_grid tolerance
 BF16_TOL = 3e-2              # tests/test_kernels.py's bf16 tolerance
-BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, fp32 accumulate
 FLASH_FWD_TOL = 2e-5         # tests/test_kernels.py's flash tolerances:
 FLASH_GRAD_TOL = 2e-4        # fp32 forward, fp32 gradients,
 FLASH_BF16_TOL = 2e-2        # and bf16
@@ -357,13 +380,11 @@ ROUTE_TOL = 1e-5             # the round routes agree to this, relative
 SCAN_FP32_TOL = 1e-4         # tests/test_kernels.py's scan tolerances:
 SCAN_BF16_TOL = 3e-2         # fp32 and bf16
 SCAN_GRAD_TOL = 1e-4         # SelectiveScanFn vs plain autograd, relative
-MUFU_PER_CLOCK_SM = 16       # sm_90 exponentials per clock per SM
 # the checkpoint spacing the scan gradient's own bound counts: the kernel
 # reads checkpoints every CKPT_EVERY = 8 steps only to fit its shared
 # memory, so the 8x more checkpoint bytes are a cost of its design, not
 # part of the least work (its bound at T = 8 is reported beside)
 SCAN_BOUND_CKPT_EVERY = 64
-H100_SMS = 132
 # (B, S, di, N): tests/test_kernels.py:228-232, then ragged di, S and N
 SCAN_SMALL = [(1, 64, 16, 8), (2, 128, 64, 16), (1, 256, 32, 16)] + [
     (2, S, di, N) for di in (200, 3200) for S in (1, 100, 129)
@@ -484,6 +505,15 @@ MESH_GAMMA = 3e-3            # train.py's default --gamma, as phase 4 runs
 MESH_TIMEOUT_S = 900.0       # a rank's collectives (its turn at a barrier)
 MESH_JOIN_S = 900.0          # a spawn's ranks, all of them
 ROUND_TOL = 1e-4             # tests/helpers/sharded_equiv.py's tolerance
+# 30(a) and 30(b)'s (1, 2) mesh run phase 4's cell at full width cut to
+# this depth (of 12): its checks do not depend on the depth, and the
+# state's host copies, which took most of the two spawns, scale with it
+MESH_LAYERS = 1
+# phase 31: the launch tooling's predictions held to the card
+LAUNCH_TEMP_BAND = 0.15      # live peak above the arguments vs meta temp,
+LAUNCH_TEMP_SLACK = 2**20    # relative, plus bytes for allocator rounding
+LAUNCH_TRAIN = dict(seq=128, global_batch=16, comm="dense", impl="kernel")
+LAUNCH_DECODE = dict(seq=64, global_batch=4)
 SHARDED_N, SHARDED_P = 4, 16             # and its sizes: a binary tree of
 SHARDED_ROUNDS, SHARDED_GAMMA = 200, 0.06    # 4, p 16, 200 rounds; robust
 ROBUST_P, ROBUST_ROUNDS, ROBUST_GAMMA, ROBUST_LOSS = 8, 300, 0.05, 0.3
@@ -590,6 +620,7 @@ def main_path_case(res_p: int, seed: int = 0):
     from repro_torch.core.schedule import (build_wavefront_plan,
                                            grid_gather_tables)
     from repro_torch.core.topology import get_topology
+    from repro_torch.kernels.rfast_update.grid import commit_grid_flops
 
     n, K = 4, 16
     topo = get_topology("binary_tree", n)
@@ -629,7 +660,7 @@ def main_path_case(res_p: int, seed: int = 0):
     small = sum(int(t.numel() * t.element_size()) for k, t in kw.items()
                 if not k.endswith("src") and k != "g_new")
     nbytes = (uniq + s + out_rows) * res_p * 4 + small
-    flops = s * res_p * (4 * ka + 2 * ko + 4)
+    flops = commit_grid_flops(s, ka, ko, res_p)
     return kw, dict(B=s, ka=ka, ko=ko, Pf=res_p,
                     rows={"nodes": 4 * n, "rho_hist": H * wf.e_a,
                           "rho2": 2 * wf.e_a},
@@ -753,7 +784,7 @@ def time_fleet_wave(kw, case) -> dict:
     plain_ms = cuda_ms(lambda: grid.commit_grid_plain(**kw), reps=5)
     B, ka, ko, Pf = case["B"], case["ka"], case["ko"], case["Pf"]
     nbytes = grid.commit_grid_bytes(B, ka, ko, Pf, 4)
-    flops = B * Pf * (4 * ka + 2 * ko + 4)
+    flops = grid.commit_grid_flops(B, ka, ko, Pf)
     bound_ms, bound_by = bound(flops, nbytes, FP32_FLOP_PER_S)
     return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -2193,12 +2224,13 @@ def unsharded_turns(rank: int, world: int, prob, topo, scheds,
 
 
 def mesh_world1_rank() -> dict:
-    """30(a), a world-1 NCCL group on cuda:0: the cell at full width and
-    depth through ``run_sweep(mesh=make_sweep_mesh())`` (1 x 1), held to
-    the unsharded ``run_sweep`` of the same lane run after it."""
+    """30(a), a world-1 NCCL group on cuda:0: the cell at full width
+    (``MESH_LAYERS`` layers) through ``run_sweep(mesh=make_sweep_mesh())``
+    (1 x 1), held to the unsharded ``run_sweep`` of the same lane run
+    after it."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_sweep_mesh
-    prob, topo, scheds = mesh_cell(None, [0])
+    prob, topo, scheds = mesh_cell(MESH_LAYERS, [0])
     mesh = make_sweep_mesh()
     run = mesh_run(prob, topo, scheds, mesh)
     row = dict(run["row"], backend=dist.get_backend(),
@@ -2211,8 +2243,9 @@ def mesh_world1_rank() -> dict:
 
 def mesh_gloo_rank() -> dict:
     """30(b) and (d) on one of two ranks sharing cuda:0 over a gloo group
-    the caller asked for: the cell at full width on a (1, 2) mesh (one
-    lane, half the flat state a rank, one gather a wave), then phase
+    the caller asked for: the cell at full width (``MESH_LAYERS``
+    layers) on a (1, 2) mesh (one lane, half the flat state a rank, one
+    gather a wave), then phase
     18(b)'s two lanes at 2 layers on a (2, 1) mesh (a lane a rank), each
     held to the unsharded run of the same lanes; then the engine audit
     in the group (its 1 x 2 mesh body, RF206) and the body altered to
@@ -2223,7 +2256,7 @@ def mesh_gloo_rank() -> dict:
     rank, world = dist.get_rank(), dist.get_world_size()
     out = {"rank": rank, "backend": dist.get_backend()}
 
-    prob, topo, scheds = mesh_cell(None, [0])
+    prob, topo, scheds = mesh_cell(MESH_LAYERS, [0])
     mesh = make_sweep_mesh(lanes=1, param_shards=2)
     p_loc = -(-prob.p // 2)
     cols = slice(rank * p_loc, min(prob.p, (rank + 1) * p_loc))
@@ -2484,6 +2517,130 @@ def phase_mesh(name: str, smi: str) -> dict:
                for r in b}}
 
 
+# --------------------------------------------------------------------- #
+# phase 31: the launch tooling
+# --------------------------------------------------------------------- #
+def launch_case(tag: str, build, cfg, mesh, kw: dict, name: str,
+                smi: str) -> tuple[dict, dict, dict]:
+    """One case of phase 31: ``build`` (a ``launch.specs`` build function) on
+    meta under ``launch.dryrun.measure``, then the same case on cuda:0
+    from seed 0 run twice (``launch.dryrun.run_live``), the meta
+    predictions checked against it.  Returns (meta record, live record,
+    live args' extra: the decode bound for a decode case)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import terms_s
+    t0 = time.perf_counter()
+    fn, args = build(cfg, mesh, device="meta", **kw)
+    rec = dict(dryrun.measure(fn, args), case=fn.info)
+    meta_s = time.perf_counter() - t0
+    del fn, args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fn, args = build(cfg, mesh, device="cuda", seed=0, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    live = dryrun.run_live(fn, args, runs=2)
+    extra = {}
+    if fn.info["kind"] == "decode":
+        extra = decode_bound(cfg, args[0], args[1], args[2].shape[0])
+    del fn, args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    meta_launches = {k: v["launches"] for k, v in rec["kernels"].items()}
+    temp = rec["memory"]["temp_size_in_bytes"]
+    peak = live["peak_above_args_bytes"][-1]
+    wall = statistics.median(live["wall_s"])
+    emit("launch_" + tag, meta=dict(
+        memory=rec["memory"], cost_scanned=rec["cost_scanned"],
+        flops_aten=rec["flops_aten"], flops_kernels=rec["flops_kernels"],
+        bytes_aten=rec["bytes_aten"], bytes_kernels=rec["bytes_kernels"],
+        kernels=rec["kernels"], roofline_terms_s=terms_s(rec),
+        fp32_compute_s=rec["cost_scanned"]["flops"] / FP32_FLOP_PER_S,
+        seconds=meta_s),
+        live=dict(live, build_s=build_s, median_wall_s=wall),
+        peak_over_temp=peak / temp if temp else None,
+        temp_band=LAUNCH_TEMP_BAND, temp_slack_bytes=LAUNCH_TEMP_SLACK,
+        case=rec["case"], device=name,
+        nvidia_smi=smi, **({"decode_bound": extra} if extra else {}))
+    check(live["argument_size_in_bytes"]
+          == rec["memory"]["argument_size_in_bytes"],
+          f"31 {tag}: the live arguments' bytes equal the meta prediction "
+          f"({live['argument_size_in_bytes']} vs "
+          f"{rec['memory']['argument_size_in_bytes']})")
+    check(all(run == meta_launches for run in live["launches"]),
+          f"31 {tag}: each run launches what the meta record counts "
+          f"({live['launches']} vs {meta_launches})")
+    check(live["flops_aten"] == rec["flops_aten"],
+          f"31 {tag}: FlopCounterMode over the live step equals the meta "
+          f"aten FLOPs ({live['flops_aten']} vs {rec['flops_aten']})")
+    check(abs(peak - temp) <= LAUNCH_TEMP_BAND * temp + LAUNCH_TEMP_SLACK,
+          f"31 {tag}: the live peak above the arguments ({peak} B) within "
+          f"{LAUNCH_TEMP_BAND:.0%} + {LAUNCH_TEMP_SLACK} B of the meta temp "
+          f"({temp} B)")
+    return rec, live, extra
+
+
+def phase_launch(name: str, smi: str) -> dict:
+    """Phase 31: the launch tooling's meta predictions against the card
+    (the module docstring's 31(a)-(d)).  Returns ``commit_grid``'s
+    launches of (a)'s live rounds."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import HW, describe_mesh
+    from repro_torch.launch.roofline import analyze_record
+    t_phase = time.perf_counter()
+
+    # (a) phase 11's cell: a dense round at full width, fp32
+    cfg = get_config("rfast-100m")
+    rec, live, _ = launch_case(
+        "train", specs.build_train, cfg,
+        describe_mesh((4, 1), ("data", "model")),
+        dict(LAUNCH_TRAIN, dtype=torch.float32), name, smi)
+    train_launches = sum(r.get("commit_grid", 0) for r in live["launches"])
+    check(rec["kernels"]["commit_grid"]["launches"] == 1,
+          "31(a): one commit_grid launch a round")
+
+    # (b) llama3-8b's decode step at full depth, fp32 (as it is served)
+    cfg = get_config("llama3-8b")
+    rec, live, bound = launch_case(
+        "decode", specs.build_decode, cfg,
+        describe_mesh((1, 1), ("data", "model")),
+        dict(LAUNCH_DECODE, dtype=torch.float32), name, smi)
+    emit("launch_decode_bytes", meta_bytes=rec["cost_scanned"]["bytes"],
+         bound_bytes=bound["bytes"],
+         meta_over_bound=rec["cost_scanned"]["bytes"] / bound["bytes"],
+         bound_ms=bound["bound_ms"],
+         median_step_ms=statistics.median(live["wall_s"]) * 1e3,
+         meta_memory_term_ms=rec["cost_scanned"]["bytes"] / HW["hbm_bw"]
+         * 1e3, device=name, nvidia_smi=smi)
+    check(rec["cost_scanned"]["bytes"] >= bound["bytes"],
+          "31(b): the meta bytes count at least the decode bound's")
+
+    # (c) the constants beside the card
+    props = torch.cuda.get_device_properties(0)
+    emit("launch_hw", hw=HW, sms=props.multi_processor_count,
+         max_sm_clock_hz=sm_clock_hz(), total_memory=props.total_memory,
+         device=name, nvidia_smi=smi)
+    check(props.multi_processor_count == H100_SMS,
+          f"31(c): {H100_SMS} SMs, as launch.mesh says")
+
+    # (d) one production case on meta: a rank of the (32, 8) mesh
+    rec = dryrun.run_case("llama3-8b", "train_4k", fit=False, verbose=False)
+    row = analyze_record(rec)
+    emit("launch_production", row=row, memory=rec.get("memory"),
+         collectives=rec.get("collectives_scanned"), case=rec.get("case"),
+         seconds=rec.get("compile_s"), device=name, nvidia_smi=smi)
+    check(rec["ok"] and not row["fits_hbm"],
+          "31(d): llama3-8b train_4k runs on meta, and its per-rank state "
+          "does not fit one card (no tensor parallelism)")
+    emit("launch_done", seconds=time.perf_counter() - t_phase)
+    return {"launch_tooling_train": train_launches}
+
+
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
     """q (B,H,Sq,D), k, v (B,KV,Sk,D) and a cotangent of q's shape in
     ``dtype``, random on the card."""
@@ -2516,40 +2673,23 @@ def held(got, want, tol, what) -> float:
     return max_err(got, want)
 
 
-def attn_pairs(Sq, Sk, causal, window) -> int:
-    """Unmasked (q, k) pairs of one (b, h) under the kernels' mask."""
-    import numpy as np
-    if not causal:
-        return Sq * Sk
-    i = np.arange(Sq)
-    hi = np.minimum(i, Sk - 1)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_names(dtype):
     """The forward and the backward kernel that ``dtype`` runs."""
-    import torch
-    if dtype == torch.float32:
-        return "flash_fwd_3xtf32", "flash_bwd_3xtf32"
-    return "flash_fwd_tc", "flash_bwd_tc"
+    from repro_torch.kernels.flash_attention.kernel import flash_names
+    return flash_names(dtype)
 
 
 def flash_work(B, H, KV, S, D, window, dtype):
-    """Operations and bytes each flash kernel's function needs: the
-    forward does 2 products per unmasked pair (4·D flops), the fused
-    backward 5 (10·D).  Bytes count each input once at the dtype its
-    kernel reads it (q, k, v and dO in ``dtype``; k/v at KV heads for the
-    forward, repeated to H for the backward; lse and δ in fp32) and each
-    output once (o in ``dtype``; lse and the gradients in fp32)."""
+    """Operations and bytes each flash kernel's function needs at the
+    causal (B, H, KV, S, D) shape: the kernel package's counts
+    (``flash_fwd_work``, ``flash_bwd_work``)."""
     import torch
+    from repro_torch.kernels.flash_attention.kernel import (flash_bwd_work,
+                                                            flash_fwd_work)
     it = torch.tensor([], dtype=dtype).element_size()
-    pairs = attn_pairs(S, S, True, window) * B * H
-    q_el, kv_el, row = B * H * S * D, B * KV * S * D, B * H * S
     fwd_name, bwd_name = flash_names(dtype)
-    return {fwd_name: (4 * D * pairs, it * (2 * q_el + 2 * kv_el) + 4 * row),
-            bwd_name: (10 * D * pairs,
-                       it * (4 * q_el) + 4 * 2 * row + 12 * q_el)}
+    return {fwd_name: flash_fwd_work(B, H, KV, S, S, D, True, window, it),
+            bwd_name: flash_bwd_work(B, H, S, S, D, True, window, it)}
 
 
 def bound(flops, nbytes, peak):
@@ -2825,10 +2965,10 @@ def node_case(P, dtype, kw, ka, ko, *, seed=0, dev="cuda"):
 
 
 def node_flops(kw, ka, ko, *, full) -> int:
-    """fp32 operations per element: recv and the ρ̃ blend 7 per in-slot,
-    z½ and z' 4, ρ_out 2 per out-slot; the full update adds v (2), the
-    self weight (1) and 2 per consensus slot."""
-    return 7 * ka + 4 + 2 * ko + (3 + 2 * kw if full else 0)
+    """fp32 operations per element of a node kernel (the kernel
+    package's ``node_flops``)."""
+    from repro_torch.kernels.rfast_update.kernel import node_flops
+    return node_flops(kw, ka, ko, full=full)
 
 
 COMMIT_KEYS = ("z", "g_new", "g_old", "rho_in", "rho_buf", "mask",
@@ -2985,9 +3125,10 @@ def scan_bound(Bsz, S, di, N, itemsize, clock_hz):
     update, h·C and its share of the n sum; per (b, t, d) dt·u and the
     D·u multiply-add) and its exponentials (one per (b, t, d, n)) at the
     MUFU rate.  Returns (ms, "bytes" | "operations", terms)."""
-    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bytes
+    from repro_torch.kernels.ssm_scan.kernel import (ssm_scan_bytes,
+                                                     ssm_scan_ops)
     nbytes = ssm_scan_bytes(Bsz, S, di, N, itemsize)
-    flops, exps = Bsz * S * di * (6 * N + 3), Bsz * S * di * N
+    flops, exps = ssm_scan_ops(Bsz, S, di, N)
     terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
              "mufu_ms": exps / (MUFU_PER_CLOCK_SM * H100_SMS * clock_hz)
@@ -3007,9 +3148,10 @@ def scan_bwd_bound(Bsz, S, di, N, itemsize, n_ckpt, clock_hz):
     the d sums of dB and dC, 2; per (b, t, d): dt·u twice, du's and ddt's
     multiply-adds and dD's, 9) at 67 TFLOP/s, and its exponentials (one
     per (b, t, d, n): the rerun's, kept for the sweep) at the MUFU rate."""
-    from repro_torch.kernels.ssm_scan.backward import ssm_scan_bwd_bytes
+    from repro_torch.kernels.ssm_scan.backward import (ssm_scan_bwd_bytes,
+                                                       ssm_scan_bwd_ops)
     nbytes = ssm_scan_bwd_bytes(Bsz, S, di, N, itemsize, n_ckpt)
-    flops, exps = Bsz * S * di * (19 * N + 9), Bsz * S * di * N
+    flops, exps = ssm_scan_bwd_ops(Bsz, S, di, N)
     terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "fp32_ms": flops / FP32_FLOP_PER_S * 1e3,
              "mufu_ms": exps / (MUFU_PER_CLOCK_SM * H100_SMS * clock_hz)
@@ -4113,6 +4255,9 @@ def main() -> int:
 
     # 30. multi-device: ranks of this card ---------------------------------
     mesh_launches = phase_mesh(name, smi)
+
+    # 31. the launch tooling's predictions against the card -------------
+    mesh_launches.update(phase_launch(name, smi))
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),

@@ -22,6 +22,14 @@ carry point-to-point ops on a device's tensors (``STAGED``),
 :func:`ppermute` always goes through pinned host buffers for that pair,
 and the staged bytes are counted apart.
 
+On meta tensors (the launch tooling's dry-run) neither collective calls
+``torch.distributed``: each returns a meta output of the shape it would
+return and records itself, with its group's size and whether the group
+stays within one host (``CARDS_PER_HOST`` ranks, row-major).  That is
+also the only thing a collective may do over a mesh that is only
+described (``launch.mesh.describe_mesh``), whose groups hold a
+:class:`DescribedGroup` in place of a process group.
+
 The round (:func:`make_sharded_round`): the edge sets of G(W)/G(A) are
 decomposed into matchings (unique sources and destinations;
 :func:`repro_torch.core.plan.matchings`), and each matching becomes one
@@ -60,7 +68,8 @@ from .plan import CommPlan, as_comm_plan, matchings  # noqa: F401 (re-export)
 from .protocol import descent_step, mailbox_merge, momentum_mix, tracking_step
 from .topology import Topology
 
-__all__ = ["AxisGroup", "ShardedState", "SweepLayout", "matchings",
+__all__ = ["AxisGroup", "DescribedGroup", "ShardedState", "SweepLayout",
+           "matchings", "CARDS_PER_HOST",
            "all_gather_flat", "ppermute", "collective_stats",
            "clear_collectives", "record_collectives", "STAGED",
            "make_sharded_round", "init_sharded_state", "node_index",
@@ -74,6 +83,17 @@ GradFn = Callable[[torch.Tensor, Any, Any], tuple[torch.Tensor, torch.Tensor]]
 # (all_gather_into_tensor) but its send / recv fail on them ("writev ...
 # Bad address", torch 2.11 on an H100; tools/dist_probe.py)
 STAGED = frozenset({("gloo", "cuda")})
+# ranks of one host in a described mesh (a DGX H100's 8 cards on NVLink;
+# launch.mesh.CARDS_PER_HOST, which takes it from here)
+CARDS_PER_HOST = 8
+
+
+class DescribedGroup(NamedTuple):
+    """The process group of a mesh that is only described: none.  It
+    names the rank the caller analyses, so that rank knows its place in
+    the group; a collective over it runs only on meta tensors."""
+
+    rank: int
 
 
 class AxisGroup(NamedTuple):
@@ -90,9 +110,17 @@ class AxisGroup(NamedTuple):
     @property
     def index(self) -> int:
         """This rank's place in the group."""
+        if isinstance(self.pg, DescribedGroup):
+            return self.ranks.index(self.pg.rank)
         import torch.distributed as dist
         rank = dist.get_rank() if self.pg is not None else self.ranks[0]
         return self.ranks.index(rank)
+
+    @property
+    def intra_host(self) -> bool:
+        """Whether the group's ranks share one host of
+        :data:`CARDS_PER_HOST` (row-major world ranks)."""
+        return len({r // CARDS_PER_HOST for r in self.ranks}) == 1
 
 
 # --------------------------------------------------------------------- #
@@ -103,7 +131,7 @@ _recorders: list[list[dict]] = []
 
 
 def _note(name: str, out: torch.Tensor, group_size: int, staged: int,
-          t0: float | None = None) -> None:
+          t0: float | None = None, intra_host: bool = True) -> None:
     nb = out.numel() * out.element_size()
     dt = 0.0 if t0 is None else time.perf_counter() - t0
     tot = _totals.setdefault(name, {"calls": 0, "bytes": 0,
@@ -117,7 +145,7 @@ def _note(name: str, out: torch.Tensor, group_size: int, staged: int,
     for calls in _recorders:
         calls.append({"name": name, "shape": tuple(out.shape), "bytes": nb,
                       "staged_bytes": staged, "group_size": group_size,
-                      "seconds": dt})
+                      "intra_host": intra_host, "seconds": dt})
 
 
 @contextlib.contextmanager
@@ -153,6 +181,17 @@ def clear_collectives() -> None:
     _totals.clear()
 
 
+def _meta_or_live(group: AxisGroup | None, t: torch.Tensor) -> bool:
+    """True for a meta ``t`` (the collective only records itself);
+    raises for a live tensor over a described mesh's group."""
+    if t.device.type == "meta":
+        return True
+    if group is not None and isinstance(group.pg, DescribedGroup):
+        raise ValueError("a described mesh (launch.mesh.describe_mesh) "
+                         "makes no collective: run its step on meta tensors")
+    return False
+
+
 def _staged(group: AxisGroup, t: torch.Tensor) -> bool:
     import torch.distributed as dist
     return (str(dist.get_backend(group.pg)).lower(), t.device.type) in STAGED
@@ -171,6 +210,10 @@ def all_gather_flat(t: torch.Tensor, group: AxisGroup | None) -> torch.Tensor:
     if M == 1:
         _note("all_gather_flat", t, 1, 0)
         return t
+    if _meta_or_live(group, t):
+        out = t.new_empty((*t.shape[:-1], M * t.shape[-1]))
+        _note("all_gather_flat", out, M, 0, intra_host=group.intra_host)
+        return out
     t0 = time.perf_counter()
     src = t.contiguous()
     buf = torch.empty((M,) + src.shape, dtype=src.dtype, device=src.device)
@@ -189,11 +232,16 @@ def ppermute(t: torch.Tensor, perm, group: AxisGroup | None) -> torch.Tensor:
     perm = [(int(s), int(d)) for s, d in perm]
     if not perm:
         out = torch.zeros_like(t)
-        _note("ppermute", out, 1 if group is None else group.size, 0)
+        if t.device.type != "meta":     # on meta: nothing moves, no record
+            _note("ppermute", out, 1 if group is None else group.size, 0)
         return out
     if group is None or group.size == 1:
         out = t.clone() if (0, 0) in perm else torch.zeros_like(t)
         _note("ppermute", out, 1, 0)
+        return out
+    if _meta_or_live(group, t):
+        out = torch.empty_like(t)
+        _note("ppermute", out, group.size, 0, intra_host=group.intra_host)
         return out
     t0 = time.perf_counter()
     me = group.index

@@ -21,7 +21,9 @@ which computes the same function densely.  Both kernels add dq's
 partial sums by atomics, so their dq is not bitwise repeatable from run
 to run.  :func:`flash_dq` and :func:`flash_dkv`, the counterparts of
 the reference's two kernels, run their plain twins on CPU tensors and
-refuse CUDA tensors, which :func:`flash_bwd` serves.
+refuse CUDA tensors, which :func:`flash_bwd` serves.  On meta tensors
+:func:`flash_bwd` runs nothing: it returns empty meta gradients and
+notes the launch's operations and bytes for the dry-run (:mod:`...meta`).
 """
 from __future__ import annotations
 
@@ -30,10 +32,11 @@ from pathlib import Path
 
 import torch
 
+from .. import meta
 from ..rfast_update import dispatch
 from .kernel import (MAX_HEAD_DIM, check_blocks, check_cuda, check_window,
-                     flash_fwd, launch_status, masked_scores, pad_head_dim,
-                     ptr, stream_of)
+                     flash_bwd_work, flash_fwd, flash_names, launch_status,
+                     masked_scores, pad_head_dim, ptr, stream_of)
 
 __all__ = ["flash_attention_vjp", "FlashAttentionFn", "flash_bwd",
            "flash_bwd_plain", "flash_dq", "flash_dq_plain", "flash_dkv",
@@ -153,9 +156,22 @@ def flash_bwd(q, k, v, do, lse, delta, *, scale, causal=True, window=None,
     tensors one fused ``flash_bwd_3xtf32`` launch, dO in fp32.  q, k, v
     and dO are zero-padded to rows of a multiple of 16 bytes and the
     gradients sliced back; dq is summed by atomics (not bitwise
-    repeatable).  On CPU tensors, :func:`flash_bwd_plain`.
+    repeatable).  On CPU tensors, :func:`flash_bwd_plain`; on meta
+    tensors, empty meta gradients and a noted launch.
     """
     kw = dict(scale=scale, causal=causal, window=window, bq=bq, bk=bk)
+    if meta.is_meta(q):
+        _check(q, k, v, do, lse, delta, bq, bk)
+        win = check_window(window)
+        dt = check_cuda("flash_bwd", q, k, v)
+        B, H, Sq, D = q.shape
+        Sk = k.shape[2]
+        flops, nbytes = flash_bwd_work(B, H, Sq, Sk, D, causal, win,
+                                       q.element_size())
+        meta.note(flash_names(dt)[1], flops=flops, nbytes=nbytes)
+        grad = lambda S: torch.empty((B, H, S, D), dtype=torch.float32,
+                                     device="meta")
+        return grad(Sq), grad(Sk), grad(Sk)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, **kw)
     if q.device.type != "cuda":

@@ -23,19 +23,25 @@ and TMA), on fp32 CUDA tensors ``csrc/flash_fwd_3xtf32.cu`` (mma.sync
 in 3xTF32: each fp32 product as three TF32 tensor-core products, close
 to fp32's accuracy), each or it raises; on CPU tensors it runs
 :func:`flash_fwd_plain`, a dense masked softmax computing the same
-function.  Nothing falls back from one to another.
+function.  Nothing falls back from one to another.  On meta tensors
+nothing runs: :func:`flash_fwd` returns empty meta outputs and notes
+the launch's operations and bytes (:func:`flash_fwd_work`) for the
+dry-run (:mod:`...meta`).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from .. import meta
 from ..rfast_update import dispatch
 
 __all__ = ["flash_fwd", "flash_fwd_plain", "masked_scores", "check_blocks",
-           "pad_head_dim", "KERNEL_SOURCE", "TC_SOURCE", "NEG",
+           "pad_head_dim", "attn_pairs", "flash_fwd_work", "flash_bwd_work",
+           "flash_names", "KERNEL_SOURCE", "TC_SOURCE", "NEG",
            "MAX_HEAD_DIM"]
 
 KERNEL_SOURCE = (Path(__file__).resolve().parent / "csrc"
@@ -147,6 +153,45 @@ def masked_scores(q, k, scale, causal, window, cdt):
     return s
 
 
+def attn_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Unmasked (q, k) pairs of one (b, h) under the kernels' mask."""
+    if not causal:
+        return Sq * Sk
+    i = np.arange(Sq)
+    hi = np.minimum(i, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_names(dtype) -> tuple[str, str]:
+    """The forward and the backward kernel that ``dtype`` runs."""
+    if dtype == torch.float32:
+        return "flash_fwd_3xtf32", "flash_bwd_3xtf32"
+    return "flash_fwd_tc", "flash_bwd_tc"
+
+
+def flash_fwd_work(B, H, KV, Sq, Sk, D, causal, window,
+                   itemsize) -> tuple[int, int]:
+    """(operations, bytes) of one forward launch: 2 products per
+    unmasked pair (4·D flops); q, k, v read at ``itemsize`` (k, v at KV
+    heads), o written at ``itemsize`` and lse in fp32."""
+    pairs = attn_pairs(Sq, Sk, causal, window) * B * H
+    q_el, kv_el = B * H * Sq * D, B * KV * Sk * D
+    return 4 * D * pairs, itemsize * (2 * q_el + 2 * kv_el) + 4 * B * H * Sq
+
+
+def flash_bwd_work(B, H, Sq, Sk, D, causal, window,
+                   itemsize) -> tuple[int, int]:
+    """(operations, bytes) of one fused backward launch: 5 products per
+    unmasked pair (10·D flops); q, dO (Sq rows) and k, v (Sk rows,
+    repeated to H heads) read at ``itemsize``, lse and δ in fp32, and
+    dq, dk, dv written in fp32."""
+    pairs = attn_pairs(Sq, Sk, causal, window) * B * H
+    q_el, k_el = B * H * Sq * D, B * H * Sk * D
+    return (10 * D * pairs, itemsize * (2 * q_el + 2 * k_el)
+            + 4 * 2 * B * H * Sq + 4 * (q_el + 2 * k_el))
+
+
 def _check_shapes(q, k, v, bq, bk):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash attention takes q (B,H,Sq,D) and k, v "
@@ -200,8 +245,20 @@ def flash_fwd(q, k, v, *, causal=True, window=None, scale=None, bq=128,
     On bfloat16 CUDA tensors one ``flash_fwd_tc`` launch, on float32
     CUDA tensors one ``flash_fwd_3xtf32`` launch (q, k, v zero-padded to
     rows of a multiple of 16 bytes, o sliced back); on CPU tensors,
-    :func:`flash_fwd_plain`.
+    :func:`flash_fwd_plain`; on meta tensors, empty meta outputs and a
+    noted launch.
     """
+    if meta.is_meta(q):
+        _check_shapes(q, k, v, bq, bk)
+        win = check_window(window)
+        dt = check_cuda("flash_fwd", q, k, v)
+        B, H, Sq, D = q.shape
+        KV, Sk = k.shape[1], k.shape[2]
+        flops, nbytes = flash_fwd_work(B, H, KV, Sq, Sk, D, causal, win,
+                                       q.element_size())
+        meta.note(flash_names(dt)[0], flops=flops, nbytes=nbytes)
+        return (torch.empty(q.shape, dtype=out_dtype or dt, device="meta"),
+                torch.empty((B, H, Sq), dtype=torch.float32, device="meta"))
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, window=window,
                                scale=scale, bq=bq, bk=bk,

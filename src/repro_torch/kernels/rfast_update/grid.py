@@ -20,7 +20,9 @@ Where it runs follows from the tensors: on CUDA tensors
 :func:`commit_grid` launches the hand-written Hopper kernel
 (``csrc/commit_grid.cu``) or raises; on CPU tensors it runs
 :func:`commit_grid_plain`, the PyTorch twin of the JAX package's
-``_emulate``.  Nothing falls back from one to the other.
+``_emulate``.  Nothing falls back from one to the other.  On meta
+tensors it runs neither: it returns empty meta outputs and notes the
+launch's operations and bytes for the dry-run (:mod:`..meta`).
 """
 from __future__ import annotations
 
@@ -30,10 +32,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import meta
 from . import dispatch
 
 __all__ = ["commit_grid", "commit_grid_plain", "commit_grid_bytes",
-           "KERNEL_SOURCE"]
+           "commit_grid_flops", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "commit_grid.cu"
 
@@ -94,6 +97,29 @@ def commit_grid_bytes(B: int, ka: int, ko: int, Pf: int,
     return B * (4 + 3 * ka + 2 * ko) * Pf * itemsize
 
 
+def commit_grid_flops(B: int, ka: int, ko: int, Pf: int) -> int:
+    """fp32 operations of one launch: per lane and element, 4 per
+    in-slot (recv's multiply-add and difference, the ρ̃ blend's), 2 per
+    out-slot (ρ_out's multiply-add) and 4 for z½ and z'."""
+    return B * Pf * (4 * ka + 2 * ko + 4)
+
+
+def _commit_grid_meta(idx_ri, idx_ro, z_src, ro_src, rb_src):
+    if z_src.dtype not in _DTYPE_CODE:
+        raise TypeError(f"commit_grid kernel takes float32 or bfloat16 "
+                        f"sources, got {z_src.dtype}")
+    B, ka = (int(d) for d in idx_ri.shape)
+    ko = int(idx_ro.shape[1])
+    Pf = z_src.shape[1]
+    meta.note("commit_grid", flops=commit_grid_flops(B, ka, ko, Pf),
+              nbytes=commit_grid_bytes(B, ka, ko, Pf,
+                                       z_src.element_size()))
+    new = lambda shape, like: torch.empty(shape, dtype=like.dtype,
+                                          device="meta")
+    return (new((B, Pf), z_src), new((B, ko, Pf), ro_src),
+            new((B, ka, Pf), rb_src))
+
+
 def commit_grid(idx_z, idx_g, idx_ri, idx_rb, idx_ro,
                 a_self, mask, a_out,
                 z_src, g_new, go_src, ri_src, rb_src, ro_src):
@@ -113,8 +139,11 @@ def commit_grid(idx_z, idx_g, idx_ri, idx_rb, idx_ro,
     in the respective source dtypes.  Every index is clamped into its
     source's row range (drop-sentinel lanes must be discarded by the
     caller).  On CUDA sources the Hopper kernel runs (fp32 or bf16, one
-    dtype for every source); on CPU sources, :func:`commit_grid_plain`.
+    dtype for every source); on CPU sources, :func:`commit_grid_plain`;
+    on meta sources nothing runs (:func:`_commit_grid_meta`).
     """
+    if z_src.device.type == "meta":
+        return _commit_grid_meta(idx_ri, idx_ro, z_src, ro_src, rb_src)
     if z_src.device.type == "cpu":
         return commit_grid_plain(idx_z, idx_g, idx_ri, idx_rb, idx_ro,
                                  a_self, mask, a_out, z_src, g_new, go_src,

@@ -28,7 +28,9 @@ Where it runs follows from the tensors: on CUDA tensors a wrapper
 launches the kernel or raises; on CPU tensors it runs its plain twin
 (:func:`rfast_update_node_plain`, :func:`rfast_commit_node_plain`), which
 repeats the kernel's fp32 arithmetic in PyTorch.  Nothing falls back from
-one to the other.
+one to the other.  On meta tensors neither runs: a wrapper returns empty
+meta outputs and notes the launch's operations and bytes for the
+dry-run (:mod:`..meta`).
 """
 from __future__ import annotations
 
@@ -37,12 +39,13 @@ from pathlib import Path
 
 import torch
 
+from .. import meta
 from . import dispatch
 
 __all__ = ["rfast_update_node", "rfast_commit_node",
            "rfast_update_node_plain", "rfast_commit_node_plain",
            "rfast_update_node_bytes", "rfast_commit_node_bytes",
-           "one_dtype", "KERNEL_SOURCE"]
+           "node_flops", "one_dtype", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "rfast_node.cu"
 
@@ -79,6 +82,17 @@ def rfast_commit_node_bytes(ka: int, ko: int, P: int, itemsize: int) -> int:
     """Bytes the commit must move: 3 + 2·Ka + Ko rows read, 1 + Ka + Ko
     written."""
     return (4 + 3 * ka + 2 * ko) * P * itemsize
+
+
+def node_flops(kw: int, ka: int, ko: int, *, full: bool) -> int:
+    """fp32 operations per element: recv and the ρ̃ blend 7 per in-slot,
+    z½ and z' 4, ρ_out 2 per out-slot; the full update adds v (2), the
+    self weight (1) and 2 per consensus slot."""
+    return 7 * ka + 4 + 2 * ko + (3 + 2 * kw if full else 0)
+
+
+def _empty_like(*ts):
+    return tuple(torch.empty_like(t) for t in ts)
 
 
 def one_dtype(name: str, sources) -> torch.dtype:
@@ -189,6 +203,10 @@ def rfast_commit_node(z, g_new, g_old, rho_in, rho_buf, mask, rho_out, a_out,
     _check_shapes(name, P, (("rho_in", rho_in, None),
                             ("rho_buf", rho_buf, ka),
                             ("rho_out", rho_out, None)))
+    if meta.is_meta(z):
+        meta.note(name, flops=P * node_flops(0, ka, ko, full=False),
+                  nbytes=rfast_commit_node_bytes(ka, ko, P, z.element_size()))
+        return _empty_like(z, rho_out, rho_buf)
     if z.device.type == "cpu":
         return rfast_commit_node_plain(z, g_new, g_old, rho_in, rho_buf,
                                        mask, rho_out, a_out, a_self=a_self)
@@ -227,6 +245,11 @@ def rfast_update_node(x, z, g_new, g_old, v_in, w_in, rho_in, rho_buf, mask,
     _check_shapes(name, P, (("v_in", v_in, None), ("rho_in", rho_in, None),
                             ("rho_buf", rho_buf, ka),
                             ("rho_out", rho_out, None)))
+    if meta.is_meta(x):
+        meta.note(name, flops=P * node_flops(kw, ka, ko, full=True),
+                  nbytes=rfast_update_node_bytes(kw, ka, ko, P,
+                                                 x.element_size()))
+        return _empty_like(x, x, z, rho_out, rho_buf)
     if x.device.type == "cpu":
         return rfast_update_node_plain(
             x, z, g_new, g_old, v_in, w_in, rho_in, rho_buf, mask, rho_out,

@@ -23,7 +23,9 @@ PyTorch.  The kernel adds dB and dC over its
 channel tiles, and dA and dD over batch rows, with fp32 atomics, whose
 order varies from run to run: those four gradients are repeatable only to
 fp32 rounding.  Every gradient is computed in fp32 and returned in the
-dtype of its input.
+dtype of its input.  On meta tensors nothing runs: :func:`ssm_scan_bwd`
+returns empty meta gradients and notes the launch's operations
+(:func:`ssm_scan_bwd_ops`) and bytes for the dry-run (:mod:`...meta`).
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ from pathlib import Path
 
 import torch
 
+from .. import meta
 from ..rfast_update import dispatch
 from .kernel import (_DTYPE_CODE, SCAN_TILE, check_inputs, lanes,
                      n_checkpoints)
 
 __all__ = ["ssm_scan_bwd", "ssm_scan_bwd_plain", "ssm_scan_bwd_bytes",
-           "bwd_smem_bytes", "KERNEL_SOURCE", "MAX_SMEM"]
+           "ssm_scan_bwd_ops", "bwd_smem_bytes", "KERNEL_SOURCE",
+           "MAX_SMEM"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan_bwd.cu"
 MAX_SMEM = 232448    # a block's shared memory on sm_90 (kMaxSmem)
@@ -80,6 +84,16 @@ def ssm_scan_bwd_bytes(Bsz: int, S: int, di: int, N: int, itemsize: int,
             + 4 * (Bsz * S * di + Bsz * n_ckpt * di * N
                    + (Bsz * di * N if with_h else 0) + di * N + di)
             + 4 * (2 * Bsz * S * di + di * N + 2 * Bsz * S * N + di))
+
+
+def ssm_scan_bwd_ops(Bsz: int, S: int, di: int, N: int) -> tuple[int, int]:
+    """(fp32 operations, exponentials) of the backward: per (b, t, d, n)
+    the rerun's dt·A and h update (4); the sweep's G = gy·C + carry,
+    gy·h, G·dt·u, G·B into du, dA·h_{t−1}, its product with G, that into
+    ddt and into dA, dA·G for the next step (13); the d sums of dB and
+    dC (2); and one exponential (the rerun's, kept for the sweep); per
+    (b, t, d): dt·u twice, du's and ddt's multiply-adds and dD's (9)."""
+    return Bsz * S * di * (19 * N + 9), Bsz * S * di * N
 
 
 def _as_dtypes(grads, like):
@@ -138,7 +152,17 @@ def ssm_scan_bwd(u, dt, A, B, C, D, gy, gh, ckpt, *, ckpt_every: int):
     be None) from the forward's checkpoints at spacing ``ckpt_every``, each
     in its input's dtype.  On CUDA tensors the Hopper kernel runs (or this
     raises on what it does not take); on CPU tensors,
-    :func:`ssm_scan_bwd_plain`."""
+    :func:`ssm_scan_bwd_plain`; on meta tensors, empty meta gradients
+    and a noted launch."""
+    if meta.is_meta(u):
+        check_inputs(u, dt, A, B, C, D, "ssm_scan_bwd")
+        Bsz, S, di = u.shape
+        N = A.shape[1]
+        meta.note("ssm_scan_bwd", flops=ssm_scan_bwd_ops(Bsz, S, di, N)[0],
+                  nbytes=ssm_scan_bwd_bytes(
+                      Bsz, S, di, N, u.element_size(),
+                      n_checkpoints(S, ckpt_every), gh is not None))
+        return tuple(torch.empty_like(t) for t in (u, dt, A, B, C, D))
     if u.device.type == "cpu":
         return ssm_scan_bwd_plain(u, dt, A, B, C, D, gy, gh, ckpt,
                                   ckpt_every=ckpt_every)

@@ -21,7 +21,10 @@ the current ones, and a split time axis where batch × channel tiles leave
 the SMs idle, :func:`scan_segments`) or raises; on CPU tensors it runs
 :func:`ssm_scan_plain`, the kernel's per-step arithmetic in PyTorch, a loop
 over S (unsplit: the split changes only the order of the kernel's work).
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  On meta tensors neither runs:
+:func:`ssm_scan` returns empty meta outputs and notes the launch's
+operations (:func:`ssm_scan_ops`) and bytes for the dry-run
+(:mod:`...meta`).
 
 The kernel takes u and dt contiguous and B and C with any batch and time
 stride (unit stride over N), so the model's column slices of its x
@@ -38,9 +41,11 @@ from pathlib import Path
 
 import torch
 
+from .. import meta
 from ..rfast_update import dispatch
 
-__all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_bytes", "scan_segments",
+__all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_bytes", "ssm_scan_ops",
+           "scan_segments",
            "segment_length", "n_checkpoints", "KERNEL_SOURCE", "SCAN_CHUNK",
            "SCAN_STAGE", "SCAN_TILE", "MAX_STATE", "CKPT_EVERY"]
 
@@ -169,6 +174,13 @@ def ssm_scan_bytes(Bsz: int, S: int, di: int, N: int, itemsize: int) -> int:
             + 4 * (Bsz * S * di + Bsz * di * N))
 
 
+def ssm_scan_ops(Bsz: int, S: int, di: int, N: int) -> tuple[int, int]:
+    """(fp32 operations, exponentials) of the scan: per (b, t, d, n) dt·A,
+    the three of the h update, h·C and its share of the n sum, and one
+    exponential; per (b, t, d) dt·u and the D·u multiply-add."""
+    return Bsz * S * di * (6 * N + 3), Bsz * S * di * N
+
+
 def check_inputs(u, dt, A, B, C, D, what: str = "ssm_scan") -> torch.dtype:
     """Raise unless the kernels take these operands on the card; returns
     the dtype of u, dt, B and C."""
@@ -215,7 +227,20 @@ def ssm_scan(u, dt, A, B, C, D, *, ckpt_every: int | None = None,
     given.  On CUDA tensors the Hopper kernel runs (or this raises on what
     it does not take), its time axis split into ``segments`` (default:
     :func:`scan_segments` of the shape and the card); on CPU tensors,
-    :func:`ssm_scan_plain`."""
+    :func:`ssm_scan_plain`; on meta tensors, empty meta outputs and a
+    noted launch (the checkpoints' bytes counted with its own)."""
+    if meta.is_meta(u):
+        check_inputs(u, dt, A, B, C, D)
+        Bsz, S, di = u.shape
+        N = A.shape[1]
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+        y, h = new(Bsz, S, di), new(Bsz, di, N)
+        ckpt = (None if ckpt_every is None else
+                new(Bsz, n_checkpoints(S, ckpt_every), di, N))
+        meta.note("ssm_scan", flops=ssm_scan_ops(Bsz, S, di, N)[0],
+                  nbytes=ssm_scan_bytes(Bsz, S, di, N, u.element_size())
+                  + (0 if ckpt is None else 4 * ckpt.numel()))
+        return (y, h) if ckpt is None else (y, h, ckpt)
     if u.device.type == "cpu":
         if segments is not None:
             raise ValueError("segments splits the kernel's time axis; the "

@@ -12,17 +12,45 @@ With no process group initialized the world is this one process, so
 :func:`make_sweep_mesh` with no arguments is the trivial 1 × 1 mesh and
 needs no collective, as the reference's is on a 1-device CI.
 
-The reference's ``make_production_mesh`` and ``HW`` (a TPU pod's mesh
-and its roofline constants) wait for the launch tooling, where they get
-the H100's.
+:func:`describe_mesh` makes a mesh that is only described: axis names
+and sizes and the rank the caller analyses, with groups that hold no
+process group and so can make no collective.  The launch tooling
+(``launch/specs.py``, ``launch/dryrun.py``) runs one rank of such a mesh
+on ``torch.device("meta")``, where the collectives only record what
+they would move.  :func:`make_production_mesh` is the reference's
+production mesh laid out on DGX H100 hosts, and :data:`HW` holds the
+H100 SXM 80GB rates the roofline divides by.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..core.runtime_sharded import AxisGroup
+from ..core.runtime_sharded import CARDS_PER_HOST, AxisGroup, DescribedGroup
 
-__all__ = ["SweepMesh", "make_sweep_mesh", "node_axes_for"]
+__all__ = ["SweepMesh", "make_sweep_mesh", "node_axes_for",
+           "describe_mesh", "make_production_mesh", "HW",
+           "HBM_BYTES_PER_S", "FP32_FLOP_PER_S", "TF32_FLOP_PER_S",
+           "BF16_FLOP_PER_S", "MUFU_PER_CLOCK_SM", "H100_SMS",
+           "NVLINK_BYTES_PER_S", "IB_BYTES_PER_S", "CARDS_PER_HOST",
+           "HBM_BYTES"]
+
+# H100 SXM5 80GB, NVIDIA H100 Tensor Core GPU data sheet (dense rates,
+# no sparsity, at the 700 W limit); data-sheet figures, not measurements
+HBM_BYTES_PER_S = 3.35e12    # HBM3
+HBM_BYTES = 80e9             # 80 GB of HBM3
+FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12     # TF32 tensor cores
+BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, fp32 accumulate
+H100_SMS = 132               # SMs of the SXM5 part
+# sm_90 special-function (MUFU: ex2, rcp, ...) results per clock per SM,
+# the CUDA C++ Programming Guide's arithmetic-instruction throughput table
+MUFU_PER_CLOCK_SM = 16
+# DGX H100 (NVIDIA DGX H100 data sheet): CARDS_PER_HOST = 8 cards a host
+# on NVLink 4, 900 GB/s a card in both directions together, so 450 GB/s
+# each way; one ConnectX-7 400 Gb/s NDR InfiniBand port a card between
+# hosts, 50 GB/s
+NVLINK_BYTES_PER_S = 450e9
+IB_BYTES_PER_S = 50e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +183,81 @@ def node_axes_for(mesh, *, n_nodes: int | None = None) -> tuple[str, ...]:
     if n_nodes == prod:
         return non_model
     raise ValueError(f"unsupported n_nodes={n_nodes} for mesh {names}")
+
+
+def _described_groups(axis_names, sizes, rank) -> dict:
+    """``rank``'s group along every non-empty subset of the axes: the
+    ranks sharing its coordinates off the subset, in row-major order
+    over the subset, each holding a :class:`DescribedGroup`."""
+    import itertools
+
+    import numpy as np
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    coords = np.unravel_index(rank, sizes)
+    out = {}
+    for k in range(1, len(axis_names) + 1):
+        for sub in itertools.combinations(range(len(axis_names)), k):
+            idx = tuple(slice(None) if i in sub else coords[i]
+                        for i in range(len(axis_names)))
+            members = tuple(int(r) for r in grid[idx].reshape(-1))
+            out[tuple(axis_names[i] for i in sub)] = AxisGroup(
+                ranks=members, pg=DescribedGroup(rank=rank))
+    return out
+
+
+def describe_mesh(shape, axis_names, *, rank: int = 0) -> SweepMesh:
+    """A mesh of ``shape`` (sizes in ``axis_names`` order) that is only
+    described: ranks ``0 .. size − 1`` row-major (rank ``r`` of a host of
+    :data:`CARDS_PER_HOST` cards is ``r // CARDS_PER_HOST``'s), the
+    analysed rank ``rank``, and a group along every subset of the axes
+    that holds a :class:`~repro_torch.core.runtime_sharded.
+    DescribedGroup` in place of a process group.  It needs no process
+    group and starts none; a collective over it runs only on meta
+    tensors (it records what it would move and moves nothing) and raises
+    on any other."""
+    sizes = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(sizes) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"a mesh needs one distinct name per axis; got "
+                         f"shape {sizes} and names {names}")
+    if min(sizes, default=0) < 1:
+        raise ValueError(f"mesh axes must have size >= 1, got {sizes}")
+    total = 1
+    for s in sizes:
+        total *= s
+    if not 0 <= rank < total:
+        raise ValueError(f"rank {rank} is outside the {total} ranks of "
+                         f"mesh {sizes}")
+    return SweepMesh(axis_names=names, shape=dict(zip(names, sizes)),
+                     ranks=tuple(range(total)), rank=int(rank),
+                     groups=_described_groups(names, sizes, rank))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> SweepMesh:
+    """The production mesh, described (:func:`describe_mesh`):
+    ``("data", "model")`` = (32, 8), 256 cards, or with ``multi_pod``
+    ``("pod", "data", "model")`` = (2, 32, 8), 512.
+
+    The reference's chip counts and axis names on another layout: its
+    (16, 16) and (2, 16, 16) fit a TPU v5e pod's 16 × 16 torus, where
+    every axis runs over the same inter-chip links.  An H100 cluster is
+    hosts of 8 cards joined by NVLink, the hosts by InfiniBand at about a
+    ninth of that rate (:data:`HW`), so ``model`` spans the 8 cards of
+    one host (32 DGX H100 hosts a pod) and ``data`` / ``pod`` cross
+    hosts."""
+    if multi_pod:
+        return describe_mesh((2, 32, CARDS_PER_HOST),
+                             ("pod", "data", "model"), rank=rank)
+    return describe_mesh((32, CARDS_PER_HOST), ("data", "model"), rank=rank)
+
+
+# the roofline's rates (per card), under the reference's key names:
+# ``ici_bw`` is the link within a host (NVLink), ``ib_bw`` the one
+# between hosts
+HW = {
+    "peak_flops_bf16": BF16_FLOP_PER_S,   # FLOP/s
+    "hbm_bw": HBM_BYTES_PER_S,            # B/s
+    "ici_bw": NVLINK_BYTES_PER_S,         # B/s, one direction
+    "ib_bw": IB_BYTES_PER_S,              # B/s, one direction
+}

@@ -27,12 +27,20 @@ slice of the flat parameter axis.
         --scenario uniform --param-shards 4
 
 :func:`spawn_local` is the CPU dev loop: it starts the ranks itself
-(``train.py --host-devices N``, the tests).  The reference's ``main()``
-(one compiled production step on a pod) waits for ``launch/specs``, the
-launch tooling.
+(``train.py --host-devices N``, the tests).
+
+:func:`main` is the reference's one production step a host: every rank
+joins the group, takes its place in the production mesh
+(``launch.mesh.make_production_mesh``, described) and runs its share of
+the case (``launch.specs.build_case``) once on the meta device, where
+the reference compiles it; rank 0 prints the fleet and the argument
+bytes a rank.
+
+    python -m repro_torch.launch.multihost --arch llama3-8b --shape train_4k
 """
 from __future__ import annotations
 
+import argparse
 import datetime
 import multiprocessing as _mp
 import os
@@ -44,7 +52,7 @@ import traceback
 import torch
 
 __all__ = ["initialize_distributed", "host_local_batch", "spawn_local",
-           "group_timeout", "DEFAULT_TIMEOUT_S"]
+           "group_timeout", "DEFAULT_TIMEOUT_S", "main"]
 
 DEFAULT_TIMEOUT_S = 300.0
 _timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
@@ -218,3 +226,48 @@ def spawn_local(fn, world: int, *args, backend: str | None = "gloo",
                 p.kill()
                 p.join(5)
     return [got[r] for r in range(world)]
+
+
+def main(argv=None) -> dict:
+    """One production step a rank, on meta (see the module docstring):
+    returns this rank's record (its mesh coordinates, argument and
+    temporary bytes, and counts).  The backend is gloo: the step moves
+    no data between ranks, the group only places them."""
+    ap = argparse.ArgumentParser(description="one production step a "
+                                 "rank of the production mesh, on meta")
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--steps", type=int, default=10,
+                    help="the reference's; the meta step runs once")
+    ap.add_argument("--multi-pod", action="store_true")
+    args = ap.parse_args(argv)
+
+    rank, world = initialize_distributed("gloo")
+    from ..configs import get_config
+    from .dryrun import measure
+    from .mesh import make_production_mesh
+    from .specs import build_case
+
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
+    mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                rank=rank % len(mesh.ranks))
+    if rank == 0:
+        print(f"fleet: {world} processes, {torch.cuda.device_count()} "
+              f"CUDA devices here; mesh {dict(mesh.shape)} of "
+              f"{len(mesh.ranks)} ranks", flush=True)
+    fn, step_args = build_case(get_config(args.arch), mesh, args.shape)
+    rec = measure(fn, step_args)
+    rec["coords"] = mesh.coords
+    if rank == 0:
+        mem = rec["memory"]
+        print(f"built {args.arch}/{args.shape} on meta: "
+              f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB/device args, "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB/device temp",
+              flush=True)
+    # A real run would now draw each rank's state and batch
+    # (host_local_batch) and loop its round; launch/train.py is that loop.
+    return rec
+
+
+if __name__ == "__main__":
+    main()

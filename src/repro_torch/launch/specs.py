@@ -1,0 +1,356 @@
+"""Input specs and step functions for every (architecture × input shape)
+combination: the dry-run's subject matter.
+
+Counterpart of ``src/repro/launch/specs.py``.  Shapes (the reference's):
+
+  train_4k     seq 4096    global_batch 256   train_step (R-FAST round)
+  prefill_32k  seq 32768   global_batch 32    prefill (forward logits)
+  decode_32k   seq 32768   global_batch 128   serve_step (1 token + cache)
+  long_500k    seq 524288  global_batch 1     serve_step, sub-quadratic only
+
+Each build function returns ``(step_fn, args)``.  Where the reference returns
+``ShapeDtypeStruct`` stand-ins of the *global* arrays with their
+shardings, the port returns tensors of the shapes *one rank* of its mesh
+holds, on ``device`` (``"meta"`` by default: shapes and dtypes, no data,
+nothing allocated; another device materializes the same case from
+``seed``).  What a rank of the port holds:
+
+* **train** — ``comm="ppermute"`` (and ``"auto"``) is
+  :func:`~repro_torch.core.runtime_sharded.make_sharded_round` over the
+  node axes: this rank's node, its flat state rows ``(1, p)`` and ``(1,
+  S_a, p)`` and its node's whole batch.  ``comm="dense"`` is
+  :func:`~repro_torch.core.runtime.make_rfast_round`, which the port
+  runs in one process for every node, so its figures are the whole
+  round's.  The gradient is the flat-vector gradient of ``loss_fn(...,
+  remat=True, ce=ce)``.  The port runs no tensor parallelism: the
+  ``model`` axis (and any mesh axis off the node axes) replicates the
+  round (``runtime_sharded``'s docstring), so ``step_fn.info`` says
+  ``"model_axis": "replicated"``.
+* **prefill / decode** — ``forward(..., last_only=True)`` and
+  ``decode_step`` on this rank's batch rows (:func:`~.shardings.
+  batch_pspec`'s divisibility rule), the whole model on the rank.
+  ``cache_seq_shard`` and ``seq_parallel`` are accepted and recorded;
+  they change nothing in the port's execution.
+
+``dtype`` defaults to the reference's bf16.  Parameter trees follow the
+reference's dtypes (:func:`~repro_torch.models.transformer.param_shapes`:
+the MoE router and the SSM's A_log and D stay fp32).  The train state is
+one flat vector of one dtype, so there every leaf is in ``dtype``, A_log
+and D included; ``step_fn.info["state_dtype"]`` records it.  The
+reference's per-node PRNG keys are not an argument: the port's gradient
+takes no key (RNG cannot be matched; ROADMAP).
+
+``rules`` is accepted as the reference's build functions take it: the port
+runs no GSPMD layout, and the dry-run reports the layout it names.
+``step_fn.info`` holds what the dry-run records beside its counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.paramvec import make_ravel_spec, ravel, value_and_grad
+from ..core.plan import build_comm_plan
+from ..core.protocol import ProtocolState
+from ..core.runtime import init_node_state, make_rfast_round
+from ..core.runtime_sharded import ShardedState, make_sharded_round
+from ..core.topology import binary_tree
+from ..models import sharding as msh
+from ..models.config import ModelConfig
+from ..models.transformer import (cast_params, decode_step, forward,
+                                  init_cache, init_params, loss_fn,
+                                  param_shapes)
+from . import shardings as sh
+
+__all__ = ["SHAPES", "LONG_WINDOW", "SEQ_PARALLEL_OPT_OUT",
+           "shape_supported", "act_rules", "build_train", "build_prefill",
+           "build_decode", "build_case", "input_specs", "tensors_of"]
+
+SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode", long=True),
+}
+LONG_WINDOW = 8192          # sliding window used by dense archs at 500k
+
+# the reference's per-arch tuning: sequence-parallel residual sharding
+# regresses MHA-32 (deepseek-7b) and deepseek-v2's MoE dispatch
+SEQ_PARALLEL_OPT_OUT = {"deepseek-7b", "deepseek-v2-236b"}
+
+
+def shape_supported(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    if shape == "long_500k" and cfg.enc_dec:
+        return False, ("enc-dec audio model: quadratic encoder context, no "
+                       "sliding-window decoder analogue (DESIGN.md §4)")
+    return True, ""
+
+
+def _long_variant(cfg: ModelConfig) -> ModelConfig:
+    """Sub-quadratic serving variant for the 500k shape."""
+    if cfg.mixer == "ssm":
+        return cfg
+    if cfg.attn_window and cfg.attn_window <= LONG_WINDOW:
+        return cfg
+    return dataclasses.replace(cfg, attn_window=LONG_WINDOW)
+
+
+# activation rules (models/sharding.py logical axes -> mesh axes)
+def act_rules(batch_axes, seq_parallel: bool = False) -> dict:
+    """seq_parallel: shard the residual stream's sequence dim over
+    'model' (sequence parallelism), as the reference's GSPMD program
+    would; the port records the rules and runs the same eager step."""
+    return dict(
+        batch=tuple(batch_axes) if batch_axes else None,
+        seq="model" if seq_parallel else None,
+        embed=None, mlp="model", heads="model",
+        kv_heads="model", head_dim=None, vocab="model", expert="model",
+        cap=None, ssm_inner="model", ssm_state=None, kv_seq=None,
+        frontend=None, node=None,
+    )
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def _params(cfg: ModelConfig, dtype, device, seed: int) -> dict:
+    """The parameter tree on ``device``: :func:`param_shapes` on meta,
+    else ``init_params`` drawn there from ``seed``, in the same dtypes."""
+    if torch.device(device).type == "meta":
+        return param_shapes(cfg, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cast_params(init_params(cfg, gen), dtype)
+
+
+def _tokens(shape, vocab: int, device, gen) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    return torch.randint(0, vocab, shape, generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def _frontend(cfg: ModelConfig, lead: tuple, dtype, device, gen):
+    if not cfg.frontend:
+        return None
+    shape = lead + (cfg.frontend_seq, cfg.frontend_dim or cfg.d_model)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _rows(mesh, batch_axes, global_batch: int, shape_tail: tuple) -> int:
+    """The batch rows one rank holds under ``batch_pspec``."""
+    spec = sh.batch_pspec(1 + len(shape_tail), mesh, batch_axes,
+                          (global_batch,) + shape_tail)
+    return sh.shard_shape(spec, (global_batch,) + shape_tail, mesh)[0]
+
+
+def _s_text(cfg: ModelConfig, seq: int) -> int:
+    return seq - (cfg.frontend_seq if (cfg.frontend and not cfg.enc_dec)
+                  else 0)
+
+
+# ------------------------------------------------------------------ #
+# train_4k: one R-FAST production round
+# ------------------------------------------------------------------ #
+def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
+                rules=None, node_axes=None, gamma=1e-2, topo=None,
+                dtype=torch.bfloat16, comm: str = "auto", ce: str = "lse",
+                seq_parallel: bool | None = None, impl: str = "kernel",
+                device="meta", seed: int = 0):
+    """One R-FAST round for this rank (see the module docstring).
+
+    ``comm``: ``"ppermute"`` / ``"auto"`` (one node a rank of the node
+    axes) or ``"dense"`` (every node in this process).  ``impl`` is the
+    dense round's commit backend (``"kernel"``: one ``commit_grid``
+    launch a round).  ``device`` other than meta materializes the case:
+    weights and tokens from ``seed``, the state by the paper's init (a
+    gradient of every node); only ``comm="dense"`` can, since a
+    ppermute case's mesh is described."""
+    if seq_parallel is None:
+        seq_parallel = cfg.name not in SEQ_PARALLEL_OPT_OUT
+    if node_axes is None:
+        node_axes = tuple(a for a in mesh.axis_names if a != "model")
+    node_axes = tuple(node_axes)
+    n_nodes = sh.mesh_axis_size(mesh, node_axes)
+    b_node = global_batch // n_nodes
+    if b_node < 1:
+        raise ValueError(f"global batch {global_batch} is smaller than the "
+                         f"{n_nodes} nodes")
+    topo = topo or binary_tree(n_nodes)
+    plan = build_comm_plan(topo)
+    if comm == "auto":
+        comm = "ppermute"
+    if comm not in ("ppermute", "dense"):
+        raise ValueError(f"comm must be 'auto', 'ppermute' or 'dense', got "
+                         f"{comm!r}")
+    live = torch.device(device).type != "meta"
+    if live and comm != "dense":
+        raise ValueError("only a dense case materializes on a device: a "
+                         "ppermute case runs one rank of a described mesh")
+    s_text = _s_text(cfg, seq)
+    inner_batch = tuple(a for a in mesh.axis_names
+                        if a != "model" and a not in node_axes)
+    arules = act_rules(inner_batch, seq_parallel=seq_parallel)
+
+    tree = _params(cfg, dtype, device, seed)
+    rspec = make_ravel_spec(tree, dtype=dtype)
+    p = rspec.p
+
+    def loss(params, batch, _key):
+        return loss_fn(cfg, params, batch[0], batch[1],
+                       batch[2] if len(batch) > 2 else None, remat=True,
+                       ce=ce)
+    grad_fn = value_and_grad(rspec, loss)
+
+    rows = n_nodes if comm == "dense" else 1
+    gen = (torch.Generator(device=device).manual_seed(seed + 1)
+           if live else None)
+    batch = [_tokens((rows, b_node, s_text), cfg.vocab, device, gen),
+             _tokens((rows, b_node, s_text), cfg.vocab, device, gen)]
+    fr = _frontend(cfg, (rows, b_node), dtype, device, gen)
+    if fr is not None:
+        batch.append(fr)
+    batch = tuple(batch)
+
+    if comm == "ppermute":
+        round_fn = make_sharded_round(topo, grad_fn, mesh, gamma=gamma,
+                                      node_axes=node_axes)
+        row = lambda *s: torch.empty(s, dtype=dtype, device="meta")
+        state = ShardedState(step=0, x=row(1, p), z=row(1, p),
+                             g_prev=row(1, p), rho_out=row(1, plan.s_a, p),
+                             rho_buf=row(1, plan.s_a, p), mail_v=None,
+                             m=None)
+    else:
+        round_fn = make_rfast_round(plan, grad_fn, gamma=gamma,
+                                    node_axes=node_axes, impl=impl)
+        if live:
+            state = init_node_state(plan, ravel(rspec, tree), grad_fn, batch)
+        else:
+            row = lambda *s: torch.empty(s, dtype=dtype, device="meta")
+            state = ProtocolState(step=0, x=row(n_nodes, p),
+                                  z=row(n_nodes, p), g_prev=row(n_nodes, p),
+                                  rho=row(plan.e_pad, p),
+                                  rho_buf=row(plan.e_pad, p), mail_v=None,
+                                  m=None)
+    del tree
+
+    def train_step(state, batches, keys=None):
+        with msh.mesh_rules(mesh, arules):
+            return round_fn(state, batches, keys, None)
+
+    train_step.info = dict(
+        kind="train", comm=comm, n_nodes=n_nodes, b_node=b_node, seq=seq,
+        s_text=s_text, p=p, p_model=rspec.p_model, impl=impl,
+        dtype=_dtype_name(dtype), state_dtype=_dtype_name(dtype),
+        node_axes=list(node_axes), inner_batch_axes=list(inner_batch),
+        model_axis="replicated", seq_parallel=seq_parallel, ce=ce,
+        matchings=len(plan.slots_w) + len(plan.slots_a))
+    return train_step, (state, batch, None)
+
+
+# ------------------------------------------------------------------ #
+# prefill_32k: full forward producing logits
+# ------------------------------------------------------------------ #
+def build_prefill(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
+                  rules=None, dtype=torch.bfloat16,
+                  seq_parallel: bool | None = None, device="meta",
+                  seed: int = 0):
+    if seq_parallel is None:
+        seq_parallel = cfg.name not in SEQ_PARALLEL_OPT_OUT
+    batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+    arules = act_rules(batch_axes, seq_parallel=seq_parallel)
+    s_text = _s_text(cfg, seq)
+    b = _rows(mesh, batch_axes, global_batch, (s_text,))
+    live = torch.device(device).type != "meta"
+    gen = (torch.Generator(device=device).manual_seed(seed + 1)
+           if live else None)
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, frontend=None):
+        with msh.mesh_rules(mesh, arules):
+            logits, _ = forward(cfg, params, tokens, frontend, remat=True,
+                                last_only=True)
+        return logits
+
+    args = [_params(cfg, dtype, device, seed),
+            _tokens((b, s_text), cfg.vocab, device, gen)]
+    fr = _frontend(cfg, (b,), dtype, device, gen)
+    if fr is not None:
+        args.append(fr)
+    prefill_step.info = dict(kind="prefill", seq=seq, s_text=s_text,
+                             rows=b, dtype=_dtype_name(dtype),
+                             model_axis="replicated",
+                             seq_parallel=seq_parallel)
+    return prefill_step, tuple(args)
+
+
+# ------------------------------------------------------------------ #
+# decode_32k / long_500k: serve_step (one token, filled cache)
+# ------------------------------------------------------------------ #
+def build_decode(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
+                 long: bool = False, rules=None, dtype=torch.bfloat16,
+                 cache_seq_shard: bool = True, device="meta",
+                 seed: int = 0):
+    if long:
+        cfg = _long_variant(cfg)
+    batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+    arules = act_rules(batch_axes)
+    b = _rows(mesh, batch_axes, global_batch, (1,))
+    live = torch.device(device).type != "meta"
+    gen = (torch.Generator(device=device).manual_seed(seed + 1)
+           if live else None)
+
+    def serve_step(params, cache, token):
+        with msh.mesh_rules(mesh, arules):
+            return decode_step(cfg, params, cache, token)
+
+    params = _params(cfg, dtype, device, seed)
+    cache = init_cache(cfg, params, b, seq, dtype,
+                       _frontend(cfg, (b,), dtype, device, gen))
+    serve_step.info = dict(kind="decode", seq=seq, rows=b, long=long,
+                           attn_window=cfg.attn_window,
+                           dtype=_dtype_name(dtype), model_axis="replicated",
+                           cache_seq_shard=cache_seq_shard)
+    return serve_step, (params, cache,
+                        _tokens((b, 1), cfg.vocab, device, gen))
+
+
+# ------------------------------------------------------------------ #
+def build_case(cfg: ModelConfig, mesh, shape_name: str, **kw):
+    info = SHAPES[shape_name]
+    if info["kind"] == "train":
+        return build_train(cfg, mesh, seq=info["seq"],
+                           global_batch=info["batch"], **kw)
+    if info["kind"] == "prefill":
+        return build_prefill(cfg, mesh, seq=info["seq"],
+                             global_batch=info["batch"], **kw)
+    return build_decode(cfg, mesh, seq=info["seq"],
+                        global_batch=info["batch"],
+                        long=info.get("long", False), **kw)
+
+
+def input_specs(arch: str, shape_name: str, mesh=None, **kw):
+    """Public API: meta tensors (shapes and dtypes of one rank, nothing
+    allocated) for every model input of (arch × shape), plus the step
+    function they feed.  Returns (step_fn, args)."""
+    from ..configs import get_config
+    from .mesh import make_production_mesh
+
+    if mesh is None:
+        mesh = make_production_mesh()
+    return build_case(get_config(arch), mesh, shape_name, **kw)
+
+
+def tensors_of(tree) -> list:
+    """Every tensor of a tree of dicts, lists and (named) tuples."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors_of(v)]
+    return []
+

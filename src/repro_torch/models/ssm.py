@@ -100,7 +100,9 @@ def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn,
     dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + p["dt_bias"])
     Bc = proj[..., dtr:dtr + N]
     Cc = proj[..., dtr + N:]
-    A = -torch.exp(p["A_log"])
+    # fp32 whatever the weights' dtype: the scan kernels take an fp32 A,
+    # and the reference keeps A_log an fp32 leaf of a bf16 tree
+    A = -torch.exp(p["A_log"].float())
     if h0 is None:
         y, h = SelectiveScanFn.apply(x, dt, A, Bc, Cc, p["D"])
     else:

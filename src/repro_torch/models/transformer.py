@@ -64,7 +64,9 @@ from .config import ModelConfig
 from .layers import (dense_init, mlp_apply, mlp_init, norm_apply, norm_init,
                      sinusoidal_positions)
 
-__all__ = ["init_params", "forward", "loss_fn", "params_from_jax",
+__all__ = ["init_params", "param_shapes", "cast_params", "forward",
+           "loss_fn",
+           "params_from_jax",
            "cache_capacity", "init_cache", "decode_step",
            "decode_step_slots", "prefill", "prefill_cache", "prefill_rows"]
 
@@ -126,6 +128,35 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict[str, Any]:
     return p
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: every draw of
+    :func:`init_params` on it makes an empty meta tensor and draws
+    nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+# leaves the JAX package's init_params makes in fp32 whatever its dtype
+FP32_LEAVES = ("router", "A_log", "D")
+
+
+def cast_params(tree: dict, dtype) -> dict:
+    """``tree``'s leaves in ``dtype``, but :data:`FP32_LEAVES` (the MoE
+    router, the SSM's A_log and D), which stay as they are, fp32, as the
+    JAX package's ``init_params(cfg, key, dtype)`` keeps them."""
+    return {k: cast_params(v, dtype) if isinstance(v, dict) else
+            v if k in FP32_LEAVES else v.to(dtype) for k, v in tree.items()}
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.float32) -> dict[str, Any]:
+    """The tree :func:`init_params` makes, as empty meta tensors: the same
+    shape code, nothing drawn or allocated, in the dtypes of
+    :func:`cast_params`."""
+    return cast_params(init_params(cfg, _MetaGenerator()), dtype)
+
+
 def params_from_jax(np_tree: dict, *, pad_to: int = 1,
                     device=None) -> tuple[dict, torch.Tensor]:
     """JAX ``init_params`` tree (nested dicts of numpy arrays) ->
@@ -149,6 +180,16 @@ def params_from_jax(np_tree: dict, *, pad_to: int = 1,
 def _index(tree: dict, i: int) -> dict:
     """Layer ``i`` of a nested dict of layer-stacked tensors (views)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a nested dict of layer-stacked tensors, as
+    views (one ``unbind`` a leaf): under autograd each leaf's gradient
+    comes back as one stack of the layers' gradients, where indexing
+    layer by layer would give every layer a full-size zero-filled
+    gradient of the stack (traffic quadratic in the depth)."""
+    per_leaf = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[i], per_leaf) for i in range(n)]
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -246,9 +287,8 @@ def _run_encoder(cfg: ModelConfig, params: dict, frontend,
     e = frontend @ params["frontend_proj"]
     positions = torch.arange(e.shape[1], device=e.device)
     e = e + sinusoidal_positions(positions, cfg.d_model).to(e.dtype)
-    for li in range(cfg.n_enc_layers):
-        e = _run(remat, _enc_layer, cfg, _index(params["enc_layers"], li),
-                 e, positions)
+    for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
+        e = _run(remat, _enc_layer, cfg, lp, e, positions)
     return norm_apply(cfg, params["enc_norm"], e)
 
 
@@ -284,9 +324,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     x, positions, n_front, enc = _embed(cfg, params, tokens, frontend,
                                         remat)
     aux = torch.zeros((), device=x.device)
-    for li in range(cfg.n_layers):
-        x, a = _run(remat, _layer, cfg, _index(params["layers"], li), x,
-                    positions, enc)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x, a = _run(remat, _layer, cfg, lp, x, positions, enc)
         aux = aux + a
     x = norm_apply(cfg, params["final_norm"], x)
     if last_only:
@@ -415,7 +454,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     pos = cache["idx"]
     slot_pos = cache["slot_pos"]
     C = slot_pos.shape[0]
-    slot_pos[pos % C] = pos
+    # an index tensor, not a 0-d one (which would be read on the host)
+    slot_pos[(pos % C).reshape(1).long()] = pos.reshape(1)
     B = token.shape[0]
     cross = (cache["cross_k"], cache["cross_v"]) if cfg.enc_dec else None
     logits = _decode(cfg, params, cache["layers"], token, pos.expand(B),

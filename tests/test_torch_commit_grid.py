@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels.rfast_update.grid import commit_grid as jax_commit_grid
+from repro_torch.kernels import meta
 from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.kernels.rfast_update.grid import (commit_grid,
                                                    commit_grid_bytes)
@@ -111,9 +112,20 @@ def test_commit_grid_clamps_sentinel_rows():
 
 def test_commit_grid_rejects_other_devices_and_counts_bytes():
     kw = {k: torch.from_numpy(v) for k, v in _case(37).items()}
+    want = commit_grid(**kw)
     kw = {k: (v.to("meta") if k in SRC else v) for k, v in kw.items()}
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        commit_grid(**kw)
+    # meta sources (the launch tooling's dry-run) run nothing: empty meta
+    # outputs of the kernel's shapes and one noted launch, no count
+    dispatch.clear()
+    with meta.recording() as calls:
+        got = commit_grid(**kw)
+    assert [(g.device.type, g.shape, g.dtype) for g in got] == [
+        ("meta", w.shape, w.dtype) for w in want]
+    assert [c["name"] for c in calls] == ["commit_grid"]
+    assert dispatch.stats()["launches"] == 0
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        commit_grid(**{k: (v.double() if k in SRC else v)
+                       for k, v in kw.items()})
     # per lane: reads 3 + 2·ka + ko rows, writes 1 + ka + ko rows
     assert commit_grid_bytes(3, 2, 1, 10, 4) == 3 * (4 + 6 + 2) * 10 * 4
 

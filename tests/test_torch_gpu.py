@@ -1155,3 +1155,31 @@ def test_gloo_ranks_share_the_card(cuda):
         assert out["launches"][0] == out["launches"][1] > 0
         assert out["widths"] == [1501] and out["err"] <= 2e-5
         assert out["round_err"] <= 1e-4 and out["staged"] > 0
+
+
+def test_launch_tooling_predicts_the_round_on_the_card(cuda):
+    """chip_smoke.py phase 31(a) at 2 layers: phase 11's cell (full-width
+    rfast-100m cut to 2 layers, 4 nodes, seq 128, global batch 16, dense,
+    fp32) on meta, then on the card from seed 0: the argument bytes
+    exactly, one ``commit_grid`` launch a round as the meta record
+    counts, the aten FLOPs exactly, and the allocator's peak above the
+    arguments within 15 % (+ 1 MiB) of the meta temp."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import describe_mesh
+    cfg = dc.replace(get_config("rfast-100m"), n_layers=2)
+    mesh = describe_mesh((4, 1), ("data", "model"))
+    kw = dict(seq=128, global_batch=16, comm="dense", impl="kernel",
+              dtype=torch.float32)
+    rec = dryrun.measure(*specs.build_train(cfg, mesh, **kw))
+    fn, args = specs.build_train(cfg, mesh, device="cuda", **kw)
+    live = dryrun.run_live(fn, args, runs=2)
+    assert live["argument_size_in_bytes"] == \
+        rec["memory"]["argument_size_in_bytes"]
+    assert live["launches"] == [{"commit_grid": 1}] * 2
+    assert rec["kernels"]["commit_grid"]["launches"] == 1
+    assert live["flops_aten"] == rec["flops_aten"]
+    temp = rec["memory"]["temp_size_in_bytes"]
+    assert abs(live["peak_above_args_bytes"][-1] - temp) <= 0.15 * temp + 2**20

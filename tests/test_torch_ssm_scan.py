@@ -23,6 +23,7 @@ import torch
 
 from repro.kernels.ssm_scan.ops import selective_scan as j_selective_scan
 from repro.models.ssm import selective_scan_ref as j_scan_ref
+from repro_torch.kernels import meta
 from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.kernels.ssm_scan import kernel as sk
 from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn, selective_scan
@@ -204,8 +205,17 @@ def test_scan_rejects_what_it_does_not_run():
     args = _torch(0, "float32")
     with pytest.raises(ValueError, match="impl"):
         selective_scan(*args, impl="pallas")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        sk.ssm_scan(*(a.to("meta") for a in args))
+    # on meta tensors (the launch tooling's dry-run) nothing runs: empty
+    # meta outputs of the kernel's shapes, one noted launch; what the
+    # kernel refuses is refused there too
+    want = sk.ssm_scan(*args)
+    with meta.recording() as calls:
+        got = sk.ssm_scan(*(a.to("meta") for a in args))
+    assert [(g.device.type, g.shape) for g in got] == [
+        ("meta", w.shape) for w in want]
+    assert [c["name"] for c in calls] == ["ssm_scan"]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sk.ssm_scan(*(a.to("meta", torch.float64) for a in args))
     with pytest.raises(ValueError, match="chunk"):
         sk.ssm_scan_plain(*args, chunk=0)
 

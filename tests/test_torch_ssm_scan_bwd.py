@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.models.ssm import selective_scan_ref as j_scan_ref
+from repro_torch.kernels import meta
 from repro_torch.kernels.rfast_update import dispatch
 from repro_torch.kernels.ssm_scan import backward as sb
 from repro_torch.kernels.ssm_scan import kernel as sk
@@ -206,10 +207,16 @@ def test_cpu_wrappers_run_the_twins_and_check_their_arguments():
     with pytest.raises(ValueError, match="checkpoints"):
         sb.ssm_scan_bwd_plain(*args, torch.from_numpy(gy), None, got[2],
                               ckpt_every=6)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        sb.ssm_scan_bwd(*(a.to("meta") for a in args),
-                        torch.from_numpy(gy).to("meta"), None,
-                        got[2].to("meta"), ckpt_every=5)
+    # meta tensors (the launch tooling's dry-run): nothing runs, empty
+    # meta gradients of the inputs' shapes, one noted launch, no count
+    with meta.recording() as calls:
+        mg = sb.ssm_scan_bwd(*(a.to("meta") for a in args),
+                             torch.from_numpy(gy).to("meta"), None,
+                             got[2].to("meta"), ckpt_every=5)
+    assert [(m.device.type, m.shape, m.dtype) for m in mg] == [
+        ("meta", a.shape, a.dtype) for a in args]
+    assert [c["name"] for c in calls] == ["ssm_scan_bwd"]
+    assert dispatch.stats()["launches"] == 0
 
 
 def test_split_rule_fills_the_card_and_keeps_segments_long():
