@@ -306,9 +306,27 @@ run.  Phases:
    step; (c) ``launch.mesh.HW`` beside the card's SM count, maximum SM
    clock and ``total_memory``, with the ``nvidia-smi`` name and power
    limit; (d) ``launch.dryrun.run_case("llama3-8b", "train_4k")`` on meta
-   (the production (32, 8) mesh, one rank) with its roofline row.
+   (the production (32, 8) mesh, one rank, tensor-parallel since PR 26)
+   with its roofline row: a rank's arguments and temporaries fit a card.
+32. tensor parallelism (the function ``phase_tensor_parallel``; eight
+   gloo ranks sharing cuda:0, one spawn) — (a), (b) rfast-100m at full
+   width and depth (2 nodes × 4 sequences of 128, fp32, 3 rounds) built
+   by ``launch.specs.build_train(comm="ppermute")`` on a (2, 2) and a
+   (2, 4) mesh (the first 4 and all 8 ranks): ``"model_axis":
+   "tensor"``, a rank's argument bytes equal to the meta case's (at (2,
+   2) 5 rows of 62,343,936 fp32 elements and the batch), the collectives
+   (calls, bytes, staged bytes) and seconds of each round, the 19,200
+   norm scales bitwise equal across each model group, x, z and g_prev
+   gathered whole (``models.sharding.gather_flat``) within 1e-4 of the
+   dense round's rows (``build_train(comm="dense")``, ``impl="kernel"``,
+   the same seeds, run first by the ranks that hold a node's model index
+   0), and the round's RF206 audit clean; (c) llama3-8b at full width
+   cut to 2 of 32 layers on a model group of 4 (ranks 0–3): the
+   tensor-parallel gradient of one sequence of 128, each rank's blocks
+   within 1e-4 (of the largest entry) of the unsharded gradient's, which
+   the ranks compute in turn, and one loss, the unsharded one.
 
-Each of phases 17–31 prints its wall seconds, peak memory or
+Each of phases 17–32 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -517,6 +535,23 @@ LAUNCH_DECODE = dict(seq=64, global_batch=4)
 SHARDED_N, SHARDED_P = 4, 16             # and its sizes: a binary tree of
 SHARDED_ROUNDS, SHARDED_GAMMA = 200, 0.06    # 4, p 16, 200 rounds; robust
 ROBUST_P, ROBUST_ROUNDS, ROBUST_GAMMA, ROBUST_LOSS = 8, 300, 0.05, 0.3
+# phase 32: the model axis tensor-parallel, ranks of this card over gloo.
+# rfast-100m at full width and depth, 2 nodes x 4 sequences of 128, fp32,
+# on (nodes, model ranks) meshes; the ranks of a spawn of TP_WORLD take
+# each mesh's first ranks
+TP_WORLD = 8
+TP_MESHES = [(2, 2), (2, 4)]
+TP_TRAIN = dict(seq=128, global_batch=8, impl="kernel", seed=0)
+TP_ROUNDS = 3
+TP_TOL = 1e-4                # of each field's (each leaf's) largest entry
+# rank -> the node whose dense rows it holds to its gathered ones: model
+# index 0 of each node on (2, 2) (ranks 0, 2) and (2, 4) (ranks 0, 4)
+TP_REF_NODES = {0: 0, 2: 1, 4: 1}
+TP_P_2X2 = 62_343_936        # a rank's flat width on (2, 2): half of
+                             # every sharded leaf and the 19,200 norm scales
+# llama3-8b at full width cut to 2 of 32 layers, one sequence of 128, on
+# a model group of 4 (ranks 0-3)
+TP_LLAMA_LAYERS, TP_LLAMA_B, TP_LLAMA_S, TP_LLAMA_M = 2, 1, 128, 4
 
 
 def emit(phase: str, **kw) -> None:
@@ -2634,11 +2669,314 @@ def phase_launch(name: str, smi: str) -> dict:
     emit("launch_production", row=row, memory=rec.get("memory"),
          collectives=rec.get("collectives_scanned"), case=rec.get("case"),
          seconds=rec.get("compile_s"), device=name, nvidia_smi=smi)
-    check(rec["ok"] and not row["fits_hbm"],
-          "31(d): llama3-8b train_4k runs on meta, and its per-rank state "
-          "does not fit one card (no tensor parallelism)")
+    check(rec["ok"] and rec["model_axis"] == "tensor" and row["fits_hbm"],
+          "31(d): llama3-8b train_4k runs on meta tensor-parallel, and a "
+          "rank's arguments and temporaries fit one card")
     emit("launch_done", seconds=time.perf_counter() - t_phase)
     return {"launch_tooling_train": train_launches}
+
+
+# --------------------------------------------------------------------- #
+# phase 32: the model axis tensor-parallel
+# --------------------------------------------------------------------- #
+def tp_reference(rank: int) -> dict:
+    """The dense round of phase 32's cell (``build_train(comm="dense")``,
+    ``impl="kernel"``) on the card for ``TP_ROUNDS`` rounds: the rows of
+    x, z and g_prev of node ``TP_REF_NODES[rank]``, and its
+    ``commit_grid`` launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import describe_mesh
+    fn, (st, batch, _) = specs.build_train(
+        get_config("rfast-100m"), describe_mesh((2, 1), ("data", "model")),
+        comm="dense", device="cuda", dtype=torch.float32, **TP_TRAIN)
+    dispatch.clear()
+    for _ in range(TP_ROUNDS):
+        st, _m = fn(st, batch)
+    i = TP_REF_NODES[rank]
+    ref = {f: getattr(st, f)[i].clone() for f in ("x", "z", "g_prev")}
+    ref.update(node=i, commit_grid_launches=dispatch.launches("commit_grid"))
+    del st, batch, fn
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_warmup() -> None:
+    """One plain gradient of phase 32's cell on the card: the first CUDA
+    work of a rank (its context, cuBLAS, the kernels' modules) done while
+    the reference ranks run the dense round, not inside a cell."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import make_ravel_spec, ravel, \
+        value_and_grad
+    from repro_torch.models.transformer import init_params, loss_fn
+    cfg = get_config("rfast-100m")
+    tree = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    spec = make_ravel_spec(tree)
+    toks = torch.zeros((TP_TRAIN["global_batch"] // 2, TP_TRAIN["seq"]),
+                       dtype=torch.long, device="cuda")
+    value_and_grad(spec, lambda p, b, k: loss_fn(cfg, p, b, b, remat=True))(
+        ravel(spec, tree), toks, None)
+    torch.cuda.synchronize()
+    del tree
+    torch.cuda.empty_cache()
+
+
+def tp_cell(mesh, ref: dict) -> dict:
+    """32(a)/(b) on one rank of ``mesh``: phase 32's cell built by
+    ``build_train(comm="ppermute")`` on the card and on meta (the
+    argument bytes), ``TP_ROUNDS`` rounds (seconds and collectives a
+    round; the last under RF206's audit), the replicated leaves against
+    the model group's, and the state rows gathered whole against the
+    dense rows in ``ref`` (if this rank holds them for its node here)."""
+    import torch
+    from repro_torch.analysis import torchlint
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime_sharded import (all_gather_seq,
+                                                  clear_collectives,
+                                                  collective_stats)
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _distinct_bytes
+    from repro_torch.launch.mesh import describe_mesh
+    from repro_torch.models import sharding as msh
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    cfg = get_config("rfast-100m")
+    kw = dict(TP_TRAIN, comm="ppermute", dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn, (st, batch, _) = specs.build_train(cfg, mesh, device="cuda", **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _, meta_args = specs.build_train(
+        cfg, describe_mesh((D, M), ("data", "model"), rank=mesh.rank), **kw)
+    tp, spec = fn.tensor_parallel, fn.ravel_spec
+    out = {"mesh": [D, M], "coords": mesh.coords, "info": fn.info,
+           "build_s": build_s,
+           "live_argument_bytes": _distinct_bytes(
+               specs.tensors_of((st, batch))),
+           "meta_argument_bytes": _distinct_bytes(
+               specs.tensors_of(meta_args)),
+           "round_s": [], "collectives": []}
+    del meta_args
+    for r in range(TP_ROUNDS):
+        clear_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if r < TP_ROUNDS - 1:
+            st, metrics = fn(st, batch)
+        else:                   # the last round under RF206's audit
+            done = []
+            out["audit"] = [d.code for d in
+                            torchlint.audit_tensor_parallel_round(
+                                lambda s: done.append(fn(s, batch)), st,
+                                subject=f"tp_round[{D}x{M}]")]
+            st, metrics = done[0]
+        torch.cuda.synchronize()
+        out["round_s"].append(time.perf_counter() - t0)
+        c = collective_stats()
+        out["collectives"].append({k: c[k] for k in (
+            "calls", "bytes", "staged_bytes", "seconds")} | {"by_name": {
+                k: {f: v[f] for f in ("calls", "bytes", "staged_bytes")}
+                for k, v in c["by_name"].items()}})
+    out["losses"] = metrics["losses"].tolist()
+    rep = torch.cat([st.x[0, o:o + math.prod(shape)] for path, shape, o in
+                     zip(spec.paths, spec.shapes, spec.offsets)
+                     if tp.dims[path] is None])
+    every = all_gather_seq(rep, tp.group, 0).view(M, -1)
+    out["replicated_elements"] = rep.numel()
+    out["replicated_bitwise"] = all(torch.equal(every[0], every[m])
+                                    for m in range(1, M))
+    out["rel_err"] = {}
+    held = ref.get("node") == mesh.coords["data"]
+    for f in ("x", "z", "g_prev"):
+        whole = msh.gather_flat(getattr(st, f)[0], spec, tp)
+        if held:
+            want = ref[f]
+            out["rel_err"][f] = float((whole - want).abs().max()
+                                      / want.abs().max())
+        del whole
+    del st, batch, fn
+    torch.cuda.empty_cache()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_llama(mesh) -> dict:
+    """32(c) on one rank of a model group of ``TP_LLAMA_M``: llama3-8b at
+    full width, ``TP_LLAMA_LAYERS`` layers, drawn on the card from seed 0
+    by every rank, which keeps its blocks; the tensor-parallel gradient
+    of one batch, then, the ranks in turn, the unsharded gradient of the
+    same batch and this rank's blocks of it against its own."""
+    import dataclasses as dc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.paramvec import (make_ravel_spec, ravel, unravel,
+                                           value_and_grad)
+    from repro_torch.core.runtime_sharded import (clear_collectives,
+                                                  collective_stats)
+    from repro_torch.models import sharding as msh
+    from repro_torch.models.transformer import init_params, loss_fn
+    cfg = dc.replace(get_config("llama3-8b"), n_layers=TP_LLAMA_LAYERS)
+    draw = lambda: init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    full = draw()
+    tp = msh.tensor_parallel(cfg, full, mesh, seq_parallel=True)
+    local = msh.local_tree(full, tp)
+    del full
+    torch.cuda.empty_cache()
+    spec = make_ravel_spec(local)
+    x = ravel(spec, local)
+    del local
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = tuple(torch.randint(0, cfg.vocab, (TP_LLAMA_B, TP_LLAMA_S),
+                                generator=gen, device="cuda")
+                  for _ in range(2))
+    lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=True)
+    grad = msh.tensor_parallel_grad(spec, lf, tp)
+    clear_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g = grad(x, batch, None)
+    torch.cuda.synchronize()
+    out = {"p_local": spec.p, "grad_s": time.perf_counter() - t0,
+           "loss": float(loss), "collectives": collective_stats(),
+           "gathered": sorted("/".join(b) for b in tp.gathered)}
+    del x
+    for turn in range(tp.size):
+        dist.barrier(group=tp.group.pg)
+        if turn != tp.index:
+            continue
+        full = draw()
+        fspec = make_ravel_spec(full)
+        xf = ravel(fspec, full)
+        out["p_whole"] = fspec.p
+        del full
+        ld, gd = value_and_grad(fspec, lf)(xf, batch, None)
+        del xf
+        mine = ravel(spec, msh.local_tree(unravel(fspec, gd), tp))
+        out["dense_loss"] = float(ld)
+        out["rel_err"] = float((g - mine).abs().max() / gd.abs().max())
+        del gd, mine
+        torch.cuda.empty_cache()
+    dist.barrier(group=tp.group.pg)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_rank() -> dict:
+    """Phase 32 on one of ``TP_WORLD`` gloo ranks sharing cuda:0: the dense
+    reference rows (the ranks of ``TP_REF_NODES``; the others warm up
+    meanwhile), then each of
+    ``TP_MESHES`` on the first ranks of the world, then llama3-8b's
+    gradient on ranks 0-3; every rank builds every mesh (its groups are
+    made collectively) and waits at a barrier after each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    ref = tp_reference(rank) if rank in TP_REF_NODES else {}
+    if not ref:
+        tp_warmup()
+    out["reference_s"] = time.perf_counter() - t0
+    out["commit_grid_launches"] = ref.pop("commit_grid_launches", 0)
+    dist.barrier()
+    for D, M in TP_MESHES:
+        mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
+        if mesh.coords is not None:
+            t0 = time.perf_counter()
+            out[f"{D}x{M}"] = dict(tp_cell(mesh, ref),
+                                   seconds=time.perf_counter() - t0)
+        dist.barrier()
+    del ref
+    torch.cuda.empty_cache()
+    mesh = make_sweep_mesh(lanes=1, param_shards=TP_LLAMA_M,
+                           ranks=range(TP_LLAMA_M))
+    if mesh.coords is not None:
+        t0 = time.perf_counter()
+        out["llama"] = dict(tp_llama(mesh), seconds=time.perf_counter() - t0)
+    dist.barrier()
+    return out
+
+
+def phase_tensor_parallel(name: str, smi: str) -> dict:
+    """Phase 32: the model axis tensor-parallel on ranks sharing this
+    card over gloo (see the module docstring).  Returns the dense
+    reference's ``commit_grid`` launches."""
+    import torch
+    from repro_torch.launch.multihost import spawn_local
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    outs = spawn_local(tp_rank, TP_WORLD, backend="gloo",
+                       timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
+    spawn_s = time.perf_counter() - t_phase
+    for o in outs:
+        for D, M in TP_MESHES:
+            c = o.get(f"{D}x{M}")
+            if c is None:
+                continue
+            emit("tp_rank", rank=o["rank"], backend=o["backend"],
+                 **{k: v for k, v in c.items() if k != "info"},
+                 model_axis=c["info"]["model_axis"], p=c["info"]["p"],
+                 p_whole=c["info"]["p_whole"],
+                 seq_parallel=c["info"]["seq_parallel"],
+                 tensor_parallel=c["info"]["tensor_parallel"],
+                 tol=TP_TOL, device=name, nvidia_smi=smi)
+        if "llama" in o:
+            emit("tp_llama_rank", rank=o["rank"], **o["llama"], tol=TP_TOL,
+                 device=name, nvidia_smi=smi)
+    emit("tp_done", seconds=time.perf_counter() - t_phase, spawn_s=spawn_s,
+         reference_s=max(o["reference_s"] for o in outs))
+    for D, M in TP_MESHES:
+        cells = [o[f"{D}x{M}"] for o in outs if f"{D}x{M}" in o]
+        check(len(cells) == D * M, f"32: every rank of ({D}, {M}) ran")
+        for c in cells:
+            info = c["info"]
+            check(info["model_axis"] == "tensor" and info["seq_parallel"]
+                  and info["tensor_parallel"] == {"ranks": M,
+                                                  "gathered": []},
+                  f"32 ({D}, {M}): tensor-parallel, sequence-parallel, "
+                  "whole heads a rank")
+            check(c["live_argument_bytes"] == c["meta_argument_bytes"],
+                  f"32 ({D}, {M}): the live argument bytes a rank "
+                  f"({c['live_argument_bytes']}) equal the meta dry-run's "
+                  f"({c['meta_argument_bytes']})")
+            check(c["replicated_bitwise"] and c["replicated_elements"]
+                  == 19_200, f"32 ({D}, {M}): the norm scales bitwise "
+                  "equal across the model group")
+            check(c["audit"] == [], f"32 ({D}, {M}): the round audits clean "
+                  "(RF206)")
+            check(len({tuple(x["losses"]) for x in cells}) == 1,
+                  f"32 ({D}, {M}): every rank reports the same losses")
+            if c["rel_err"]:
+                check(all(v <= TP_TOL for v in c["rel_err"].values()),
+                      f"32 ({D}, {M}): the gathered state within {TP_TOL} "
+                      f"of the dense round ({c['rel_err']})")
+        held = sum(1 for c in cells if c["rel_err"])
+        check(held == D, f"32 ({D}, {M}): both nodes held to the dense "
+              "round")
+    two = [o["2x2"] for o in outs if "2x2" in o]
+    check(all(c["info"]["p"] == TP_P_2X2 and c["live_argument_bytes"]
+              == 5 * TP_P_2X2 * 4 + 2 * 4 * 128 * 4 for c in two),
+          f"32 (2, 2): 5 rows of {TP_P_2X2} fp32 elements and the batch a "
+          "rank")
+    llama = [o["llama"] for o in outs if "llama" in o]
+    check(len(llama) == TP_LLAMA_M and all(
+        r["rel_err"] <= TP_TOL for r in llama),
+        f"32(c): llama3-8b's tensor-parallel gradient within {TP_TOL} of "
+        "the unsharded one")
+    check(len({r["loss"] for r in llama}) == 1 and all(
+        abs(r["loss"] - r["dense_loss"]) <= TP_TOL * abs(r["dense_loss"])
+        for r in llama), "32(c): one loss a model group, the unsharded one")
+    check(sum(r["p_local"] for r in llama) > llama[0]["p_whole"],
+          "32(c): a rank holds its blocks (and the norm scales whole)")
+    return {"tp_dense_reference": sum(o["commit_grid_launches"]
+                                      for o in outs)}
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
@@ -4258,6 +4596,9 @@ def main() -> int:
 
     # 31. the launch tooling's predictions against the card -------------
     mesh_launches.update(phase_launch(name, smi))
+
+    # 32. the model axis tensor-parallel ----------------------------------
+    mesh_launches.update(phase_tensor_parallel(name, smi))
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),

@@ -39,7 +39,11 @@ The runtime contracts tracing cannot see:
   output bytes; no collective that one run of the mesh sweep's wave loop
   (:func:`wave_loop` with a mesh) issues may reach one lane group's full-width
   node state, ``S_loc·n·4·p_pad`` floats.  The designed per-wave gather
-  of the mixed iterates is at most a quarter of that.
+  of the mixed iterates is at most a quarter of that.  In a
+  tensor-parallel round (:func:`audit_tensor_parallel_round`) the model
+  group's collectives (``MODEL_COLLECTIVES``) carry activations, logit
+  statistics, gathered leaves and the replicated leaves' gradients: none
+  may reach one of the rank's state rows.
 
 ``commit_grid`` itself is a ``ctypes`` launch, not an aten op, so the
 mode does not see it — which is what RF203 wants of the fused path.
@@ -59,7 +63,8 @@ from .diagnostics import Diagnostic
 
 __all__ = ["OpRecord", "WaveLoop", "trace_ops", "audit_ops", "audit_inplace",
            "audit_dispatch", "audit_launches", "audit_serve_cache",
-           "audit_collectives", "wave_loop", "engine_loops", "audit_engines",
+           "audit_collectives", "audit_tensor_parallel_round",
+           "MODEL_COLLECTIVES", "wave_loop", "engine_loops", "audit_engines",
            "DEFAULT_BROADCAST_THRESHOLD"]
 
 # host reads of a tensor's value (RF201)
@@ -271,19 +276,22 @@ def audit_launches(run_once, *, subject, kernel="commit_grid",
     return diags
 
 
-def audit_collectives(run, state, *, subject, state_bytes_threshold
-                      ) -> list[Diagnostic]:
+def audit_collectives(run, state, *, subject, state_bytes_threshold,
+                      names=None) -> list[Diagnostic]:
     """RF206: ``run(state)`` (a mesh wave loop) issues no collective whose
     output reaches ``state_bytes_threshold`` — one lane group's node
     state at full width (``S_loc·n·4·p_pad·4`` bytes in fp32).  A rank
     gets data beyond its shard only through a collective, and
     ``core/runtime_sharded.py`` records them all, so this bounds every
-    path to an accidental replication."""
+    path to an accidental replication.  ``names`` limits the audit to
+    those collectives."""
     from ..core.runtime_sharded import record_collectives
     with record_collectives() as record:
         run(state)
     diags = []
     for r in record:
+        if names is not None and r["name"] not in names:
+            continue
         if r["bytes"] >= state_bytes_threshold:
             diags.append(Diagnostic(
                 "RF206", subject,
@@ -294,6 +302,21 @@ def audit_collectives(run, state, *, subject, state_bytes_threshold
                 {"name": r["name"], "shape": r["shape"],
                  "bytes": r["bytes"], "threshold": state_bytes_threshold}))
     return diags
+
+
+# the model group's collectives of a tensor-parallel round
+MODEL_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_gather_seq",
+                     "reduce_scatter_seq")
+
+
+def audit_tensor_parallel_round(run, state, *, subject) -> list[Diagnostic]:
+    """RF206 over a tensor-parallel round ``run(state)``: no collective of
+    the model group (:data:`MODEL_COLLECTIVES`) reaches one of the
+    rank's state rows (``state.x``'s bytes).  The node group's ppermutes
+    move whole rows by design and are not audited here."""
+    return audit_collectives(
+        run, state, subject=subject, names=MODEL_COLLECTIVES,
+        state_bytes_threshold=state.x.numel() * state.x.element_size())
 
 
 def audit_serve_cache(*, seed=0, buckets=(4, 8), device=None

@@ -2,8 +2,8 @@
 
 Counterpart of ``src/repro/core/runtime_sharded.py`` on
 ``torch.distributed``.  Every collective of the port goes through the
-two functions of this module, always in the same order on every rank of
-a group (the reference chains its ppermutes through an
+functions of this module, always in the same order on every rank of a
+group (the reference chains its ppermutes through an
 ``optimization_barrier`` token for the same reason: independent
 collectives issued in different orders deadlock):
 
@@ -11,7 +11,19 @@ collectives issued in different orders deadlock):
   reference's ``lax.all_gather(..., tiled=True)``): the mesh engine's one
   collective a wave, and the full-width lane states it returns;
 * :func:`ppermute` — one ``batch_isend_irecv`` per matching of G(W) or
-  G(A); a rank that receives nothing gets zeros.
+  G(A); a rank that receives nothing gets zeros;
+* the model group's collectives, which the reference's GSPMD inserts
+  into its ``model``-axis program and the port's tensor parallelism
+  (``models/sharding.py``) calls itself: :func:`all_reduce_sum`,
+  :func:`all_reduce_max`, and :func:`all_gather_seq` /
+  :func:`reduce_scatter_seq` along one tensor dimension; and over them
+  the autograd pairs of Megatron's column- and row-parallel layers
+  (:func:`copy_to_model`: identity forward, all-reduce backward;
+  :func:`reduce_from_model`: the reverse; :func:`gather_from_model`:
+  gather forward, this rank's block of the gradient backward;
+  :func:`gather_from_seq` / :func:`reduce_scatter_to_seq`: the
+  sequence-parallel gather and reduce-scatter, each the other's
+  backward).
 
 Each call adds its output bytes to running totals by name
 (:func:`collective_stats`, :func:`clear_collectives`), the way
@@ -20,9 +32,14 @@ Each call adds its output bytes to running totals by name
 shape, which is what RF206 (``analysis/torchlint.py``) audits.  Where a backend does not
 carry point-to-point ops on a device's tensors (``STAGED``),
 :func:`ppermute` always goes through pinned host buffers for that pair,
-and the staged bytes are counted apart.
+and the staged bytes are counted apart.  The rule is the pair's,
+decided before the call: a collective never retries staged after an
+error.  Gloo carries the gathers, all-reduces and reduce-scatters of
+CUDA tensors itself, each rank of an all-reduce getting the same bits
+(``tools/dist_probe.py`` on torch 2.11 and an H100), so only
+point-to-point is staged.
 
-On meta tensors (the launch tooling's dry-run) neither collective calls
+On meta tensors (the launch tooling's dry-run) no collective calls
 ``torch.distributed``: each returns a meta output of the shape it would
 return and records itself, with its group's size and whether the group
 stays within one host (``CARDS_PER_HOST`` ranks, row-major).  That is
@@ -53,8 +70,16 @@ what a rank holds: :func:`sharded_state_specs` (its node's rows, and
 :func:`shard_state` applies it) and :func:`packed_sweep_specs` (its lane
 group and its slice of the flat parameter axis in the mesh sweep).  Its
 ``partial_auto_shard_map_supported`` / ``_shard_map`` pick a generation
-of ``jax.shard_map``; here ranks off the node axes simply run their
-node's round again, which is what a replicated ("auto") axis means.
+of ``jax.shard_map`` that keeps the ``model`` axis AUTO, so that GSPMD
+runs the per-node gradient tensor-parallel.  Here the round's
+ppermutes run over the node axes' group (the ranks that share this
+rank's ``model`` coordinate), and the ``model`` axis is what the
+gradient makes of it: with a tensor-parallel gradient
+(``models.sharding.tensor_parallel_grad``) a rank's rows are the flat
+ravel of its blocks of the parameter tree, and the round's math, all
+elementwise, runs on them as it runs on whole rows; with a plain
+gradient the ranks of a model group run their node's round again on
+whole rows (a replicated axis).
 """
 from __future__ import annotations
 
@@ -70,7 +95,10 @@ from .topology import Topology
 
 __all__ = ["AxisGroup", "DescribedGroup", "ShardedState", "SweepLayout",
            "matchings", "CARDS_PER_HOST",
-           "all_gather_flat", "ppermute", "collective_stats",
+           "all_gather_flat", "ppermute", "all_reduce_sum", "all_reduce_max",
+           "all_gather_seq", "reduce_scatter_seq", "copy_to_model",
+           "reduce_from_model", "gather_from_model", "gather_from_seq",
+           "reduce_scatter_to_seq", "rank_block", "collective_stats",
            "clear_collectives", "record_collectives", "STAGED",
            "make_sharded_round", "init_sharded_state", "node_index",
            "sharded_state_specs", "shard_state", "packed_sweep_specs"]
@@ -267,6 +295,191 @@ def ppermute(t: torch.Tensor, perm, group: AxisGroup | None) -> torch.Tensor:
     _note("ppermute", out, group.size, nb * (len(dst) + len(src))
           if staged else 0, t0)
     return out
+
+
+# --------------------------------------------------------------------- #
+# the model group's collectives
+# --------------------------------------------------------------------- #
+def _all_reduce(name: str, t: torch.Tensor, group: AxisGroup | None,
+                op: str) -> torch.Tensor:
+    import torch.distributed as dist
+    M = 1 if group is None else group.size
+    if M == 1:
+        _note(name, t, 1, 0)
+        return t
+    if _meta_or_live(group, t):
+        out = torch.empty_like(t)
+        _note(name, out, M, 0, intra_host=group.intra_host)
+        return out
+    t0 = time.perf_counter()
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group.pg)
+    _note(name, out, M, 0, t0)
+    return out
+
+
+def all_reduce_sum(t: torch.Tensor, group: AxisGroup | None) -> torch.Tensor:
+    """The elementwise sum of ``t`` over the ranks of ``group`` (the
+    reference's ``psum``), a new tensor on every rank; a group of one
+    returns ``t``."""
+    return _all_reduce("all_reduce_sum", t, group, "sum")
+
+
+def all_reduce_max(t: torch.Tensor, group: AxisGroup | None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the ranks of ``group`` (``pmax``)."""
+    return _all_reduce("all_reduce_max", t, group, "max")
+
+
+def all_gather_seq(t: torch.Tensor, group: AxisGroup | None,
+                   dim: int = 1) -> torch.Tensor:
+    """Tiled gather of ``t`` along ``dim`` over ``group``: rank i's ``t``
+    at ``[i·n, (i+1)·n)`` of that dim (the sequence-parallel gather, and
+    a sharded leaf's gather into the whole leaf)."""
+    import torch.distributed as dist
+    M = 1 if group is None else group.size
+    dim = dim % t.dim()
+    shape = tuple(t.shape)
+    full = shape[:dim] + (M * shape[dim],) + shape[dim + 1:]
+    if M == 1:
+        _note("all_gather_seq", t, 1, 0)
+        return t
+    if _meta_or_live(group, t):
+        out = t.new_empty(full)
+        _note("all_gather_seq", out, M, 0, intra_host=group.intra_host)
+        return out
+    t0 = time.perf_counter()
+    src = t.contiguous()
+    buf = torch.empty((M,) + shape, dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(buf.view(-1), src.view(-1), group=group.pg)
+    out = buf.movedim(0, dim).reshape(full)
+    _note("all_gather_seq", out, M, 0, t0)
+    return out
+
+
+def reduce_scatter_seq(t: torch.Tensor, group: AxisGroup | None,
+                       dim: int = 1) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, of which rank i keeps block i of
+    ``dim`` (``[i·n/M, (i+1)·n/M)``; the sequence-parallel reduce-scatter).
+    ``dim`` must divide over the group."""
+    import torch.distributed as dist
+    M = 1 if group is None else group.size
+    dim = dim % t.dim()
+    shape = tuple(t.shape)
+    if shape[dim] % M:
+        raise ValueError(f"dim {dim} of {shape} does not divide over the "
+                         f"{M} ranks of the group")
+    part = shape[:dim] + (shape[dim] // M,) + shape[dim + 1:]
+    if M == 1:
+        _note("reduce_scatter_seq", t, 1, 0)
+        return t
+    if _meta_or_live(group, t):
+        out = t.new_empty(part)
+        _note("reduce_scatter_seq", out, M, 0, intra_host=group.intra_host)
+        return out
+    t0 = time.perf_counter()
+    src = t.unflatten(dim, (M, shape[dim] // M)).movedim(dim, 0).contiguous()
+    out = torch.empty(part, dtype=t.dtype, device=t.device)
+    # torch 2.13 renames reduce_scatter_tensor; 2.11 has only the old name
+    rs = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    rs(out.view(-1), src.view(-1), group=group.pg)
+    _note("reduce_scatter_seq", out, M, 0, t0)
+    return out
+
+
+def rank_block(t: torch.Tensor, group: AxisGroup, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (``group.size`` blocks)."""
+    n = t.shape[dim] // group.size
+    return t.narrow(dim, group.index * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_seq(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rank_block(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_seq(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_seq(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_seq(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_seq(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """Megatron's f: ``x`` forward, the all-reduce of its gradient over
+    ``group`` backward (the input of a column-parallel layer, which each
+    rank's block differentiates only in part)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """Megatron's g: the all-reduce of ``x`` forward (a row-parallel
+    layer's partial sums), its gradient as it is backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group: AxisGroup,
+                      dim: int) -> torch.Tensor:
+    """The gather of ``x`` along ``dim`` forward; backward, this rank's
+    block of the gradient, which every rank computed whole."""
+    return _GatherFromModel.apply(x, group, dim)
+
+
+def gather_from_seq(x: torch.Tensor, group: AxisGroup,
+                    dim: int = 1) -> torch.Tensor:
+    """The gather of ``x`` along ``dim`` forward, the reduce-scatter of
+    its gradient backward (each rank's gradient of the whole is a part)."""
+    return _GatherFromSeq.apply(x, group, dim)
+
+
+def reduce_scatter_to_seq(x: torch.Tensor, group: AxisGroup,
+                          dim: int = 1) -> torch.Tensor:
+    """The reduce-scatter of ``x`` along ``dim`` forward, the gather of
+    its gradient backward."""
+    return _ReduceScatterToSeq.apply(x, group, dim)
 
 
 # --------------------------------------------------------------------- #

@@ -26,9 +26,11 @@ the kernel wrappers and the collectives record themselves
   allocations move nothing), as XLA's "bytes accessed" counts them, plus
   each kernel's own bytes;
 * ``collectives_scanned`` — the collectives by kind (``all-gather``,
-  ``collective-permute``) with their count and output bytes, split into
-  those whose group stays within one host (``nvlink_bytes``) and those
-  that cross hosts (``ib_bytes``).
+  ``collective-permute``, and the tensor-parallel ``all-reduce`` and
+  ``reduce-scatter`` over the ``model`` group) with their count and
+  output bytes, split into those whose group stays within one host
+  (``nvlink_bytes``: the ``model`` axis of the production mesh) and
+  those that cross hosts (``ib_bytes``).
 
 ``lower_s`` is the seconds spent building the case and ``compile_s``
 those of the meta run that takes the compile's place.  The port runs
@@ -37,7 +39,8 @@ reference's linear fit in L (``fit``, at L = 2 and 4) is kept so that
 :mod:`.roofline` reads the same schema, and at full L it equals the
 direct count.  ``--rules fsdp`` changes the GSPMD layout the record
 reports (``gspmd``: the bytes a rank would hold under the reference's
-specs), not the port's execution.
+specs) beside what the port's rank holds (the same blocks for a
+tensor-parallel train case, ``model_axis: "tensor"``).
 
 Artifacts: ``<out>/<arch>__<shape>__<mesh>[__<rules>].json``.
 
@@ -73,7 +76,11 @@ __all__ = ["run_case", "case_path", "measure", "run_live", "scale_layers",
 
 # the port's collective -> the HLO op the reference's record names
 COLLECTIVE_KINDS = {"all_gather_flat": "all-gather",
-                    "ppermute": "collective-permute"}
+                    "all_gather_seq": "all-gather",
+                    "ppermute": "collective-permute",
+                    "all_reduce_sum": "all-reduce",
+                    "all_reduce_max": "all-reduce",
+                    "reduce_scatter_seq": "reduce-scatter"}
 SCAN_KERNELS = ("ssm_scan", "ssm_scan_bwd")
 aten = torch.ops.aten
 # ops that allocate and move nothing

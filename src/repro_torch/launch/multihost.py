@@ -33,8 +33,9 @@ slice of the flat parameter axis.
 joins the group, takes its place in the production mesh
 (``launch.mesh.make_production_mesh``, described) and runs its share of
 the case (``launch.specs.build_case``) once on the meta device, where
-the reference compiles it; rank 0 prints the fleet and the argument
-bytes a rank.
+the reference compiles it; rank 0 prints the fleet, the argument bytes a
+rank and, for a train case, how the ``model`` axis runs (tensor-parallel
+for the dense decoders: a rank's flat rows are its blocks of the tree).
 
     python -m repro_torch.launch.multihost --arch llama3-8b --shape train_4k
 """
@@ -258,12 +259,19 @@ def main(argv=None) -> dict:
     fn, step_args = build_case(get_config(args.arch), mesh, args.shape)
     rec = measure(fn, step_args)
     rec["coords"] = mesh.coords
+    rec["case"] = fn.info
     if rank == 0:
         mem = rec["memory"]
         print(f"built {args.arch}/{args.shape} on meta: "
               f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB/device args, "
               f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB/device temp",
               flush=True)
+        info = fn.info
+        if info["kind"] == "train":
+            print(f"model axis {info['model_axis']}: a rank's flat state "
+                  f"rows {info['p']:,} of the whole {info['p_whole']:,} "
+                  f"elements, {info['state_dtype']}; sequence parallel "
+                  f"{info['seq_parallel']}", flush=True)
     # A real run would now draw each rank's state and batch
     # (host_local_batch) and loop its round; launch/train.py is that loop.
     return rec

@@ -8,6 +8,10 @@ shape × mesh) JSON that ``dryrun.py`` writes, derive, per card:
   collective term = NVLink bytes / NVLink rate
                     + InfiniBand bytes / InfiniBand rate          [s]
 
+(every collective the record counts: the node axes' ppermutes and
+gathers, and the ``model`` axis' all-gathers, all-reduces and
+reduce-scatters of a tensor-parallel train case, on NVLink within a host)
+
 at the H100 SXM 80GB data-sheet rates of ``launch.mesh.HW`` (an
 analysis at those rates, not a measurement).  FLOPs and bytes come from
 the linear-in-L fit (``fit``) when the record has one, else from the
@@ -91,7 +95,8 @@ def lever(dom: str, rec: dict) -> str:
     if dom == "collective":
         return ("cut gossip bytes: overlap the ppermutes with the "
                 "gradient, keep matchings on NVLink within a host, "
-                "quantize protocol messages")
+                "quantize protocol messages; overlap the model axis' "
+                "all-gathers and reduce-scatters with the GEMMs")
     return ("raise tensor-core use: bf16 wgmma GEMMs at larger per-card "
             "tiles, the flash kernels for attention")
 

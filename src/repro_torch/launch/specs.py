@@ -18,14 +18,22 @@ nothing allocated; another device materializes the same case from
 * **train** — ``comm="ppermute"`` (and ``"auto"``) is
   :func:`~repro_torch.core.runtime_sharded.make_sharded_round` over the
   node axes: this rank's node, its flat state rows ``(1, p)`` and ``(1,
-  S_a, p)`` and its node's whole batch.  ``comm="dense"`` is
+  S_a, p)`` and its node's whole batch.  For the dense decoders
+  (``models.sharding.tensor_parallel_supported``) on a ``model`` axis of
+  M > 1 ranks, the axis runs tensor-parallel as the reference's GSPMD
+  runs it: a rank's tree is its blocks of the leaves the reference's
+  PartitionSpecs shard (``models.sharding.tensor_parallel``, the node
+  axes leading) and whole copies of the rest, ``p`` is the width of
+  their flat ravel, and the gradient is
+  ``models.sharding.tensor_parallel_grad``; ``step_fn.info`` says
+  ``"model_axis": "tensor"`` and records the sequence parallelism and
+  the blocks that run gathered.  Every other arch keeps whole rows on
+  each rank of a model group, which runs its node's round again
+  (``"model_axis": "replicated"``).  ``comm="dense"`` is
   :func:`~repro_torch.core.runtime.make_rfast_round`, which the port
   runs in one process for every node, so its figures are the whole
   round's.  The gradient is the flat-vector gradient of ``loss_fn(...,
-  remat=True, ce=ce)``.  The port runs no tensor parallelism: the
-  ``model`` axis (and any mesh axis off the node axes) replicates the
-  round (``runtime_sharded``'s docstring), so ``step_fn.info`` says
-  ``"model_axis": "replicated"``.
+  remat=True, ce=ce)``.
 * **prefill / decode** — ``forward(..., last_only=True)`` and
   ``decode_step`` on this rank's batch rows (:func:`~.shardings.
   batch_pspec`'s divisibility rule), the whole model on the rank.
@@ -40,9 +48,10 @@ and D included; ``step_fn.info["state_dtype"]`` records it.  The
 reference's per-node PRNG keys are not an argument: the port's gradient
 takes no key (RNG cannot be matched; ROADMAP).
 
-``rules`` is accepted as the reference's build functions take it: the port
-runs no GSPMD layout, and the dry-run reports the layout it names.
-``step_fn.info`` holds what the dry-run records beside its counts.
+``rules`` is the reference's (``RULES_BASE`` by default): the
+tensor-parallel train case cuts its blocks by them, and the dry-run
+reports the layout they name.  ``step_fn.info`` holds what the dry-run
+records beside its counts.
 """
 from __future__ import annotations
 
@@ -54,7 +63,9 @@ from ..core.paramvec import make_ravel_spec, ravel, value_and_grad
 from ..core.plan import build_comm_plan
 from ..core.protocol import ProtocolState
 from ..core.runtime import init_node_state, make_rfast_round
-from ..core.runtime_sharded import ShardedState, make_sharded_round
+from ..core.runtime_sharded import (DescribedGroup, ShardedState,
+                                    init_sharded_state, make_sharded_round,
+                                    shard_state)
 from ..core.topology import binary_tree
 from ..models import sharding as msh
 from ..models.config import ModelConfig
@@ -166,9 +177,13 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     axes) or ``"dense"`` (every node in this process).  ``impl`` is the
     dense round's commit backend (``"kernel"``: one ``commit_grid``
     launch a round).  ``device`` other than meta materializes the case:
-    weights and tokens from ``seed``, the state by the paper's init (a
-    gradient of every node); only ``comm="dense"`` can, since a
-    ppermute case's mesh is described."""
+    weights (every rank draws the whole tree and keeps its blocks) and
+    every node's tokens from ``seed``, the state by the paper's init (a
+    gradient of every node; a ppermute rank keeps its node's rows and
+    batch, ``runtime_sharded.shard_state``).  A ppermute case
+    materializes only on a mesh of real ranks (``launch.mesh.
+    make_sweep_mesh`` in a process group; every rank of the mesh calls
+    this together), a described mesh's only on meta."""
     if seq_parallel is None:
         seq_parallel = cfg.name not in SEQ_PARALLEL_OPT_OUT
     if node_axes is None:
@@ -187,15 +202,28 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
         raise ValueError(f"comm must be 'auto', 'ppermute' or 'dense', got "
                          f"{comm!r}")
     live = torch.device(device).type != "meta"
-    if live and comm != "dense":
-        raise ValueError("only a dense case materializes on a device: a "
-                         "ppermute case runs one rank of a described mesh")
+    if live and comm != "dense" and isinstance(
+            mesh.group(node_axes).pg, DescribedGroup):
+        raise ValueError("a described mesh materializes only a dense case: "
+                         "a ppermute case runs live on a mesh of real ranks "
+                         "(launch.mesh.make_sweep_mesh), on meta on a "
+                         "described one")
     s_text = _s_text(cfg, seq)
     inner_batch = tuple(a for a in mesh.axis_names
                         if a != "model" and a not in node_axes)
     arules = act_rules(inner_batch, seq_parallel=seq_parallel)
 
     tree = _params(cfg, dtype, device, seed)
+    p_whole = make_ravel_spec(tree).p
+    M = sh.mesh_axis_size(mesh, "model") if "model" in mesh.axis_names \
+        else 1
+    tp = None
+    if (comm == "ppermute" and M > 1 and "model" not in node_axes
+            and msh.tensor_parallel_supported(cfg)):
+        tp = msh.tensor_parallel(
+            cfg, tree, mesh, rules=rules, node_axes=node_axes,
+            seq_parallel=seq_parallel and s_text % M == 0)
+        tree = msh.local_tree(tree, tp)
     rspec = make_ravel_spec(tree, dtype=dtype)
     p = rspec.p
 
@@ -203,9 +231,10 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
         return loss_fn(cfg, params, batch[0], batch[1],
                        batch[2] if len(batch) > 2 else None, remat=True,
                        ce=ce)
-    grad_fn = value_and_grad(rspec, loss)
+    grad_fn = (value_and_grad(rspec, loss) if tp is None
+               else msh.tensor_parallel_grad(rspec, loss, tp))
 
-    rows = n_nodes if comm == "dense" else 1
+    rows = n_nodes if (comm == "dense" or live) else 1
     gen = (torch.Generator(device=device).manual_seed(seed + 1)
            if live else None)
     batch = [_tokens((rows, b_node, s_text), cfg.vocab, device, gen),
@@ -218,11 +247,17 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     if comm == "ppermute":
         round_fn = make_sharded_round(topo, grad_fn, mesh, gamma=gamma,
                                       node_axes=node_axes)
-        row = lambda *s: torch.empty(s, dtype=dtype, device="meta")
-        state = ShardedState(step=0, x=row(1, p), z=row(1, p),
-                             g_prev=row(1, p), rho_out=row(1, plan.s_a, p),
-                             rho_buf=row(1, plan.s_a, p), mail_v=None,
-                             m=None)
+        if live:
+            state = shard_state(init_sharded_state(
+                topo, ravel(rspec, tree), grad_fn, batch), mesh, node_axes)
+            batch = shard_state(batch, mesh, node_axes)
+        else:
+            row = lambda *s: torch.empty(s, dtype=dtype, device="meta")
+            state = ShardedState(step=0, x=row(1, p), z=row(1, p),
+                                 g_prev=row(1, p),
+                                 rho_out=row(1, plan.s_a, p),
+                                 rho_buf=row(1, plan.s_a, p), mail_v=None,
+                                 m=None)
     else:
         round_fn = make_rfast_round(plan, grad_fn, gamma=gamma,
                                     node_axes=node_axes, impl=impl)
@@ -243,11 +278,18 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
 
     train_step.info = dict(
         kind="train", comm=comm, n_nodes=n_nodes, b_node=b_node, seq=seq,
-        s_text=s_text, p=p, p_model=rspec.p_model, impl=impl,
-        dtype=_dtype_name(dtype), state_dtype=_dtype_name(dtype),
+        s_text=s_text, p=p, p_model=rspec.p_model, p_whole=p_whole,
+        impl=impl, dtype=_dtype_name(dtype), state_dtype=_dtype_name(dtype),
         node_axes=list(node_axes), inner_batch_axes=list(inner_batch),
-        model_axis="replicated", seq_parallel=seq_parallel, ce=ce,
-        matchings=len(plan.slots_w) + len(plan.slots_a))
+        model_axis="replicated" if tp is None else "tensor",
+        seq_parallel=seq_parallel if tp is None else tp.seq_parallel,
+        tensor_parallel=None if tp is None else dict(
+            ranks=tp.size, gathered=sorted("/".join(b)
+                                           for b in tp.gathered)),
+        ce=ce, matchings=len(plan.slots_w) + len(plan.slots_a))
+    # what a caller needs to gather a state row whole
+    # (models.sharding.gather_flat)
+    train_step.tensor_parallel, train_step.ravel_spec = tp, rspec
     return train_step, (state, batch, None)
 
 

@@ -75,19 +75,22 @@ def gqa_init(cfg: ModelConfig, gen: torch.Generator, *,
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """q (B,S,KV,H/KV,hd), k, v (B,S,KV,hd).  The head counts come from
+    the projections' widths, so a tensor-parallel rank's column blocks
+    (whole heads, ``models/sharding.py``) give its own heads."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    H, KV = q.shape[-1] // hd, k.shape[-1] // hd
     return (q.reshape(B, S, KV, H // KV, hd), k.reshape(B, S, KV, hd),
             v.reshape(B, S, KV, hd))
 
 
 def _rope(cfg: ModelConfig, q, k, cos, sin):
-    B, S = q.shape[:2]
-    q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), cos,
-                   sin).reshape(q.shape)
+    B, S, KV, R, hd = q.shape
+    q = apply_rope(q.reshape(B, S, KV * R, hd), cos, sin).reshape(q.shape)
     return q, apply_rope(k, cos, sin)
 
 
@@ -108,7 +111,7 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool,
                           device=x.device)
     o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:
         return out, (k, v)
     return out

@@ -59,6 +59,7 @@ from ..core.paramvec import make_ravel_spec, tree_map, unravel
 from ..kernels.rfast_update.dispatch import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
+from . import sharding as msh
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (dense_init, mlp_apply, mlp_init, norm_apply, norm_init,
@@ -225,7 +226,8 @@ def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     if cfg.mixer == "ssm":
         return ssm_mod.ssm_apply(cfg, lp["ssm"], h)
-    a = _attn_full(cfg, lp, h, positions)
+    a = msh.parallel_block(("layers", "attn"), lp["attn"], h, lambda p, y:
+                           _attn_full(cfg, {"attn": p}, y, positions))
     if cfg.mixer == "hybrid":
         return 0.5 * (a + ssm_mod.ssm_apply(cfg, lp["ssm"], h))
     return a
@@ -239,7 +241,8 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
         return x, 0.0
     h = norm_apply(cfg, lp["ln2"], x)
     if not cfg.moe_experts:
-        return x + mlp_apply(cfg, lp["mlp"], h), 0.0
+        return x + msh.parallel_block(("layers", "mlp"), lp["mlp"], h,
+                                      lambda p, y: mlp_apply(cfg, p, y)), 0.0
     moe = moe_mod.moe_apply_rows if rows else moe_mod.moe_apply
     y, aux = moe(cfg, lp["mlp"], h)
     return x + y, aux
@@ -253,11 +256,16 @@ def _cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, k: torch.Tensor,
 
 
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor, enc: torch.Tensor | None):
-    x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x), positions)
-    if enc is not None:
-        x = _cross(cfg, lp, x, *attn.cross_kv(cfg, lp["cross"], enc))
-    return _mlp(cfg, lp, x)
+           positions: torch.Tensor, enc: torch.Tensor | None, tp=None):
+    """One decoder layer; ``tp`` is the caller's tensor-parallel layout,
+    an argument so that a recompute under ``remat`` (which runs in the
+    autograd engine's thread) runs on it too."""
+    with msh.use_tensor_parallel(tp):
+        x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x),
+                            positions)
+        if enc is not None:
+            x = _cross(cfg, lp, x, *attn.cross_kv(cfg, lp["cross"], enc))
+        return _mlp(cfg, lp, x)
 
 
 def _enc_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -298,8 +306,11 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
     enc)``.  A decoder-only frontend's projected rows come first (S =
     n_front + S_text); an enc-dec frontend goes through the encoder
     (``enc`` (B, F, d), else None); without RoPE the absolute positions
-    are added."""
-    x = params["embed"][tokens]
+    are added.  Under tensor parallelism (``models/sharding.py``) the
+    lookup is vocab-parallel and, with sequence parallelism, ``x`` holds
+    this rank's block of the sequence; ``positions`` are the whole
+    sequence's."""
+    x = msh.embed_lookup(params["embed"], tokens)
     enc, n_front = None, 0
     if cfg.frontend and not cfg.enc_dec and frontend is not None:
         fx = frontend @ params["frontend_proj"]
@@ -307,7 +318,7 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
         n_front = frontend.shape[1]
     if cfg.enc_dec:
         enc = _run_encoder(cfg, params, frontend, remat)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(n_front + tokens.shape[1], device=x.device)
     if not cfg.use_rope:
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x, positions, n_front, enc
@@ -320,14 +331,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     arch's feed the encoder) -> (logits (B, S_text, vocab), or at the
     last position only with ``last_only``; the MoE layers' router loss
     summed, 0 without MoE).  ``remat`` recomputes each layer's
-    activations in the backward."""
+    activations in the backward.  Under tensor parallelism the logits
+    are this rank's vocab block."""
     x, positions, n_front, enc = _embed(cfg, params, tokens, frontend,
                                         remat)
     aux = torch.zeros((), device=x.device)
+    tp = msh.current_tensor_parallel()
     for lp in _layers(params["layers"], cfg.n_layers):
-        x, a = _run(remat, _layer, cfg, lp, x, positions, enc)
+        x, a = _run(remat, _layer, cfg, lp, x, positions, enc, tp)
         aux = aux + a
-    x = norm_apply(cfg, params["final_norm"], x)
+    x = msh.to_head(norm_apply(cfg, params["final_norm"], x))
     if last_only:
         x = x[:, -1:]
     elif n_front:
@@ -340,8 +353,13 @@ def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             ce: str = "lse") -> torch.Tensor:
     """Mean next-token cross entropy plus the router loss.  ``ce="lse"``
     via logsumexp (no fp32 (B, S, V) log-prob tensor); ``ce="full"``
-    the plain fp32 log-softmax, as the JAX package keeps both."""
+    the plain fp32 log-softmax, as the JAX package keeps both.  Under
+    tensor parallelism the cross entropy is vocab-parallel
+    (``models.sharding.vocab_parallel_ce``)."""
     logits, aux = forward(cfg, params, tokens, frontend, remat=remat)
+    tp = msh.current_tensor_parallel()
+    if tp is not None:
+        return msh.vocab_parallel_ce(logits, labels, ce, tp) + aux
     labels = labels[..., None].long()
     if ce == "full":
         ll = torch.log_softmax(logits.to(torch.float32), dim=-1)

@@ -139,9 +139,15 @@ def test_ppermute_bytes_are_matchings_times_the_state_row():
         assert perm["bytes"] == m * p * 2          # bf16 rows
         assert perm["nvlink_bytes" if nvlink else "ib_bytes"] == m * p * 2
         gather = rec["collectives_scanned"]["all-gather"]
-        assert gather == {"count": 1, "bytes": 4 * fn.info["n_nodes"],
-                          "nvlink_bytes": 4 * fn.info["n_nodes"] * nvlink,
-                          "ib_bytes": 4 * fn.info["n_nodes"] * (not nvlink)}
+        if nvlink:      # a model axis of 1: the one gather of n losses
+            assert gather == {"count": 1, "bytes": 4 * fn.info["n_nodes"],
+                              "nvlink_bytes": 4 * fn.info["n_nodes"],
+                              "ib_bytes": 0}
+        else:           # beside it, the tensor-parallel model group's
+            assert fn.info["model_axis"] == "tensor"
+            assert gather["ib_bytes"] == 4 * fn.info["n_nodes"]
+            assert gather["nvlink_bytes"] == gather["bytes"] - 4 * fn.info[
+                "n_nodes"] > 0
 
 
 def _refuse(name):

@@ -124,17 +124,19 @@ def test_variants_and_rules_match_reference(arch):
 
 
 def test_train_case_on_the_production_mesh_is_one_rank():
-    """ppermute: one node's flat rows a rank, its whole batch; dense: the
-    whole round; a live device materializes only the dense case."""
+    """ppermute: one node's flat rows a rank (its blocks of the
+    tensor-parallel tree), its whole batch; dense: the whole round; a
+    described mesh materializes only the dense case."""
     cfg = get_config("rfast-100m").reduced()
     fn, (state, batch, _) = tspecs.build_case(cfg, make_production_mesh(), "train_4k")
-    p = fn.info["p"]
+    p, p_whole = fn.info["p"], fn.info["p_whole"]
     assert state.x.shape == (1, p) and state.rho_out.shape[::2] == (1, p)
+    assert fn.info["model_axis"] == "tensor" and p < p_whole
     assert batch[0].shape == (1, 256 // 32, 4096)
     assert fn.info["n_nodes"] == 32 and fn.info["comm"] == "ppermute"
     fn, (state, batch, _) = tspecs.build_case(cfg, make_production_mesh(), "train_4k",
                                               comm="dense")
-    assert state.x.shape == (32, p) and batch[0].shape == (32, 8, 4096)
+    assert state.x.shape == (32, p_whole) and batch[0].shape == (32, 8, 4096)
     with pytest.raises(ValueError, match="dense"):
         tspecs.build_train(cfg, make_production_mesh(), seq=16, global_batch=64,
                            device="cpu")

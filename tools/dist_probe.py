@@ -5,7 +5,9 @@
 Starts, one op at a time, two gloo ranks that share cuda:0 (and one
 world-1 NCCL rank) and runs on CUDA tensors: ``all_gather_into_tensor``,
 ``all_gather`` into a list, ``batch_isend_irecv`` and ``send`` /
-``recv``; then times a gather of 62,334,336 floats a rank (half of
+``recv``, ``all_reduce`` with SUM and MAX and ``reduce_scatter_tensor``
+(the tensor-parallel collectives; four ranks too, each rank's result
+hashed to show whether every rank holds the same bits); then times a gather of 62,334,336 floats a rank (half of
 rfast-100m's flat vector) directly and through pinned host buffers, 3
 times each.  Prints one JSON line a probe (an op that fails records its
 error: finding that out is the point) after the torch version, whether
@@ -13,6 +15,7 @@ error: finding that out is the point) after the torch version, whether
 What it finds is what ``core/runtime_sharded.STAGED`` encodes.
 """
 import datetime
+import hashlib
 import json
 import os
 import subprocess
@@ -24,7 +27,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 OPS = ("all_gather_into_tensor", "all_gather_list", "batch_isend_irecv",
-       "send_recv")
+       "send_recv", "all_reduce_sum", "all_reduce_max",
+       "reduce_scatter_tensor")
+# the ops also probed on four ranks sharing the card
+OPS4 = ("all_gather_into_tensor", "all_reduce_sum", "all_reduce_max",
+        "reduce_scatter_tensor")
 BIG = 62_334_336
 
 
@@ -71,6 +78,23 @@ def probe(rank, world, port, backend, op, q):
                 dist.recv(r, 0)
                 dist.send(t, 0)
             out["ok"] = float(r[0, 0]) == want[1 - rank]
+        elif op in ("all_reduce_sum", "all_reduce_max"):
+            g = torch.Generator().manual_seed(rank)
+            x = torch.randn(4, 1000, generator=g).to(dev)
+            xs = [torch.randn(4, 1000, generator=torch.Generator()
+                              .manual_seed(r)) for r in range(world)]
+            red = dist.ReduceOp.SUM if op.endswith("sum") else \
+                dist.ReduceOp.MAX
+            dist.all_reduce(x, op=red)
+            ref = (torch.stack(xs).sum(0) if op.endswith("sum")
+                   else torch.stack(xs).amax(0))
+            out["ok"] = bool(torch.allclose(x.cpu(), ref, atol=1e-5))
+            out["sha1"] = hashlib.sha1(x.cpu().numpy().tobytes()).hexdigest()
+        elif op == "reduce_scatter_tensor":
+            x = torch.full((world * 4, 1000), float(rank + 1), device=dev)
+            o = torch.empty((4, 1000), device=dev)
+            dist.reduce_scatter_tensor(o, x)
+            out["ok"] = float(o[0, 0]) == sum(want)
         elif op == "gather_timing":
             x = torch.full((BIG,), float(rank), device=dev)
             o = torch.empty((world * BIG,), device=dev)
@@ -131,3 +155,5 @@ if __name__ == "__main__":
     run(1, "nccl", "all_gather_into_tensor")
     for op in OPS + ("gather_timing",):
         run(2, "gloo", op)
+    for op in OPS4:
+        run(4, "gloo", op)
