@@ -325,8 +325,32 @@ run.  Phases:
    tensor-parallel gradient of one sequence of 128, each rank's blocks
    within 1e-4 (of the largest entry) of the unsharded gradient's, which
    the ranks compute in turn, and one loss, the unsharded one.
+33. the SSM archs tensor-parallel (the function
+   ``phase_tensor_parallel_ssm``; four gloo ranks sharing cuda:0, one
+   spawn; phase 32's functions, which take the config) — (a)
+   falcon-mamba-7b at full width cut to 2 of 64 layers (d 4096, d_inner
+   8192, vocab 65024 vocab-parallel; 743,305,216 parameters) on a model
+   group of 4, no sequence parallelism, no remat: the tensor-parallel
+   gradient of one sequence of 128 held to the unsharded one as 32(c)
+   holds llama3-8b's, one loss, and ``ssm_scan`` and ``ssm_scan_bwd``
+   launched once a layer at a rank's channels, (B 1, S 128, d_inner
+   2048, N 16); (b) hymba-1.5b at full width cut to 2 of 32 layers on a
+   (2, 2) mesh through ``build_train(comm="ppermute")`` as 32(a) runs
+   rfast-100m (2 nodes × 4 × 128 tokens, fp32, 3 rounds, sequence
+   parallel): the attention gathered (25 / 5 heads), the embedding and
+   head replicated (vocab 32001), the SSM at d_inner 1600 a rank; live
+   argument bytes = meta, the replicated leaves (embedding, head, norm
+   scales: 102,411,200 elements) bitwise across each model group, x, z
+   and g_prev gathered whole within 1e-4 of the dense 2-node round,
+   RF206 clean, the scan kernels once forward (and once recomputed) and
+   once backward a layer a round; then both scan kernels at the ranks'
+   shapes (falcon's, and hymba's (4, 128, 1600, 16)) held to their plain
+   twins (phase 14's tolerances) and timed as phase 16 times them, and
+   held to their twins at the channels a rank of M 2, 4 or 8 would take
+   (hymba 800 and 400, falcon 4096 and 1024), with ``scan_segments``'
+   choice at each.
 
-Each of phases 17–32 prints its wall seconds, peak memory or
+Each of phases 17–33 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -552,6 +576,31 @@ TP_P_2X2 = 62_343_936        # a rank's flat width on (2, 2): half of
 # llama3-8b at full width cut to 2 of 32 layers, one sequence of 128, on
 # a model group of 4 (ranks 0-3)
 TP_LLAMA_LAYERS, TP_LLAMA_B, TP_LLAMA_S, TP_LLAMA_M = 2, 1, 128, 4
+# phase 33: the SSM archs' model axis tensor-parallel, ranks of this card
+# over gloo.  (b) hymba-1.5b at full width cut to 2 of 32 layers, phase
+# 32's cell (2 nodes x 4 sequences of 128, fp32) on a (2, 2) mesh;
+# (a) falcon-mamba-7b at full width cut to 2 of 64 layers, one sequence
+# of 128, on a model group of 4 (all the ranks)
+TP_SSM_WORLD = 4
+TP_HYMBA_LAYERS, TP_HYMBA_MESH, TP_HYMBA_ROUNDS = 2, (2, 2), 3
+TP_HYMBA_REF_NODES = {0: 0, 2: 1}     # model index 0 of each node
+# hymba's replicated leaves a rank: the embedding and the head (vocab
+# 32001 does not divide over model) and the 2L + 1 norm scales
+TP_HYMBA_REPLICATED = 2 * 32001 * 1600 + (2 * 2 + 1) * 1600
+TP_FALCON_LAYERS, TP_FALCON_B, TP_FALCON_S, TP_FALCON_M = 2, 1, 128, 4
+TP_FALCON_DI = 8192                   # d_inner: 2048 a rank
+TP_FALCON_P = 743_305_216             # its 2-layer tree, unsharded
+# the scan kernels at the ranks' shapes (B, S, d_inner / M, N), dt_rank
+TP_SCAN_SHAPES = [
+    ("falcon-mamba-7b rank (M 4)", (1, 128, 2048, 16), 256),
+    ("hymba-1.5b rank (M 2)", (4, 128, 1600, 16), 100)]
+# and held to their twins (not timed) at the other widths a rank of M 2,
+# 4, 8 gives each arch: hymba's 800 and 400 (a ragged tail of the 32
+# channel tile), falcon-mamba's 4096 and 1024
+TP_SCAN_WIDTHS = [("hymba-1.5b rank (M 4)", (4, 128, 800, 16), 100),
+                  ("hymba-1.5b rank (M 8)", (4, 128, 400, 16), 100),
+                  ("falcon-mamba-7b rank (M 2)", (1, 128, 4096, 16), 256),
+                  ("falcon-mamba-7b rank (M 8)", (1, 128, 1024, 16), 256)]
 
 
 def emit(phase: str, **kw) -> None:
@@ -2677,42 +2726,49 @@ def phase_launch(name: str, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phase 32: the model axis tensor-parallel
+# phases 32-33: the model axis tensor-parallel
 # --------------------------------------------------------------------- #
-def tp_reference(rank: int) -> dict:
-    """The dense round of phase 32's cell (``build_train(comm="dense")``,
-    ``impl="kernel"``) on the card for ``TP_ROUNDS`` rounds: the rows of
-    x, z and g_prev of node ``TP_REF_NODES[rank]``, and its
-    ``commit_grid`` launches."""
-    import torch
+def tp_config(arch: str, layers: int | None = None):
+    """``arch``'s config at full width, cut to ``layers`` of its layers
+    (None: all of them)."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def tp_reference(rank: int, cfg, nodes: dict, rounds: int) -> dict:
+    """The dense round of a tensor-parallel cell of ``cfg``
+    (``build_train(comm="dense")``, ``impl="kernel"``, ``TP_TRAIN``) on
+    the card for ``rounds`` rounds: the rows of x, z and g_prev of node
+    ``nodes[rank]``, and the launches of every kernel."""
+    import torch
     from repro_torch.kernels.rfast_update import dispatch
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import describe_mesh
     fn, (st, batch, _) = specs.build_train(
-        get_config("rfast-100m"), describe_mesh((2, 1), ("data", "model")),
-        comm="dense", device="cuda", dtype=torch.float32, **TP_TRAIN)
+        cfg, describe_mesh((2, 1), ("data", "model")), comm="dense",
+        device="cuda", dtype=torch.float32, **TP_TRAIN)
     dispatch.clear()
-    for _ in range(TP_ROUNDS):
+    for _ in range(rounds):
         st, _m = fn(st, batch)
-    i = TP_REF_NODES[rank]
+    i = nodes[rank]
     ref = {f: getattr(st, f)[i].clone() for f in ("x", "z", "g_prev")}
-    ref.update(node=i, commit_grid_launches=dispatch.launches("commit_grid"))
+    ref.update(node=i, launches=dispatch.stats()["by_kernel"])
     del st, batch, fn
     torch.cuda.empty_cache()
     return ref
 
 
-def tp_warmup() -> None:
-    """One plain gradient of phase 32's cell on the card: the first CUDA
-    work of a rank (its context, cuBLAS, the kernels' modules) done while
-    the reference ranks run the dense round, not inside a cell."""
+def tp_warmup(cfg) -> None:
+    """One plain gradient of a tensor-parallel cell of ``cfg`` on the
+    card: the first CUDA work of a rank (its context, cuBLAS, the
+    kernels' modules) done while the reference ranks run the dense
+    round, not inside a cell."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.paramvec import make_ravel_spec, ravel, \
         value_and_grad
     from repro_torch.models.transformer import init_params, loss_fn
-    cfg = get_config("rfast-100m")
     tree = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     spec = make_ravel_spec(tree)
     toks = torch.zeros((TP_TRAIN["global_batch"] // 2, TP_TRAIN["seq"]),
@@ -2724,25 +2780,25 @@ def tp_warmup() -> None:
     torch.cuda.empty_cache()
 
 
-def tp_cell(mesh, ref: dict) -> dict:
-    """32(a)/(b) on one rank of ``mesh``: phase 32's cell built by
-    ``build_train(comm="ppermute")`` on the card and on meta (the
-    argument bytes), ``TP_ROUNDS`` rounds (seconds and collectives a
-    round; the last under RF206's audit), the replicated leaves against
-    the model group's, and the state rows gathered whole against the
-    dense rows in ``ref`` (if this rank holds them for its node here)."""
+def tp_cell(mesh, ref: dict, cfg, rounds: int) -> dict:
+    """32(a)/(b), 33(b) on one rank of ``mesh``: a tensor-parallel cell
+    of ``cfg`` built by ``build_train(comm="ppermute")`` on the card and
+    on meta (the argument bytes), ``rounds`` rounds (seconds and
+    collectives a round; the last under RF206's audit; the kernels'
+    launches over all of them), the replicated leaves against the model
+    group's, and the state rows gathered whole against the dense rows in
+    ``ref`` (if this rank holds them for its node here)."""
     import torch
     from repro_torch.analysis import torchlint
-    from repro_torch.configs import get_config
     from repro_torch.core.runtime_sharded import (all_gather_seq,
                                                   clear_collectives,
                                                   collective_stats)
+    from repro_torch.kernels.rfast_update import dispatch
     from repro_torch.launch import specs
     from repro_torch.launch.dryrun import _distinct_bytes
     from repro_torch.launch.mesh import describe_mesh
     from repro_torch.models import sharding as msh
     D, M = mesh.shape["data"], mesh.shape["model"]
-    cfg = get_config("rfast-100m")
     kw = dict(TP_TRAIN, comm="ppermute", dtype=torch.float32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2760,11 +2816,12 @@ def tp_cell(mesh, ref: dict) -> dict:
                specs.tensors_of(meta_args)),
            "round_s": [], "collectives": []}
     del meta_args
-    for r in range(TP_ROUNDS):
+    dispatch.clear()
+    for r in range(rounds):
         clear_collectives()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if r < TP_ROUNDS - 1:
+        if r < rounds - 1:
             st, metrics = fn(st, batch)
         else:                   # the last round under RF206's audit
             done = []
@@ -2780,6 +2837,7 @@ def tp_cell(mesh, ref: dict) -> dict:
             "calls", "bytes", "staged_bytes", "seconds")} | {"by_name": {
                 k: {f: v[f] for f in ("calls", "bytes", "staged_bytes")}
                 for k, v in c["by_name"].items()}})
+    out["launches"] = dispatch.stats()["by_kernel"]
     out["losses"] = metrics["losses"].tolist()
     rep = torch.cat([st.x[0, o:o + math.prod(shape)] for path, shape, o in
                      zip(spec.paths, spec.shapes, spec.offsets)
@@ -2788,6 +2846,7 @@ def tp_cell(mesh, ref: dict) -> dict:
     out["replicated_elements"] = rep.numel()
     out["replicated_bitwise"] = all(torch.equal(every[0], every[m])
                                     for m in range(1, M))
+    del rep, every
     out["rel_err"] = {}
     held = ref.get("node") == mesh.coords["data"]
     for f in ("x", "z", "g_prev"):
@@ -2803,27 +2862,28 @@ def tp_cell(mesh, ref: dict) -> dict:
     return out
 
 
-def tp_llama(mesh) -> dict:
-    """32(c) on one rank of a model group of ``TP_LLAMA_M``: llama3-8b at
-    full width, ``TP_LLAMA_LAYERS`` layers, drawn on the card from seed 0
-    by every rank, which keeps its blocks; the tensor-parallel gradient
-    of one batch, then, the ranks in turn, the unsharded gradient of the
-    same batch and this rank's blocks of it against its own."""
-    import dataclasses as dc
+def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
+            remat: bool) -> dict:
+    """32(c), 33(a) on one rank of a model group: ``cfg`` drawn on the
+    card from seed 0 by every rank, which keeps its blocks; the
+    tensor-parallel gradient of one batch of ``batch`` sequences of
+    ``seq`` (the kernels' launches and the scan kernels' shapes read
+    around it alone), then, the ranks in turn, the unsharded gradient of
+    the same batch and this rank's blocks of it against its own."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.core.paramvec import (make_ravel_spec, ravel, unravel,
                                            value_and_grad)
     from repro_torch.core.runtime_sharded import (clear_collectives,
                                                   collective_stats)
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.models import sharding as msh
     from repro_torch.models.transformer import init_params, loss_fn
-    cfg = dc.replace(get_config("llama3-8b"), n_layers=TP_LLAMA_LAYERS)
     draw = lambda: init_params(cfg, torch.Generator(
         device="cuda").manual_seed(0))
     full = draw()
-    tp = msh.tensor_parallel(cfg, full, mesh, seq_parallel=True)
+    tp = msh.tensor_parallel(cfg, full, mesh, seq_parallel=seq_parallel)
     local = msh.local_tree(full, tp)
     del full
     torch.cuda.empty_cache()
@@ -2831,18 +2891,36 @@ def tp_llama(mesh) -> dict:
     x = ravel(spec, local)
     del local
     gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = tuple(torch.randint(0, cfg.vocab, (TP_LLAMA_B, TP_LLAMA_S),
-                                generator=gen, device="cuda")
-                  for _ in range(2))
-    lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=True)
+    toks = tuple(torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                               device="cuda") for _ in range(2))
+    lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=remat)
     grad = msh.tensor_parallel_grad(spec, lf, tp)
-    clear_collectives()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss, g = grad(x, batch, None)
-    torch.cuda.synchronize()
-    out = {"p_local": spec.p, "grad_s": time.perf_counter() - t0,
-           "loss": float(loss), "collectives": collective_stats(),
+    shapes = []
+
+    def seen(kernel, call):         # the scan calls' (B, S, di, N)
+        def f(u, dt, A, *rest, **kw):
+            shapes.append([kernel, *u.shape, A.shape[-1]])
+            return call(u, dt, A, *rest, **kw)
+        return f
+    calls = scan_ops.ssm_scan, scan_ops.ssm_scan_bwd
+    scan_ops.ssm_scan = seen("ssm_scan", calls[0])
+    scan_ops.ssm_scan_bwd = seen("ssm_scan_bwd", calls[1])
+    try:
+        clear_collectives()
+        dispatch.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = grad(x, toks, None)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        launches = dispatch.stats()["by_kernel"]
+    finally:
+        scan_ops.ssm_scan, scan_ops.ssm_scan_bwd = calls
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "p_local": spec.p,
+           "grad_s": grad_s, "loss": float(loss),
+           "collectives": collective_stats(), "launches": launches,
+           "scan_calls": shapes, "seq_parallel": tp.seq_parallel,
+           "vocab_parallel": tp.vocab_parallel,
            "gathered": sorted("/".join(b) for b in tp.gathered)}
     del x
     for turn in range(tp.size):
@@ -2854,7 +2932,7 @@ def tp_llama(mesh) -> dict:
         xf = ravel(fspec, full)
         out["p_whole"] = fspec.p
         del full
-        ld, gd = value_and_grad(fspec, lf)(xf, batch, None)
+        ld, gd = value_and_grad(fspec, lf)(xf, toks, None)
         del xf
         mine = ravel(spec, msh.local_tree(unravel(fspec, gd), tp))
         out["dense_loss"] = float(ld)
@@ -2878,18 +2956,21 @@ def tp_rank() -> dict:
     from repro_torch.launch.mesh import make_sweep_mesh
     rank = dist.get_rank()
     out = {"rank": rank, "backend": dist.get_backend()}
+    cfg = tp_config("rfast-100m")
     t0 = time.perf_counter()
-    ref = tp_reference(rank) if rank in TP_REF_NODES else {}
+    ref = (tp_reference(rank, cfg, TP_REF_NODES, TP_ROUNDS)
+           if rank in TP_REF_NODES else {})
     if not ref:
-        tp_warmup()
+        tp_warmup(cfg)
     out["reference_s"] = time.perf_counter() - t0
-    out["commit_grid_launches"] = ref.pop("commit_grid_launches", 0)
+    out["commit_grid_launches"] = ref.pop("launches", {}).get(
+        "commit_grid", 0)
     dist.barrier()
     for D, M in TP_MESHES:
         mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
         if mesh.coords is not None:
             t0 = time.perf_counter()
-            out[f"{D}x{M}"] = dict(tp_cell(mesh, ref),
+            out[f"{D}x{M}"] = dict(tp_cell(mesh, ref, cfg, TP_ROUNDS),
                                    seconds=time.perf_counter() - t0)
         dist.barrier()
     del ref
@@ -2898,7 +2979,10 @@ def tp_rank() -> dict:
                            ranks=range(TP_LLAMA_M))
     if mesh.coords is not None:
         t0 = time.perf_counter()
-        out["llama"] = dict(tp_llama(mesh), seconds=time.perf_counter() - t0)
+        out["llama"] = dict(tp_grad(
+            mesh, tp_config("llama3-8b", TP_LLAMA_LAYERS), batch=TP_LLAMA_B,
+            seq=TP_LLAMA_S, seq_parallel=True, remat=True),
+            seconds=time.perf_counter() - t0)
     dist.barrier()
     return out
 
@@ -2938,8 +3022,8 @@ def phase_tensor_parallel(name: str, smi: str) -> dict:
         for c in cells:
             info = c["info"]
             check(info["model_axis"] == "tensor" and info["seq_parallel"]
-                  and info["tensor_parallel"] == {"ranks": M,
-                                                  "gathered": []},
+                  and info["tensor_parallel"] == {
+                      "ranks": M, "gathered": [], "vocab_parallel": True},
                   f"32 ({D}, {M}): tensor-parallel, sequence-parallel, "
                   "whole heads a rank")
             check(c["live_argument_bytes"] == c["meta_argument_bytes"],
@@ -2977,6 +3061,166 @@ def phase_tensor_parallel(name: str, smi: str) -> dict:
           "32(c): a rank holds its blocks (and the norm scales whole)")
     return {"tp_dense_reference": sum(o["commit_grid_launches"]
                                       for o in outs)}
+
+
+def tp_ssm_rank() -> dict:
+    """Phase 33 on one of ``TP_SSM_WORLD`` gloo ranks sharing cuda:0: the
+    dense reference rows of hymba-1.5b's cell (the ranks of
+    ``TP_HYMBA_REF_NODES``; the others warm up meanwhile), the cell on
+    ``TP_HYMBA_MESH``, then falcon-mamba-7b's gradient on a model group
+    of ``TP_FALCON_M``; every rank builds every mesh and waits at a
+    barrier after each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    hymba = tp_config("hymba-1.5b", TP_HYMBA_LAYERS)
+    t0 = time.perf_counter()
+    ref = (tp_reference(rank, hymba, TP_HYMBA_REF_NODES, TP_HYMBA_ROUNDS)
+           if rank in TP_HYMBA_REF_NODES else {})
+    if not ref:
+        tp_warmup(hymba)
+    out["reference_s"] = time.perf_counter() - t0
+    out["reference_launches"] = ref.pop("launches", {})
+    dist.barrier()
+    D, M = TP_HYMBA_MESH
+    mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
+    if mesh.coords is not None:
+        t0 = time.perf_counter()
+        out["hymba"] = dict(tp_cell(mesh, ref, hymba, TP_HYMBA_ROUNDS),
+                            seconds=time.perf_counter() - t0)
+    dist.barrier()
+    del ref
+    torch.cuda.empty_cache()
+    mesh = make_sweep_mesh(lanes=1, param_shards=TP_FALCON_M,
+                           ranks=range(TP_FALCON_M))
+    if mesh.coords is not None:
+        t0 = time.perf_counter()
+        out["falcon"] = dict(tp_grad(
+            mesh, tp_config("falcon-mamba-7b", TP_FALCON_LAYERS),
+            batch=TP_FALCON_B, seq=TP_FALCON_S, seq_parallel=False,
+            remat=False), seconds=time.perf_counter() - t0)
+    dist.barrier()
+    return out
+
+
+def phase_tensor_parallel_ssm(name: str, smi: str) -> dict:
+    """Phase 33: the SSM archs' ``model`` axis tensor-parallel on ranks
+    sharing this card over gloo, then both scan kernels held to their
+    plain twins and timed at the ranks' shapes (see the module
+    docstring).  Returns the paths' launches by kernel, the kernels'
+    largest errors and their rows at the rank shapes."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as scan_k
+    from repro_torch.launch.multihost import spawn_local
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    outs = spawn_local(tp_ssm_rank, TP_SSM_WORLD, backend="gloo",
+                       timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
+    spawn_s = time.perf_counter() - t_phase
+    D, M = TP_HYMBA_MESH
+    cells = [o["hymba"] for o in outs if "hymba" in o]
+    falcon = [o["falcon"] for o in outs if "falcon" in o]
+    for o in outs:
+        if "hymba" in o:
+            c = o["hymba"]
+            emit("tp_ssm_hymba_rank", rank=o["rank"], backend=o["backend"],
+                 **{k: v for k, v in c.items() if k != "info"},
+                 model_axis=c["info"]["model_axis"], p=c["info"]["p"],
+                 p_whole=c["info"]["p_whole"],
+                 seq_parallel=c["info"]["seq_parallel"],
+                 tensor_parallel=c["info"]["tensor_parallel"],
+                 reference_launches=o["reference_launches"], tol=TP_TOL,
+                 device=name, nvidia_smi=smi)
+        if "falcon" in o:
+            emit("tp_ssm_falcon_rank", rank=o["rank"], **o["falcon"],
+                 tol=TP_TOL, device=name, nvidia_smi=smi)
+    emit("tp_ssm_ranks_done", seconds=time.perf_counter() - t_phase,
+         spawn_s=spawn_s, reference_s=max(o["reference_s"] for o in outs))
+    L = TP_HYMBA_LAYERS
+    check(len(cells) == D * M, f"33(b): every rank of ({D}, {M}) ran")
+    for c in cells:
+        info = c["info"]
+        check(info["model_axis"] == "tensor" and info["seq_parallel"]
+              and info["tensor_parallel"] == {
+                  "ranks": M, "gathered": ["layers/attn"],
+                  "vocab_parallel": False},
+              f"33(b) hymba ({D}, {M}): tensor-parallel, sequence-parallel, "
+              "the attention gathered, the vocab replicated")
+        check(c["live_argument_bytes"] == c["meta_argument_bytes"],
+              f"33(b): the live argument bytes a rank "
+              f"({c['live_argument_bytes']}) equal the meta dry-run's "
+              f"({c['meta_argument_bytes']})")
+        check(c["replicated_bitwise"] and c["replicated_elements"]
+              == TP_HYMBA_REPLICATED, "33(b): the embedding, the head and "
+              "the norm scales bitwise equal across the model group")
+        check(c["audit"] == [], "33(b): the round audits clean (RF206)")
+        check(len({tuple(x["losses"]) for x in cells}) == 1,
+              "33(b): every rank reports the same losses")
+        # a round is one gradient a rank, its layers recomputed (remat)
+        check(c["launches"].get("ssm_scan_bwd") == L * TP_HYMBA_ROUNDS
+              and c["launches"].get("ssm_scan") == 2 * L * TP_HYMBA_ROUNDS,
+              f"33(b): the scan kernels on a rank's channels, once forward "
+              f"(and once recomputed) and once backward a layer a round "
+              f"({c['launches']})")
+        if c["rel_err"]:
+            check(all(v <= TP_TOL for v in c["rel_err"].values()),
+                  f"33(b): the gathered state within {TP_TOL} of the dense "
+                  f"round ({c['rel_err']})")
+    check(sum(1 for c in cells if c["rel_err"]) == D,
+          "33(b): both nodes held to the dense round")
+    fl = TP_FALCON_LAYERS
+    want_shape = [TP_FALCON_B, TP_FALCON_S, TP_FALCON_DI // TP_FALCON_M, 16]
+    check(len(falcon) == TP_FALCON_M and all(
+        r["rel_err"] <= TP_TOL for r in falcon),
+        f"33(a): falcon-mamba-7b's tensor-parallel gradient within {TP_TOL} "
+        "of the unsharded one")
+    check(len({r["loss"] for r in falcon}) == 1 and all(
+        abs(r["loss"] - r["dense_loss"]) <= TP_TOL * abs(r["dense_loss"])
+        for r in falcon), "33(a): one loss a model group, the unsharded one")
+    check(all(r["p_whole"] == TP_FALCON_P and r["vocab_parallel"]
+              and r["gathered"] == [] for r in falcon),
+          f"33(a): {TP_FALCON_P} parameters, vocab-parallel, no block "
+          "gathered")
+    check(all(r["launches"] == {"ssm_scan": fl, "ssm_scan_bwd": fl}
+              and r["scan_calls"] == [[k, *want_shape] for k in
+                                      ("ssm_scan",) * fl
+                                      + ("ssm_scan_bwd",) * fl]
+              for r in falcon),
+          f"33(a): ssm_scan and ssm_scan_bwd launched {fl} times a rank's "
+          f"gradient at (B, S, d_inner / M, N) = {want_shape}")
+    # the kernels at the ranks' shapes: held to their twins, then timed
+    clock_hz = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = {"ssm_scan": 0.0, "ssm_scan_bwd": 0.0}
+    rows = {"ssm_scan": {}, "ssm_scan_bwd": {}}
+    for sname, shape, dt_rank in TP_SCAN_SHAPES + TP_SCAN_WIDTHS:
+        sargs = scan_inputs(*shape, torch.float32, dt_rank=dt_rank, seed=9)
+        fe = compare_scan(sargs, SCAN_FP32_TOL, f"ssm_scan {sname}")
+        brel, be = compare_scan_bwd(sargs, SCAN_FP32_TOL,
+                                    f"ssm_scan_bwd {sname}", seed=10)
+        err["ssm_scan"] = max(err["ssm_scan"], fe)
+        err["ssm_scan_bwd"] = max(err["ssm_scan_bwd"], be)
+        emit("tp_scan_kernel", shape=sname,
+             case=dict(zip(("B", "S", "di", "N"), shape)),
+             segments=scan_k.scan_segments(*shape, sms), max_abs_err=fe,
+             bwd_max_abs_err=be, bwd_max_rel_err=brel, tol=SCAN_FP32_TOL)
+        del sargs
+        if (sname, shape, dt_rank) in TP_SCAN_SHAPES:
+            rows["ssm_scan"][sname], rows["ssm_scan_bwd"][sname] = \
+                scan_timing(sname, shape, dt_rank, clock_hz, sms, name, smi)
+    torch.cuda.empty_cache()
+    sum_k = lambda rs, k: sum(r["launches"].get(k, 0) for r in rs)
+    launches = {k: {"tp_ssm_falcon_grad": sum_k(falcon, k),
+                    "tp_ssm_hymba_rounds": sum_k(cells, k),
+                    "tp_ssm_dense_reference": sum(
+                        o["reference_launches"].get(k, 0) for o in outs)}
+                for k in ("ssm_scan", "ssm_scan_bwd", "commit_grid")}
+    emit("tp_ssm_done", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return {"launches": launches, "max_abs_err": err, "rows": rows}
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
@@ -3499,6 +3743,85 @@ def scan_bwd_bound(Bsz, S, di, N, itemsize, n_ckpt, clock_hz):
         terms, bytes=nbytes, flops=flops, exps=exps)
 
 
+def scan_timing(sname, shape, dt_rank, clock_hz, sms, name, smi):
+    """Phase 16's readings of both scan kernels at ``shape`` (B, S, di,
+    N), fp32, B and C slices of a projection of ``dt_rank`` + 2N columns:
+    the forward at the split ``scan_segments`` chooses (and unsplit),
+    with checkpoints and as one call, the backward, their plain twins,
+    both kernels through autograd, beside ``scan_bound`` /
+    ``scan_bwd_bound``; emits one ``scan_timing`` line a kernel and
+    returns their rows ``(forward, backward)`` (ms, plain_ms, bound_ms,
+    bound_by)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import backward as scan_b
+    from repro_torch.kernels.ssm_scan import kernel as scan_k
+    from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
+    every = scan_k.CKPT_EVERY
+    sargs = scan_inputs(*shape, torch.float32, dt_rank=dt_rank, seed=5)
+    Bsz, S, di, N = shape
+    long = S > 1024
+    rule = scan_k.scan_segments(Bsz, S, di, N, sms)
+    split = {nseg: graph_ms(lambda: scan_k.ssm_scan(*sargs,
+                                                    segments=nseg))
+             for nseg in sorted({1, rule})}
+    row = dict(
+        ms=split[rule],
+        plain_ms=cuda_ms(lambda: scan_k.ssm_scan_plain(*sargs),
+                         reps=2 if long else 5, warmup=1 if long else 2))
+    row["bound_ms"], row["bound_by"], terms = scan_bound(*shape, 4,
+                                                         clock_hz)
+    more = {
+        # one call as a caller pays it, the wrapper's host work included
+        "call_ms": cuda_ms(lambda: scan_k.ssm_scan(*sargs), reps=20),
+        # as the autograd function runs it: with the checkpoints
+        "ckpt_ms": graph_ms(lambda: scan_k.ssm_scan(
+            *sargs, ckpt_every=every)),
+        "segments": rule, "ms_by_segments": split}
+    _, _, ckpt = scan_k.ssm_scan(*sargs, ckpt_every=every)
+    gg = torch.Generator(device="cuda").manual_seed(6)
+    bargs = (*sargs, torch.randn(Bsz, S, di, generator=gg, device="cuda"),
+             torch.randn(Bsz, di, N, generator=gg, device="cuda"), ckpt)
+    n_ck = scan_k.n_checkpoints(S, every)
+    brow = dict(
+        ms=graph_ms(lambda: scan_b.ssm_scan_bwd(*bargs,
+                                                ckpt_every=every)),
+        # the twin once at the op widths (two Python loops over S)
+        plain_ms=cuda_ms(lambda: scan_b.ssm_scan_bwd_plain(
+            *bargs, ckpt_every=every), reps=1 if long else 3,
+            warmup=0 if long else 1))
+    # the gradient's own bound, its checkpoints at the spacing the least
+    # work needs; and as the kernel reads them, at CKPT_EVERY
+    brow["bound_ms"], brow["bound_by"], bterms = scan_bwd_bound(
+        *shape, 4, scan_k.n_checkpoints(S, SCAN_BOUND_CKPT_EVERY),
+        clock_hz)
+    at_every, _, every_terms = scan_bwd_bound(*shape, 4, n_ck, clock_hz)
+    # one SSM layer's scan in a gradient: both kernels through autograd
+    # (at hymba's op width the forward splits: the shape a train at
+    # --batch-per-node 1 --seq 4096 gives the scan)
+    leaves = [t.detach().requires_grad_() for t in sargs]
+    more["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        SelectiveScanFn.apply(*leaves)[0].sum(), leaves),
+        reps=5 if long else 10)
+    del leaves
+    emit("scan_timing", kernel="ssm_scan", shape=sname, **more,
+         case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
+         bound_share=row["bound_ms"] / row["ms"],
+         achieved_gb_s=terms["bytes"] / row["ms"] / 1e6,
+         sm_clock_max_mhz=clock_hz / 1e6, library_ms=None,
+         device=name, nvidia_smi=smi, **row, **terms)
+    emit("scan_timing", kernel="ssm_scan_bwd", shape=sname,
+         case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
+         ckpt_every=every, bound_ckpt_every=SCAN_BOUND_CKPT_EVERY,
+         bound_share=brow["bound_ms"] / brow["ms"],
+         bound_ms_at_ckpt_every=at_every,
+         bound_share_at_ckpt_every=at_every / brow["ms"],
+         bytes_at_ckpt_every=every_terms["bytes"],
+         achieved_gb_s=every_terms["bytes"] / brow["ms"] / 1e6,
+         library_ms=None, device=name, nvidia_smi=smi, **brow, **bterms)
+    del sargs, bargs, ckpt
+    return row, brow
+
+
 def compare_scan(args, tol, what, segments=(1, 3), fwd=None) -> float:
     """The forward kernel (``fwd``, by default the checkout's
     ``ssm_scan``) against its plain twin on ``args``, unsplit and split:
@@ -4005,73 +4328,10 @@ def main() -> int:
     # 16. scan timing at the train shape and at two op widths --------------
     clock_hz = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    every = scan_k.CKPT_EVERY
     scan_rows, bwd_rows = {}, {}
     for sname, shape, dt_rank in SCAN_TIMED:
-        sargs = scan_inputs(*shape, torch.float32, dt_rank=dt_rank, seed=5)
-        Bsz, S, di, N = shape
-        long = S > 1024
-        rule = scan_k.scan_segments(Bsz, S, di, N, sms)
-        split = {nseg: graph_ms(lambda: scan_k.ssm_scan(*sargs,
-                                                        segments=nseg))
-                 for nseg in sorted({1, rule})}
-        row = dict(
-            ms=split[rule],
-            plain_ms=cuda_ms(lambda: scan_k.ssm_scan_plain(*sargs),
-                             reps=2 if long else 5, warmup=1 if long else 2))
-        row["bound_ms"], row["bound_by"], terms = scan_bound(*shape, 4,
-                                                             clock_hz)
-        scan_rows[sname] = row
-        more = {
-            # one call as a caller pays it, the wrapper's host work included
-            "call_ms": cuda_ms(lambda: scan_k.ssm_scan(*sargs), reps=20),
-            # as the autograd function runs it: with the checkpoints
-            "ckpt_ms": graph_ms(lambda: scan_k.ssm_scan(
-                *sargs, ckpt_every=every)),
-            "segments": rule, "ms_by_segments": split}
-        _, _, ckpt = scan_k.ssm_scan(*sargs, ckpt_every=every)
-        gg = torch.Generator(device="cuda").manual_seed(6)
-        bargs = (*sargs, torch.randn(Bsz, S, di, generator=gg, device="cuda"),
-                 torch.randn(Bsz, di, N, generator=gg, device="cuda"), ckpt)
-        n_ck = scan_k.n_checkpoints(S, every)
-        brow = dict(
-            ms=graph_ms(lambda: scan_b.ssm_scan_bwd(*bargs,
-                                                    ckpt_every=every)),
-            # the twin once at the op widths (two Python loops over S)
-            plain_ms=cuda_ms(lambda: scan_b.ssm_scan_bwd_plain(
-                *bargs, ckpt_every=every), reps=1 if long else 3,
-                warmup=0 if long else 1))
-        # the gradient's own bound, its checkpoints at the spacing the least
-        # work needs; and as the kernel reads them, at CKPT_EVERY
-        brow["bound_ms"], brow["bound_by"], bterms = scan_bwd_bound(
-            *shape, 4, scan_k.n_checkpoints(S, SCAN_BOUND_CKPT_EVERY),
-            clock_hz)
-        at_every, _, every_terms = scan_bwd_bound(*shape, 4, n_ck, clock_hz)
-        bwd_rows[sname] = brow
-        # one SSM layer's scan in a gradient: both kernels through autograd
-        # (at hymba's op width the forward splits: the shape a train at
-        # --batch-per-node 1 --seq 4096 gives the scan)
-        leaves = [t.detach().requires_grad_() for t in sargs]
-        more["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            SelectiveScanFn.apply(*leaves)[0].sum(), leaves),
-            reps=5 if long else 10)
-        del leaves
-        emit("scan_timing", kernel="ssm_scan", shape=sname, **more,
-             case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
-             bound_share=row["bound_ms"] / row["ms"],
-             achieved_gb_s=terms["bytes"] / row["ms"] / 1e6,
-             sm_clock_max_mhz=clock_hz / 1e6, library_ms=None,
-             device=name, nvidia_smi=smi, **row, **terms)
-        emit("scan_timing", kernel="ssm_scan_bwd", shape=sname,
-             case=dict(zip(("B", "S", "di", "N"), shape)), dtype="float32",
-             ckpt_every=every, bound_ckpt_every=SCAN_BOUND_CKPT_EVERY,
-             bound_share=brow["bound_ms"] / brow["ms"],
-             bound_ms_at_ckpt_every=at_every,
-             bound_share_at_ckpt_every=at_every / brow["ms"],
-             bytes_at_ckpt_every=every_terms["bytes"],
-             achieved_gb_s=every_terms["bytes"] / brow["ms"] / 1e6,
-             library_ms=None, device=name, nvidia_smi=smi, **brow, **bterms)
-        del sargs, bargs, ckpt
+        scan_rows[sname], bwd_rows[sname] = scan_timing(
+            sname, shape, dt_rank, clock_hz, sms, name, smi)
     torch.cuda.empty_cache()
 
     # 17. the event oracle at full width ----------------------------------
@@ -4600,6 +4860,11 @@ def main() -> int:
     # 32. the model axis tensor-parallel ----------------------------------
     mesh_launches.update(phase_tensor_parallel(name, smi))
 
+    # 33. the SSM archs' model axis tensor-parallel -----------------------
+    tp_ssm = phase_tensor_parallel_ssm(name, smi)
+    mesh_launches.update({k: v for k, v in tp_ssm["launches"][
+        "commit_grid"].items() if v})
+
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
         **{f"sync_train_{t}": v.get("commit_grid", 0)
@@ -4668,39 +4933,46 @@ def main() -> int:
                                                "bound_by")},
                         "library_ms": None})
     train_row = scan_rows[SCAN_TRAIN[0]]
+    scan_paths = {
+        **{f"hymba_sync_train_{t}": v.get("ssm_scan", 0)
+           for t, v in hymba_launches.items()},
+        "hymba_serve_prefill_cache": hymba_serve["prefill_cache"],
+        "hymba_serve_forward": hymba_serve["forward"],
+        **tp_ssm["launches"]["ssm_scan"]}
     kernels.append({
         "name": "ssm_scan", "route": "cuda",
         "source": str(scan_k.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:62",
-        "launches": sum(v.get("ssm_scan", 0)
-                        for v in hymba_launches.values())
-        + hymba_serve["prefill_cache"] + hymba_serve["forward"],
-        "launches_by_path": {
-            **{f"hymba_sync_train_{t}": v.get("ssm_scan", 0)
-               for t, v in hymba_launches.items()},
-            "hymba_serve_prefill_cache": hymba_serve["prefill_cache"],
-            "hymba_serve_forward": hymba_serve["forward"]},
-        "max_abs_err": max(scan_err, hymba_serve["max_abs_err"]),
+        "launches": sum(scan_paths.values()),
+        "launches_by_path": scan_paths,
+        "max_abs_err": max(scan_err, hymba_serve["max_abs_err"],
+                           tp_ssm["max_abs_err"]["ssm_scan"]),
         "max_abs_err_by_shape": {"train": scan_err,
-                                 **hymba_serve["err_by_shape"]},
+                                 **hymba_serve["err_by_shape"],
+                                 "tp_rank_shapes":
+                                 tp_ssm["max_abs_err"]["ssm_scan"]},
         **train_row, "library_ms": None,
         "op_widths": {k: v for k, v in scan_rows.items()
-                      if k != SCAN_TRAIN[0]}})
+                      if k != SCAN_TRAIN[0]},
+        "rank_shapes": tp_ssm["rows"]["ssm_scan"]})
+    bwd_paths = {
+        **{f"hymba_sync_train_{t}": v.get("ssm_scan_bwd", 0)
+           for t, v in hymba_launches.items()},
+        **tp_ssm["launches"]["ssm_scan_bwd"]}
     kernels.append({
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": str(scan_b.KERNEL_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/models/ssm.py:42 (the gradient of "
                     "selective_scan_ref: lax.scan autodiff, no Pallas "
                     "kernel)",
-        "launches": sum(v.get("ssm_scan_bwd", 0)
-                        for v in hymba_launches.values()),
-        "launches_by_path": {f"hymba_sync_train_{t}":
-                             v.get("ssm_scan_bwd", 0)
-                             for t, v in hymba_launches.items()},
-        "max_abs_err": scan_bwd_err, **bwd_rows[SCAN_TRAIN[0]],
-        "library_ms": None,
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
+        "max_abs_err": max(scan_bwd_err,
+                           tp_ssm["max_abs_err"]["ssm_scan_bwd"]),
+        **bwd_rows[SCAN_TRAIN[0]], "library_ms": None,
         "op_widths": {k: v for k, v in bwd_rows.items()
-                      if k != SCAN_TRAIN[0]}})
+                      if k != SCAN_TRAIN[0]},
+        "rank_shapes": tp_ssm["rows"]["ssm_scan_bwd"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -306,7 +306,7 @@ def audit_collectives(run, state, *, subject, state_bytes_threshold,
 
 # the model group's collectives of a tensor-parallel round
 MODEL_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_gather_seq",
-                     "reduce_scatter_seq")
+                     "reduce_scatter_seq", "all_to_all")
 
 
 def audit_tensor_parallel_round(run, state, *, subject) -> list[Diagnostic]:

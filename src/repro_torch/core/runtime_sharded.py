@@ -15,15 +15,16 @@ collectives issued in different orders deadlock):
 * the model group's collectives, which the reference's GSPMD inserts
   into its ``model``-axis program and the port's tensor parallelism
   (``models/sharding.py``) calls itself: :func:`all_reduce_sum`,
-  :func:`all_reduce_max`, and :func:`all_gather_seq` /
-  :func:`reduce_scatter_seq` along one tensor dimension; and over them
-  the autograd pairs of Megatron's column- and row-parallel layers
-  (:func:`copy_to_model`: identity forward, all-reduce backward;
-  :func:`reduce_from_model`: the reverse; :func:`gather_from_model`:
-  gather forward, this rank's block of the gradient backward;
-  :func:`gather_from_seq` / :func:`reduce_scatter_to_seq`: the
-  sequence-parallel gather and reduce-scatter, each the other's
-  backward).
+  :func:`all_reduce_max`, :func:`all_gather_seq` /
+  :func:`reduce_scatter_seq` along one tensor dimension, and
+  :func:`all_to_all_rows`; and over them the autograd pairs of
+  Megatron's column- and row-parallel layers (:func:`copy_to_model`:
+  identity forward, all-reduce backward; :func:`reduce_from_model`: the
+  reverse; :func:`gather_from_model`: gather forward, this rank's block
+  of the gradient backward; :func:`gather_from_seq` /
+  :func:`reduce_scatter_to_seq`: the sequence-parallel gather and
+  reduce-scatter, each the other's backward; :func:`all_to_all_model`:
+  an exchange of rows forward, the reverse exchange backward).
 
 Each call adds its output bytes to running totals by name
 (:func:`collective_stats`, :func:`clear_collectives`), the way
@@ -96,8 +97,9 @@ from .topology import Topology
 __all__ = ["AxisGroup", "DescribedGroup", "ShardedState", "SweepLayout",
            "matchings", "CARDS_PER_HOST",
            "all_gather_flat", "ppermute", "all_reduce_sum", "all_reduce_max",
-           "all_gather_seq", "reduce_scatter_seq", "copy_to_model",
-           "reduce_from_model", "gather_from_model", "gather_from_seq",
+           "all_gather_seq", "reduce_scatter_seq", "all_to_all_rows",
+           "copy_to_model", "reduce_from_model", "gather_from_model",
+           "gather_from_seq", "all_to_all_model",
            "reduce_scatter_to_seq", "rank_block", "collective_stats",
            "clear_collectives", "record_collectives", "STAGED",
            "make_sharded_round", "init_sharded_state", "node_index",
@@ -388,6 +390,33 @@ def reduce_scatter_seq(t: torch.Tensor, group: AxisGroup | None,
     return out
 
 
+def all_to_all_rows(t: torch.Tensor, group: AxisGroup | None,
+                    send, recv) -> torch.Tensor:
+    """The rows of ``t`` (its leading dim) exchanged over ``group``: the
+    first ``send[0]`` to the group's rank 0, the next ``send[1]`` to its
+    rank 1, and so on; returns the rows received, ``recv[i]`` from rank
+    i, in rank order (``all_to_all_single`` with those splits)."""
+    import torch.distributed as dist
+    M = 1 if group is None else group.size
+    if sum(send) != t.shape[0] or len(send) != M or len(recv) != M:
+        raise ValueError(f"splits {list(send)} -> {list(recv)} do not fit "
+                         f"{t.shape[0]} rows over {M} ranks")
+    full = (sum(recv),) + tuple(t.shape[1:])
+    if M == 1:
+        _note("all_to_all", t, 1, 0)
+        return t
+    if _meta_or_live(group, t):
+        out = t.new_empty(full)
+        _note("all_to_all", out, M, 0, intra_host=group.intra_host)
+        return out
+    t0 = time.perf_counter()
+    out = torch.empty(full, dtype=t.dtype, device=t.device)
+    dist.all_to_all_single(out, t.contiguous(), output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group.pg)
+    _note("all_to_all", out, M, 0, t0)
+    return out
+
+
 def rank_block(t: torch.Tensor, group: AxisGroup, dim: int) -> torch.Tensor:
     """This rank's block of ``t`` along ``dim`` (``group.size`` blocks)."""
     n = t.shape[dim] // group.size
@@ -448,6 +477,18 @@ class _ReduceScatterToSeq(torch.autograd.Function):
         return all_gather_seq(g, ctx.group, ctx.dim), None, None
 
 
+class _AllToAllModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return all_to_all_rows(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_rows(g, ctx.group, ctx.recv, ctx.send), None, \
+            None, None
+
+
 def copy_to_model(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """Megatron's f: ``x`` forward, the all-reduce of its gradient over
     ``group`` backward (the input of a column-parallel layer, which each
@@ -473,6 +514,13 @@ def gather_from_seq(x: torch.Tensor, group: AxisGroup,
     """The gather of ``x`` along ``dim`` forward, the reduce-scatter of
     its gradient backward (each rank's gradient of the whole is a part)."""
     return _GatherFromSeq.apply(x, group, dim)
+
+
+def all_to_all_model(x: torch.Tensor, group: AxisGroup, send,
+                     recv) -> torch.Tensor:
+    """:func:`all_to_all_rows` of ``x`` forward; backward, its gradient's
+    rows sent back where they came from."""
+    return _AllToAllModel.apply(x, group, tuple(send), tuple(recv))
 
 
 def reduce_scatter_to_seq(x: torch.Tensor, group: AxisGroup,

@@ -26,11 +26,11 @@ the kernel wrappers and the collectives record themselves
   allocations move nothing), as XLA's "bytes accessed" counts them, plus
   each kernel's own bytes;
 * ``collectives_scanned`` — the collectives by kind (``all-gather``,
-  ``collective-permute``, and the tensor-parallel ``all-reduce`` and
-  ``reduce-scatter`` over the ``model`` group) with their count and
-  output bytes, split into those whose group stays within one host
-  (``nvlink_bytes``: the ``model`` axis of the production mesh) and
-  those that cross hosts (``ib_bytes``).
+  ``collective-permute``, and the tensor-parallel ``all-reduce``,
+  ``reduce-scatter`` and ``all-to-all`` over the ``model`` group) with
+  their count and output bytes, split into those whose group stays
+  within one host (``nvlink_bytes``: the ``model`` axis of the
+  production mesh) and those that cross hosts (``ib_bytes``).
 
 ``lower_s`` is the seconds spent building the case and ``compile_s``
 those of the meta run that takes the compile's place.  The port runs
@@ -80,7 +80,8 @@ COLLECTIVE_KINDS = {"all_gather_flat": "all-gather",
                     "ppermute": "collective-permute",
                     "all_reduce_sum": "all-reduce",
                     "all_reduce_max": "all-reduce",
-                    "reduce_scatter_seq": "reduce-scatter"}
+                    "reduce_scatter_seq": "reduce-scatter",
+                    "all_to_all": "all-to-all"}
 SCAN_KERNELS = ("ssm_scan", "ssm_scan_bwd")
 aten = torch.ops.aten
 # ops that allocate and move nothing

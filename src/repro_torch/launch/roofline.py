@@ -9,8 +9,9 @@ shape × mesh) JSON that ``dryrun.py`` writes, derive, per card:
                     + InfiniBand bytes / InfiniBand rate          [s]
 
 (every collective the record counts: the node axes' ppermutes and
-gathers, and the ``model`` axis' all-gathers, all-reduces and
-reduce-scatters of a tensor-parallel train case, on NVLink within a host)
+gathers, and the ``model`` axis' all-gathers, all-reduces,
+reduce-scatters and all-to-alls of a tensor-parallel train case, on
+NVLink within a host)
 
 at the H100 SXM 80GB data-sheet rates of ``launch.mesh.HW`` (an
 analysis at those rates, not a measurement).  FLOPs and bytes come from

@@ -18,7 +18,8 @@ nothing allocated; another device materializes the same case from
 * **train** — ``comm="ppermute"`` (and ``"auto"``) is
   :func:`~repro_torch.core.runtime_sharded.make_sharded_round` over the
   node axes: this rank's node, its flat state rows ``(1, p)`` and ``(1,
-  S_a, p)`` and its node's whole batch.  For the dense decoders
+  S_a, p)`` and its node's whole batch.  For the dense decoders,
+  falcon-mamba-7b and hymba-1.5b
   (``models.sharding.tensor_parallel_supported``) on a ``model`` axis of
   M > 1 ranks, the axis runs tensor-parallel as the reference's GSPMD
   runs it: a rank's tree is its blocks of the leaves the reference's
@@ -26,8 +27,9 @@ nothing allocated; another device materializes the same case from
   axes leading) and whole copies of the rest, ``p`` is the width of
   their flat ravel, and the gradient is
   ``models.sharding.tensor_parallel_grad``; ``step_fn.info`` says
-  ``"model_axis": "tensor"`` and records the sequence parallelism and
-  the blocks that run gathered.  Every other arch keeps whole rows on
+  ``"model_axis": "tensor"`` and records the sequence parallelism, the
+  blocks that run gathered and whether the embedding and head are
+  vocab-parallel or replicated.  Every other arch keeps whole rows on
   each rank of a model group, which runs its node's round again
   (``"model_axis": "replicated"``).  ``comm="dense"`` is
   :func:`~repro_torch.core.runtime.make_rfast_round`, which the port
@@ -285,7 +287,8 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
         seq_parallel=seq_parallel if tp is None else tp.seq_parallel,
         tensor_parallel=None if tp is None else dict(
             ranks=tp.size, gathered=sorted("/".join(b)
-                                           for b in tp.gathered)),
+                                           for b in tp.gathered),
+            vocab_parallel=tp.vocab_parallel),
         ce=ce, matchings=len(plan.slots_w) + len(plan.slots_a))
     # what a caller needs to gather a state row whole
     # (models.sharding.gather_flat)

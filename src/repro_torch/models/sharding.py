@@ -33,20 +33,34 @@ is, and the port runs the same layout explicitly:
   vocab-parallel head (:func:`to_head`) and cross entropy
   (:func:`vocab_parallel_ce`).  With sequence parallelism (the
   reference's ``seq`` → ``model``) the residual stream holds this
-  rank's block of the sequence: it is gathered before each attention or
-  MLP and reduce-scattered after it.  A block whose spec cuts inside a
-  head (or leaves a projection replicated) gathers its leaves over
-  ``model`` and runs replicated, each rank keeping its own block of the
-  gradient: chosen from the spec, the same on every rank;
+  rank's block of the sequence: it is gathered before each attention,
+  SSM or MLP block and reduce-scattered after it.  A block whose spec
+  cuts inside a head (or leaves a projection replicated) gathers its
+  leaves over ``model`` and runs replicated, each rank keeping its own
+  block of the gradient: chosen from the spec, the same on every rank;
+* the Mamba block (``models/ssm.py``, the reference's ``ssm_inner`` →
+  ``model``) runs on this rank's ``d_inner / M`` channels: in_proj's
+  block holds whole columns of ``[x | z]``, not a channel block, so the
+  ranks exchange column chunks of its output until each holds x and z
+  at its channels (:func:`ssm_channels`); the conv, the gate and the scan
+  kernels run on them; ``x_proj`` is row-parallel and its partial sums
+  feed every channel's dt, B and C, so they are all-reduced forward and
+  their gradient all-reduced backward (:func:`ssm_proj`);
+* where ``vocab`` does not divide over ``model`` (hymba-1.5b's 32001)
+  the spec leaves the embedding and the head replicated
+  (``TensorParallel.vocab_parallel`` False): the lookup and the head
+  run on the replicated stream, or with sequence parallelism on this
+  rank's block of the sequence, whose loss sum is all-reduced
+  (:func:`seq_parallel_mean`);
 * :func:`tensor_parallel_grad` is the flat gradient of the local tree;
   with sequence parallelism each rank saw only its part of the
-  sequence through the replicated leaves (the norms' scales), so their
-  gradients are all-reduced over ``model`` and every copy stays the
-  same.
+  sequence through the replicated leaves (the norms' scales, and a
+  replicated embedding and head), so their gradients are all-reduced
+  over ``model`` and every copy stays the same.
 
-The five dense decoders run so (:func:`tensor_parallel_supported`: an
-attention mixer with GQA, a dense MLP without biases, no frontend, no
-encoder); the other archs keep the replicated ``model`` axis.
+The five dense decoders, falcon-mamba-7b and hymba-1.5b run so
+(:func:`tensor_parallel_supported`); the other archs keep the
+replicated ``model`` axis.
 """
 from __future__ import annotations
 
@@ -61,7 +75,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "tensor_parallel_supported", "use_tensor_parallel",
            "current_tensor_parallel", "local_tree", "gather_tree",
            "gather_flat",
-           "embed_lookup", "parallel_block", "to_head", "vocab_parallel_ce",
+           "embed_lookup", "parallel_block", "ssm_channels", "ssm_proj",
+           "to_head", "vocab_parallel_ce", "seq_parallel_mean",
            "tensor_parallel_grad"]
 
 
@@ -197,9 +212,11 @@ class TensorParallel:
     leaf's key path to the dimension (from the end, so a layer-stacked
     leaf and one layer of it agree) that its spec shards over ``model``,
     or None; ``gathered`` names the blocks
-    (``("layers", "attn")``, ``("layers", "mlp")``) that gather their
-    leaves and run replicated; ``seq_parallel`` whether the residual
-    stream is sharded over the sequence."""
+    (``("layers", "attn")``, ``("layers", "ssm")``, ``("layers",
+    "mlp")``) that gather their leaves and run replicated;
+    ``seq_parallel`` whether the residual stream is sharded over the
+    sequence; ``vocab_parallel`` whether the embedding and the head are
+    (else both are replicated)."""
 
     mesh: Any
     rules: dict
@@ -207,6 +224,7 @@ class TensorParallel:
     dims: dict
     gathered: frozenset
     seq_parallel: bool
+    vocab_parallel: bool
 
     @property
     def size(self) -> int:
@@ -217,14 +235,26 @@ class TensorParallel:
         return self.group.index
 
 
+# the dim of each SSM leaf that runs on a rank's channels (the channel
+# dim of ``d_inner``; in_proj's columns are [x | z]): the layout
+# ``models/ssm.py`` runs the block in, else the block runs gathered
+SSM_DIMS = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
+            "dt_proj": -1, "dt_bias": -1, "A_log": -2, "D": -1,
+            "out_proj": -2}
+
+
 def tensor_parallel_supported(cfg) -> bool:
     """Whether the port runs ``cfg``'s ``model`` axis tensor-parallel:
     the dense decoders with GQA attention (rfast-100m, llama3-8b,
-    olmo-1b, qwen2.5-3b, deepseek-7b)."""
-    return (cfg.mixer == "attn" and cfg.attention != "mla"
-            and not cfg.moe_experts and not cfg.enc_dec
-            and not cfg.frontend and not cfg.mlp_bias and bool(cfg.d_ff)
-            and cfg.use_rope)
+    olmo-1b, qwen2.5-3b, deepseek-7b), the SSM archs without an MLP
+    (falcon-mamba-7b) and the hybrids of GQA attention and SSM with a
+    dense MLP (hymba-1.5b)."""
+    if cfg.moe_experts or cfg.enc_dec or cfg.frontend:
+        return False
+    if cfg.mixer == "ssm":
+        return not cfg.d_ff
+    return (cfg.mixer in ("attn", "hybrid") and cfg.attention != "mla"
+            and not cfg.mlp_bias and bool(cfg.d_ff) and cfg.use_rope)
 
 
 def _paths(tree, prefix=()):
@@ -250,14 +280,16 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
     axes (every axis but ``model`` by default) leading, as the reference
     lays out the R-FAST state.  Raises where the port cannot run the
     layout: an arch :func:`tensor_parallel_supported` refuses, a spec
-    over another axis, or an embedding or head the spec leaves
-    replicated (``vocab`` must divide over ``model``)."""
+    over another axis, or an embedding and a head of which the spec
+    shards one and leaves the other replicated."""
     import torch
 
     from ..launch import shardings as sh
     if not tensor_parallel_supported(cfg):
         raise ValueError(f"{cfg.name}: the port runs the 'model' axis "
-                         "tensor-parallel for the dense GQA decoders only")
+                         "tensor-parallel for the dense GQA decoders, the "
+                         "SSM archs without an MLP and the GQA + SSM "
+                         "hybrids only")
     rules = rules or sh.RULES_BASE
     if node_axes is None:
         node_axes = tuple(a for a in mesh.axis_names if a != "model")
@@ -281,24 +313,37 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
                                  "runs the 'model' axis only")
             dim = i - len(shape)
         dims[path] = dim
-    if dims.get(("embed",)) != -2 or dims.get(("lm_head",), -1) != -1:
-        raise ValueError(f"{cfg.name}: vocab {cfg.vocab} does not divide "
-                         f"over the {M} ranks of 'model': the embedding "
-                         "and head must be vocab-parallel")
+    embed, head = dims.get(("embed",)), dims.get(("lm_head",), "tied")
+    if embed == -2 and head in (-1, "tied"):
+        vocab_parallel = True
+    elif embed is None and head in (None, "tied"):
+        vocab_parallel = False
+    else:
+        raise ValueError(f"{cfg.name}: the spec shards the embedding "
+                         f"(dim {embed}) and the head (dim {head}) unlike: "
+                         "both must be vocab-parallel or both replicated")
+    blocks = []
     attn = ("layers", "attn")
-    col = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv")
-           if attn + (k,) in dims]
-    attn_ok = (all(dims[attn + (k,)] == -1 for k in col)
-               and dims[attn + ("wo",)] == -2
-               and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0)
+    if cfg.mixer in ("attn", "hybrid"):
+        col = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv")
+               if attn + (k,) in dims]
+        blocks.append((attn, all(dims[attn + (k,)] == -1 for k in col)
+                       and dims[attn + ("wo",)] == -2
+                       and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0))
+    ssm = ("layers", "ssm")
+    if cfg.mixer in ("ssm", "hybrid"):
+        blocks.append((ssm, cfg.d_inner % M == 0 and all(
+            dims[ssm + (k,)] == d for k, d in SSM_DIMS.items())))
     mlp = ("layers", "mlp")
-    mlp_ok = (all(dims[mlp + (k,)] == -1 for k in ("wi", "wg")
-                  if mlp + (k,) in dims) and dims[mlp + ("wo",)] == -2)
-    gathered = frozenset(b for b, ok in ((attn, attn_ok), (mlp, mlp_ok))
-                         if not ok)
+    if mlp + ("wo",) in dims:
+        blocks.append((mlp, all(dims[mlp + (k,)] == -1 for k in ("wi", "wg")
+                                if mlp + (k,) in dims)
+                       and dims[mlp + ("wo",)] == -2))
+    gathered = frozenset(b for b, ok in blocks if not ok)
     return TensorParallel(mesh=mesh, rules=rules, group=mesh.group("model"),
                           dims=dims, gathered=gathered,
-                          seq_parallel=bool(seq_parallel))
+                          seq_parallel=bool(seq_parallel),
+                          vocab_parallel=vocab_parallel)
 
 
 def local_tree(tree, tp: TensorParallel):
@@ -358,14 +403,19 @@ def embed_lookup(embed, tokens):
     """``embed[tokens]``; under tensor parallelism the vocab-parallel
     lookup: ids outside this rank's rows give zeros, and the ranks' rows
     are summed (reduce-scattered over the sequence with sequence
-    parallelism)."""
+    parallelism).  A replicated embedding is looked up whole, or with
+    sequence parallelism at this rank's block of the sequence only."""
     import torch
 
-    from ..core.runtime_sharded import reduce_from_model, reduce_scatter_to_seq
+    from ..core.runtime_sharded import (rank_block, reduce_from_model,
+                                        reduce_scatter_to_seq)
     tp = current_tensor_parallel()
     if tp is None:
         return embed[tokens]
     _check_seq(tp, tokens.shape[1])
+    if not tp.vocab_parallel:
+        return embed[rank_block(tokens, tp.group, 1) if tp.seq_parallel
+                     else tokens]
     rows = embed.shape[0]
     local = tokens.long() - tp.index * rows
     inside = (local >= 0) & (local < rows)
@@ -406,13 +456,58 @@ def parallel_block(key: tuple, params: dict, x, fn):
     return rs.reduce_from_model(fn(params, rs.copy_to_model(x, g)), g)
 
 
+def ssm_channels(xz, d_inner: int):
+    """``(x, z)`` of the Mamba block's ``xz = h @ in_proj``.  Whole
+    (outside tensor parallelism, or in a gathered block) they are the
+    two halves; on a rank's in_proj block ``(..., 2·d_inner / M)``,
+    which holds whole columns of ``[x | z]`` and not a channel block,
+    the ranks exchange column chunks so that each gets x and z at its
+    ``d_inner / M`` channels (``all_to_all_model``; the gradient goes
+    back the same way), the layout GSPMD gives the reference's
+    ``shard(x, ..., "ssm_inner")``."""
+    from ..core.runtime_sharded import all_to_all_model
+    c = xz.shape[-1] // 2
+    if c == d_inner:
+        return xz[..., :d_inner], xz[..., d_inner:]
+    tp = current_tensor_parallel()
+    M, r = tp.size, tp.index
+    # this block's two chunks of c columns are chunks 2r and 2r + 1 of
+    # [x | z]; chunk k holds channels of rank k mod M
+    dest = [(2 * r + j) % M for j in (0, 1)]
+    chunks = xz.unflatten(-1, (2, c)).movedim(-2, 0)
+    if dest[0] > dest[1]:
+        chunks, dest = chunks.flip(0), dest[::-1]
+    send = [dest.count(q) for q in range(M)]
+    recv = [sum((2 * s + j) % M == r for j in (0, 1)) for s in range(M)]
+    # rank r's x chunk (r) comes from rank r // 2, its z chunk (M + r)
+    # from rank (M + r) // 2, a later one: rows arrive in rank order
+    x, z = all_to_all_model(chunks, tp.group, send, recv)
+    return x, z
+
+
+def ssm_proj(partial, d_inner: int, channels: int):
+    """The Mamba block's ``x @ x_proj`` from this rank's ``partial``:
+    as it is when the block holds all ``d_inner`` channels; on a rank's
+    ``channels`` a row-parallel partial sum, all-reduced forward, and,
+    since every rank's dt, B and C differentiate the whole sum in part,
+    its gradient all-reduced backward."""
+    from ..core.runtime_sharded import copy_to_model, reduce_from_model
+    if channels == d_inner:
+        return partial
+    g = current_tensor_parallel().group
+    return copy_to_model(reduce_from_model(partial, g), g)
+
+
 def to_head(x):
     """The residual stream ready for the vocab-parallel head: gathered
     over the sequence with sequence parallelism, else its gradient
-    all-reduced (each rank's head block differentiates it in part)."""
+    all-reduced (each rank's head block differentiates it in part).  A
+    replicated head takes the stream as it is (the replicated stream, or
+    this rank's block of the sequence): an all-reduce of its gradient
+    would count the head's M times."""
     from ..core import runtime_sharded as rs
     tp = current_tensor_parallel()
-    if tp is None:
+    if tp is None or not tp.vocab_parallel:
         return x
     if tp.seq_parallel:
         return rs.gather_from_seq(x, tp.group, 1)
@@ -446,6 +541,17 @@ def vocab_parallel_ce(logits, labels, ce: str, tp: TensorParallel):
     tgt = reduce_from_model(torch.where(inside, tgt, torch.zeros(
         (), dtype=tgt.dtype, device=tgt.device)), g)
     return (lse[..., 0] - tgt).mean()
+
+
+def seq_parallel_mean(per_token, tp: TensorParallel):
+    """The mean over the whole sequence of a per-token loss of which this
+    rank holds its block of the sequence: the local sum all-reduced over
+    the model group, over the tokens of every block.  Each rank's
+    gradient of a replicated leaf is then its block's part, which
+    :func:`tensor_parallel_grad` all-reduces."""
+    from ..core.runtime_sharded import reduce_from_model
+    return reduce_from_model(per_token.sum(), tp.group) / (
+        per_token.numel() * tp.size)
 
 
 def tensor_parallel_grad(spec, loss_fn, tp: TensorParallel):

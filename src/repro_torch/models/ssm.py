@@ -14,6 +14,13 @@ h0 = 0, which is how ``ssm_apply`` calls it.
 ``x_proj``'s B and C columns are slices of one projection; the kernel
 takes their row strides, so they reach it without a copy.
 
+Under tensor parallelism (``models/sharding.py``) :func:`ssm_apply` runs
+on this rank's blocks of the leaves, the reference's ``ssm_inner`` →
+``model`` layout: x and z on this rank's ``d_inner / M`` channels
+(``sharding.ssm_channels``), the conv, the gate and both scan kernels on
+them, ``x_proj`` row-parallel (``sharding.ssm_proj``) and ``out_proj``'s
+partial sum left to the caller's ``sharding.parallel_block``.
+
 Decode (``ssm_cache``, ``ssm_decode``, counterparts of the reference's)
 carries the conv window and the fp32 state h, and takes one step from h
 with :func:`selective_scan_ref` in PyTorch ops, as the reference's decode
@@ -26,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import sharding as msh
 from .config import ModelConfig
 from .layers import dense_init
 
@@ -90,12 +98,14 @@ def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn,
                h0=None):
     """The block between the two projections.  From h0 = 0 (``h0`` None)
     the scan is :class:`SelectiveScanFn` (the kernel on the card); from a
-    decode state it is :func:`selective_scan_ref`."""
+    decode state it is :func:`selective_scan_ref`.  On a rank's blocks
+    of the leaves, x and z are its channels and ``x_proj``'s partial
+    sums are all-reduced."""
     from ..kernels.ssm_scan.ops import SelectiveScanFn
     di = cfg.d_inner
-    x, z = xz[..., :di], xz[..., di:]
+    x, z = msh.ssm_channels(xz, di)
     x = F.silu(conv_fn(x))
-    proj = x @ p["x_proj"]
+    proj = msh.ssm_proj(x @ p["x_proj"], di, x.shape[-1])
     dtr, N = cfg.dt_rank, cfg.ssm_state
     dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + p["dt_bias"])
     Bc = proj[..., dtr:dtr + N]

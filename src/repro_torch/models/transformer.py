@@ -224,12 +224,17 @@ def _attn_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
 
 def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
+    """The layer's mixer over the whole sequence; under tensor
+    parallelism each block (attention, SSM) in ``parallel_block``'s
+    frame on the local leaves."""
+    ssm = lambda: msh.parallel_block(("layers", "ssm"), lp["ssm"], h,
+                                     lambda p, y: ssm_mod.ssm_apply(cfg, p, y))
     if cfg.mixer == "ssm":
-        return ssm_mod.ssm_apply(cfg, lp["ssm"], h)
+        return ssm()
     a = msh.parallel_block(("layers", "attn"), lp["attn"], h, lambda p, y:
                            _attn_full(cfg, {"attn": p}, y, positions))
     if cfg.mixer == "hybrid":
-        return 0.5 * (a + ssm_mod.ssm_apply(cfg, lp["ssm"], h))
+        return 0.5 * (a + ssm())
     return a
 
 
@@ -355,18 +360,25 @@ def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     via logsumexp (no fp32 (B, S, V) log-prob tensor); ``ce="full"``
     the plain fp32 log-softmax, as the JAX package keeps both.  Under
     tensor parallelism the cross entropy is vocab-parallel
-    (``models.sharding.vocab_parallel_ce``)."""
+    (``models.sharding.vocab_parallel_ce``), or with a replicated head
+    and sequence parallelism that of this rank's block of the sequence,
+    its sum all-reduced (``models.sharding.seq_parallel_mean``)."""
     logits, aux = forward(cfg, params, tokens, frontend, remat=remat)
     tp = msh.current_tensor_parallel()
-    if tp is not None:
+    if tp is not None and tp.vocab_parallel:
         return msh.vocab_parallel_ce(logits, labels, ce, tp) + aux
+    mean = torch.mean
+    if tp is not None and tp.seq_parallel:
+        from ..core.runtime_sharded import rank_block
+        labels = rank_block(labels, tp.group, 1)
+        mean = lambda t: msh.seq_parallel_mean(t, tp)
     labels = labels[..., None].long()
     if ce == "full":
         ll = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        return -torch.gather(ll, -1, labels)[..., 0].mean() + aux
+        return -mean(torch.gather(ll, -1, labels)[..., 0]) + aux
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
     tgt = torch.gather(logits, -1, labels)[..., 0]
-    return (lse - tgt.to(torch.float32)).mean() + aux
+    return mean(lse - tgt.to(torch.float32)) + aux
 
 
 # --------------------------------------------------------------------- #

@@ -28,9 +28,22 @@ numpy from a seed (norm scales and biases away from 1 and 0):
   on the same seeds;
 * RF206: the tensor-parallel round audits clean, and a round that
   all-reduces a state row over ``model`` is reported;
-* on meta: llama3-8b ``train_4k`` on the production (32, 8) mesh holds
-  7 rows of ``param_shard_elements_per_rank`` bf16 elements and its
-  batch, exactly, and says ``"model_axis": "tensor"``.
+* on meta: llama3-8b and falcon-mamba-7b ``train_4k`` on the production
+  (32, 8) mesh hold 7 rows of ``param_shard_elements_per_rank`` bf16
+  elements and their batch, exactly, and say ``"model_axis": "tensor"``.
+
+The SSM archs (reduced, d 64, d_inner 128): falcon-mamba-7b (no
+attention, no MLP; vocab-parallel) and hymba-1.5b at vocab 257, so that
+its embedding and head stay replicated as at 32001, with 5 heads and 1
+KV head, which take the gathered attention; each on (2, 2) with
+sequence parallelism and on (1, 4) without.  JAX's side scans with
+``lax.scan`` as its model does; the port's scan runs its plain twins.
+On ranks 0-1 (a (1, 2) mesh) the two traps of the layout at falcon's
+reduced width: the SSM block's gradients (``x_proj``, ``in_proj``, the
+block's input) and the replicated head's, with and without sequence
+parallelism, against the unsharded ones, and the same with a
+forward-only all-reduce of ``x_proj``'s partial sums or an all-reduced
+gradient at the replicated head, which miss the tolerance.
 
 The ranks import this module by name, so JAX is imported inside the
 tests only.
@@ -49,7 +62,8 @@ from repro_torch.core.runtime_sharded import (all_reduce_sum,
                                               clear_collectives,
                                               collective_stats,
                                               init_sharded_state,
-                                              make_sharded_round, shard_state)
+                                              make_sharded_round, rank_block,
+                                              shard_state)
 from repro_torch.launch import specs
 from repro_torch.launch.dryrun import _distinct_bytes
 from repro_torch.launch.mesh import describe_mesh, make_sweep_mesh
@@ -60,11 +74,18 @@ from repro_torch.models.transformer import loss_fn, params_from_jax
 TOL = 1e-4
 GAMMA, ROUNDS, B, S = 0.05, 3, 2, 16
 CFGS = {"rfast": ("rfast-100m", dict(n_heads=4, n_kv_heads=2, head_dim=24)),
-        "qwen": ("qwen2.5-3b", dict(n_heads=4, n_kv_heads=2, head_dim=16))}
+        "qwen": ("qwen2.5-3b", dict(n_heads=4, n_kv_heads=2, head_dim=16)),
+        "falcon": ("falcon-mamba-7b", {}),
+        "hymba": ("hymba-1.5b", dict(vocab=257)),
+        # the traps' config: falcon with a replicated head
+        "falcon_rep": ("falcon-mamba-7b", dict(vocab=257))}
+SSM_KEYS = ("falcon", "hymba")
 # (config, mesh (nodes, model ranks), sequence parallel)
 CASES = [("rfast", (2, 2), True), ("rfast", (2, 2), False),
          ("qwen", (2, 2), True), ("rfast", (1, 4), True),
-         ("qwen", (1, 4), False)]
+         ("qwen", (1, 4), False), ("falcon", (2, 2), True),
+         ("falcon", (1, 4), False), ("hymba", (2, 2), True),
+         ("hymba", (1, 4), False)]
 FIELDS = ("x", "z", "g_prev")
 LIVE = dict(seq=S, global_batch=2 * B, dtype=torch.float32, impl="plain",
             seed=0)
@@ -112,6 +133,7 @@ def _case_rank(cfg, mesh, np_tree, data, sp, ce, audit):
     out = {"node": node, "model": tp.index, "loss0": float(loss0),
            "g0": whole(g0), "losses": metrics["losses"].numpy(),
            "gathered": sorted("/".join(b) for b in tp.gathered),
+           "vocab_parallel": tp.vocab_parallel,
            "shapes": {"/".join(k): shape
                       for k, shape in zip(spec.paths, spec.shapes)},
            "replicated": np.concatenate([st.x[0, o:o + n].numpy()
@@ -148,16 +170,109 @@ def _live_rank():
                                  fn.tensor_parallel).numpy()}
 
 
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _block_errors(cfg, tp, lp, h, w):
+    """The SSM block of layer params ``lp`` on this rank's channels
+    (``parallel_block`` without sequence parallelism) against the whole
+    block: the relative error of the output and of the gradients of
+    x_proj, in_proj, conv_w (this rank's blocks) and the block's
+    input."""
+    from repro_torch.models.ssm import ssm_apply
+    key = ("layers", "ssm")
+    whole = {k: v.clone().requires_grad_() for k, v in lp.items()}
+    h0 = h.clone().requires_grad_()
+    y0 = ssm_apply(cfg, whole, h0)
+    (y0 * w).sum().backward()
+    cut = lambda k, v: v if tp.dims[key + (k,)] is None else rank_block(
+        v, tp.group, tp.dims[key + (k,)])
+    local = {k: cut(k, v).clone().requires_grad_() for k, v in lp.items()}
+    h1 = h.clone().requires_grad_()
+    with msh.use_tensor_parallel(tp):
+        y1 = msh.parallel_block(key, local, h1,
+                                lambda p, x: ssm_apply(cfg, p, x))
+    (y1 * w).sum().backward()
+    blk = lambda k: cut(k, whole[k].grad)
+    return {"y": _rel(y1.detach(), y0.detach()),
+            "x_proj": _rel(local["x_proj"].grad, blk("x_proj")),
+            "in_proj": _rel(local["in_proj"].grad, blk("in_proj")),
+            "conv_w": _rel(local["conv_w"].grad, blk("conv_w")),
+            "input": _rel(h1.grad, h0.grad)}
+
+
+def _model_error(cfg, full, tp, batch):
+    """The tensor-parallel gradient of the whole model gathered, against
+    the unsharded gradient (relative to its largest entry)."""
+    from repro_torch.core.paramvec import value_and_grad
+    lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=True)
+    local = msh.local_tree(full, tp)
+    spec = make_ravel_spec(local)
+    _, g = msh.tensor_parallel_grad(spec, lf, tp)(ravel(spec, local), batch,
+                                                   None)
+    fspec = make_ravel_spec(full)
+    _, gd = value_and_grad(fspec, lf)(ravel(fspec, full), batch, None)
+    return _rel(msh.gather_flat(g, spec, tp), gd)
+
+
+def _traps_rank(tree):
+    """Ranks 0-1 on a (1, 2) mesh, falcon at its reduced width with a
+    replicated head: the SSM block and the whole model's gradient right,
+    and each with one trap sprung (a forward-only all-reduce of
+    ``x_proj``'s partial sums; an all-reduced gradient at the replicated
+    head), against the unsharded ones."""
+    from repro_torch.core import runtime_sharded as rs
+    mesh = make_sweep_mesh(lanes=1, param_shards=2, ranks=range(2))
+    if mesh.coords is None:
+        return None
+    cfg = _cfg("falcon_rep")
+    full, _ = params_from_jax(tree, device="cpu")
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy(rng.normal(0, 1, (B, S, cfg.d_model)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (B, S, cfg.d_model)).astype(
+        np.float32))
+    lp = {k: v[0] for k, v in full["layers"]["ssm"].items()}
+    toks, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                     ).int() for _ in range(2))
+    tps = {sp: msh.tensor_parallel(cfg, full, mesh, seq_parallel=sp)
+           for sp in (False, True)}
+    out = {"vocab_parallel": tps[False].vocab_parallel,
+           "block": _block_errors(cfg, tps[False], lp, h, w),
+           "model": {sp: _model_error(cfg, full, tp, (toks, labels))
+                     for sp, tp in tps.items()}}
+    ssm_proj, to_head = msh.ssm_proj, msh.to_head
+    g = tps[False].group
+    try:        # MUTATION: x_proj's partial sums all-reduced forward only
+        msh.ssm_proj = lambda t, di, c: (t if c == di else
+                                         rs.reduce_from_model(t, g))
+        out["block_forward_only"] = _block_errors(cfg, tps[False], lp, h, w)
+    finally:
+        msh.ssm_proj = ssm_proj
+    try:        # MUTATION: the replicated head's input copied to the model
+        msh.to_head = lambda x: (x if msh.current_tensor_parallel() is None
+                                 else rs.copy_to_model(x, g))
+        out["model_copied_head"] = _model_error(cfg, full, tps[False],
+                                                (toks, labels))
+    finally:
+        msh.to_head = to_head
+    return out
+
+
 def _tp_rank(trees, data):
     outs = []
     for i, (key, (D, M), sp) in enumerate(CASES):
         mesh = make_sweep_mesh(lanes=D, param_shards=M)
         outs.append(_case_rank(_cfg(key), mesh, trees[key], data[(key, D)],
                                sp, CES[key], audit=i == 0))
-    return {"cases": outs, "live": _live_rank()}
+    return {"cases": outs, "live": _live_rank(),
+            "traps": _traps_rank(trees["falcon_rep"])}
 
 
-CES = {"rfast": "lse", "qwen": "full"}       # the cross entropy a config
+# the cross entropy a config
+CES = {"rfast": "lse", "qwen": "full", "falcon": "lse", "hymba": "full",
+       "falcon_rep": "lse"}
 
 
 def _tree(key):
@@ -180,7 +295,8 @@ def _tree(key):
             return 0.02 * z
         if name == "scale":
             return 1 + 0.1 * z
-        if len(leaf.shape) >= 2 and name.startswith(("w", "lm_")):
+        if len(leaf.shape) >= 2 and (name.startswith(("w", "lm_"))
+                                     or name.endswith("_proj")):
             return z / np.sqrt(leaf.shape[-2])
         return 0.1 * z
     return jax.tree_util.tree_map_with_path(draw, shapes)
@@ -279,9 +395,13 @@ def test_gradient_and_rounds_match_jax_unsharded(spawned, i):
                                        err_msg=f)
         # every rank of the model group reports the same losses
         assert np.array_equal(r["losses"], _ranks(outs, i)[0]["losses"])
-    misaligned = M == 4
+    cfg = _cfg(key)
+    misaligned = cfg.n_heads and (cfg.n_heads % M or cfg.n_kv_heads % M)
     assert {tuple(r["gathered"]) for r in _ranks(outs, i)} == {
         ("layers/attn",) if misaligned else ()}
+    # vocab 257 does not divide over the model group: a replicated head
+    assert {r["vocab_parallel"] for r in _ranks(outs, i)} == {
+        cfg.vocab % M == 0}
 
 
 @pytest.mark.parametrize("i", range(len(CASES)))
@@ -334,6 +454,11 @@ def test_collectives_and_rf206(spawned):
         assert r["audit"] == [] and r["altered"] == ["RF206"]
     for r in _ranks(outs, 1):             # no sequence parallelism
         assert "reduce_scatter_seq" not in r["coll"]
+    for i, (key, _, sp) in enumerate(CASES):
+        for r in _ranks(outs, i):
+            assert ("reduce_scatter_seq" in r["coll"]) == sp, (key, sp)
+            # the SSM block's exchange of in_proj's column chunks
+            assert ("all_to_all" in r["coll"]) == (key in SSM_KEYS)
 
 
 def test_build_train_live_ppermute_matches_the_dense_case(spawned):
@@ -346,8 +471,8 @@ def test_build_train_live_ppermute_matches_the_dense_case(spawned):
     for o in outs:
         live = o["live"]
         assert live["info"]["model_axis"] == "tensor"
-        assert live["info"]["tensor_parallel"] == {"ranks": 2,
-                                                   "gathered": []}
+        assert live["info"]["tensor_parallel"] == {
+            "ranks": 2, "gathered": [], "vocab_parallel": True}
         assert live["live_bytes"] == live["meta_bytes"]
         assert live["live_bytes"] == 4 * (5 * live["info"]["p"]
                                           + 2 * B * S)
@@ -355,32 +480,71 @@ def test_build_train_live_ppermute_matches_the_dense_case(spawned):
                                    rtol=TOL, atol=TOL)
 
 
-def test_llama_train_4k_meta_arguments_are_the_shard_rows():
+def _train_4k_meta_rows(arch, tensor_parallel):
     from repro_torch.launch.dryrun import _gspmd
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.shardings import RULES_BASE
-    fn, args = specs.input_specs("llama3-8b", "train_4k")
+    fn, args = specs.input_specs(arch, "train_4k")
     state, batch, _ = args
-    per_rank = _gspmd(get_config("llama3-8b"), make_production_mesh(),
+    per_rank = _gspmd(get_config(arch), make_production_mesh(),
                       RULES_BASE)["param_shard_elements_per_rank"]
     batch_bytes = sum(t.numel() * t.element_size() for t in batch)
     assert fn.info["model_axis"] == "tensor" and fn.info["p"] == per_rank
-    assert fn.info["tensor_parallel"] == {"ranks": 8, "gathered": []}
+    assert fn.info["tensor_parallel"] == tensor_parallel
     assert _distinct_bytes(specs.tensors_of(args)) == \
         7 * per_rank * 2 + batch_bytes
     assert batch_bytes == 2 * 8 * 4096 * 4
 
 
+def test_llama_train_4k_meta_arguments_are_the_shard_rows():
+    _train_4k_meta_rows("llama3-8b", {"ranks": 8, "gathered": [],
+                                      "vocab_parallel": True})
+
+
+def test_falcon_mamba_train_4k_meta_arguments_are_the_shard_rows():
+    _train_4k_meta_rows("falcon-mamba-7b", {"ranks": 8, "gathered": [],
+                                            "vocab_parallel": True})
+
+
+def test_hymba_build_train_is_tensor_parallel_with_a_replicated_vocab():
+    fn, _ = specs.build_train(get_config("hymba-1.5b").reduced(vocab=257),
+                              describe_mesh((2, 2), ("data", "model")),
+                              seq=16, global_batch=4)
+    assert fn.info["model_axis"] == "tensor"
+    assert fn.info["tensor_parallel"] == {
+        "ranks": 2, "gathered": ["layers/attn"], "vocab_parallel": False}
+
+
 def test_other_archs_keep_the_replicated_model_axis():
-    for arch in ("hymba-1.5b", "deepseek-v2-236b", "whisper-large-v3"):
+    for arch in ("pixtral-12b", "deepseek-v2-236b", "whisper-large-v3"):
         cfg = get_config(arch).reduced()
         assert not msh.tensor_parallel_supported(cfg)
         fn, _ = specs.build_train(cfg, describe_mesh((2, 2), (
             "data", "model")), seq=16, global_batch=4)
         assert fn.info["model_axis"] == "replicated"
-    with pytest.raises(ValueError, match="dense GQA decoders"):
-        msh.tensor_parallel(get_config("hymba-1.5b").reduced(), {},
+    with pytest.raises(ValueError, match="dense GQA decoders, the SSM "
+                       "archs without an MLP and the GQA \\+ SSM hybrids"):
+        msh.tensor_parallel(get_config("pixtral-12b").reduced(), {},
                             describe_mesh((1, 2), ("data", "model")))
+
+
+def test_traps_of_the_ssm_block_and_the_replicated_head(spawned):
+    """x_proj's all-reduce pair and the replicated head right, each trap
+    sprung wrong (the mutations miss the tolerance)."""
+    outs, _ = spawned
+    traps = [o["traps"] for o in outs if o["traps"] is not None]
+    assert len(traps) == 2
+    for t in traps:
+        assert t["vocab_parallel"] is False
+        assert max(t["block"].values()) <= TOL, t["block"]
+        assert max(t["model"].values()) <= TOL, t["model"]
+        bad = t["block_forward_only"]
+        assert bad["y"] <= TOL      # the forward is right, the gradient not
+        assert min(bad[k] for k in ("x_proj", "conv_w", "input")) > TOL, bad
+        assert t["model_copied_head"] > TOL
+    # at M = 2 rank 0's in_proj block is x's columns, rank 1's z's (the
+    # gate's, which x_proj does not reach)
+    assert traps[0]["block_forward_only"]["in_proj"] > TOL
 
 
 def _refuse(name):
@@ -398,7 +562,8 @@ def test_model_collectives_on_meta_record_and_send_nothing(monkeypatch):
 
     from repro_torch.core import runtime_sharded as rs
     for n in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
-              "reduce_scatter_single", "get_rank", "get_backend"):
+              "reduce_scatter_single", "all_to_all_single", "get_rank",
+              "get_backend"):
         if hasattr(dist, n):
             monkeypatch.setattr(dist, n, _refuse(f"dist.{n}"))
     mesh = describe_mesh((4, 8), ("data", "model"), rank=9)
@@ -409,11 +574,14 @@ def test_model_collectives_on_meta_record_and_send_nothing(monkeypatch):
         assert rs.all_reduce_max(m(2, 3), g).shape == (2, 3)
         assert rs.all_gather_seq(m(2, 4, 3), g, 1).shape == (2, 32, 3)
         assert rs.reduce_scatter_seq(m(2, 16, 3), g, -2).shape == (2, 2, 3)
+        assert rs.all_to_all_rows(m(2, 5), g, [0, 1, 1] + [0] * 5,
+                                  [1, 0, 0, 0, 0, 1, 0, 0]).shape == (2, 5)
     assert [(c["name"], c["bytes"], c["group_size"], c["intra_host"])
             for c in colls] == [("all_reduce_sum", 24, 8, True),
                                 ("all_reduce_max", 24, 8, True),
                                 ("all_gather_seq", 768, 8, True),
-                                ("reduce_scatter_seq", 48, 8, True)]
+                                ("reduce_scatter_seq", 48, 8, True),
+                                ("all_to_all", 40, 8, True)]
     with pytest.raises(ValueError, match="does not divide"):
         rs.reduce_scatter_seq(m(2, 12, 3), g, 1)
     pairs = [(rs.copy_to_model, (2, 16, 3), (2, 16, 3), ["all_reduce_sum"]),
@@ -424,7 +592,10 @@ def test_model_collectives_on_meta_record_and_send_nothing(monkeypatch):
              (rs.gather_from_seq, (2, 4, 3), (2, 32, 3),
               ["all_gather_seq", "reduce_scatter_seq"]),
              (rs.reduce_scatter_to_seq, (2, 16, 3), (2, 2, 3),
-              ["reduce_scatter_seq", "all_gather_seq"])]
+              ["reduce_scatter_seq", "all_gather_seq"]),
+             (lambda x, g: rs.all_to_all_model(x, g, [1, 1] + [0] * 6,
+                                               [0] * 7 + [2]), (2, 4, 3),
+              (2, 4, 3), ["all_to_all", "all_to_all"])]
     for fn, shape, out, names in pairs:
         x = m(*shape)
         with rs.record_collectives() as colls:

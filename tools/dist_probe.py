@@ -7,12 +7,22 @@ world-1 NCCL rank) and runs on CUDA tensors: ``all_gather_into_tensor``,
 ``all_gather`` into a list, ``batch_isend_irecv`` and ``send`` /
 ``recv``, ``all_reduce`` with SUM and MAX and ``reduce_scatter_tensor``
 (the tensor-parallel collectives; four ranks too, each rank's result
-hashed to show whether every rank holds the same bits); then times a gather of 62,334,336 floats a rank (half of
-rfast-100m's flat vector) directly and through pinned host buffers, 3
-times each.  Prints one JSON line a probe (an op that fails records its
-error: finding that out is the point) after the torch version, whether
-``all_gather_single`` exists, and the card's name and power limit.
-What it finds is what ``core/runtime_sharded.STAGED`` encodes.
+hashed to show whether every rank holds the same bits) and
+``all_to_all_single`` with uneven splits (rank r's two chunks to ranks
+2r and 2r + 1 mod the world, as a rank's in_proj block of the Mamba
+block would move to its channels); then times a gather of 62,334,336
+floats a rank (half of rfast-100m's flat vector) directly and through
+pinned host buffers, and, at hymba-1.5b's in_proj block on 2 ranks (4
+× 128 × 3200 floats a rank), the gather the port runs against an
+``all_to_all_single``, 3 times each.  Prints one JSON line a probe (an
+op that fails records its error: finding that out is the point) after
+the torch version, whether ``all_gather_single`` exists, and the card's
+name and power limit.  What it finds is what
+``core/runtime_sharded.STAGED`` encodes.
+
+    python3 tools/dist_probe.py all_to_all_single a2a_timing
+
+runs only the probes named (on 2 ranks, and on 4 those of ``OPS4``).
 """
 import datetime
 import hashlib
@@ -28,11 +38,12 @@ import torch.multiprocessing as mp
 
 OPS = ("all_gather_into_tensor", "all_gather_list", "batch_isend_irecv",
        "send_recv", "all_reduce_sum", "all_reduce_max",
-       "reduce_scatter_tensor")
+       "reduce_scatter_tensor", "all_to_all_single")
 # the ops also probed on four ranks sharing the card
 OPS4 = ("all_gather_into_tensor", "all_reduce_sum", "all_reduce_max",
-        "reduce_scatter_tensor")
+        "reduce_scatter_tensor", "all_to_all_single")
 BIG = 62_334_336
+XZ_BLOCK = 4 * 128 * 3200         # hymba-1.5b's in_proj block at M = 2
 
 
 def free_port() -> int:
@@ -95,6 +106,36 @@ def probe(rank, world, port, backend, op, q):
             o = torch.empty((4, 1000), device=dev)
             dist.reduce_scatter_tensor(o, x)
             out["ok"] = float(o[0, 0]) == sum(want)
+        elif op == "all_to_all_single":
+            dests = {(2 * rank) % world, (2 * rank + 1) % world}
+            send = [int(q in dests) for q in range(world)]
+            recv = [int(rank in {(2 * r) % world, (2 * r + 1) % world})
+                    for r in range(world)]
+            x = torch.tensor([[float(rank * world + q)] * 1000
+                              for q in range(world) if send[q]], device=dev)
+            o = torch.empty((sum(recv), 1000), device=dev)
+            dist.all_to_all_single(o, x, output_split_sizes=recv,
+                                   input_split_sizes=send)
+            out["ok"] = o[:, 0].tolist() == [float(r * world + rank)
+                                             for r in range(world) if recv[r]]
+        elif op == "a2a_timing":
+            x = torch.full((XZ_BLOCK,), float(rank), device=dev)
+            o = torch.empty((world * XZ_BLOCK,), device=dev)
+            o2 = torch.empty((XZ_BLOCK,), device=dev)
+            for tag, fn in (("gather_s", lambda: dist.all_gather_into_tensor(
+                    o, x)), ("all_to_all_s", lambda: dist.all_to_all_single(
+                        o2, x))):
+                out[tag] = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    out[tag].append(time.perf_counter() - t0)
+            out["bytes_received"] = {"gather": (world - 1) * XZ_BLOCK * 4,
+                                     "all_to_all": (world - 1) * XZ_BLOCK
+                                     * 4 // world}
+            out["ok"] = True
         elif op == "gather_timing":
             x = torch.full((BIG,), float(rank), device=dev)
             o = torch.empty((world * BIG,), device=dev)
@@ -152,8 +193,12 @@ if __name__ == "__main__":
                       "torch": torch.__version__, "cuda": torch.version.cuda,
                       "all_gather_single": hasattr(dist, "all_gather_single"),
                       "nvidia_smi": smi}), flush=True)
-    run(1, "nccl", "all_gather_into_tensor")
-    for op in OPS + ("gather_timing",):
-        run(2, "gloo", op)
+    only = set(sys.argv[1:])
+    if not only:
+        run(1, "nccl", "all_gather_into_tensor")
+    for op in OPS + ("gather_timing", "a2a_timing"):
+        if not only or op in only:
+            run(2, "gloo", op)
     for op in OPS4:
-        run(4, "gloo", op)
+        if not only or op in only:
+            run(4, "gloo", op)
