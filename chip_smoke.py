@@ -309,7 +309,8 @@ run.  Phases:
    (the production (32, 8) mesh, one rank, tensor-parallel since PR 26)
    with its roofline row: a rank's arguments and temporaries fit a card.
 32. tensor parallelism (the function ``phase_tensor_parallel``; eight
-   gloo ranks sharing cuda:0, one spawn) — (a), (b) rfast-100m at full
+   gloo ranks sharing cuda:0, one spawn for phases 32-34, ``tp_spawn``)
+   — (a), (b) rfast-100m at full
    width and depth (2 nodes × 4 sequences of 128, fp32, 3 rounds) built
    by ``launch.specs.build_train(comm="ppermute")`` on a (2, 2) and a
    (2, 4) mesh (the first 4 and all 8 ranks): ``"model_axis":
@@ -326,8 +327,8 @@ run.  Phases:
    within 1e-4 (of the largest entry) of the unsharded gradient's, which
    the ranks compute in turn, and one loss, the unsharded one.
 33. the SSM archs tensor-parallel (the function
-   ``phase_tensor_parallel_ssm``; four gloo ranks sharing cuda:0, one
-   spawn; phase 32's functions, which take the config) — (a)
+   ``phase_tensor_parallel_ssm``; the first four of phase 32's ranks;
+   phase 32's functions, which take the config) — (a)
    falcon-mamba-7b at full width cut to 2 of 64 layers (d 4096, d_inner
    8192, vocab 65024 vocab-parallel; 743,305,216 parameters) on a model
    group of 4, no sequence parallelism, no remat: the tensor-parallel
@@ -349,8 +350,31 @@ run.  Phases:
    held to their twins at the channels a rank of M 2, 4 or 8 would take
    (hymba 800 and 400, falcon 4096 and 1024), with ``scan_segments``'
    choice at each.
+34. the MoE / MLA archs tensor-parallel (the function
+   ``phase_tensor_parallel_moe``; phase 32's eight ranks; experts over
+   ``model``, MLA's heads column-parallel) — (c)
+   phi3.5-moe and deepseek-v2 at ``.reduced()`` width on a (2, 2) mesh
+   through ``build_train(comm="ppermute")`` as 32(a) runs rfast-100m (2
+   nodes × 4 × 128 tokens, fp32, 3 rounds, sequence parallel): live
+   argument bytes = meta, the replicated leaves (the router, MLA's
+   down-projections, the norms) bitwise across each model group, x, z
+   and g_prev gathered whole within 1e-4 of the dense 2-node round
+   (``impl="kernel"``: ``commit_grid``), RF206 clean; (a) phi3.5-moe at
+   full width cut to 2 of 32 layers (16 experts, 4 a rank) on a model
+   group of 4 and (b) deepseek-v2-236b at full width cut to 1 of 60
+   layers (160 experts, 20 a rank; 128 heads, 16 a rank; 12,800 vocab
+   rows a rank) on a model group of 8, without sequence parallelism: the
+   ranks in turn draw the tree on the card from seed 0, keep their
+   blocks on the host and take the unsharded gradient of one sequence
+   of 128 (and its routes), keeping their blocks of it on the host; then
+   every rank's tensor-parallel gradient on the card, each rank's blocks
+   within 1e-4 (of the largest entry) of the unsharded gradient's, one
+   loss, the unsharded one, and every rank's routes (each token's
+   experts and whether it was kept, forward and recomputed) equal, and
+   equal to the unsharded run's, with its drop count; the card's memory
+   in use (all ranks) read at each turn and after the gradient.
 
-Each of phases 17–33 prints its wall seconds, peak memory or
+Each of phases 17–34 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -581,7 +605,6 @@ TP_LLAMA_LAYERS, TP_LLAMA_B, TP_LLAMA_S, TP_LLAMA_M = 2, 1, 128, 4
 # 32's cell (2 nodes x 4 sequences of 128, fp32) on a (2, 2) mesh;
 # (a) falcon-mamba-7b at full width cut to 2 of 64 layers, one sequence
 # of 128, on a model group of 4 (all the ranks)
-TP_SSM_WORLD = 4
 TP_HYMBA_LAYERS, TP_HYMBA_MESH, TP_HYMBA_ROUNDS = 2, (2, 2), 3
 TP_HYMBA_REF_NODES = {0: 0, 2: 1}     # model index 0 of each node
 # hymba's replicated leaves a rank: the embedding and the head (vocab
@@ -601,6 +624,18 @@ TP_SCAN_WIDTHS = [("hymba-1.5b rank (M 4)", (4, 128, 800, 16), 100),
                   ("hymba-1.5b rank (M 8)", (4, 128, 400, 16), 100),
                   ("falcon-mamba-7b rank (M 2)", (1, 128, 4096, 16), 256),
                   ("falcon-mamba-7b rank (M 8)", (1, 128, 1024, 16), 256)]
+# phase 34: the MoE / MLA archs' model axis tensor-parallel, ranks of this
+# card over gloo.  (c) both archs at .reduced() width, phase 32's cell on
+# a (2, 2) mesh; (a), (b) at full width cut in depth, one sequence of
+# 128, no sequence parallelism: (arch, layers, model group of the first
+# ranks, experts a rank, heads a rank, parameters of the cut tree)
+TP_MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
+TP_MOE_MESH, TP_MOE_ROUNDS = (2, 2), 3
+TP_MOE_REF_NODES = {0: 0, 2: 1}       # model index 0 of each node
+TP_MOE_B, TP_MOE_S = 1, 128
+TP_MOE_FULL = [("phi3.5-moe-42b-a6.6b", 2, 4, 4, 8, 2_863_308_800),
+               ("deepseek-v2-236b", 1, 8, 20, 16, 5_020_697_600)]
+TP_MOE_CARD_GB = 80.0                 # the card's memory, all ranks
 
 
 def emit(phase: str, **kw) -> None:
@@ -2864,36 +2899,89 @@ def tp_cell(mesh, ref: dict, cfg, rounds: int) -> dict:
 
 def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
             remat: bool) -> dict:
-    """32(c), 33(a) on one rank of a model group: ``cfg`` drawn on the
-    card from seed 0 by every rank, which keeps its blocks; the
-    tensor-parallel gradient of one batch of ``batch`` sequences of
-    ``seq`` (the kernels' launches and the scan kernels' shapes read
-    around it alone), then, the ranks in turn, the unsharded gradient of
-    the same batch and this rank's blocks of it against its own."""
+    """32(c), 33(a), 34(a)/(b) on one rank of a model group: the ranks in
+    turn draw ``cfg`` on the card from seed 0, keep their blocks on the
+    host and take the unsharded gradient of one batch of ``batch``
+    sequences of ``seq`` leaf by leaf, keeping this rank's blocks of it
+    on the host; then every rank's tensor-parallel gradient of the same
+    batch on the card (the kernels' launches and the scan kernels'
+    shapes read around it alone) is held to them.  Both runs' MoE routes
+    (each ``moe._slots`` call's experts and kept choices; none without
+    MoE) and the card's memory in use (all ranks) after each."""
+    import hashlib
+
     import torch
     import torch.distributed as dist
-    from repro_torch.core.paramvec import (make_ravel_spec, ravel, unravel,
-                                           value_and_grad)
+    from repro_torch.core.paramvec import (make_ravel_spec, ravel,
+                                           tree_leaves, tree_map)
     from repro_torch.core.runtime_sharded import (clear_collectives,
                                                   collective_stats)
     from repro_torch.kernels.rfast_update import dispatch
     from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding as msh
-    from repro_torch.models.transformer import init_params, loss_fn
-    draw = lambda: init_params(cfg, torch.Generator(
-        device="cuda").manual_seed(0))
-    full = draw()
-    tp = msh.tensor_parallel(cfg, full, mesh, seq_parallel=seq_parallel)
-    local = msh.local_tree(full, tp)
-    del full
-    torch.cuda.empty_cache()
-    spec = make_ravel_spec(local)
-    x = ravel(spec, local)
-    del local
+    from repro_torch.models.transformer import (init_params, loss_fn,
+                                                param_shapes)
+    tp = msh.tensor_parallel(cfg, param_shapes(cfg), mesh,
+                             seq_parallel=seq_parallel)
     gen = torch.Generator(device="cuda").manual_seed(1)
     toks = tuple(torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                                device="cuda") for _ in range(2))
     lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=remat)
+    slots = moe_mod._slots
+    used = lambda: (lambda f, t: (t - f) / 1e9)(*torch.cuda.mem_get_info())
+
+    def routed(fn):             # fn() and each _slots call's (experts, kept)
+        seen = []
+
+        def rec(c, expert_idx, C):
+            pos, keep = slots(c, expert_idx, C)
+            seen.append((expert_idx.cpu(), keep.cpu()))
+            return pos, keep
+        moe_mod._slots = rec
+        try:
+            return fn(), seen
+        finally:
+            moe_mod._slots = slots
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "seq_parallel": tp.seq_parallel,
+           "vocab_parallel": tp.vocab_parallel,
+           "expert_parallel": tp.expert_parallel,
+           "gathered": sorted("/".join(b) for b in tp.gathered),
+           "partial": sorted("/".join(b) for b in tp.partial),
+           "card_used_gb": []}
+    for turn in range(tp.size):
+        dist.barrier(group=tp.group.pg)
+        if turn != tp.index:
+            continue
+        t0 = time.perf_counter()
+        full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        local = msh.local_tree(full, tp)
+        spec = make_ravel_spec(local)
+        x_host = ravel(spec, local).cpu()
+        del local
+        # (a comprehension: a loop variable would keep the last leaf and
+        # its gradient alive after the turn)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(full)]
+        out["p_whole"] = sum(t.numel() for t in leaves)
+
+        def unsharded():        # forward and backward (its recompute)
+            loss = lf(full, toks, None)
+            loss.backward()
+            return loss
+        loss, whole_routes = routed(unsharded)
+        out["card_used_gb"].append(used())
+        out["dense_loss"] = float(loss.detach())
+        out["g_max"] = max(float(v.abs()) for t in leaves
+                           for v in t.grad.aminmax())
+        want_host = ravel(spec, msh.local_tree(tree_map(
+            lambda t: t.grad, full), tp)).cpu()
+        del full, leaves, loss
+        torch.cuda.empty_cache()
+        out["unsharded_s"] = time.perf_counter() - t0
+    dist.barrier(group=tp.group.pg)
+    x = x_host.cuda()
+    del x_host
     grad = msh.tensor_parallel_grad(spec, lf, tp)
     shapes = []
 
@@ -2910,35 +2998,33 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
         dispatch.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, g = grad(x, toks, None)
+        (loss, g), routes = routed(lambda: grad(x, toks, None))
         torch.cuda.synchronize()
-        grad_s = time.perf_counter() - t0
-        launches = dispatch.stats()["by_kernel"]
+        out["grad_s"] = time.perf_counter() - t0
+        out["launches"] = dispatch.stats()["by_kernel"]
     finally:
         scan_ops.ssm_scan, scan_ops.ssm_scan_bwd = calls
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "p_local": spec.p,
-           "grad_s": grad_s, "loss": float(loss),
-           "collectives": collective_stats(), "launches": launches,
-           "scan_calls": shapes, "seq_parallel": tp.seq_parallel,
-           "vocab_parallel": tp.vocab_parallel,
-           "gathered": sorted("/".join(b) for b in tp.gathered)}
+    out["collectives"] = collective_stats()
+    out["card_used_gb"].append(used())
     del x
-    for turn in range(tp.size):
-        dist.barrier(group=tp.group.pg)
-        if turn != tp.index:
-            continue
-        full = draw()
-        fspec = make_ravel_spec(full)
-        xf = ravel(fspec, full)
-        out["p_whole"] = fspec.p
-        del full
-        ld, gd = value_and_grad(fspec, lf)(xf, toks, None)
-        del xf
-        mine = ravel(spec, msh.local_tree(unravel(fspec, gd), tp))
-        out["dense_loss"] = float(ld)
-        out["rel_err"] = float((g - mine).abs().max() / gd.abs().max())
-        del gd, mine
-        torch.cuda.empty_cache()
+    err, step = 0.0, 1 << 26
+    for i in range(0, spec.p, step):
+        err = max(err, float((g[i:i + step] - want_host[i:i + step].cuda())
+                             .abs().max()))
+    out.update(p_local=spec.p, loss=float(loss), scan_calls=shapes,
+               rel_err=err / out["g_max"],
+               shapes={"/".join(k): v for k, v in zip(spec.paths,
+                                                     spec.shapes)},
+               routes_equal_unsharded=len(routes) == len(whole_routes)
+               and all(torch.equal(a, c) and torch.equal(b, d)
+                       for (a, b), (c, d) in zip(routes, whole_routes)),
+               route_calls=len(routes),
+               drops=[int((~k).sum()) for _, k in routes],
+               routes_digest=hashlib.sha256(b"".join(
+                   t.numpy().tobytes() for r in routes for t in r))
+               .hexdigest())
+    del g, want_host
+    torch.cuda.empty_cache()
     dist.barrier(group=tp.group.pg)
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -2987,18 +3073,40 @@ def tp_rank() -> dict:
     return out
 
 
-def phase_tensor_parallel(name: str, smi: str) -> dict:
-    """Phase 32: the model axis tensor-parallel on ranks sharing this
-    card over gloo (see the module docstring).  Returns the dense
-    reference's ``commit_grid`` launches."""
+def tp_world_rank() -> dict:
+    """Phases 32-34 on one of ``TP_WORLD`` gloo ranks sharing cuda:0, in
+    one spawn (a rank's CUDA context, its first kernels and its gloo
+    groups made once): each phase's rank function in turn, with the
+    seconds it took on this rank."""
+    out = {}
+    for key, fn in (("32", tp_rank), ("33", tp_ssm_rank),
+                    ("34", tp_moe_rank)):
+        t0 = time.perf_counter()
+        out[key] = dict(fn(), rank_s=time.perf_counter() - t0)
+    return out
+
+
+def tp_spawn() -> dict:
+    """The ranks of phases 32-34, spawned once: ``{phase: [each rank's
+    result]}``."""
     import torch
     from repro_torch.launch.multihost import spawn_local
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    outs = spawn_local(tp_rank, TP_WORLD, backend="gloo",
+    t0 = time.perf_counter()
+    outs = spawn_local(tp_world_rank, TP_WORLD, backend="gloo",
                        timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
-    spawn_s = time.perf_counter() - t_phase
+    emit("tp_spawn", ranks=TP_WORLD, seconds=time.perf_counter() - t0,
+         phase_s={k: max(o[k]["rank_s"] for o in outs) for k in outs[0]})
+    return {k: [o[k] for o in outs] for k in outs[0]}
+
+
+def phase_tensor_parallel(name: str, smi: str, outs: list) -> dict:
+    """Phase 32: the model axis tensor-parallel on ranks sharing this
+    card over gloo (see the module docstring), from the ranks' results
+    ``outs`` (``tp_spawn``).  Returns the dense reference's
+    ``commit_grid`` launches."""
+    t_phase = time.perf_counter()
     for o in outs:
         for D, M in TP_MESHES:
             c = o.get(f"{D}x{M}")
@@ -3014,7 +3122,8 @@ def phase_tensor_parallel(name: str, smi: str) -> dict:
         if "llama" in o:
             emit("tp_llama_rank", rank=o["rank"], **o["llama"], tol=TP_TOL,
                  device=name, nvidia_smi=smi)
-    emit("tp_done", seconds=time.perf_counter() - t_phase, spawn_s=spawn_s,
+    emit("tp_done", seconds=max(o["rank_s"] for o in outs)
+         + time.perf_counter() - t_phase,
          reference_s=max(o["reference_s"] for o in outs))
     for D, M in TP_MESHES:
         cells = [o[f"{D}x{M}"] for o in outs if f"{D}x{M}" in o]
@@ -3064,7 +3173,8 @@ def phase_tensor_parallel(name: str, smi: str) -> dict:
 
 
 def tp_ssm_rank() -> dict:
-    """Phase 33 on one of ``TP_SSM_WORLD`` gloo ranks sharing cuda:0: the
+    """Phase 33 on one of ``TP_WORLD`` gloo ranks sharing cuda:0 (ranks
+    0-3 take part, the others wait at the barriers): the
     dense reference rows of hymba-1.5b's cell (the ranks of
     ``TP_HYMBA_REF_NODES``; the others warm up meanwhile), the cell on
     ``TP_HYMBA_MESH``, then falcon-mamba-7b's gradient on a model group
@@ -3105,21 +3215,16 @@ def tp_ssm_rank() -> dict:
     return out
 
 
-def phase_tensor_parallel_ssm(name: str, smi: str) -> dict:
+def phase_tensor_parallel_ssm(name: str, smi: str, outs: list) -> dict:
     """Phase 33: the SSM archs' ``model`` axis tensor-parallel on ranks
-    sharing this card over gloo, then both scan kernels held to their
-    plain twins and timed at the ranks' shapes (see the module
-    docstring).  Returns the paths' launches by kernel, the kernels'
-    largest errors and their rows at the rank shapes."""
+    sharing this card over gloo, from the ranks' results ``outs``
+    (``tp_spawn``), then both scan kernels held to their plain twins and
+    timed at the ranks' shapes (see the module docstring).  Returns the
+    paths' launches by kernel, the kernels' largest errors and their
+    rows at the rank shapes."""
     import torch
     from repro_torch.kernels.ssm_scan import kernel as scan_k
-    from repro_torch.launch.multihost import spawn_local
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    outs = spawn_local(tp_ssm_rank, TP_SSM_WORLD, backend="gloo",
-                       timeout_s=MESH_TIMEOUT_S, join_s=MESH_JOIN_S)
-    spawn_s = time.perf_counter() - t_phase
     D, M = TP_HYMBA_MESH
     cells = [o["hymba"] for o in outs if "hymba" in o]
     falcon = [o["falcon"] for o in outs if "falcon" in o]
@@ -3137,8 +3242,8 @@ def phase_tensor_parallel_ssm(name: str, smi: str) -> dict:
         if "falcon" in o:
             emit("tp_ssm_falcon_rank", rank=o["rank"], **o["falcon"],
                  tol=TP_TOL, device=name, nvidia_smi=smi)
-    emit("tp_ssm_ranks_done", seconds=time.perf_counter() - t_phase,
-         spawn_s=spawn_s, reference_s=max(o["reference_s"] for o in outs))
+    emit("tp_ssm_ranks_done", seconds=max(o["rank_s"] for o in outs),
+         reference_s=max(o["reference_s"] for o in outs))
     L = TP_HYMBA_LAYERS
     check(len(cells) == D * M, f"33(b): every rank of ({D}, {M}) ran")
     for c in cells:
@@ -3218,9 +3323,151 @@ def phase_tensor_parallel_ssm(name: str, smi: str) -> dict:
                     "tp_ssm_dense_reference": sum(
                         o["reference_launches"].get(k, 0) for o in outs)}
                 for k in ("ssm_scan", "ssm_scan_bwd", "commit_grid")}
-    emit("tp_ssm_done", seconds=time.perf_counter() - t_phase,
-         launches=launches)
+    emit("tp_ssm_done", seconds=max(o["rank_s"] for o in outs)
+         + time.perf_counter() - t_phase, launches=launches)
     return {"launches": launches, "max_abs_err": err, "rows": rows}
+
+
+def tp_moe_rank() -> dict:
+    """Phase 34 on one of ``TP_WORLD`` gloo ranks sharing cuda:0:
+    for each arch of ``TP_MOE_ARCHS`` at ``.reduced()`` width the dense
+    reference rows (the ranks of ``TP_MOE_REF_NODES``; the others warm
+    up meanwhile) and the cell on ``TP_MOE_MESH``; then each arch's
+    full-width gradient of ``TP_MOE_FULL`` on its model group; every rank
+    builds every mesh and waits at a barrier after each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend(), "reference_s": 0.0,
+           "reference_launches": {}}
+    D, M = TP_MOE_MESH
+    mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
+    for arch in TP_MOE_ARCHS:
+        cfg = get_config(arch).reduced()
+        t0 = time.perf_counter()
+        ref = (tp_reference(rank, cfg, TP_MOE_REF_NODES, TP_MOE_ROUNDS)
+               if rank in TP_MOE_REF_NODES else {})
+        if not ref:
+            tp_warmup(cfg)
+        out["reference_s"] += time.perf_counter() - t0
+        for k, v in ref.pop("launches", {}).items():
+            out["reference_launches"][k] = \
+                out["reference_launches"].get(k, 0) + v
+        dist.barrier()
+        if mesh.coords is not None:
+            t0 = time.perf_counter()
+            out[f"reduced {arch}"] = dict(tp_cell(mesh, ref, cfg,
+                                                  TP_MOE_ROUNDS),
+                                          seconds=time.perf_counter() - t0)
+        del ref
+        torch.cuda.empty_cache()
+        dist.barrier()
+    for arch, layers, m, _, _, _ in TP_MOE_FULL:
+        gm = make_sweep_mesh(lanes=1, param_shards=m, ranks=range(m))
+        if gm.coords is not None:
+            t0 = time.perf_counter()
+            out[arch] = dict(tp_grad(gm, tp_config(arch, layers),
+                                     batch=TP_MOE_B, seq=TP_MOE_S,
+                                     seq_parallel=False, remat=True),
+                             seconds=time.perf_counter() - t0)
+        dist.barrier()
+    return out
+
+
+def phase_tensor_parallel_moe(name: str, smi: str, outs: list) -> dict:
+    """Phase 34: the MoE / MLA archs' ``model`` axis tensor-parallel on
+    ranks sharing this card over gloo (see the module docstring), from
+    the ranks' results ``outs`` (``tp_spawn``).  Returns the dense
+    references' ``commit_grid`` launches."""
+    t_phase = time.perf_counter()
+    D, M = TP_MOE_MESH
+    for o in outs:
+        for arch in TP_MOE_ARCHS:
+            c = o.get(f"reduced {arch}")
+            if c is not None:
+                emit("tp_moe_reduced_rank", arch=arch, rank=o["rank"],
+                     backend=o["backend"],
+                     **{k: v for k, v in c.items() if k != "info"},
+                     model_axis=c["info"]["model_axis"], p=c["info"]["p"],
+                     p_whole=c["info"]["p_whole"],
+                     seq_parallel=c["info"]["seq_parallel"],
+                     tensor_parallel=c["info"]["tensor_parallel"],
+                     tol=TP_TOL, device=name, nvidia_smi=smi)
+            if arch in o:
+                emit("tp_moe_full_rank", rank=o["rank"], **o[arch],
+                     tol=TP_TOL, device=name, nvidia_smi=smi)
+    emit("tp_moe_ranks_done", seconds=max(o["rank_s"] for o in outs),
+         reference_s=max(o["reference_s"] for o in outs))
+    for arch in TP_MOE_ARCHS:
+        cells = [o[f"reduced {arch}"] for o in outs
+                 if f"reduced {arch}" in o]
+        tag = f"34(c) {arch} ({D}, {M})"
+        check(len(cells) == D * M, f"{tag}: every rank ran")
+        mla = arch.startswith("deepseek")
+        for c in cells:
+            info = c["info"]
+            # phi's reduced attention has 1 KV head: gathered at M 2
+            check(info["model_axis"] == "tensor" and info["seq_parallel"]
+                  and info["tensor_parallel"] == {
+                      "ranks": M, "gathered": [] if mla else ["layers/attn"],
+                      "vocab_parallel": True},
+                  f"{tag}: tensor-parallel, sequence-parallel, experts over "
+                  "model" + (", MLA's heads a rank" if mla else ""))
+            check(c["live_argument_bytes"] == c["meta_argument_bytes"],
+                  f"{tag}: the live argument bytes a rank "
+                  f"({c['live_argument_bytes']}) equal the meta dry-run's "
+                  f"({c['meta_argument_bytes']})")
+            check(c["replicated_bitwise"] and c["replicated_elements"] > 0,
+                  f"{tag}: the replicated leaves (router, norms"
+                  + (", MLA's down-projections" if mla else "")
+                  + ") bitwise equal across the model group")
+            check(c["audit"] == [], f"{tag}: the round audits clean (RF206)")
+            check(len({tuple(x["losses"]) for x in cells}) == 1,
+                  f"{tag}: every rank reports the same losses")
+            if c["rel_err"]:
+                check(all(v <= TP_TOL for v in c["rel_err"].values()),
+                      f"{tag}: the gathered state within {TP_TOL} of the "
+                      f"dense round ({c['rel_err']})")
+        check(sum(1 for c in cells if c["rel_err"]) == D,
+              f"{tag}: both nodes held to the dense round")
+    for arch, layers, m, experts, heads, params in TP_MOE_FULL:
+        rs = [o[arch] for o in outs if arch in o]
+        tag = f"34({'ab'[TP_MOE_ARCHS.index(arch)]}) {arch} ({layers} layers, M {m})"
+        check(len(rs) == m and all(r["rel_err"] <= TP_TOL for r in rs),
+              f"{tag}: the tensor-parallel gradient within {TP_TOL} of the "
+              f"unsharded one ({[r['rel_err'] for r in rs]})")
+        check(len({r["loss"] for r in rs}) == 1 and all(
+            abs(r["loss"] - r["dense_loss"]) <= TP_TOL * abs(r["dense_loss"])
+            for r in rs), f"{tag}: one loss a model group, the unsharded one")
+        cfg = tp_config(arch)
+        q = "q_b" if cfg.q_lora_rank else "wq"
+        qk = cfg.hd + (cfg.qk_rope_dim if cfg.attention == "mla" else 0)
+        local = lambda r: {
+            "experts": r["shapes"]["layers/mlp/experts/wi"][-3],
+            "heads": r["shapes"][f"layers/attn/{q}"][-1] // qk,
+            "vocab_rows": r["shapes"]["embed"][0]}
+        want = {"experts": experts, "heads": heads,
+                "vocab_rows": cfg.vocab // m}
+        check(all(r["p_whole"] == params and r["gathered"] == []
+                  and r["vocab_parallel"] and r["expert_parallel"]
+                  and local(r) == want for r in rs),
+              f"{tag}: {params} parameters, experts, heads and vocab over "
+              f"model ({want} a rank), no block gathered")
+        check(len({r["routes_digest"] for r in rs}) == 1
+              and len({tuple(r["drops"]) for r in rs}) == 1
+              and all(r["routes_equal_unsharded"]
+                      and r["route_calls"] == 2 * layers for r in rs),
+              f"{tag}: every rank routes as the unsharded run (forward and "
+              f"recomputed; drops {rs[0]['drops']})")
+        check(max(u for r in rs for u in r["card_used_gb"])
+              < TP_MOE_CARD_GB, f"{tag}: the card's memory in use stays "
+              f"under {TP_MOE_CARD_GB} GB")
+    emit("tp_moe_done", seconds=max(o["rank_s"] for o in outs)
+         + time.perf_counter() - t_phase)
+    return {"tp_moe_dense_reference": sum(
+        o["reference_launches"].get("commit_grid", 0) for o in outs)}
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
@@ -4857,13 +5104,20 @@ def main() -> int:
     # 31. the launch tooling's predictions against the card -------------
     mesh_launches.update(phase_launch(name, smi))
 
+    # 32-34. the model axis tensor-parallel: the ranks spawned once -----
+    tp_outs = tp_spawn()
+
     # 32. the model axis tensor-parallel ----------------------------------
-    mesh_launches.update(phase_tensor_parallel(name, smi))
+    mesh_launches.update(phase_tensor_parallel(name, smi, tp_outs["32"]))
 
     # 33. the SSM archs' model axis tensor-parallel -----------------------
-    tp_ssm = phase_tensor_parallel_ssm(name, smi)
+    tp_ssm = phase_tensor_parallel_ssm(name, smi, tp_outs["33"])
     mesh_launches.update({k: v for k, v in tp_ssm["launches"][
         "commit_grid"].items() if v})
+
+    # 34. the MoE / MLA archs' model axis tensor-parallel -----------------
+    mesh_launches.update(phase_tensor_parallel_moe(name, smi,
+                                                   tp_outs["34"]))
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),

@@ -149,15 +149,19 @@ def unravel(spec: RavelSpec, vec: torch.Tensor) -> dict:
     """``(*lead, spec.p)`` buffer -> nested dict of ``(*lead, *shape)``
     views into ``vec`` (no copies: autograd through the views lands in
     ``vec``'s gradient; the pad tail is in no view), the spec's empty
-    dicts in their places."""
+    dicts in their places.  The views come from one ``split`` of
+    ``vec``, whose backward concatenates the leaves' gradients into one
+    buffer (a slice a leaf would fill and add a ``vec``-sized buffer for
+    each leaf, three times ``vec`` at the peak)."""
     lead = tuple(vec.shape[:-1])
+    sizes = [int(np.prod(shape)) if shape else 1 for shape in spec.shapes]
+    parts = vec.split(sizes + [vec.shape[-1] - sum(sizes)], dim=-1)
     tree: dict = {}
-    for path, shape, off in zip(spec.paths, spec.shapes, spec.offsets):
-        size = int(np.prod(shape)) if shape else 1
+    for path, shape, part in zip(spec.paths, spec.shapes, parts):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = vec[..., off:off + size].view(*lead, *shape)
+        node[path[-1]] = part.view(*lead, *shape)
     for path in spec.empty:
         node = tree
         for k in path:

@@ -18,9 +18,9 @@ nothing allocated; another device materializes the same case from
 * **train** — ``comm="ppermute"`` (and ``"auto"``) is
   :func:`~repro_torch.core.runtime_sharded.make_sharded_round` over the
   node axes: this rank's node, its flat state rows ``(1, p)`` and ``(1,
-  S_a, p)`` and its node's whole batch.  For the dense decoders,
-  falcon-mamba-7b and hymba-1.5b
-  (``models.sharding.tensor_parallel_supported``) on a ``model`` axis of
+  S_a, p)`` and its node's whole batch.  For the decoder-only text
+  archs (``models.sharding.tensor_parallel_supported``: the dense, MoE,
+  MLA, SSM and hybrid decoders) on a ``model`` axis of
   M > 1 ranks, the axis runs tensor-parallel as the reference's GSPMD
   runs it: a rank's tree is its blocks of the leaves the reference's
   PartitionSpecs shard (``models.sharding.tensor_parallel``, the node
@@ -29,7 +29,8 @@ nothing allocated; another device materializes the same case from
   ``models.sharding.tensor_parallel_grad``; ``step_fn.info`` says
   ``"model_axis": "tensor"`` and records the sequence parallelism, the
   blocks that run gathered and whether the embedding and head are
-  vocab-parallel or replicated.  Every other arch keeps whole rows on
+  vocab-parallel or replicated.  whisper-large-v3 and pixtral-12b keep
+  whole rows on
   each rank of a model group, which runs its node's round again
   (``"model_axis": "replicated"``).  ``comm="dense"`` is
   :func:`~repro_torch.core.runtime.make_rfast_round`, which the port

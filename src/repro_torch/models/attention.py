@@ -183,14 +183,16 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     """(qn (B,S,H,hd), qr (B,S,H,rd) roped by ``cos``/``sin``: (S, rd/2),
-    or (B, S, rd/2) for a position per row)."""
+    or (B, S, rd/2) for a position per row).  H comes from the width of
+    ``q_b`` (or ``wq``): a tensor-parallel rank's column block holds
+    its own whole heads (``models/sharding.py``)."""
     B, S, _ = x.shape
-    H, hd, rd = cfg.n_heads, cfg.hd, cfg.qk_rope_dim
+    hd, rd = cfg.hd, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         q = _rms(x @ p["q_a"], p["q_scale"]) @ p["q_b"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(B, S, H, hd + rd)
+    q = q.reshape(B, S, -1, hd + rd)
     return q[..., :hd], apply_rope(q[..., hd:], cos, sin)
 
 
@@ -204,10 +206,12 @@ def _mla_compress(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
 
 def _mla_attend(cfg: ModelConfig, p: dict, qn, qr, c, kr, mask):
     """qn (B,Sq,H,hd) qr (B,Sq,H,rd); c (B,Sk,r), kr (B,Sk,rd); mask
-    bool, broadcast to the scores (B,H,Sq,Sk)."""
+    bool, broadcast to the scores (B,H,Sq,Sk).  H is the heads of
+    ``k_up``'s columns (all of them, or a rank's block)."""
     B, Sk, _ = c.shape
-    H, hd, vd = cfg.n_heads, cfg.hd, cfg.v_hd
-    kn = (c @ p["k_up"]).reshape(B, Sk, H, hd)
+    hd, vd = cfg.hd, cfg.v_hd
+    kn = (c @ p["k_up"]).reshape(B, Sk, -1, hd)
+    H = kn.shape[2]
     v = (c @ p["v_up"]).reshape(B, Sk, H, vd)
     scale = (hd + cfg.qk_rope_dim) ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", qn, kn)

@@ -22,11 +22,22 @@ its capacity that of one row: the reference's serving decode is a
 ``vmap`` of the single-sequence step over slots, so each slot's MoE runs
 with T = 1.  Both are one routine over a leading row axis: the keys of
 the sort are (row, expert) and the buffer ``(R, E, C, d)``.
+
+Under expert parallelism (``models/sharding.py``) a rank's tree holds a
+block of ``E / M`` experts and a column / row block of the shared ones.
+It routes every token with the whole router, exactly as above (the same
+top-k, slots and drops over all E experts), but fills the buffer of its
+own experts only, ``(R, E / M, C, d)``: a token routed to another
+rank's expert adds nothing here.  Its ``y`` is then a partial sum
+(its experts' outputs plus its shared block's), which
+``sharding.parallel_block`` all-reduces, and its router loss the terms
+of its own experts (``sharding.router_loss`` sums them).
 """
 from __future__ import annotations
 
 import torch
 
+from . import sharding as msh
 from .config import ModelConfig
 from .layers import dense_init, mlp_apply, mlp_init
 
@@ -50,28 +61,13 @@ def _capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8
 
 
-def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x (R, T, d): each of the R rows routes its T tokens alone, with
-    capacity ``_capacity(cfg, T)``.  Returns (y (R, T, d) in fp32 of the
-    routed experts, aux (R,))."""
-    R, T, D = x.shape
-    E, K = cfg.moe_experts, cfg.moe_top_k
-    dev = x.device
-    logits = x.to(torch.float32) @ p["router"]               # (R, T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (R, T, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-
-    # Switch-style load-balance loss (top-1 counts, no gradient)
-    me = probs.mean(dim=1)                                   # (R, E)
-    ce = torch.zeros(R, E, device=dev).scatter_add_(
-        1, expert_idx[..., 0], torch.ones(R, T, device=dev)) / T
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce, dim=-1)
-
-    # a token's slot in its expert: its rank among the (row, expert)
-    # pair's tokens in token order, from a stable sort of the pair keys
-    C = _capacity(cfg, T)
+def _slots(cfg: ModelConfig, expert_idx: torch.Tensor, C: int):
+    """expert_idx (R, T, K) -> (pos, keep), (R, T·K) each: a (token,
+    choice)'s slot in its expert, its rank among the (row, expert)
+    pair's tokens in token order (a stable sort of the pair keys), and
+    whether it is inside the capacity ``C``."""
+    R, T, K = expert_idx.shape
+    E, dev = cfg.moe_experts, expert_idx.device
     flat_e = expert_idx.reshape(R, T * K)
     key = (flat_e + E * torch.arange(R, device=dev)[:, None]).reshape(-1)
     order = torch.argsort(key, stable=True)
@@ -81,19 +77,58 @@ def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
     pos = pos.reshape(R, T * K)
-    keep = pos < C
-    gates = torch.where(keep, gate_vals.reshape(R, T * K), 0.0)
+    return pos, pos < C
+
+
+def _balance_loss(cfg: ModelConfig, probs: torch.Tensor,
+                  top1: torch.Tensor, experts: slice) -> torch.Tensor:
+    """(R,): the Switch-style load-balance loss's terms of ``experts``
+    (all of them, or a rank's block): ``coef · E · mean(probs_e) ·
+    (top-1 count_e / T)``, the counts carrying no gradient."""
+    R, T, E = probs.shape
+    me = probs.mean(dim=1)                                   # (R, E)
+    ce = torch.zeros(R, E, device=probs.device).scatter_add_(
+        1, top1, torch.ones(R, T, device=probs.device)) / T
+    return cfg.router_aux_coef * E * torch.sum((me * ce)[:, experts],
+                                               dim=-1)
+
+
+def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """x (R, T, d): each of the R rows routes its T tokens alone, with
+    capacity ``_capacity(cfg, T)``, to the experts ``p`` holds (all E, or
+    a rank's block of them).  Returns (y (R, T, d) in fp32 of those
+    experts, aux (R,) of their terms)."""
+    R, T, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    dev = x.device
+    ep = p["experts"]
+    n_local = ep["wi"].shape[-3]
+    lo = msh.expert_offset(n_local, E)
+    logits = x.to(torch.float32) @ p["router"]               # (R, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (R, T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    aux = _balance_loss(cfg, probs, expert_idx[..., 0],
+                        slice(lo, lo + n_local))
+    C = _capacity(cfg, T)
+    pos, keep = _slots(cfg, expert_idx, C)
+    flat_e = expert_idx.reshape(R, T * K)
+    # kept and routed to one of the experts held here
+    mine = keep & (flat_e >= lo) & (flat_e < lo + n_local)
+    gates = torch.where(mine, gate_vals.reshape(R, T * K), 0.0)
 
     rows = torch.arange(R, device=dev)[:, None].expand(R, T * K)
-    safe_e = torch.where(keep, flat_e, 0)
-    safe_p = torch.where(keep, pos, C - 1)
+    safe_e = torch.where(mine, flat_e - lo, 0)
+    safe_p = torch.where(mine, pos, C - 1)
     xk = torch.repeat_interleave(x, K, dim=1)                # (R, T*K, D)
-    buf = torch.zeros(R, E, C, D, dtype=x.dtype, device=dev).index_put(
-        (rows, safe_e, safe_p), torch.where(keep[..., None], xk, 0)
+    buf = torch.zeros(R, n_local, C, D, dtype=x.dtype,
+                      device=dev).index_put(
+        (rows, safe_e, safe_p), torch.where(mine[..., None], xk, 0)
         .to(x.dtype), accumulate=True)
 
     # the stacked experts (SwiGLU) as einsums over the expert axis
-    ep = p["experts"]
     h = torch.einsum("recd,edf->recf", buf, ep["wi"])
     h = torch.nn.functional.silu(
         torch.einsum("recd,edf->recf", buf, ep["wg"])) * h

@@ -52,15 +52,31 @@ is, and the port runs the same layout explicitly:
   run on the replicated stream, or with sequence parallelism on this
   rank's block of the sequence, whose loss sum is all-reduced
   (:func:`seq_parallel_mean`);
-* :func:`tensor_parallel_grad` is the flat gradient of the local tree;
-  with sequence parallelism each rank saw only its part of the
+* the MoE block (``models/moe.py``, the reference's ``expert`` →
+  ``model``) runs expert-parallel: every rank routes all the tokens
+  with the replicated router (the same top-k, slots and drops as the
+  whole block), dispatches to its own ``E / M`` experts only and adds
+  their outputs to the shared experts' column / row-parallel partial
+  sum, which the block all-reduces; the router loss is a sum over
+  experts, so each rank sums its own experts' terms and the layers'
+  sum is all-reduced once (:func:`router_loss`);
+* MLA (``models/attention.py``) runs column-parallel on whole heads:
+  ``q_b`` (or ``wq``), ``k_up`` and ``v_up`` hold ``H / M`` heads'
+  columns and ``wo`` their rows, while the latent ``c``, the roped key
+  part and the q-LoRA path come whole from the replicated
+  down-projections;
+* :func:`tensor_parallel_grad` is the flat gradient of the local tree.
+  With sequence parallelism each rank saw only its part of the
   sequence through the replicated leaves (the norms' scales, and a
   replicated embedding and head), so their gradients are all-reduced
-  over ``model`` and every copy stays the same.
+  over ``model`` and every copy stays the same.  The replicated leaves
+  that feed only this rank's experts or heads (the router, MLA's
+  down-projections: ``TensorParallel.partial``) have a gradient that is
+  a part of the whole with or without sequence parallelism, and are
+  all-reduced either way, once.
 
-The five dense decoders, falcon-mamba-7b and hymba-1.5b run so
-(:func:`tensor_parallel_supported`); the other archs keep the
-replicated ``model`` axis.
+The decoder-only text archs run so (:func:`tensor_parallel_supported`);
+whisper-large-v3 and pixtral-12b keep the replicated ``model`` axis.
 """
 from __future__ import annotations
 
@@ -76,8 +92,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "current_tensor_parallel", "local_tree", "gather_tree",
            "gather_flat",
            "embed_lookup", "parallel_block", "ssm_channels", "ssm_proj",
-           "to_head", "vocab_parallel_ce", "seq_parallel_mean",
-           "tensor_parallel_grad"]
+           "expert_offset", "router_loss", "to_head", "vocab_parallel_ce",
+           "seq_parallel_mean", "tensor_parallel_grad"]
 
 
 class PartitionSpec(tuple):
@@ -216,7 +232,10 @@ class TensorParallel:
     "mlp")``) that gather their leaves and run replicated;
     ``seq_parallel`` whether the residual stream is sharded over the
     sequence; ``vocab_parallel`` whether the embedding and the head are
-    (else both are replicated)."""
+    (else both are replicated); ``partial`` the replicated leaves whose
+    gradient on a rank is its experts' or heads' part (the router of an
+    expert-parallel MoE block, the down-projections of a
+    column-parallel MLA block)."""
 
     mesh: Any
     rules: dict
@@ -225,6 +244,7 @@ class TensorParallel:
     gathered: frozenset
     seq_parallel: bool
     vocab_parallel: bool
+    partial: frozenset = frozenset()
 
     @property
     def size(self) -> int:
@@ -233,6 +253,12 @@ class TensorParallel:
     @property
     def index(self) -> int:
         return self.group.index
+
+    @property
+    def expert_parallel(self) -> bool:
+        """Whether the MoE block runs on this rank's experts."""
+        return (MOE + ("router",) in self.dims
+                and MOE not in self.gathered)
 
 
 # the dim of each SSM leaf that runs on a rank's channels (the channel
@@ -243,18 +269,31 @@ SSM_DIMS = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
             "out_proj": -2}
 
 
+MOE = ("layers", "mlp")
+# the MoE block runs expert-parallel when the stacked experts sit on
+# their E dim and the shared experts are a column / row-parallel MLP
+MOE_DIMS = {("experts", "wi"): -3, ("experts", "wg"): -3,
+            ("experts", "wo"): -3, ("shared", "wi"): -1,
+            ("shared", "wg"): -1, ("shared", "wo"): -2, ("router",): None}
+# MLA runs on a rank's heads when the up-projections are column blocks
+# and the down-projections whole
+MLA_COLUMNS = ("q_b", "wq", "k_up", "v_up")
+MLA_WHOLE = ("w_dkv", "c_scale", "w_kr", "q_a", "q_scale")
+
+
 def tensor_parallel_supported(cfg) -> bool:
     """Whether the port runs ``cfg``'s ``model`` axis tensor-parallel:
-    the dense decoders with GQA attention (rfast-100m, llama3-8b,
-    olmo-1b, qwen2.5-3b, deepseek-7b), the SSM archs without an MLP
-    (falcon-mamba-7b) and the hybrids of GQA attention and SSM with a
-    dense MLP (hymba-1.5b)."""
-    if cfg.moe_experts or cfg.enc_dec or cfg.frontend:
+    the decoder-only text archs, i.e. the dense and MoE decoders with
+    GQA attention (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b,
+    deepseek-7b, phi3.5-moe-42b-a6.6b), MLA with MoE (deepseek-v2-236b),
+    the SSM archs without an MLP (falcon-mamba-7b) and the hybrids of
+    GQA attention and SSM with a dense MLP (hymba-1.5b)."""
+    if cfg.enc_dec or cfg.frontend:
         return False
     if cfg.mixer == "ssm":
         return not cfg.d_ff
-    return (cfg.mixer in ("attn", "hybrid") and cfg.attention != "mla"
-            and not cfg.mlp_bias and bool(cfg.d_ff) and cfg.use_rope)
+    return (cfg.mixer in ("attn", "hybrid") and not cfg.mlp_bias
+            and bool(cfg.d_ff) and cfg.use_rope)
 
 
 def _paths(tree, prefix=()):
@@ -287,9 +326,8 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
     from ..launch import shardings as sh
     if not tensor_parallel_supported(cfg):
         raise ValueError(f"{cfg.name}: the port runs the 'model' axis "
-                         "tensor-parallel for the dense GQA decoders, the "
-                         "SSM archs without an MLP and the GQA + SSM "
-                         "hybrids only")
+                         "tensor-parallel for the decoder-only text archs "
+                         "only (no encoder, no frontend)")
     rules = rules or sh.RULES_BASE
     if node_axes is None:
         node_axes = tuple(a for a in mesh.axis_names if a != "model")
@@ -322,9 +360,18 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
         raise ValueError(f"{cfg.name}: the spec shards the embedding "
                          f"(dim {embed}) and the head (dim {head}) unlike: "
                          "both must be vocab-parallel or both replicated")
-    blocks = []
+    blocks, partial = [], []
     attn = ("layers", "attn")
-    if cfg.mixer in ("attn", "hybrid"):
+    if cfg.mixer in ("attn", "hybrid") and cfg.attention == "mla":
+        whole = [attn + (k,) for k in MLA_WHOLE if attn + (k,) in dims]
+        ok = (all(dims[attn + (k,)] == -1 for k in MLA_COLUMNS
+                  if attn + (k,) in dims)
+              and dims[attn + ("wo",)] == -2
+              and all(dims[k] is None for k in whole)
+              and cfg.n_heads % M == 0)
+        blocks.append((attn, ok))
+        partial += whole if ok else []
+    elif cfg.mixer in ("attn", "hybrid"):
         col = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv")
                if attn + (k,) in dims]
         blocks.append((attn, all(dims[attn + (k,)] == -1 for k in col)
@@ -334,16 +381,21 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
     if cfg.mixer in ("ssm", "hybrid"):
         blocks.append((ssm, cfg.d_inner % M == 0 and all(
             dims[ssm + (k,)] == d for k, d in SSM_DIMS.items())))
-    mlp = ("layers", "mlp")
-    if mlp + ("wo",) in dims:
-        blocks.append((mlp, all(dims[mlp + (k,)] == -1 for k in ("wi", "wg")
-                                if mlp + (k,) in dims)
-                       and dims[mlp + ("wo",)] == -2))
+    if cfg.moe_experts:
+        ok = all(dims[MOE + k] == d for k, d in MOE_DIMS.items()
+                 if MOE + k in dims)
+        blocks.append((MOE, ok))
+        partial += [MOE + ("router",)] if ok else []
+    elif MOE + ("wo",) in dims:
+        blocks.append((MOE, all(dims[MOE + (k,)] == -1 for k in ("wi", "wg")
+                                if MOE + (k,) in dims)
+                       and dims[MOE + ("wo",)] == -2))
     gathered = frozenset(b for b, ok in blocks if not ok)
     return TensorParallel(mesh=mesh, rules=rules, group=mesh.group("model"),
                           dims=dims, gathered=gathered,
                           seq_parallel=bool(seq_parallel),
-                          vocab_parallel=vocab_parallel)
+                          vocab_parallel=vocab_parallel,
+                          partial=frozenset(partial))
 
 
 def local_tree(tree, tp: TensorParallel):
@@ -427,14 +479,23 @@ def embed_lookup(embed, tokens):
     return reduce_from_model(x, tp.group)
 
 
+def _first(out, f):
+    """``f`` of a block's output, or of its first part when the block
+    returns more (the MoE block's ``(y, router loss)``)."""
+    return (f(out[0]), *out[1:]) if isinstance(out, tuple) else f(out)
+
+
 def parallel_block(key: tuple, params: dict, x, fn):
-    """``fn(params, x)`` of a residual block (attention, MLP) whose input
-    ``x`` is the residual stream; under tensor parallelism on the local
-    blocks: column-parallel in, row-parallel out (the input's gradient
-    and the output all-reduced, or with sequence parallelism the input
-    gathered over the sequence and the output reduce-scattered), or for
-    a block in ``tp.gathered`` its sharded leaves gathered (each rank
-    keeps its block of their gradient) and ``fn`` run replicated."""
+    """``fn(params, x)`` of a residual block (attention, MLP, MoE) whose
+    input ``x`` is the residual stream; under tensor parallelism on the
+    local blocks: column-parallel in, row-parallel out (the input's
+    gradient and the output all-reduced, or with sequence parallelism
+    the input gathered over the sequence and the output
+    reduce-scattered), or for a block in ``tp.gathered`` its sharded
+    leaves (nested ones too) gathered (each rank keeps its block of
+    their gradient) and ``fn`` run replicated.  Where ``fn`` returns a
+    tuple, only its first part is the block's output; the rest comes
+    back as it is."""
     from ..core import runtime_sharded as rs
     tp = current_tensor_parallel()
     if tp is None:
@@ -443,17 +504,17 @@ def parallel_block(key: tuple, params: dict, x, fn):
     if key in tp.gathered:
         gather = rs.gather_from_seq if tp.seq_parallel else \
             rs.gather_from_model
-        full = {k: (v if tp.dims[key + (k,)] is None
-                    else gather(v, g, tp.dims[key + (k,)]))
-                for k, v in params.items()}
+        full = _leaf_map(lambda path, v: v if tp.dims[key + path] is None
+                         else gather(v, g, tp.dims[key + path]), params)
         if not tp.seq_parallel:
             return fn(full, x)
-        y = fn(full, rs.gather_from_seq(x, g, 1))
-        return rs.rank_block(y, g, 1)
+        out = fn(full, rs.gather_from_seq(x, g, 1))
+        return _first(out, lambda y: rs.rank_block(y, g, 1))
     if tp.seq_parallel:
-        return rs.reduce_scatter_to_seq(fn(params, rs.gather_from_seq(
-            x, g, 1)), g, 1)
-    return rs.reduce_from_model(fn(params, rs.copy_to_model(x, g)), g)
+        out = fn(params, rs.gather_from_seq(x, g, 1))
+        return _first(out, lambda y: rs.reduce_scatter_to_seq(y, g, 1))
+    out = fn(params, rs.copy_to_model(x, g))
+    return _first(out, lambda y: rs.reduce_from_model(y, g))
 
 
 def ssm_channels(xz, d_inner: int):
@@ -496,6 +557,29 @@ def ssm_proj(partial, d_inner: int, channels: int):
         return partial
     g = current_tensor_parallel().group
     return copy_to_model(reduce_from_model(partial, g), g)
+
+
+def expert_offset(n_local: int, n_experts: int) -> int:
+    """The first of the experts that a block holding ``n_local`` of
+    ``n_experts`` stacked experts runs: 0 for all of them (outside
+    tensor parallelism, or in a gathered block), else this rank's block
+    of the E dim."""
+    if n_local == n_experts:
+        return 0
+    return current_tensor_parallel().index * n_local
+
+
+def router_loss(aux):
+    """The router loss summed over the layers, ``aux``: as it is, or
+    under expert parallelism, where each rank summed its own experts'
+    terms, all-reduced over the model group (forward only: each rank's
+    router then gets its experts' part of the gradient, which
+    :func:`tensor_parallel_grad` sums once)."""
+    from ..core.runtime_sharded import reduce_from_model
+    tp = current_tensor_parallel()
+    if tp is None or not tp.expert_parallel:
+        return aux
+    return reduce_from_model(aux, tp.group)
 
 
 def to_head(x):
@@ -558,10 +642,11 @@ def tensor_parallel_grad(spec, loss_fn, tp: TensorParallel):
     """``(params, batch, key) -> loss`` on the local tree that ``spec``
     ravels -> ``(x_loc, batch, key) -> (loss, g_loc)``: the flat
     gradient of the local blocks (``core.paramvec.value_and_grad``) with
-    the loss run under :func:`use_tensor_parallel`, and with sequence
-    parallelism the replicated leaves' gradients all-reduced over the
-    model group (one call: their segments side by side).  The loss is
-    the same on every rank of the group."""
+    the loss run under :func:`use_tensor_parallel`, and the gradients of
+    the replicated leaves that are a rank's part all-reduced over the
+    model group (one call: their segments side by side): with sequence
+    parallelism every replicated leaf's, else those of ``tp.partial``.
+    The loss is the same on every rank of the group."""
     import torch
 
     from ..core.paramvec import value_and_grad
@@ -571,12 +656,13 @@ def tensor_parallel_grad(spec, loss_fn, tp: TensorParallel):
     segs = [(off, int(torch.Size(shape).numel()))
             for path, shape, off in zip(spec.paths, spec.shapes,
                                         spec.offsets)
-            if tp.dims[path] is None]
+            if tp.dims[path] is None
+            and (tp.seq_parallel or path in tp.partial)]
 
     def grad(x, batch, key):
         with use_tensor_parallel(tp):
             loss, g = vg(x, batch, key)
-        if tp.seq_parallel and segs:
+        if segs:
             red = all_reduce_sum(torch.cat([g[o:o + n] for o, n in segs]),
                                  tp.group)
             i = 0

@@ -241,7 +241,10 @@ def _mixer_full(cfg: ModelConfig, lp: dict, h: torch.Tensor,
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
          rows: bool = False):
     """The residual MLP of ``x`` and its router loss: (x', aux), aux 0
-    without MoE.  ``rows`` routes each batch row alone (aux (B,))."""
+    without MoE.  ``rows`` routes each batch row alone (aux (B,)).  Under
+    tensor parallelism the block runs in ``parallel_block``'s frame on
+    the local leaves (an MoE block on this rank's experts, its aux their
+    terms)."""
     if "mlp" not in lp:
         return x, 0.0
     h = norm_apply(cfg, lp["ln2"], x)
@@ -249,7 +252,8 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
         return x + msh.parallel_block(("layers", "mlp"), lp["mlp"], h,
                                       lambda p, y: mlp_apply(cfg, p, y)), 0.0
     moe = moe_mod.moe_apply_rows if rows else moe_mod.moe_apply
-    y, aux = moe(cfg, lp["mlp"], h)
+    y, aux = msh.parallel_block(("layers", "mlp"), lp["mlp"], h,
+                                lambda p, y: moe(cfg, p, y))
     return x + y, aux
 
 
@@ -337,7 +341,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     last position only with ``last_only``; the MoE layers' router loss
     summed, 0 without MoE).  ``remat`` recomputes each layer's
     activations in the backward.  Under tensor parallelism the logits
-    are this rank's vocab block."""
+    are this rank's vocab block, and under expert parallelism the
+    ranks' router losses are summed (``models.sharding.router_loss``)."""
     x, positions, n_front, enc = _embed(cfg, params, tokens, frontend,
                                         remat)
     aux = torch.zeros((), device=x.device)
@@ -345,6 +350,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for lp in _layers(params["layers"], cfg.n_layers):
         x, a = _run(remat, _layer, cfg, lp, x, positions, enc, tp)
         aux = aux + a
+    aux = msh.router_loss(aux)
     x = msh.to_head(norm_apply(cfg, params["final_norm"], x))
     if last_only:
         x = x[:, -1:]

@@ -516,14 +516,14 @@ def test_hymba_build_train_is_tensor_parallel_with_a_replicated_vocab():
 
 
 def test_other_archs_keep_the_replicated_model_axis():
-    for arch in ("pixtral-12b", "deepseek-v2-236b", "whisper-large-v3"):
+    for arch in ("pixtral-12b", "whisper-large-v3"):
         cfg = get_config(arch).reduced()
         assert not msh.tensor_parallel_supported(cfg)
         fn, _ = specs.build_train(cfg, describe_mesh((2, 2), (
             "data", "model")), seq=16, global_batch=4)
         assert fn.info["model_axis"] == "replicated"
-    with pytest.raises(ValueError, match="dense GQA decoders, the SSM "
-                       "archs without an MLP and the GQA \\+ SSM hybrids"):
+    with pytest.raises(ValueError, match="decoder-only text archs only "
+                       "\\(no encoder, no frontend\\)"):
         msh.tensor_parallel(get_config("pixtral-12b").reduced(), {},
                             describe_mesh((1, 2), ("data", "model")))
 
