@@ -309,7 +309,7 @@ run.  Phases:
    (the production (32, 8) mesh, one rank, tensor-parallel since PR 26)
    with its roofline row: a rank's arguments and temporaries fit a card.
 32. tensor parallelism (the function ``phase_tensor_parallel``; eight
-   gloo ranks sharing cuda:0, one spawn for phases 32-34, ``tp_spawn``)
+   gloo ranks sharing cuda:0, one spawn for phases 32-35, ``tp_spawn``)
    — (a), (b) rfast-100m at full
    width and depth (2 nodes × 4 sequences of 128, fp32, 3 rounds) built
    by ``launch.specs.build_train(comm="ppermute")`` on a (2, 2) and a
@@ -373,8 +373,24 @@ run.  Phases:
    experts and whether it was kept, forward and recomputed) equal, and
    equal to the unsharded run's, with its drop count; the card's memory
    in use (all ranks) read at each turn and after the gradient.
+35. the enc-dec and frontend archs tensor-parallel (the function
+   ``phase_tensor_parallel_front``; phase 32's eight ranks; whisper's
+   encoder, cross attention and biased MLPs, pixtral's patch prefix) —
+   (c) whisper-large-v3 and pixtral-12b at ``.reduced()`` width (16
+   frames or patches) on a (2, 2) mesh as 34(c) runs its archs: live
+   argument bytes = meta, the replicated leaves bitwise, x, z and g_prev
+   gathered whole within 1e-4 of the dense 2-node round
+   (``commit_grid``), RF206 clean; (a) whisper-large-v3 at full width
+   cut to 2 + 2 of its 32 + 32 layers, one sequence of 128 tokens over
+   its 1500 frames, with sequence parallelism on a model group of 4
+   (self, cross and encoder attention on 5 heads a rank, the encoder's
+   stream sequence-parallel, the vocab replicated) and of 8 (the three
+   attention blocks gathered, the encoder's stream replicated); (b)
+   pixtral-12b at full width cut to 2 of 40 layers, its 256 patch rows
+   before 128 tokens, sequence- and vocab-parallel on a model group of
+   8: each held to the unsharded gradient as 34(a) holds phi3.5-moe's.
 
-Each of phases 17–34 prints its wall seconds, peak memory or
+Each of phases 17–35 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -630,12 +646,28 @@ TP_SCAN_WIDTHS = [("hymba-1.5b rank (M 4)", (4, 128, 800, 16), 100),
 # 128, no sequence parallelism: (arch, layers, model group of the first
 # ranks, experts a rank, heads a rank, parameters of the cut tree)
 TP_MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
-TP_MOE_MESH, TP_MOE_ROUNDS = (2, 2), 3
-TP_MOE_REF_NODES = {0: 0, 2: 1}       # model index 0 of each node
+# 34(c), 35(c): phase 32's cell of each arch at .reduced() width
+TP_REDUCED_MESH, TP_REDUCED_ROUNDS = (2, 2), 3
+TP_REDUCED_REF_NODES = {0: 0, 2: 1}   # model index 0 of each node
 TP_MOE_B, TP_MOE_S = 1, 128
 TP_MOE_FULL = [("phi3.5-moe-42b-a6.6b", 2, 4, 4, 8, 2_863_308_800),
                ("deepseek-v2-236b", 1, 8, 20, 16, 5_020_697_600)]
 TP_MOE_CARD_GB = 80.0                 # the card's memory, all ranks
+# phase 35: the enc-dec and frontend archs' model axis tensor-parallel,
+# ranks of this card over gloo.  (c) both archs at .reduced() width, phase
+# 32's cell on a (2, 2) mesh; (a) whisper-large-v3 at full width cut to
+# 2 + 2 of its 32 + 32 layers, one sequence of 128 tokens over its 1500
+# frames, (b) pixtral-12b at full width cut to 2 of 40 layers, its 256
+# patch rows before 128 tokens, each sequence-parallel on a model group
+# of the first ranks: (arch, layers, model group, attention heads a rank
+# (None: the three attention blocks gathered), the encoder's stream
+# sequence-parallel (None: no encoder), vocab-parallel, parameters of the
+# cut tree)
+TP_FRONT_ARCHS = ("whisper-large-v3", "pixtral-12b")
+TP_FRONT_B, TP_FRONT_S = 1, 128
+TP_FRONT_FULL = [("whisper-large-v3", 2, 4, 5, True, False, 226_245_120),
+                 ("whisper-large-v3", 2, 8, None, False, False, 226_245_120),
+                 ("pixtral-12b", 2, 8, 4, None, True, 1_918_919_680)]
 
 
 def emit(phase: str, **kw) -> None:
@@ -2765,11 +2797,13 @@ def phase_launch(name: str, smi: str) -> dict:
 # --------------------------------------------------------------------- #
 def tp_config(arch: str, layers: int | None = None):
     """``arch``'s config at full width, cut to ``layers`` of its layers
-    (None: all of them)."""
+    (and of its encoder's; None: all of them)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, n_enc_layers=min(
+        cfg.n_enc_layers, layers))
 
 
 def tp_reference(rank: int, cfg, nodes: dict, rounds: int) -> dict:
@@ -2806,9 +2840,12 @@ def tp_warmup(cfg) -> None:
     from repro_torch.models.transformer import init_params, loss_fn
     tree = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     spec = make_ravel_spec(tree)
-    toks = torch.zeros((TP_TRAIN["global_batch"] // 2, TP_TRAIN["seq"]),
-                       dtype=torch.long, device="cuda")
-    value_and_grad(spec, lambda p, b, k: loss_fn(cfg, p, b, b, remat=True))(
+    b = TP_TRAIN["global_batch"] // 2
+    toks = torch.zeros((b, TP_TRAIN["seq"]), dtype=torch.long, device="cuda")
+    front = (torch.zeros((b, cfg.frontend_seq, cfg.frontend_dim),
+                         device="cuda"),) if cfg.frontend else ()
+    value_and_grad(spec, lambda p, b, k: loss_fn(cfg, p, b, b, *front,
+                                                 remat=True))(
         ravel(spec, tree), toks, None)
     torch.cuda.synchronize()
     del tree
@@ -2899,15 +2936,17 @@ def tp_cell(mesh, ref: dict, cfg, rounds: int) -> dict:
 
 def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
             remat: bool) -> dict:
-    """32(c), 33(a), 34(a)/(b) on one rank of a model group: the ranks in
-    turn draw ``cfg`` on the card from seed 0, keep their blocks on the
-    host and take the unsharded gradient of one batch of ``batch``
-    sequences of ``seq`` leaf by leaf, keeping this rank's blocks of it
-    on the host; then every rank's tensor-parallel gradient of the same
-    batch on the card (the kernels' launches and the scan kernels'
-    shapes read around it alone) is held to them.  Both runs' MoE routes
-    (each ``moe._slots`` call's experts and kept choices; none without
-    MoE) and the card's memory in use (all ranks) after each."""
+    """32(c), 33(a), 34(a)/(b), 35(a)/(b) on one rank of a model group:
+    the ranks in turn draw ``cfg`` on the card from seed 0, keep their
+    blocks on the host and take the unsharded gradient of one batch of
+    ``batch`` sequences of ``seq`` tokens (after a frontend arch's
+    frames or patches, drawn too) leaf by leaf, keeping this rank's
+    blocks of it on the host; then every rank's tensor-parallel gradient
+    of the same batch on the card (the kernels' launches and the scan
+    kernels' shapes read around it alone) is held to them.  Both runs'
+    MoE routes (each ``moe._slots`` call's experts and kept choices;
+    none without MoE) and the card's memory in use (all ranks) after
+    each."""
     import hashlib
 
     import torch
@@ -2927,7 +2966,10 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
     gen = torch.Generator(device="cuda").manual_seed(1)
     toks = tuple(torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                                device="cuda") for _ in range(2))
-    lf = lambda p, b, k: loss_fn(cfg, p, b[0], b[1], remat=remat)
+    if cfg.frontend:
+        toks += (torch.randn((batch, cfg.frontend_seq, cfg.frontend_dim),
+                             generator=gen, device="cuda"),)
+    lf = lambda p, b, k: loss_fn(cfg, p, *b, remat=remat)
     slots = moe_mod._slots
     used = lambda: (lambda f, t: (t - f) / 1e9)(*torch.cuda.mem_get_info())
 
@@ -2947,6 +2989,7 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
            "seq_parallel": tp.seq_parallel,
            "vocab_parallel": tp.vocab_parallel,
            "expert_parallel": tp.expert_parallel,
+           "enc_seq_parallel": tp.enc_seq_parallel,
            "gathered": sorted("/".join(b) for b in tp.gathered),
            "partial": sorted("/".join(b) for b in tp.partial),
            "card_used_gb": []}
@@ -3074,20 +3117,20 @@ def tp_rank() -> dict:
 
 
 def tp_world_rank() -> dict:
-    """Phases 32-34 on one of ``TP_WORLD`` gloo ranks sharing cuda:0, in
+    """Phases 32-35 on one of ``TP_WORLD`` gloo ranks sharing cuda:0, in
     one spawn (a rank's CUDA context, its first kernels and its gloo
     groups made once): each phase's rank function in turn, with the
     seconds it took on this rank."""
     out = {}
     for key, fn in (("32", tp_rank), ("33", tp_ssm_rank),
-                    ("34", tp_moe_rank)):
+                    ("34", tp_moe_rank), ("35", tp_front_rank)):
         t0 = time.perf_counter()
         out[key] = dict(fn(), rank_s=time.perf_counter() - t0)
     return out
 
 
 def tp_spawn() -> dict:
-    """The ranks of phases 32-34, spawned once: ``{phase: [each rank's
+    """The ranks of phases 32-35, spawned once: ``{phase: [each rank's
     result]}``."""
     import torch
     from repro_torch.launch.multihost import spawn_local
@@ -3328,27 +3371,26 @@ def phase_tensor_parallel_ssm(name: str, smi: str, outs: list) -> dict:
     return {"launches": launches, "max_abs_err": err, "rows": rows}
 
 
-def tp_moe_rank() -> dict:
-    """Phase 34 on one of ``TP_WORLD`` gloo ranks sharing cuda:0:
-    for each arch of ``TP_MOE_ARCHS`` at ``.reduced()`` width the dense
-    reference rows (the ranks of ``TP_MOE_REF_NODES``; the others warm
-    up meanwhile) and the cell on ``TP_MOE_MESH``; then each arch's
-    full-width gradient of ``TP_MOE_FULL`` on its model group; every rank
-    builds every mesh and waits at a barrier after each."""
+def tp_reduced_rank(rank: int, archs, out: dict) -> None:
+    """34(c), 35(c) on one rank: for each arch of ``archs`` at
+    ``.reduced()`` width the dense reference rows (the ranks of
+    ``TP_REDUCED_REF_NODES``; the others warm up meanwhile) and the cell
+    on ``TP_REDUCED_MESH`` (``out["reduced " + arch]``), beside the
+    references' seconds and kernel launches; every rank builds the mesh
+    and waits at a barrier after each arch."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_sweep_mesh
-    rank = dist.get_rank()
-    out = {"rank": rank, "backend": dist.get_backend(), "reference_s": 0.0,
-           "reference_launches": {}}
-    D, M = TP_MOE_MESH
+    out.update(reference_s=0.0, reference_launches={})
+    D, M = TP_REDUCED_MESH
     mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
-    for arch in TP_MOE_ARCHS:
+    for arch in archs:
         cfg = get_config(arch).reduced()
         t0 = time.perf_counter()
-        ref = (tp_reference(rank, cfg, TP_MOE_REF_NODES, TP_MOE_ROUNDS)
-               if rank in TP_MOE_REF_NODES else {})
+        ref = (tp_reference(rank, cfg, TP_REDUCED_REF_NODES,
+                            TP_REDUCED_ROUNDS)
+               if rank in TP_REDUCED_REF_NODES else {})
         if not ref:
             tp_warmup(cfg)
         out["reference_s"] += time.perf_counter() - t0
@@ -3359,11 +3401,76 @@ def tp_moe_rank() -> dict:
         if mesh.coords is not None:
             t0 = time.perf_counter()
             out[f"reduced {arch}"] = dict(tp_cell(mesh, ref, cfg,
-                                                  TP_MOE_ROUNDS),
+                                                  TP_REDUCED_ROUNDS),
                                           seconds=time.perf_counter() - t0)
         del ref
         torch.cuda.empty_cache()
         dist.barrier()
+
+
+def check_reduced_cells(phase: str, kind: str, archs, outs: list,
+                        want, name: str, smi: str) -> None:
+    """34(c), 35(c) from the ranks' results ``outs``: each rank's cell
+    emitted (``tp_{kind}_reduced_rank``), then held: every rank ran,
+    ``info["tensor_parallel"]`` is ``want(arch)[0]`` (``[1]`` says what
+    that layout is), live argument bytes = meta, the replicated leaves
+    (``[2]`` names them) bitwise across each model group, RF206 clean,
+    one loss, and both nodes' gathered state within ``TP_TOL`` of the
+    dense round."""
+    D, M = TP_REDUCED_MESH
+    for o in outs:
+        for arch in archs:
+            c = o.get(f"reduced {arch}")
+            if c is not None:
+                emit(f"tp_{kind}_reduced_rank", arch=arch, rank=o["rank"],
+                     backend=o["backend"],
+                     **{k: v for k, v in c.items() if k != "info"},
+                     model_axis=c["info"]["model_axis"], p=c["info"]["p"],
+                     p_whole=c["info"]["p_whole"],
+                     seq_parallel=c["info"]["seq_parallel"],
+                     tensor_parallel=c["info"]["tensor_parallel"],
+                     tol=TP_TOL, device=name, nvidia_smi=smi)
+    for arch in archs:
+        cells = [o[f"reduced {arch}"] for o in outs
+                 if f"reduced {arch}" in o]
+        tag = f"{phase}(c) {arch} ({D}, {M})"
+        layout, what, replicated = want(arch)
+        check(len(cells) == D * M, f"{tag}: every rank ran")
+        for c in cells:
+            info = c["info"]
+            check(info["model_axis"] == "tensor" and info["seq_parallel"]
+                  and info["tensor_parallel"] == dict(layout, ranks=M),
+                  f"{tag}: tensor-parallel, sequence-parallel, {what} "
+                  f"({info['tensor_parallel']})")
+            check(c["live_argument_bytes"] == c["meta_argument_bytes"],
+                  f"{tag}: the live argument bytes a rank "
+                  f"({c['live_argument_bytes']}) equal the meta dry-run's "
+                  f"({c['meta_argument_bytes']})")
+            check(c["replicated_bitwise"] and c["replicated_elements"] > 0,
+                  f"{tag}: the replicated leaves ({replicated}) bitwise "
+                  "equal across the model group")
+            check(c["audit"] == [], f"{tag}: the round audits clean (RF206)")
+            check(len({tuple(x["losses"]) for x in cells}) == 1,
+                  f"{tag}: every rank reports the same losses")
+            if c["rel_err"]:
+                check(all(v <= TP_TOL for v in c["rel_err"].values()),
+                      f"{tag}: the gathered state within {TP_TOL} of the "
+                      f"dense round ({c['rel_err']})")
+        check(sum(1 for c in cells if c["rel_err"]) == D,
+              f"{tag}: both nodes held to the dense round")
+
+
+def tp_moe_rank() -> dict:
+    """Phase 34 on one of ``TP_WORLD`` gloo ranks sharing cuda:0: the
+    cells of ``TP_MOE_ARCHS`` at ``.reduced()`` width
+    (``tp_reduced_rank``), then each arch's full-width gradient of
+    ``TP_MOE_FULL`` on its model group; every rank builds every mesh and
+    waits at a barrier after each."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    tp_reduced_rank(rank, TP_MOE_ARCHS, out)
     for arch, layers, m, _, _, _ in TP_MOE_FULL:
         gm = make_sweep_mesh(lanes=1, param_shards=m, ranks=range(m))
         if gm.coords is not None:
@@ -3382,56 +3489,23 @@ def phase_tensor_parallel_moe(name: str, smi: str, outs: list) -> dict:
     the ranks' results ``outs`` (``tp_spawn``).  Returns the dense
     references' ``commit_grid`` launches."""
     t_phase = time.perf_counter()
-    D, M = TP_MOE_MESH
     for o in outs:
         for arch in TP_MOE_ARCHS:
-            c = o.get(f"reduced {arch}")
-            if c is not None:
-                emit("tp_moe_reduced_rank", arch=arch, rank=o["rank"],
-                     backend=o["backend"],
-                     **{k: v for k, v in c.items() if k != "info"},
-                     model_axis=c["info"]["model_axis"], p=c["info"]["p"],
-                     p_whole=c["info"]["p_whole"],
-                     seq_parallel=c["info"]["seq_parallel"],
-                     tensor_parallel=c["info"]["tensor_parallel"],
-                     tol=TP_TOL, device=name, nvidia_smi=smi)
             if arch in o:
                 emit("tp_moe_full_rank", rank=o["rank"], **o[arch],
                      tol=TP_TOL, device=name, nvidia_smi=smi)
     emit("tp_moe_ranks_done", seconds=max(o["rank_s"] for o in outs),
          reference_s=max(o["reference_s"] for o in outs))
-    for arch in TP_MOE_ARCHS:
-        cells = [o[f"reduced {arch}"] for o in outs
-                 if f"reduced {arch}" in o]
-        tag = f"34(c) {arch} ({D}, {M})"
-        check(len(cells) == D * M, f"{tag}: every rank ran")
+
+    def want(arch):     # phi's reduced attention has 1 KV head: gathered
         mla = arch.startswith("deepseek")
-        for c in cells:
-            info = c["info"]
-            # phi's reduced attention has 1 KV head: gathered at M 2
-            check(info["model_axis"] == "tensor" and info["seq_parallel"]
-                  and info["tensor_parallel"] == {
-                      "ranks": M, "gathered": [] if mla else ["layers/attn"],
-                      "vocab_parallel": True},
-                  f"{tag}: tensor-parallel, sequence-parallel, experts over "
-                  "model" + (", MLA's heads a rank" if mla else ""))
-            check(c["live_argument_bytes"] == c["meta_argument_bytes"],
-                  f"{tag}: the live argument bytes a rank "
-                  f"({c['live_argument_bytes']}) equal the meta dry-run's "
-                  f"({c['meta_argument_bytes']})")
-            check(c["replicated_bitwise"] and c["replicated_elements"] > 0,
-                  f"{tag}: the replicated leaves (router, norms"
-                  + (", MLA's down-projections" if mla else "")
-                  + ") bitwise equal across the model group")
-            check(c["audit"] == [], f"{tag}: the round audits clean (RF206)")
-            check(len({tuple(x["losses"]) for x in cells}) == 1,
-                  f"{tag}: every rank reports the same losses")
-            if c["rel_err"]:
-                check(all(v <= TP_TOL for v in c["rel_err"].values()),
-                      f"{tag}: the gathered state within {TP_TOL} of the "
-                      f"dense round ({c['rel_err']})")
-        check(sum(1 for c in cells if c["rel_err"]) == D,
-              f"{tag}: both nodes held to the dense round")
+        return ({"gathered": [] if mla else ["layers/attn"],
+                 "vocab_parallel": True},
+                "experts over model" + (", MLA's heads a rank" if mla
+                                        else ""),
+                "router, norms" + (", MLA's down-projections" if mla
+                                   else ""))
+    check_reduced_cells("34", "moe", TP_MOE_ARCHS, outs, want, name, smi)
     for arch, layers, m, experts, heads, params in TP_MOE_FULL:
         rs = [o[arch] for o in outs if arch in o]
         tag = f"34({'ab'[TP_MOE_ARCHS.index(arch)]}) {arch} ({layers} layers, M {m})"
@@ -3467,6 +3541,96 @@ def phase_tensor_parallel_moe(name: str, smi: str, outs: list) -> dict:
     emit("tp_moe_done", seconds=max(o["rank_s"] for o in outs)
          + time.perf_counter() - t_phase)
     return {"tp_moe_dense_reference": sum(
+        o["reference_launches"].get("commit_grid", 0) for o in outs)}
+
+
+def tp_front_rank() -> dict:
+    """Phase 35 on one of ``TP_WORLD`` gloo ranks sharing cuda:0: the
+    cells of ``TP_FRONT_ARCHS`` at ``.reduced()`` width
+    (``tp_reduced_rank``), then each full-width gradient of
+    ``TP_FRONT_FULL`` on its model group; every rank builds every mesh
+    and waits at a barrier after each."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    tp_reduced_rank(rank, TP_FRONT_ARCHS, out)
+    for arch, layers, m, *_ in TP_FRONT_FULL:
+        gm = make_sweep_mesh(lanes=1, param_shards=m, ranks=range(m))
+        if gm.coords is not None:
+            t0 = time.perf_counter()
+            out[f"{arch} M {m}"] = dict(tp_grad(
+                gm, tp_config(arch, layers), batch=TP_FRONT_B,
+                seq=TP_FRONT_S, seq_parallel=True, remat=True),
+                seconds=time.perf_counter() - t0)
+        dist.barrier()
+    return out
+
+
+def phase_tensor_parallel_front(name: str, smi: str, outs: list) -> dict:
+    """Phase 35: the enc-dec and frontend archs' ``model`` axis
+    tensor-parallel on ranks sharing this card over gloo (see the module
+    docstring), from the ranks' results ``outs`` (``tp_spawn``).  Returns
+    the dense references' ``commit_grid`` launches."""
+    t_phase = time.perf_counter()
+    full = [f"{a} M {m}" for a, _, m, *_ in TP_FRONT_FULL]
+    for o in outs:
+        for key in full:
+            if key in o:
+                emit("tp_front_full_rank", case=key, rank=o["rank"],
+                     **o[key], tol=TP_TOL, device=name, nvidia_smi=smi)
+    emit("tp_front_ranks_done", seconds=max(o["rank_s"] for o in outs),
+         reference_s=max(o["reference_s"] for o in outs))
+
+    def want(arch):     # reduced: 4 heads (pixtral 1 KV head: gathered),
+        enc_dec = arch.startswith("whisper")   # vocab 512, 16 frames
+        return ({"gathered": [] if enc_dec else ["layers/attn"],
+                 "vocab_parallel": True,
+                 **({"encoder_seq_parallel": True} if enc_dec else {})},
+                "the encoder's stream sequence-parallel" if enc_dec
+                else "the patch prefix",
+                "norms, frontend_proj" + (", the MLPs' bo" if enc_dec
+                                          else ""))
+    check_reduced_cells("35", "front", TP_FRONT_ARCHS, outs, want, name,
+                        smi)
+    for (arch, layers, m, heads, enc_sp, vocab_par, params), key in zip(
+            TP_FRONT_FULL, full):
+        rs = [o[key] for o in outs if key in o]
+        tag = f"35({'ab'[TP_FRONT_ARCHS.index(arch)]}) {arch} ({layers} " \
+            f"layers, M {m})"
+        check(len(rs) == m and all(r["rel_err"] <= TP_TOL for r in rs),
+              f"{tag}: the tensor-parallel gradient within {TP_TOL} of the "
+              f"unsharded one ({[r['rel_err'] for r in rs]})")
+        check(len({r["loss"] for r in rs}) == 1 and all(
+            abs(r["loss"] - r["dense_loss"]) <= TP_TOL * abs(r["dense_loss"])
+            for r in rs), f"{tag}: one loss a model group, the unsharded one")
+        cfg = tp_config(arch)
+        blocks = (("layers/attn", "layers/cross", "enc_layers/attn")
+                  if cfg.enc_dec else ("layers/attn",))
+        gathered = sorted(blocks) if heads is None else []
+        # a gathered block's local wq holds 1 / m of the columns, which
+        # cut inside a head (whisper's 20 heads of 64 over 8: 2.5 heads)
+        wq = cfg.n_heads * cfg.hd // m
+        local = lambda r: {
+            "wq_columns": {b: r["shapes"][f"{b}/wq"][-1] for b in blocks},
+            "vocab_rows": r["shapes"]["embed"][0]}
+        want = {"wq_columns": {b: wq for b in blocks},
+                "vocab_rows": cfg.vocab // m if vocab_par else cfg.vocab}
+        check(all(r["p_whole"] == params and r["gathered"] == gathered
+                  and r["seq_parallel"] and r["enc_seq_parallel"] == enc_sp
+                  and r["vocab_parallel"] == vocab_par and local(r) == want
+                  for r in rs),
+              f"{tag}: {params} parameters, "
+              + (f"{heads} heads a rank" if heads else "the attention "
+                 "gathered") + f", the encoder's stream "
+              f"{'-' if enc_sp is None else enc_sp}, vocab-parallel "
+              f"{vocab_par} ({want} a rank)")
+        check(max(u for r in rs for u in r["card_used_gb"])
+              < TP_MOE_CARD_GB, f"{tag}: the card's memory in use stays "
+              f"under {TP_MOE_CARD_GB} GB")
+    emit("tp_front_done", seconds=max(o["rank_s"] for o in outs)
+         + time.perf_counter() - t_phase)
+    return {"tp_front_dense_reference": sum(
         o["reference_launches"].get("commit_grid", 0) for o in outs)}
 
 
@@ -5104,7 +5268,7 @@ def main() -> int:
     # 31. the launch tooling's predictions against the card -------------
     mesh_launches.update(phase_launch(name, smi))
 
-    # 32-34. the model axis tensor-parallel: the ranks spawned once -----
+    # 32-35. the model axis tensor-parallel: the ranks spawned once -----
     tp_outs = tp_spawn()
 
     # 32. the model axis tensor-parallel ----------------------------------
@@ -5118,6 +5282,10 @@ def main() -> int:
     # 34. the MoE / MLA archs' model axis tensor-parallel -----------------
     mesh_launches.update(phase_tensor_parallel_moe(name, smi,
                                                    tp_outs["34"]))
+
+    # 35. the enc-dec and frontend archs' model axis tensor-parallel ------
+    mesh_launches.update(phase_tensor_parallel_front(name, smi,
+                                                     tp_outs["35"]))
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),

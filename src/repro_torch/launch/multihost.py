@@ -35,8 +35,7 @@ joins the group, takes its place in the production mesh
 the case (``launch.specs.build_case``) once on the meta device, where
 the reference compiles it; rank 0 prints the fleet, the argument bytes a
 rank and, for a train case, how the ``model`` axis runs (tensor-parallel
-for the decoder-only text archs: a rank's flat rows are its blocks of
-the tree).
+for every arch: a rank's flat rows are its blocks of the tree).
 
     python -m repro_torch.launch.multihost --arch llama3-8b --shape train_4k
 """

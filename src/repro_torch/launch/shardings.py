@@ -13,13 +13,11 @@ These are pure functions of leaf paths, shapes and a mesh's axis sizes
 described mesh (:func:`~repro_torch.launch.mesh.make_production_mesh`)
 or JAX's ``AbstractMesh``.  A leaf is anything with a ``shape`` (a
 tensor, meta or not).  The specs say how the reference's GSPMD program
-lays each leaf out, and for the decoder-only text archs the port runs the same
-layout: ``models.sharding.tensor_parallel`` reads each parameter leaf's
-spec here (:func:`param_pspec`, the node axes leading), and a rank holds
-the block :func:`shard_shape` names (the counterpart of
-``NamedSharding.shard_shape``).  whisper and pixtral keep whole leaves on
-each rank of a model group, and the launch tooling reports these specs
-beside what such a rank holds.  The mesh sweep shards the R-FAST state's
+lays each leaf out, and for every arch the port runs the same layout in
+a train case: ``models.sharding.tensor_parallel`` reads each parameter
+leaf's spec here (:func:`param_pspec`, the node axes leading), and a
+rank holds the block :func:`shard_shape` names (the counterpart of
+``NamedSharding.shard_shape``).  The mesh sweep shards the R-FAST state's
 flat vector instead (:func:`repro_torch.core.runtime_sharded.
 packed_sweep_specs`).
 """

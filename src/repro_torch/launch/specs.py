@@ -18,21 +18,22 @@ nothing allocated; another device materializes the same case from
 * **train** — ``comm="ppermute"`` (and ``"auto"``) is
   :func:`~repro_torch.core.runtime_sharded.make_sharded_round` over the
   node axes: this rank's node, its flat state rows ``(1, p)`` and ``(1,
-  S_a, p)`` and its node's whole batch.  For the decoder-only text
-  archs (``models.sharding.tensor_parallel_supported``: the dense, MoE,
-  MLA, SSM and hybrid decoders) on a ``model`` axis of
-  M > 1 ranks, the axis runs tensor-parallel as the reference's GSPMD
-  runs it: a rank's tree is its blocks of the leaves the reference's
-  PartitionSpecs shard (``models.sharding.tensor_parallel``, the node
-  axes leading) and whole copies of the rest, ``p`` is the width of
-  their flat ravel, and the gradient is
+  S_a, p)`` and its node's whole batch.  For every arch
+  (``models.sharding.tensor_parallel_supported``: the dense, MoE, MLA,
+  SSM and hybrid decoders, pixtral-12b's patch prefix and
+  whisper-large-v3's encoder and cross attention) on a ``model`` axis
+  of M > 1 ranks, the axis runs tensor-parallel as the reference's
+  GSPMD runs it: a rank's tree is its blocks of the leaves the
+  reference's PartitionSpecs shard (``models.sharding.tensor_parallel``,
+  the node axes leading) and whole copies of the rest, ``p`` is the
+  width of their flat ravel, and the gradient is
   ``models.sharding.tensor_parallel_grad``; ``step_fn.info`` says
-  ``"model_axis": "tensor"`` and records the sequence parallelism, the
-  blocks that run gathered and whether the embedding and head are
-  vocab-parallel or replicated.  whisper-large-v3 and pixtral-12b keep
-  whole rows on
-  each rank of a model group, which runs its node's round again
-  (``"model_axis": "replicated"``).  ``comm="dense"`` is
+  ``"model_axis": "tensor"`` and records the sequence parallelism (where
+  M divides the decoder's whole sequence, a frontend's prefix
+  included), the blocks that run gathered, whether the embedding and
+  head are vocab-parallel or replicated and, for an enc-dec arch,
+  whether the encoder's stream is sequence-parallel
+  (``"encoder_seq_parallel"``).  ``comm="dense"`` is
   :func:`~repro_torch.core.runtime.make_rfast_round`, which the port
   runs in one process for every node, so its figures are the whole
   round's.  The gradient is the flat-vector gradient of ``loss_fn(...,
@@ -223,9 +224,12 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     tp = None
     if (comm == "ppermute" and M > 1 and "model" not in node_axes
             and msh.tensor_parallel_supported(cfg)):
+        # the decoder's whole sequence: the text and a frontend's prefix
+        s_dec = s_text + (cfg.frontend_seq if cfg.frontend
+                          and not cfg.enc_dec else 0)
         tp = msh.tensor_parallel(
             cfg, tree, mesh, rules=rules, node_axes=node_axes,
-            seq_parallel=seq_parallel and s_text % M == 0)
+            seq_parallel=seq_parallel and s_dec % M == 0)
         tree = msh.local_tree(tree, tp)
     rspec = make_ravel_spec(tree, dtype=dtype)
     p = rspec.p
@@ -289,7 +293,9 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
         tensor_parallel=None if tp is None else dict(
             ranks=tp.size, gathered=sorted("/".join(b)
                                            for b in tp.gathered),
-            vocab_parallel=tp.vocab_parallel),
+            vocab_parallel=tp.vocab_parallel,
+            **({} if tp.enc_seq_parallel is None
+               else {"encoder_seq_parallel": tp.enc_seq_parallel})),
         ce=ce, matchings=len(plan.slots_w) + len(plan.slots_a))
     # what a caller needs to gather a state row whole
     # (models.sharding.gather_flat)

@@ -283,9 +283,12 @@ def cross_init(cfg: ModelConfig, gen: torch.Generator, *,
 
 def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
     """The encoder output ``enc`` (B, F, d) as cross-attention keys and
-    values, (B, F, KV, hd) each (with the k/v biases when ``qkv_bias``)."""
+    values, (B, F, KV, hd) each (with the k/v biases when ``qkv_bias``).
+    KV comes from ``wk``'s width, so a tensor-parallel rank's column
+    block (whole heads, ``models/sharding.py``) gives its own heads."""
     B, F, _ = enc.shape
-    KV, hd = cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    KV = p["wk"].shape[-1] // hd
     k = (enc @ p["wk"]).reshape(B, F, KV, hd)
     v = (enc @ p["wv"]).reshape(B, F, KV, hd)
     if cfg.qkv_bias:
@@ -297,9 +300,12 @@ def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
 def cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) queries over the fixed encoder k/v (no positions: the
-    absolute embeddings were added upstream; every key unmasked)."""
+    absolute embeddings were added upstream; every key unmasked).  The
+    head counts come from ``wq``'s width and k's heads, as in
+    :func:`cross_kv`."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, KV = p["wq"].shape[-1] // hd, k.shape[2]
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]

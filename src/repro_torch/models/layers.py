@@ -71,7 +71,10 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, *,
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or the GELU MLP in the tanh form (``jax.nn.gelu``'s
-    default, ``approximate=True``; the erf form differs by 1.5e-4 at 1)."""
+    default, ``approximate=True``; the erf form differs by 1.5e-4 at 1).
+    The output bias ``bo`` is added where ``p`` holds it: a row-parallel
+    block (``models.sharding.parallel_block``) adds it once, after its
+    ranks' partial sums are reduced."""
     h = x @ p["wi"]
     if cfg.mlp_bias:
         h = h + p["bi"]
@@ -80,7 +83,7 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
     y = h @ p["wo"]
-    if cfg.mlp_bias:
+    if "bo" in p:
         y = y + p["bo"]
     return y
 

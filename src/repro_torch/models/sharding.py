@@ -65,18 +65,36 @@ is, and the port runs the same layout explicitly:
   columns and ``wo`` their rows, while the latent ``c``, the roped key
   part and the q-LoRA path come whole from the replicated
   down-projections;
+* the enc-dec arch (whisper-large-v3) runs its encoder the same way:
+  attention and the MLP column / row-parallel (``("enc_layers",
+  "attn")``, ``("enc_layers", "mlp")``), on a stream of its own that is
+  sequence-parallel over the frames where the decoder's is and ``model``
+  divides the frame count, else replicated
+  (``TensorParallel.enc_seq_parallel``; the reference's ``shard`` of
+  the encoder's stream drops the same way).  The encoder's output enters
+  the decoder once a forward (:func:`enter_decoder`): gathered over the
+  frames, or as it is, with each rank's gradient of it (from its own
+  cross-attention heads, ``("layers", "cross")``) summed over the model
+  group in the backward, once for every layer.  A row-parallel MLP's
+  output bias ``bo`` is added once, after the reduction;
+* a decoder-only frontend's projected rows (pixtral-12b's patches) come
+  before the text: the vocab-parallel lookup's partial sums carry them
+  on the group's rank 0 only, so that the reduction counts them once
+  (:func:`embed_lookup`), and the sequence the decoder's stream cuts is
+  the whole ``F + S_text``;
 * :func:`tensor_parallel_grad` is the flat gradient of the local tree.
   With sequence parallelism each rank saw only its part of the
   sequence through the replicated leaves (the norms' scales, and a
   replicated embedding and head), so their gradients are all-reduced
-  over ``model`` and every copy stays the same.  The replicated leaves
-  that feed only this rank's experts or heads (the router, MLA's
-  down-projections: ``TensorParallel.partial``) have a gradient that is
-  a part of the whole with or without sequence parallelism, and are
-  all-reduced either way, once.
+  over ``model`` and every copy stays the same; the encoder's leaves
+  (``enc_layers``, ``enc_norm``, whisper's ``frontend_proj``) so under
+  the encoder's sequence parallelism, the others under the decoder's.
+  The replicated leaves that feed only this rank's experts or heads
+  (the router, MLA's down-projections: ``TensorParallel.partial``) have
+  a gradient that is a part of the whole with or without sequence
+  parallelism, and are all-reduced either way, once.
 
-The decoder-only text archs run so (:func:`tensor_parallel_supported`);
-whisper-large-v3 and pixtral-12b keep the replicated ``model`` axis.
+Every arch of the repo runs so (:func:`tensor_parallel_supported`).
 """
 from __future__ import annotations
 
@@ -91,7 +109,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "tensor_parallel_supported", "use_tensor_parallel",
            "current_tensor_parallel", "local_tree", "gather_tree",
            "gather_flat",
-           "embed_lookup", "parallel_block", "ssm_channels", "ssm_proj",
+           "embed_lookup", "local_rows", "enter_decoder", "parallel_block",
+           "ssm_channels", "ssm_proj",
            "expert_offset", "router_loss", "to_head", "vocab_parallel_ce",
            "seq_parallel_mean", "tensor_parallel_grad"]
 
@@ -229,13 +248,16 @@ class TensorParallel:
     leaf and one layer of it agree) that its spec shards over ``model``,
     or None; ``gathered`` names the blocks
     (``("layers", "attn")``, ``("layers", "ssm")``, ``("layers",
-    "mlp")``) that gather their leaves and run replicated;
-    ``seq_parallel`` whether the residual stream is sharded over the
-    sequence; ``vocab_parallel`` whether the embedding and the head are
-    (else both are replicated); ``partial`` the replicated leaves whose
-    gradient on a rank is its experts' or heads' part (the router of an
-    expert-parallel MoE block, the down-projections of a
-    column-parallel MLA block)."""
+    "mlp")``, ``("layers", "cross")``, ``("enc_layers", "attn")``,
+    ``("enc_layers", "mlp")``) that gather their leaves and run
+    replicated; ``seq_parallel`` whether the (decoder's) residual stream
+    is sharded over the sequence; ``vocab_parallel`` whether the
+    embedding and the head are (else both are replicated); ``partial``
+    the replicated leaves whose gradient on a rank is its experts' or
+    heads' part (the router of an expert-parallel MoE block, the
+    down-projections of a column-parallel MLA block);
+    ``enc_seq_parallel`` whether the encoder's stream is sharded over
+    the frames (None: the arch has no encoder)."""
 
     mesh: Any
     rules: dict
@@ -245,6 +267,7 @@ class TensorParallel:
     seq_parallel: bool
     vocab_parallel: bool
     partial: frozenset = frozenset()
+    enc_seq_parallel: Optional[bool] = None
 
     @property
     def size(self) -> int:
@@ -260,6 +283,14 @@ class TensorParallel:
         return (MOE + ("router",) in self.dims
                 and MOE not in self.gathered)
 
+    def stream_seq_parallel(self, path: tuple) -> bool:
+        """Whether the stream that the leaf or block at ``path`` runs on
+        is sequence-parallel: the encoder's (:data:`ENCODER`) or the
+        decoder's."""
+        if self.enc_seq_parallel is not None and path[0] in ENCODER:
+            return self.enc_seq_parallel
+        return self.seq_parallel
+
 
 # the dim of each SSM leaf that runs on a rank's channels (the channel
 # dim of ``d_inner``; in_proj's columns are [x | z]): the layout
@@ -269,6 +300,9 @@ SSM_DIMS = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
             "out_proj": -2}
 
 
+# the enc-dec arch's leaves that run on the encoder's stream
+ENCODER = ("enc_layers", "enc_norm", "frontend_proj")
+CROSS = ("layers", "cross")
 MOE = ("layers", "mlp")
 # the MoE block runs expert-parallel when the stacked experts sit on
 # their E dim and the shared experts are a column / row-parallel MLP
@@ -283,17 +317,14 @@ MLA_WHOLE = ("w_dkv", "c_scale", "w_kr", "q_a", "q_scale")
 
 def tensor_parallel_supported(cfg) -> bool:
     """Whether the port runs ``cfg``'s ``model`` axis tensor-parallel:
-    the decoder-only text archs, i.e. the dense and MoE decoders with
-    GQA attention (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b,
-    deepseek-7b, phi3.5-moe-42b-a6.6b), MLA with MoE (deepseek-v2-236b),
-    the SSM archs without an MLP (falcon-mamba-7b) and the hybrids of
-    GQA attention and SSM with a dense MLP (hymba-1.5b)."""
-    if cfg.enc_dec or cfg.frontend:
-        return False
-    if cfg.mixer == "ssm":
-        return not cfg.d_ff
-    return (cfg.mixer in ("attn", "hybrid") and not cfg.mlp_bias
-            and bool(cfg.d_ff) and cfg.use_rope)
+    every arch of the repo, i.e. the dense and MoE decoders with GQA
+    attention (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b, deepseek-7b,
+    phi3.5-moe-42b-a6.6b), MLA with MoE (deepseek-v2-236b), the SSM arch
+    (falcon-mamba-7b), the hybrid of GQA attention and SSM (hymba-1.5b),
+    the decoder with a patch prefix (pixtral-12b) and the enc-dec arch
+    with cross attention, absolute positions and biased MLPs
+    (whisper-large-v3)."""
+    return cfg.mixer in ("attn", "ssm", "hybrid")
 
 
 def _paths(tree, prefix=()):
@@ -319,15 +350,18 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
     axes (every axis but ``model`` by default) leading, as the reference
     lays out the R-FAST state.  Raises where the port cannot run the
     layout: an arch :func:`tensor_parallel_supported` refuses, a spec
-    over another axis, or an embedding and a head of which the spec
-    shards one and leaves the other replicated."""
+    over another axis, an embedding and a head of which the spec
+    shards one and leaves the other replicated, or a frontend's prefix
+    before a replicated head under sequence parallelism (the rank's
+    block of the sequence would not be one of the text's).  The
+    encoder's stream is sequence-parallel where the decoder's is and
+    ``model`` divides ``cfg.frontend_seq``."""
     import torch
 
     from ..launch import shardings as sh
     if not tensor_parallel_supported(cfg):
-        raise ValueError(f"{cfg.name}: the port runs the 'model' axis "
-                         "tensor-parallel for the decoder-only text archs "
-                         "only (no encoder, no frontend)")
+        raise ValueError(f"{cfg.name}: the port does not run its 'model' "
+                         "axis tensor-parallel")
     rules = rules or sh.RULES_BASE
     if node_axes is None:
         node_axes = tuple(a for a in mesh.axis_names if a != "model")
@@ -360,6 +394,23 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
         raise ValueError(f"{cfg.name}: the spec shards the embedding "
                          f"(dim {embed}) and the head (dim {head}) unlike: "
                          "both must be vocab-parallel or both replicated")
+    if (cfg.frontend and not cfg.enc_dec and seq_parallel
+            and not vocab_parallel):
+        raise ValueError(f"{cfg.name}: a frontend's prefix before a "
+                         "replicated head runs without sequence "
+                         "parallelism only")
+
+    def heads(key):     # GQA column-parallel on whole heads, else gathered
+        col = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv")
+               if key + (k,) in dims]
+        return (key, all(dims[key + (k,)] == -1 for k in col)
+                and dims[key + ("wo",)] == -2
+                and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0)
+
+    def mlp(key):       # a dense MLP column / row-parallel, else gathered
+        return (key, all(dims[key + (k,)] == -1 for k in ("wi", "wg", "bi")
+                         if key + (k,) in dims)
+                and dims[key + ("wo",)] == -2)
     blocks, partial = [], []
     attn = ("layers", "attn")
     if cfg.mixer in ("attn", "hybrid") and cfg.attention == "mla":
@@ -372,11 +423,7 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
         blocks.append((attn, ok))
         partial += whole if ok else []
     elif cfg.mixer in ("attn", "hybrid"):
-        col = [k for k in ("wq", "wk", "wv", "bq", "bk", "bv")
-               if attn + (k,) in dims]
-        blocks.append((attn, all(dims[attn + (k,)] == -1 for k in col)
-                       and dims[attn + ("wo",)] == -2
-                       and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0))
+        blocks.append(heads(attn))
     ssm = ("layers", "ssm")
     if cfg.mixer in ("ssm", "hybrid"):
         blocks.append((ssm, cfg.d_inner % M == 0 and all(
@@ -387,15 +434,19 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
         blocks.append((MOE, ok))
         partial += [MOE + ("router",)] if ok else []
     elif MOE + ("wo",) in dims:
-        blocks.append((MOE, all(dims[MOE + (k,)] == -1 for k in ("wi", "wg")
-                                if MOE + (k,) in dims)
-                       and dims[MOE + ("wo",)] == -2))
+        blocks.append(mlp(MOE))
+    enc_sp = None
+    if cfg.enc_dec:
+        blocks += [heads(CROSS), heads(("enc_layers", "attn")),
+                   mlp(("enc_layers", "mlp"))]
+        enc_sp = bool(seq_parallel) and cfg.frontend_seq % M == 0
     gathered = frozenset(b for b, ok in blocks if not ok)
     return TensorParallel(mesh=mesh, rules=rules, group=mesh.group("model"),
                           dims=dims, gathered=gathered,
                           seq_parallel=bool(seq_parallel),
                           vocab_parallel=vocab_parallel,
-                          partial=frozenset(partial))
+                          partial=frozenset(partial),
+                          enc_seq_parallel=enc_sp)
 
 
 def local_tree(tree, tp: TensorParallel):
@@ -445,38 +496,94 @@ def use_tensor_parallel(tp: TensorParallel | None):
         _local.tp = prev
 
 
-def _check_seq(tp: TensorParallel, S: int) -> None:
-    if tp.seq_parallel and S % tp.size:
+def _check_seq(tp: TensorParallel, S: int,
+               path: tuple = ("layers",)) -> None:
+    if tp.stream_seq_parallel(path) and S % tp.size:
         raise ValueError(f"sequence parallelism over {tp.size} ranks needs "
                          f"a sequence that divides, got {S}")
 
 
-def embed_lookup(embed, tokens):
-    """``embed[tokens]``; under tensor parallelism the vocab-parallel
-    lookup: ids outside this rank's rows give zeros, and the ranks' rows
-    are summed (reduce-scattered over the sequence with sequence
-    parallelism).  A replicated embedding is looked up whole, or with
-    sequence parallelism at this rank's block of the sequence only."""
+def embed_lookup(embed, tokens, frontend=None, proj=None):
+    """``embed[tokens]``, after a decoder-only frontend's projected rows
+    ``frontend @ proj`` (B, F, d) when ``frontend`` is given; under
+    tensor parallelism the vocab-parallel lookup: ids outside this
+    rank's rows give zeros, and the ranks' rows are summed
+    (reduce-scattered over the whole sequence of F + S_text rows with
+    sequence parallelism, where rank 0's partial sum carries the
+    frontend's rows and the others' zeros, so that they count once).  A
+    replicated embedding is looked up whole, or with sequence
+    parallelism at this rank's block of the sequence only (no frontend:
+    :func:`tensor_parallel` refuses it)."""
     import torch
 
     from ..core.runtime_sharded import (rank_block, reduce_from_model,
                                         reduce_scatter_to_seq)
+    prefixed = lambda x: x if frontend is None else torch.cat(
+        [(frontend @ proj).to(x.dtype), x], dim=1)
     tp = current_tensor_parallel()
     if tp is None:
-        return embed[tokens]
-    _check_seq(tp, tokens.shape[1])
+        return prefixed(embed[tokens])
+    F = 0 if frontend is None else frontend.shape[1]
+    _check_seq(tp, F + tokens.shape[1])
     if not tp.vocab_parallel:
-        return embed[rank_block(tokens, tp.group, 1) if tp.seq_parallel
-                     else tokens]
+        if tp.seq_parallel:
+            return embed[rank_block(tokens, tp.group, 1)]
+        return prefixed(embed[tokens])
     rows = embed.shape[0]
     local = tokens.long() - tp.index * rows
     inside = (local >= 0) & (local < rows)
     x = embed[local.clamp(0, rows - 1)]
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
-    if tp.seq_parallel:
-        return reduce_scatter_to_seq(x, tp.group, 1)
-    return reduce_from_model(x, tp.group)
+    if not tp.seq_parallel:
+        return prefixed(reduce_from_model(x, tp.group))
+    if frontend is not None:
+        x = torch.cat([_prefix_part(tp, frontend, proj, x), x], dim=1)
+    return reduce_scatter_to_seq(x, tp.group, 1)
+
+
+def _prefix_part(tp: TensorParallel, frontend, proj, x):
+    """This rank's part of the frontend's rows in the vocab-parallel
+    lookup's partial sums ``x``: the projected rows on the group's rank
+    0, zeros on the others, so that the reduction counts them once."""
+    if tp.index == 0:
+        return (frontend @ proj).to(x.dtype)
+    return x.new_zeros(x.shape[0], frontend.shape[1], x.shape[2])
+
+
+def local_rows(t, dim: int, path: tuple = ("layers",)):
+    """``t``'s rows of the sequence (dim ``dim``) that this rank's stream
+    holds: the block of the rank when the stream of ``path`` (the
+    decoder's, or with ``("enc_layers",)`` the encoder's) is
+    sequence-parallel, else ``t`` (as outside tensor parallelism)."""
+    from ..core.runtime_sharded import rank_block
+    tp = current_tensor_parallel()
+    if tp is None or not tp.stream_seq_parallel(path):
+        return t
+    _check_seq(tp, t.shape[dim], path)
+    return rank_block(t, tp.group, dim)
+
+
+def enter_decoder(enc):
+    """The encoder's output ``enc`` (B, F, d), or this rank's block of its
+    frames, ready for every decoder layer's cross attention: gathered
+    over the frames when the encoder's stream is sequence-parallel.
+    Where each rank's gradient of it is a part of the whole (its own
+    heads of a column-parallel cross attention, or its block of the
+    decoder's sequence), the backward sums the parts over the model
+    group once, for the layers together (a reduce-scatter, or an
+    all-reduce for a replicated stream).  A gathered cross attention on
+    a replicated decoder stream (so a replicated encoder stream too)
+    gives every rank the whole gradient, which it keeps as it is."""
+    from ..core import runtime_sharded as rs
+    tp = current_tensor_parallel()
+    if tp is None:
+        return enc
+    if tp.enc_seq_parallel:
+        return rs.gather_from_seq(enc, tp.group, 1)
+    if CROSS not in tp.gathered or tp.seq_parallel:
+        return rs.copy_to_model(enc, tp.group)
+    return enc
 
 
 def _first(out, f):
@@ -486,14 +593,17 @@ def _first(out, f):
 
 
 def parallel_block(key: tuple, params: dict, x, fn):
-    """``fn(params, x)`` of a residual block (attention, MLP, MoE) whose
-    input ``x`` is the residual stream; under tensor parallelism on the
-    local blocks: column-parallel in, row-parallel out (the input's
-    gradient and the output all-reduced, or with sequence parallelism
-    the input gathered over the sequence and the output
-    reduce-scattered), or for a block in ``tp.gathered`` its sharded
-    leaves (nested ones too) gathered (each rank keeps its block of
-    their gradient) and ``fn`` run replicated.  Where ``fn`` returns a
+    """``fn(params, x)`` of a residual block (attention, cross attention,
+    MLP, MoE) whose input ``x`` is the residual stream (the decoder's,
+    or the encoder's for a ``key`` under ``enc_layers``); under tensor
+    parallelism on the local blocks: column-parallel in, row-parallel
+    out (the input's gradient and the output all-reduced, or with the
+    stream's sequence parallelism the input gathered over the sequence
+    and the output reduce-scattered), or for a block in ``tp.gathered``
+    its sharded leaves (nested ones too) gathered (each rank keeps its
+    block of their gradient) and ``fn`` run replicated.  A row-parallel
+    block's output bias ``bo`` (replicated) is added once, to the
+    reduced output; ``fn`` runs without it.  Where ``fn`` returns a
     tuple, only its first part is the block's output; the rest comes
     back as it is."""
     from ..core import runtime_sharded as rs
@@ -501,20 +611,25 @@ def parallel_block(key: tuple, params: dict, x, fn):
     if tp is None:
         return fn(params, x)
     g = tp.group
+    sp = tp.stream_seq_parallel(key)
     if key in tp.gathered:
-        gather = rs.gather_from_seq if tp.seq_parallel else \
-            rs.gather_from_model
+        gather = rs.gather_from_seq if sp else rs.gather_from_model
         full = _leaf_map(lambda path, v: v if tp.dims[key + path] is None
                          else gather(v, g, tp.dims[key + path]), params)
-        if not tp.seq_parallel:
+        if not sp:
             return fn(full, x)
         out = fn(full, rs.gather_from_seq(x, g, 1))
         return _first(out, lambda y: rs.rank_block(y, g, 1))
-    if tp.seq_parallel:
+    bias = params.get("bo")
+    if bias is not None:
+        params = {k: v for k, v in params.items() if k != "bo"}
+    if sp:
         out = fn(params, rs.gather_from_seq(x, g, 1))
-        return _first(out, lambda y: rs.reduce_scatter_to_seq(y, g, 1))
-    out = fn(params, rs.copy_to_model(x, g))
-    return _first(out, lambda y: rs.reduce_from_model(y, g))
+        reduce = lambda y: rs.reduce_scatter_to_seq(y, g, 1)
+    else:
+        out = fn(params, rs.copy_to_model(x, g))
+        reduce = lambda y: rs.reduce_from_model(y, g)
+    return _first(out, reduce if bias is None else lambda y: reduce(y) + bias)
 
 
 def ssm_channels(xz, d_inner: int):
@@ -644,9 +759,11 @@ def tensor_parallel_grad(spec, loss_fn, tp: TensorParallel):
     gradient of the local blocks (``core.paramvec.value_and_grad``) with
     the loss run under :func:`use_tensor_parallel`, and the gradients of
     the replicated leaves that are a rank's part all-reduced over the
-    model group (one call: their segments side by side): with sequence
-    parallelism every replicated leaf's, else those of ``tp.partial``.
-    The loss is the same on every rank of the group."""
+    model group (one call: their segments side by side): every
+    replicated leaf's whose stream (the encoder's or the decoder's,
+    ``TensorParallel.stream_seq_parallel``) is sequence-parallel, and
+    those of ``tp.partial``.  The loss is the same on every rank of the
+    group."""
     import torch
 
     from ..core.paramvec import value_and_grad
@@ -657,7 +774,7 @@ def tensor_parallel_grad(spec, loss_fn, tp: TensorParallel):
             for path, shape, off in zip(spec.paths, spec.shapes,
                                         spec.offsets)
             if tp.dims[path] is None
-            and (tp.seq_parallel or path in tp.partial)]
+            and (tp.stream_seq_parallel(path) or path in tp.partial)]
 
     def grad(x, batch, key):
         with use_tensor_parallel(tp):

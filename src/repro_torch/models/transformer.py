@@ -268,20 +268,32 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
            positions: torch.Tensor, enc: torch.Tensor | None, tp=None):
     """One decoder layer; ``tp`` is the caller's tensor-parallel layout,
     an argument so that a recompute under ``remat`` (which runs in the
-    autograd engine's thread) runs on it too."""
+    autograd engine's thread) runs on it too.  The cross attention takes
+    its k and v from the encoder output ``enc`` with the block's own
+    (local) leaves."""
     with msh.use_tensor_parallel(tp):
         x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x),
                             positions)
         if enc is not None:
-            x = _cross(cfg, lp, x, *attn.cross_kv(cfg, lp["cross"], enc))
+            hc = norm_apply(cfg, lp["ln_cross"], x)
+            x = x + msh.parallel_block(
+                ("layers", "cross"), lp["cross"], hc, lambda p, y:
+                attn.cross_apply(cfg, p, y, *attn.cross_kv(cfg, p, enc)))
         return _mlp(cfg, lp, x)
 
 
 def _enc_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    h = norm_apply(cfg, lp["ln1"], x)
-    x = x + attn.gqa_apply(cfg, lp["attn"], h, positions, causal=False)
-    return x + mlp_apply(cfg, lp["mlp"], norm_apply(cfg, lp["ln2"], x))
+               positions: torch.Tensor, tp=None) -> torch.Tensor:
+    """One encoder layer, each block in ``parallel_block``'s frame on the
+    encoder's stream; ``tp`` as for :func:`_layer`."""
+    with msh.use_tensor_parallel(tp):
+        h = norm_apply(cfg, lp["ln1"], x)
+        x = x + msh.parallel_block(
+            ("enc_layers", "attn"), lp["attn"], h, lambda p, y:
+            attn.gqa_apply(cfg, p, y, positions, causal=False))
+        return x + msh.parallel_block(
+            ("enc_layers", "mlp"), lp["mlp"], norm_apply(cfg, lp["ln2"], x),
+            lambda p, y: mlp_apply(cfg, p, y))
 
 
 def _run(remat: bool, fn, *args):
@@ -296,16 +308,21 @@ def _run_encoder(cfg: ModelConfig, params: dict, frontend,
                  remat: bool = False) -> torch.Tensor:
     """The enc-dec encoder over ``frontend`` (B, F, frontend_dim):
     projected, absolute positions added, ``n_enc_layers`` non-causal
-    layers, ``enc_norm``.  (B, F, d)."""
+    layers, ``enc_norm``.  (B, F, d); under tensor parallelism with the
+    encoder's stream sequence-parallel, this rank's block of the F
+    frames (and of their positions)."""
     if frontend is None:
         raise ValueError(
             f"{cfg.name} is enc-dec: its encoder needs the frontend "
             f"(B, F, {cfg.frontend_dim or cfg.d_model}) and none was given")
-    e = frontend @ params["frontend_proj"]
-    positions = torch.arange(e.shape[1], device=e.device)
-    e = e + sinusoidal_positions(positions, cfg.d_model).to(e.dtype)
+    enc = ("enc_layers",)
+    positions = torch.arange(frontend.shape[1], device=frontend.device)
+    e = msh.local_rows(frontend, 1, enc) @ params["frontend_proj"]
+    e = e + sinusoidal_positions(msh.local_rows(positions, 0, enc),
+                                 cfg.d_model).to(e.dtype)
+    tp = msh.current_tensor_parallel()
     for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
-        e = _run(remat, _enc_layer, cfg, lp, e, positions)
+        e = _run(remat, _enc_layer, cfg, lp, e, positions, tp)
     return norm_apply(cfg, params["enc_norm"], e)
 
 
@@ -317,19 +334,21 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, frontend,
     (``enc`` (B, F, d), else None); without RoPE the absolute positions
     are added.  Under tensor parallelism (``models/sharding.py``) the
     lookup is vocab-parallel and, with sequence parallelism, ``x`` holds
-    this rank's block of the sequence; ``positions`` are the whole
-    sequence's."""
-    x = msh.embed_lookup(params["embed"], tokens)
-    enc, n_front = None, 0
+    this rank's block of the whole sequence (the frontend's rows
+    included) and the absolute positions added are the block's;
+    ``positions`` are the whole sequence's.  ``enc`` is ready for every
+    layer's cross attention (``models.sharding.enter_decoder``)."""
+    enc, n_front, front = None, 0, (None, None)
     if cfg.frontend and not cfg.enc_dec and frontend is not None:
-        fx = frontend @ params["frontend_proj"]
-        x = torch.cat([fx.to(x.dtype), x], dim=1)
+        front = frontend, params["frontend_proj"]
         n_front = frontend.shape[1]
+    x = msh.embed_lookup(params["embed"], tokens, *front)
     if cfg.enc_dec:
-        enc = _run_encoder(cfg, params, frontend, remat)
+        enc = msh.enter_decoder(_run_encoder(cfg, params, frontend, remat))
     positions = torch.arange(n_front + tokens.shape[1], device=x.device)
     if not cfg.use_rope:
-        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        x = x + sinusoidal_positions(msh.local_rows(positions, 0),
+                                     cfg.d_model).to(x.dtype)
     return x, positions, n_front, enc
 
 

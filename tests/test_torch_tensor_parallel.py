@@ -516,16 +516,32 @@ def test_hymba_build_train_is_tensor_parallel_with_a_replicated_vocab():
 
 
 def test_other_archs_keep_the_replicated_model_axis():
+    """Every arch of the repo runs its ``model`` axis tensor-parallel
+    (since the enc-dec and frontend archs do, whisper-large-v3 and
+    pixtral-12b among them); what keeps the axis replicated is a layout
+    the port does not run: a spec over another axis (the FSDP rules'
+    ``embed`` -> ``data``) is refused, and the dense round (one process
+    for every node) holds whole rows."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.shardings import RULES_FSDP
+    from repro_torch.models.transformer import param_shapes
+    assert len(ARCHS) == 11
+    assert all(msh.tensor_parallel_supported(get_config(a)) for a in ARCHS)
+    mesh = describe_mesh((2, 2), ("data", "model"))
     for arch in ("pixtral-12b", "whisper-large-v3"):
         cfg = get_config(arch).reduced()
-        assert not msh.tensor_parallel_supported(cfg)
-        fn, _ = specs.build_train(cfg, describe_mesh((2, 2), (
-            "data", "model")), seq=16, global_batch=4)
+        fn, _ = specs.build_train(cfg, mesh, seq=32, global_batch=4)
+        assert fn.info["model_axis"] == "tensor"
+        assert fn.info["seq_parallel"]
+        fn, _ = specs.build_train(cfg, mesh, seq=32, global_batch=4,
+                                  comm="dense")
         assert fn.info["model_axis"] == "replicated"
-    with pytest.raises(ValueError, match="decoder-only text archs only "
-                       "\\(no encoder, no frontend\\)"):
-        msh.tensor_parallel(get_config("pixtral-12b").reduced(), {},
-                            describe_mesh((1, 2), ("data", "model")))
+    cfg = get_config("pixtral-12b").reduced()
+    with pytest.raises(ValueError, match="shards over 'data'; the port's "
+                       "tensor parallelism runs the 'model' axis only"):
+        msh.tensor_parallel(cfg, param_shapes(cfg),
+                            describe_mesh((2, 2), ("data", "model")),
+                            rules=RULES_FSDP, node_axes=())
 
 
 def test_traps_of_the_ssm_block_and_the_replicated_head(spawned):
