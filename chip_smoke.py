@@ -389,8 +389,40 @@ run.  Phases:
    pixtral-12b at full width cut to 2 of 40 layers, its 256 patch rows
    before 128 tokens, sequence- and vocab-parallel on a model group of
    8: each held to the unsharded gradient as 34(a) holds phi3.5-moe's.
+36. prefill and decode with the ``model`` axis tensor-parallel (the
+   function ``phase_tensor_parallel_serve``; phase 32's eight ranks; the
+   cache laid out by the reference's ``cache_pspecs``,
+   ``launch.specs.serving_layout``) — fp32, weights from seed 0, each
+   case's prompt prefilled by ``prefill_cache`` (sequence-parallel) and
+   16 teacher-forced ``decode_step``s, every step's logits (gathered
+   over the vocab) within 1e-5 of the largest |logit| of the unsharded
+   run on the card and the cache, gathered, within 1e-5 of its after the
+   last step (the unsharded run on each node's model index 0, in its
+   turn: the ranks draw the tree in turns and keep their blocks): (a)
+   llama3-8b at full width cut to 2 of 32 layers on M 8 (the ring by
+   KV heads, one a rank) and M 4, B 2, prompt 256, max_len 512; (b)
+   qwen2.5-3b at 2 of 36 layers on M 8, the ring by slots (ranks 4-7
+   start empty) and, with ``cache_seq_shard=False``, by head dim; (c)
+   hymba-1.5b at 2 of 32 layers on M 8, its 1024-slot ring by slots
+   (prompt 1016: the 16 steps wrap from rank 7's slot 1023 to rank 0's
+   slot 0), its SSM state by channels, the head replicated and its
+   logits bitwise equal across the group, ``ssm_scan`` launched once a
+   layer at the prefill at a rank's channels (2, 1016, 400, 16); (d)
+   falcon-mamba-7b at 2 of 64 layers on M 8 (channels, vocab-parallel,
+   ``ssm_scan`` at (2, 256, 1024, 16)); the first scan call of each of
+   (c) and (d) on model index 0 held to the plain twin; (e) rfast-100m at full width and
+   depth on (2, 4), B 4 (its rows over ``data``, heads at M 4), and
+   ``build_prefill`` / ``build_decode`` live on the card with argument
+   bytes equal to the meta case's.  A decode step's collectives are the
+   layout's count (heads: 1 + 2L sums; slots: 7L gathers, L maxes, 1 +
+   2L sums; head dim: 8L gathers, 1 + 2L sums; hymba: 4L gathers, L
+   maxes, 4L sums, L all-to-alls; falcon: 1 + 2L sums, L all-to-alls);
+   each rank's cache bytes are 1 / M of its rows'; emitted beside them a
+   rank's weight bytes, the collectives of a prefill and a decode step
+   (calls, bytes, staged bytes), the seconds of each (gloo's host path)
+   and the card's memory.
 
-Each of phases 17–35 prints its wall seconds, peak memory or
+Each of phases 17–36 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
 just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -668,6 +700,51 @@ TP_FRONT_B, TP_FRONT_S = 1, 128
 TP_FRONT_FULL = [("whisper-large-v3", 2, 4, 5, True, False, 226_245_120),
                  ("whisper-large-v3", 2, 8, None, False, False, 226_245_120),
                  ("pixtral-12b", 2, 8, 4, None, True, 1_918_919_680)]
+
+# phase 36: prefill and decode with the model axis tensor-parallel, ranks
+# of this card over gloo, fp32, weights from seed 0: each case's prompt
+# prefilled (sequence-parallel) and TP_SERVE_STEPS teacher-forced decode
+# steps, held to the unsharded run.  A case: its arch cut to ``layers``
+# (None: all), its (nodes, model ranks) mesh of the first ranks, the
+# global batch, prompt and max_len, cache_seq_shard, the layouts
+# expected, the blocks gathered, whether the head is vocab-parallel, and
+# the collectives of one decode step (L layers: module docstring)
+TP_SERVE_TOL = 1e-5          # of the largest |logit| / cache entry
+TP_SERVE_STEPS = 16
+
+
+def _serve_case(case, arch, layers, mesh, batch, prompt, max_len,
+                seq_shard, kv, ssm, gathered, vocab_parallel, calls):
+    return dict(case=case, arch=arch, layers=layers, mesh=mesh,
+                batch=batch, prompt=prompt, max_len=max_len,
+                seq_shard=seq_shard, kv=kv, ssm=ssm, gathered=gathered,
+                vocab_parallel=vocab_parallel, decode_calls=calls)
+
+
+TP_SERVE = [
+    _serve_case("a8", "llama3-8b", 2, (1, 8), 2, 256, 512, True, "heads",
+                None, [], True, {"all_reduce_sum": 5}),
+    _serve_case("a4", "llama3-8b", 2, (1, 4), 2, 256, 512, True, "heads",
+                None, [], True, {"all_reduce_sum": 5}),
+    _serve_case("b_slots", "qwen2.5-3b", 2, (1, 8), 2, 256, 512, True,
+                "slots", None, ["layers/attn"], True,
+                {"all_gather_seq": 14, "all_reduce_max": 2,
+                 "all_reduce_sum": 5}),
+    _serve_case("b_head_dim", "qwen2.5-3b", 2, (1, 8), 2, 256, 512, False,
+                "head_dim", None, ["layers/attn"], True,
+                {"all_gather_seq": 16, "all_reduce_sum": 5}),
+    _serve_case("c", "hymba-1.5b", 2, (1, 8), 2, 1016, 2048, True, "slots",
+                "channels", ["layers/attn"], False,
+                {"all_gather_seq": 8, "all_reduce_max": 2,
+                 "all_reduce_sum": 8, "all_to_all": 2}),
+    _serve_case("d", "falcon-mamba-7b", 2, (1, 8), 2, 256, 512, True, None,
+                "channels", [], True, {"all_reduce_sum": 5,
+                                       "all_to_all": 2}),
+    _serve_case("e", "rfast-100m", None, (2, 4), 4, 256, 512, True,
+                "heads", None, [], True, {"all_reduce_sum": 25})]
+# 36(e)'s build functions materialized on the card, on its mesh
+TP_SERVE_LIVE = {"mesh": (2, 4), "prefill": dict(seq=256, global_batch=4),
+                 "decode": dict(seq=512, global_batch=4)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -3117,20 +3194,21 @@ def tp_rank() -> dict:
 
 
 def tp_world_rank() -> dict:
-    """Phases 32-35 on one of ``TP_WORLD`` gloo ranks sharing cuda:0, in
+    """Phases 32-36 on one of ``TP_WORLD`` gloo ranks sharing cuda:0, in
     one spawn (a rank's CUDA context, its first kernels and its gloo
     groups made once): each phase's rank function in turn, with the
     seconds it took on this rank."""
     out = {}
     for key, fn in (("32", tp_rank), ("33", tp_ssm_rank),
-                    ("34", tp_moe_rank), ("35", tp_front_rank)):
+                    ("34", tp_moe_rank), ("35", tp_front_rank),
+                    ("36", tp_serve_rank)):
         t0 = time.perf_counter()
         out[key] = dict(fn(), rank_s=time.perf_counter() - t0)
     return out
 
 
 def tp_spawn() -> dict:
-    """The ranks of phases 32-35, spawned once: ``{phase: [each rank's
+    """The ranks of phases 32-36, spawned once: ``{phase: [each rank's
     result]}``."""
     import torch
     from repro_torch.launch.multihost import spawn_local
@@ -3632,6 +3710,325 @@ def phase_tensor_parallel_front(name: str, smi: str, outs: list) -> dict:
          + time.perf_counter() - t_phase)
     return {"tp_front_dense_reference": sum(
         o["reference_launches"].get("commit_grid", 0) for o in outs)}
+
+
+# --------------------------------------------------------------------- #
+# phase 36: prefill and decode with the model axis tensor-parallel
+# --------------------------------------------------------------------- #
+def tp_serve_reference(cfg, full, toks, case: dict) -> dict:
+    """The unsharded ``prefill_cache`` of ``toks``' prompt and
+    ``TP_SERVE_STEPS`` teacher-forced ``decode_step``s on the whole tree
+    ``full``: each step's logits and the final cache, on the card."""
+    import torch
+    from repro_torch.models.transformer import decode_step, prefill_cache
+    P = case["prompt"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, lg = prefill_cache(cfg, full, toks[:, :P], case["max_len"])
+    logits = [lg]
+    for i in range(TP_SERVE_STEPS):
+        lg, cache = decode_step(cfg, full, cache, toks[:, P + i:P + i + 1])
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(logits), "cache": cache,
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
+    """36 on one rank (None outside ``mesh``; every rank of the world
+    takes part in the turns' barriers): the ranks of ``mesh`` in turn
+    draw the case's tree on the card from seed 0 and keep their blocks,
+    the group's model index 0 running the unsharded reference on its
+    node's rows (``refs``, kept for a later case of the same cut); then
+    ``prefill_cache`` of the prompt (sequence-parallel) and
+    ``TP_SERVE_STEPS`` ``decode_step``s on the blocks, each timed, with
+    the collectives of the prefill and of one decode step, the kernel
+    launches and scan shapes of the prefill, the logits and the cache
+    gathered whole and, on model index 0, held to the reference."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.runtime_sharded import (all_gather_seq,
+                                                  clear_collectives,
+                                                  collective_stats)
+    from repro_torch.kernels.rfast_update import dispatch
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _distinct_bytes
+    from repro_torch.models import sharding as msh
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params, param_shapes,
+                                                prefill_cache)
+    cfg = tp_config(case["arch"], case["layers"])
+    inside = mesh.coords is not None
+    P, C_len, steps = case["prompt"], case["max_len"], TP_SERVE_STEPS
+    if inside:
+        D, M = mesh.shape["data"], mesh.shape["model"]
+        node, m = mesh.coords["data"], mesh.coords["model"]
+        b = case["batch"] // D
+        tp = specs.serving_layout(cfg, param_shapes(cfg), mesh,
+                                  max_len=C_len,
+                                  cache_seq_shard=case["seq_shard"],
+                                  seq_parallel=True, dtype=torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (case["batch"], P + steps),
+                             generator=gen, device="cuda")[node * b:
+                                                           (node + 1) * b]
+        key = (case["arch"], cfg.n_layers, node, b, P, C_len)
+    out = {"case": case["case"]}
+    t0 = time.perf_counter()
+    for turn in range(TP_WORLD):
+        dist.barrier()
+        if not inside or turn != mesh.rank:
+            continue
+        full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        local = msh.local_tree(full, tp)
+        if m == 0 and key not in refs:
+            refs[key] = tp_serve_reference(cfg, full, toks, case)
+            out["reference_s"] = refs[key]["seconds"]
+        del full
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if not inside:
+        return None
+    out["turns_s"] = time.perf_counter() - t0
+    shapes, captured = [], []
+
+    def seen(*args, **kw):          # the prefill's scan calls
+        shapes.append([*args[0].shape, args[2].shape[-1]])
+        if not captured:
+            captured.append([a.detach().cpu() for a in args[:6]])
+        return scan_call(*args, **kw)
+    scan_call = scan_ops.ssm_scan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    own, step_s = [], []
+    try:
+        scan_ops.ssm_scan = seen
+        with msh.use_tensor_parallel(tp):
+            dispatch.clear()
+            clear_collectives()
+            t0 = time.perf_counter()
+            cache, lg = prefill_cache(cfg, local, toks[:, :P], C_len)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_collectives"] = collective_stats()
+            out["prefill_launches"] = dispatch.stats()["by_kernel"]
+            dispatch.clear()
+            own.append(lg)
+            for i in range(steps):
+                clear_collectives()
+                t0 = time.perf_counter()
+                lg, cache = decode_step(cfg, local, cache,
+                                        toks[:, P + i:P + i + 1])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    out["decode_collectives"] = collective_stats()
+                own.append(lg)
+            out["decode_launches"] = dispatch.stats()["by_kernel"]
+    finally:
+        scan_ops.ssm_scan = scan_call
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    free, total = torch.cuda.mem_get_info()
+    out["card_used_gb"] = (total - free) / 1e9
+    own = torch.stack(own)
+    out.update(
+        info=dict(model_axis="tensor", cache_layout=tp.cache_layout,
+                  gathered=sorted("/".join(k) for k in tp.gathered),
+                  vocab_parallel=tp.vocab_parallel,
+                  seq_parallel=tp.seq_parallel),
+        node=node, model=m, decode_s=step_s, scan_calls=shapes,
+        logits_digest=hashlib.sha256(own.cpu().numpy().tobytes())
+        .hexdigest(),
+        cache_bytes=_distinct_bytes(specs.tensors_of(cache["layers"])),
+        weight_bytes=_distinct_bytes(specs.tensors_of(local)),
+        whole_weight_bytes=sum(t.numel() * 4 for t in specs.tensors_of(
+            param_shapes(cfg))),
+        whole_cache_bytes=sum(t.numel() * t.element_size() for t in
+                              specs.tensors_of(init_cache(
+                                  cfg, param_shapes(cfg), case["batch"],
+                                  C_len)["layers"])))
+    if m == 0 and case["ssm"] and captured:
+        out["scan_args"] = captured[0]
+    whole = all_gather_seq(own, tp.group, -1) if tp.vocab_parallel else own
+    gathered = msh.gather_cache(cache, tp)
+    del own, cache, local
+    if m == 0:
+        ref = refs[key]
+        rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
+        out["logits_rel_err"] = max(rel(g, w) for g, w in
+                                    zip(whole, ref["logits"]))
+        out["cache_rel_err"] = {
+            "/".join(path): rel(t, w) for (path, t), (_, w) in zip(
+                msh._paths(gathered["layers"]),
+                msh._paths(ref["cache"]["layers"]))}
+        out["idx_equal"] = bool(torch.equal(gathered["idx"],
+                                            ref["cache"]["idx"]))
+        out["slot_pos_equal"] = bool(torch.equal(gathered["slot_pos"],
+                                                 ref["cache"]["slot_pos"]))
+    del whole, gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_live(mesh) -> dict | None:
+    """36(e) on one rank of ``mesh``: ``build_prefill`` and
+    ``build_decode`` of full-width rfast-100m materialized on the card
+    from seed 0 and run once, their argument bytes beside the meta
+    case's on the described mesh."""
+    import torch
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _distinct_bytes
+    from repro_torch.launch.mesh import describe_mesh
+    if mesh.coords is None:
+        return None
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    cfg = tp_config("rfast-100m")
+    desc = describe_mesh((D, M), ("data", "model"), rank=mesh.rank)
+    out = {}
+    for name, build, kw in (("prefill", specs.build_prefill,
+                             TP_SERVE_LIVE["prefill"]),
+                            ("decode", specs.build_decode,
+                             TP_SERVE_LIVE["decode"])):
+        kw = dict(kw, dtype=torch.float32)
+        fn, args = build(cfg, mesh, device="cuda", **kw)
+        _, meta = build(cfg, desc, **kw)
+        res = fn(*args)
+        torch.cuda.synchronize()
+        lg = res if name == "prefill" else res[0]
+        out[name] = {"info": fn.info, "logits_shape": list(lg.shape),
+                     "finite": bool(torch.isfinite(lg).all()),
+                     "live_bytes": _distinct_bytes(specs.tensors_of(args)),
+                     "meta_bytes": _distinct_bytes(specs.tensors_of(meta))}
+        del fn, args, res, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_rank() -> dict:
+    """Phase 36 on one of ``TP_WORLD`` gloo ranks sharing cuda:0: each
+    case of ``TP_SERVE`` on its mesh (the first ranks of the world;
+    every rank builds every mesh and takes part in its turns), then
+    36(e)'s live ``build_prefill`` / ``build_decode`` on its mesh.  The
+    references stay on the rank that ran them until the phase ends."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    rank = dist.get_rank()
+    out = {"rank": rank, "cases": {}}
+    refs: dict = {}
+    for case in TP_SERVE:
+        D, M = case["mesh"]
+        mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
+        t0 = time.perf_counter()
+        got = tp_serve_case(mesh, case, refs)
+        if got is not None:
+            out["cases"][case["case"]] = dict(
+                got, seconds=time.perf_counter() - t0)
+        dist.barrier()
+    refs.clear()
+    torch.cuda.empty_cache()
+    D, M = TP_SERVE_LIVE["mesh"]
+    mesh = make_sweep_mesh(lanes=D, param_shards=M, ranks=range(D * M))
+    out["live"] = tp_serve_live(mesh)
+    dist.barrier()
+    return out
+
+
+def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
+    """Phase 36: prefill and decode with the ``model`` axis
+    tensor-parallel on ranks sharing this card over gloo (see the module
+    docstring), from the ranks' results ``outs`` (``tp_spawn``); then the
+    first ``ssm_scan`` call of each SSM case's prefill on each node's
+    model index 0, at a rank's channels, held to the plain twin.
+    Returns the prefills' ``ssm_scan`` launches by case and the twin's
+    largest error, overall and by case and shape."""
+    t_phase = time.perf_counter()
+    for o in outs:
+        for key, c in o["cases"].items():
+            emit("tp_serve_rank", rank=o["rank"],
+                 **{k: v for k, v in c.items() if k != "scan_args"},
+                 tol=TP_SERVE_TOL, device=name, nvidia_smi=smi)
+        if o["live"] is not None:
+            emit("tp_serve_live_rank", rank=o["rank"], **o["live"],
+                 device=name, nvidia_smi=smi)
+    emit("tp_serve_ranks_done", seconds=max(o["rank_s"] for o in outs))
+    launches, scan_errs = {}, {}
+    for case in TP_SERVE:
+        key, (D, M) = case["case"], case["mesh"]
+        rs = [o["cases"][key] for o in outs if key in o["cases"]]
+        tag = f"36({key}) {case['arch']} ({case['layers'] or 'all'} " \
+            f"layers, ({D}, {M}))"
+        check(len(rs) == D * M, f"{tag}: every rank ran")
+        want_info = {"model_axis": "tensor",
+                     "cache_layout": {"kv": case["kv"], "ssm": case["ssm"]},
+                     "gathered": case["gathered"],
+                     "vocab_parallel": case["vocab_parallel"],
+                     "seq_parallel": True}
+        check(all(r["info"] == want_info for r in rs),
+              f"{tag}: {want_info}")
+        refs = [r for r in rs if r["model"] == 0]
+        check(len(refs) == D and all(
+            r["logits_rel_err"] <= TP_SERVE_TOL
+            and max(r["cache_rel_err"].values()) <= TP_SERVE_TOL
+            and r["idx_equal"] and r["slot_pos_equal"] for r in refs),
+            f"{tag}: every step's logits and the gathered cache within "
+            f"{TP_SERVE_TOL} of the unsharded run "
+            f"({[(r['logits_rel_err'], r['cache_rel_err']) for r in refs]})")
+        for r in rs:
+            got = {k: v["calls"] for k, v in
+                   r["decode_collectives"]["by_name"].items()}
+            check(got == case["decode_calls"], f"{tag}: a decode step's "
+                  f"collectives {got} are {case['decode_calls']}")
+            check(r["cache_bytes"] * M == r["whole_cache_bytes"] // D
+                  and r["weight_bytes"] < r["whole_weight_bytes"],
+                  f"{tag}: a rank holds 1 / {M} of its rows' cache "
+                  f"({r['cache_bytes']} of {r['whole_cache_bytes']} B) and "
+                  "its blocks of the weights")
+        if not case["vocab_parallel"]:
+            check(len({r["logits_digest"] for r in rs}) == 1,
+                  f"{tag}: the replicated head's logits bitwise equal "
+                  "across the model group")
+        L = case["layers"]
+        if case["ssm"]:
+            di = tp_config(case["arch"]).d_inner // M
+            want = [[case["batch"] // D, case["prompt"], di, 16]] * L
+            check(all(r["prefill_launches"].get("ssm_scan") == L
+                      and r["scan_calls"] == want
+                      and not r["decode_launches"].get("ssm_scan")
+                      for r in rs),
+                  f"{tag}: ssm_scan launched once a layer at the prefill "
+                  f"at a rank's channels {want[0]}, never in a decode step")
+        launches[f"tp_serve_{key}_prefill"] = sum(
+            r["prefill_launches"].get("ssm_scan", 0) for r in rs)
+        if not case["ssm"]:
+            continue
+        held_here = [r for r in refs if "scan_args" in r]
+        check(len(held_here) == D, f"{tag}: the prefill's first ssm_scan "
+              "call captured on every node's model index 0")
+        for r in held_here:
+            args = [a.cuda() for a in r["scan_args"]]
+            shape = "x".join(map(str, [*args[0].shape, args[2].shape[-1]]))
+            scan_errs[f"tp_serve_{key}_prefill_rank_{shape}"] = max(
+                scan_errs.get(f"tp_serve_{key}_prefill_rank_{shape}", 0.0),
+                compare_scan(args, SCAN_FP32_TOL, f"36({key}) ssm_scan at "
+                             f"a rank's channels {shape}"))
+            del args
+    live = [o["live"] for o in outs if o["live"] is not None]
+    D, M = TP_SERVE_LIVE["mesh"]
+    check(len(live) == D * M and all(
+        c[k]["info"]["model_axis"] == "tensor" and c[k]["finite"]
+        and c[k]["live_bytes"] == c[k]["meta_bytes"] > 0
+        for c in live for k in ("prefill", "decode")),
+        f"36(e): build_prefill / build_decode on the card ({D}, {M}): "
+        "tensor-parallel, finite logits, live argument bytes = meta")
+    emit("tp_serve_done", seconds=max(o["rank_s"] for o in outs)
+         + time.perf_counter() - t_phase, launches=launches,
+         scan_max_abs_err=scan_errs)
+    return {"launches": launches, "max_abs_err": max(scan_errs.values()),
+            "err_by_shape": scan_errs}
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, seed=0):
@@ -5268,7 +5665,7 @@ def main() -> int:
     # 31. the launch tooling's predictions against the card -------------
     mesh_launches.update(phase_launch(name, smi))
 
-    # 32-35. the model axis tensor-parallel: the ranks spawned once -----
+    # 32-36. the model axis tensor-parallel: the ranks spawned once -----
     tp_outs = tp_spawn()
 
     # 32. the model axis tensor-parallel ----------------------------------
@@ -5286,6 +5683,9 @@ def main() -> int:
     # 35. the enc-dec and frontend archs' model axis tensor-parallel ------
     mesh_launches.update(phase_tensor_parallel_front(name, smi,
                                                      tp_outs["35"]))
+
+    # 36. prefill and decode with the model axis tensor-parallel ----------
+    tp_serve = phase_tensor_parallel_serve(name, smi, tp_outs["36"])
 
     grid_paths = {
         "async_train": launches.get("commit_grid", 0),
@@ -5360,7 +5760,7 @@ def main() -> int:
            for t, v in hymba_launches.items()},
         "hymba_serve_prefill_cache": hymba_serve["prefill_cache"],
         "hymba_serve_forward": hymba_serve["forward"],
-        **tp_ssm["launches"]["ssm_scan"]}
+        **tp_ssm["launches"]["ssm_scan"], **tp_serve["launches"]}
     kernels.append({
         "name": "ssm_scan", "route": "cuda",
         "source": str(scan_k.KERNEL_SOURCE.relative_to(ROOT)),
@@ -5368,11 +5768,13 @@ def main() -> int:
         "launches": sum(scan_paths.values()),
         "launches_by_path": scan_paths,
         "max_abs_err": max(scan_err, hymba_serve["max_abs_err"],
-                           tp_ssm["max_abs_err"]["ssm_scan"]),
+                           tp_ssm["max_abs_err"]["ssm_scan"],
+                           tp_serve["max_abs_err"]),
         "max_abs_err_by_shape": {"train": scan_err,
                                  **hymba_serve["err_by_shape"],
                                  "tp_rank_shapes":
-                                 tp_ssm["max_abs_err"]["ssm_scan"]},
+                                 tp_ssm["max_abs_err"]["ssm_scan"],
+                                 **tp_serve["err_by_shape"]},
         **train_row, "library_ms": None,
         "op_widths": {k: v for k, v in scan_rows.items()
                       if k != SCAN_TRAIN[0]},

@@ -40,7 +40,11 @@ reference's linear fit in L (``fit``, at L = 2 and 4) is kept so that
 direct count.  ``--rules fsdp`` changes the GSPMD layout the record
 reports (``gspmd``: the bytes a rank would hold under the reference's
 specs) beside what the port's rank holds (the same blocks for a
-tensor-parallel train case, ``model_axis: "tensor"``).
+tensor-parallel case, ``model_axis: "tensor"``: every arch's train case,
+and the prefill and decode cases of the decoder-only text archs, whose
+arguments are a rank's blocks of the weights and of the cache as
+``cache_pspecs`` lays it out; the record's ``case.cache_layout`` names
+the ring's and the SSM state's layouts).
 
 Artifacts: ``<out>/<arch>__<shape>__<mesh>[__<rules>].json``.
 
@@ -294,8 +298,9 @@ def run_case(arch: str, shape: str, *, multi_pod: bool = False,
             print(f"  [{arch} {shape} {rec['mesh']}] meta run ok "
                   f"({rec['compile_s']}s): args/device="
                   f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, "
-                  f"temp/device={mem['temp_size_in_bytes'] / 2**30:.2f} GiB",
-                  flush=True)
+                  f"temp/device={mem['temp_size_in_bytes'] / 2**30:.2f} GiB"
+                  + (f", cache {fn.info['cache_layout']}"
+                     if fn.info.get("cache_layout") else ""), flush=True)
         del args
         if fit:
             costs = {}

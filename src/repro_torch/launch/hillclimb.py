@@ -4,9 +4,10 @@ H100 SXM 80GB data-sheet rates (``launch.mesh.HW``).
 
 Counterpart of ``src/repro/launch/hillclimb.py``; the variants are the
 reference's.  Each runs through the port's :func:`.dryrun.run_case` (one
-rank on meta).  ``comm`` and ``node_axes`` change what the port runs;
-``rules`` and ``cache_seq_shard`` change only what its record reports
-(the port runs no GSPMD layout).
+rank on meta).  ``comm``, ``node_axes`` and, for a decode case whose
+ring the KV heads do not divide, ``cache_seq_shard`` change what the
+port runs; ``rules`` beyond the ``model`` axis change only what its
+record reports (the port runs no GSPMD layout).
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair train|moe|decode
 """

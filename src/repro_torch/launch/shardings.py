@@ -17,9 +17,11 @@ lays each leaf out, and for every arch the port runs the same layout in
 a train case: ``models.sharding.tensor_parallel`` reads each parameter
 leaf's spec here (:func:`param_pspec`, the node axes leading), and a
 rank holds the block :func:`shard_shape` names (the counterpart of
-``NamedSharding.shard_shape``).  The mesh sweep shards the R-FAST state's
-flat vector instead (:func:`repro_torch.core.runtime_sharded.
-packed_sweep_specs`).
+``NamedSharding.shard_shape``).  Prefill and decode of the decoder-only
+text archs run it too, the parameters without lead axes and the decode
+cache by :func:`cache_pspecs` (``models.sharding.with_cache``).  The
+mesh sweep shards the R-FAST state's flat vector instead
+(:func:`repro_torch.core.runtime_sharded.packed_sweep_specs`).
 """
 from __future__ import annotations
 

@@ -40,9 +40,22 @@ nothing allocated; another device materializes the same case from
   remat=True, ce=ce)``.
 * **prefill / decode** — ``forward(..., last_only=True)`` and
   ``decode_step`` on this rank's batch rows (:func:`~.shardings.
-  batch_pspec`'s divisibility rule), the whole model on the rank.
-  ``cache_seq_shard`` and ``seq_parallel`` are accepted and recorded;
-  they change nothing in the port's execution.
+  batch_pspec`'s divisibility rule).  For the decoder-only text archs
+  (``models.sharding.serving_tensor_parallel_supported``: the dense
+  decoders, falcon-mamba-7b and hymba-1.5b) on a ``model`` axis of M > 1
+  ranks, the axis runs tensor-parallel (:func:`serving_layout`): a
+  rank holds its blocks of the parameter tree laid out without lead
+  axes, as the reference's ``tree_shardings(params, mesh, rules)``
+  lays them out, and its block of every decode cache leaf, as
+  ``cache_pspecs(cache, mesh, batch_axes, seq_shard=cache_seq_shard)``
+  lays it out (``idx`` and ``slot_pos`` whole); ``seq_parallel``
+  shards the prefill's residual stream over the sequence where M
+  divides it.  ``step_fn.info`` says ``"model_axis": "tensor"``, the
+  blocks that run gathered, ``vocab_parallel`` and ``cache_layout``
+  (the k/v ring by ``heads``, ``slots``, ``head_dim`` or
+  ``replicated``, the SSM state by ``channels`` or ``replicated``).
+  The other archs hold the whole model and cache on every rank
+  (``"model_axis": "replicated"``, ``cache_layout`` None).
 
 ``dtype`` defaults to the reference's bf16.  Parameter trees follow the
 reference's dtypes (:func:`~repro_torch.models.transformer.param_shapes`:
@@ -53,9 +66,10 @@ reference's per-node PRNG keys are not an argument: the port's gradient
 takes no key (RNG cannot be matched; ROADMAP).
 
 ``rules`` is the reference's (``RULES_BASE`` by default): the
-tensor-parallel train case cuts its blocks by them, and the dry-run
-reports the layout they name.  ``step_fn.info`` holds what the dry-run
-records beside its counts.
+tensor-parallel train case cuts its blocks by them, prefill and decode
+by their ``model`` axis (an FSDP rule's ``embed`` -> ``data`` is only
+reported), and the dry-run reports the layout they name.
+``step_fn.info`` holds what the dry-run records beside its counts.
 """
 from __future__ import annotations
 
@@ -79,8 +93,9 @@ from ..models.transformer import (cast_params, decode_step, forward,
 from . import shardings as sh
 
 __all__ = ["SHAPES", "LONG_WINDOW", "SEQ_PARALLEL_OPT_OUT",
-           "shape_supported", "act_rules", "build_train", "build_prefill",
-           "build_decode", "build_case", "input_specs", "tensors_of"]
+           "shape_supported", "act_rules", "build_train", "serving_layout",
+           "build_prefill", "build_decode", "build_case", "input_specs",
+           "tensors_of"]
 
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -304,12 +319,59 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
 
 
 # ------------------------------------------------------------------ #
+# prefill / decode: the model axis tensor-parallel
+# ------------------------------------------------------------------ #
+def serving_layout(cfg: ModelConfig, tree, mesh, *, max_len: int,
+                   cache_seq_shard: bool = True, seq_parallel: bool = False,
+                   rules=None, dtype=torch.bfloat16):
+    """This rank's :class:`~repro_torch.models.sharding.TensorParallel`
+    for prefill and decode of ``cfg`` on ``mesh`` (``tree`` the whole
+    parameter tree; meta tensors will do), or None where the ``model``
+    axis stays replicated (M = 1, or an arch that
+    ``serving_tensor_parallel_supported`` refuses): the parameters laid
+    out without lead axes by the ``model`` axis of ``rules``, the
+    decode cache of ``max_len`` positions by ``cache_pspecs(...,
+    seq_shard=cache_seq_shard)`` (``models.sharding.with_cache``), the
+    prefill's stream sequence-parallel with ``seq_parallel``.  Every rank
+    of the mesh calls it with the same arguments."""
+    M = sh.mesh_axis_size(mesh, "model") if "model" in mesh.axis_names \
+        else 1
+    if M <= 1 or not msh.serving_tensor_parallel_supported(cfg):
+        return None
+    rules = {k: (v if v == "model" else None)
+             for k, v in (rules or sh.RULES_BASE).items()}
+    tp = msh.tensor_parallel(cfg, tree, mesh, rules=rules, node_axes=(),
+                             seq_parallel=seq_parallel)
+    with msh.use_tensor_parallel(None):
+        whole = init_cache(cfg, param_shapes(cfg, dtype), 1, max_len, dtype)
+    return msh.with_cache(tp, whole, seq_shard=cache_seq_shard)
+
+
+def _serving_info(tp) -> dict:
+    if tp is None:
+        return dict(model_axis="replicated", tensor_parallel=None,
+                    cache_layout=None)
+    return dict(model_axis="tensor", tensor_parallel=dict(
+        ranks=tp.size, gathered=sorted("/".join(b) for b in tp.gathered),
+        vocab_parallel=tp.vocab_parallel), cache_layout=tp.cache_layout)
+
+
+# ------------------------------------------------------------------ #
 # prefill_32k: full forward producing logits
 # ------------------------------------------------------------------ #
 def build_prefill(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
                   rules=None, dtype=torch.bfloat16,
                   seq_parallel: bool | None = None, device="meta",
                   seed: int = 0):
+    """The reference's ``prefill_step`` for this rank (see the module
+    docstring): ``forward(..., last_only=True)`` of its batch rows, the
+    last position's logits (this rank's vocab block where the head is
+    vocab-parallel).  ``device`` other than meta draws the weights (every
+    rank the whole tree, keeping its blocks) and the tokens from
+    ``seed``; a tensor-parallel case materializes only on a mesh of real
+    ranks.  The info's ``cache_layout`` is the one a ``prefill_cache`` of
+    this case would fill (``cache_pspecs``' default ``seq_shard``, as
+    :func:`build_decode`'s)."""
     if seq_parallel is None:
         seq_parallel = cfg.name not in SEQ_PARALLEL_OPT_OUT
     batch_axes = tuple(a for a in mesh.axis_names if a != "model")
@@ -319,23 +381,31 @@ def build_prefill(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     live = torch.device(device).type != "meta"
     gen = (torch.Generator(device=device).manual_seed(seed + 1)
            if live else None)
+    params = _params(cfg, dtype, device, seed)
+    M = sh.mesh_axis_size(mesh, "model") if "model" in mesh.axis_names \
+        else 1
+    tp = serving_layout(cfg, params, mesh, max_len=seq, rules=rules,
+                        dtype=dtype,
+                        seq_parallel=seq_parallel and seq % M == 0)
+    if tp is not None:
+        params = msh.local_tree(params, tp)
 
     @torch.no_grad()
     def prefill_step(params, tokens, frontend=None):
-        with msh.mesh_rules(mesh, arules):
+        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp):
             logits, _ = forward(cfg, params, tokens, frontend, remat=True,
                                 last_only=True)
         return logits
 
-    args = [_params(cfg, dtype, device, seed),
-            _tokens((b, s_text), cfg.vocab, device, gen)]
+    args = [params, _tokens((b, s_text), cfg.vocab, device, gen)]
     fr = _frontend(cfg, (b,), dtype, device, gen)
     if fr is not None:
         args.append(fr)
     prefill_step.info = dict(kind="prefill", seq=seq, s_text=s_text,
                              rows=b, dtype=_dtype_name(dtype),
-                             model_axis="replicated",
-                             seq_parallel=seq_parallel)
+                             seq_parallel=seq_parallel if tp is None
+                             else tp.seq_parallel, **_serving_info(tp))
+    prefill_step.tensor_parallel = tp
     return prefill_step, tuple(args)
 
 
@@ -346,6 +416,11 @@ def build_decode(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
                  long: bool = False, rules=None, dtype=torch.bfloat16,
                  cache_seq_shard: bool = True, device="meta",
                  seed: int = 0):
+    """The reference's ``serve_step`` for this rank (see the module
+    docstring): one ``decode_step`` of its batch rows over an empty
+    cache of ``seq`` positions (this rank's blocks of the layout).
+    ``device`` other than meta draws the weights and tokens from
+    ``seed`` as :func:`build_prefill` does."""
     if long:
         cfg = _long_variant(cfg)
     batch_axes = tuple(a for a in mesh.axis_names if a != "model")
@@ -354,18 +429,24 @@ def build_decode(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     live = torch.device(device).type != "meta"
     gen = (torch.Generator(device=device).manual_seed(seed + 1)
            if live else None)
+    params = _params(cfg, dtype, device, seed)
+    tp = serving_layout(cfg, params, mesh, max_len=seq, rules=rules,
+                        cache_seq_shard=cache_seq_shard, dtype=dtype)
+    if tp is not None:
+        params = msh.local_tree(params, tp)
 
     def serve_step(params, cache, token):
-        with msh.mesh_rules(mesh, arules):
+        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp):
             return decode_step(cfg, params, cache, token)
 
-    params = _params(cfg, dtype, device, seed)
-    cache = init_cache(cfg, params, b, seq, dtype,
-                       _frontend(cfg, (b,), dtype, device, gen))
+    with msh.use_tensor_parallel(tp):
+        cache = init_cache(cfg, params, b, seq, dtype,
+                           _frontend(cfg, (b,), dtype, device, gen))
     serve_step.info = dict(kind="decode", seq=seq, rows=b, long=long,
                            attn_window=cfg.attn_window,
-                           dtype=_dtype_name(dtype), model_axis="replicated",
-                           cache_seq_shard=cache_seq_shard)
+                           dtype=_dtype_name(dtype),
+                           cache_seq_shard=cache_seq_shard,
+                           **_serving_info(tp))
     return serve_step, (params, cache,
                         _tokens((b, 1), cfg.vocab, device, gen))
 

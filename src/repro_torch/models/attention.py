@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from . import sharding as msh
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rope_cos_sin
 
@@ -132,6 +133,10 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     in each of the row's cache slots (−1 = empty), already including this
     step's write slot.  Writes the roped k and v at slot ``pos % C`` of
     each row of ``cache`` in place and returns ``(out (B, 1, d), cache)``.
+    Under tensor parallelism ``cache`` is this rank's block of the ring
+    (``models.sharding.ring_write`` / ``ring_attend``; C is
+    ``slot_pos``'s), and on a rank's heads (the projections' widths)
+    ``out`` is its partial sum of ``wo``'s rows.
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x)              # S = 1
@@ -139,17 +144,15 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
         cos, sin = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)    # (B, hd/2)
         q, k_new = _rope(cfg, q, k_new, cos[:, None], sin[:, None])
     k, v = cache["k"], cache["v"]
-    C = k.shape[1]
-    rows = torch.arange(B, device=x.device)
-    slot = pos % C
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    slot = pos % slot_pos.shape[-1]
+    msh.ring_write(k, k_new[:, 0], slot)
+    msh.ring_write(v, v_new[:, 0], slot)
     pos = pos[:, None]
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         valid &= slot_pos > pos - window
-    o = _sdpa(q, k, v, valid[:, None, None, None, :], cfg.hd ** -0.5)
-    return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+    o = msh.ring_attend(q, k, v, valid, cfg.hd ** -0.5, _sdpa)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------- #

@@ -94,7 +94,34 @@ is, and the port runs the same layout explicitly:
   a gradient that is a part of the whole with or without sequence
   parallelism, and are all-reduced either way, once.
 
-Every arch of the repo runs so (:func:`tensor_parallel_supported`).
+Every arch of the repo trains so (:func:`tensor_parallel_supported`).
+
+Prefill and decode run the same blocks on parameters laid out without
+lead axes (``node_axes=()``), and a rank holds its block of the decode
+cache as the reference's ``launch/shardings.cache_pspecs`` lays it out
+(:func:`with_cache`; ``TensorParallel.cache``), for the decoder-only text
+archs with GQA attention or SSM and no MoE
+(:func:`serving_tensor_parallel_supported`):
+
+* the k/v ring by KV heads (``"heads"``): the attention block is
+  column-parallel on whole heads and its rank's ring holds those heads;
+* by ring slots (``"slots"``, the reference's flash-decode layout): the
+  block is gathered, the rank that owns a position's slot writes it
+  (:func:`ring_write`), and each rank attends over its ``C / M`` slots,
+  whose row max, sum of exponentials and unnormalized ``p·v`` the ranks
+  merge with one ``all_reduce_max`` and one ``all_reduce_sum``
+  (:func:`ring_attend`);
+* by head dim (``"head_dim"``): the block is gathered, a rank writes and
+  keeps its ``hd / M`` slice of every row, the scores are its partial
+  sums all-reduced, and its ``p·v`` slice of the output is gathered;
+* ``"replicated"``: the block is gathered and the ring whole;
+* the SSM state by channels (``"channels"``): the conv window and h of
+  the Mamba block's ``d_inner / M`` channels, which the block runs on.
+
+``idx`` and ``slot_pos`` are whole on every rank.  A gathered block's
+prefill k/v are whole, of which :func:`ring_block` keeps the rank's
+block; :func:`last_position` gives the head the sequence's last row on
+every rank.
 """
 from __future__ import annotations
 
@@ -112,7 +139,10 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "embed_lookup", "local_rows", "enter_decoder", "parallel_block",
            "ssm_channels", "ssm_proj",
            "expert_offset", "router_loss", "to_head", "vocab_parallel_ce",
-           "seq_parallel_mean", "tensor_parallel_grad"]
+           "seq_parallel_mean", "tensor_parallel_grad",
+           "serving_tensor_parallel_supported", "with_cache",
+           "gather_cache", "zeros_cache", "ring_block", "ring_write",
+           "ring_attend", "last_position"]
 
 
 class PartitionSpec(tuple):
@@ -257,7 +287,10 @@ class TensorParallel:
     heads' part (the router of an expert-parallel MoE block, the
     down-projections of a column-parallel MLA block);
     ``enc_seq_parallel`` whether the encoder's stream is sharded over
-    the frames (None: the arch has no encoder)."""
+    the frames (None: the arch has no encoder); ``cache`` maps each
+    decode cache leaf's name (``k``, ``v``, ``conv``, ``h``) to the dim,
+    from the end, that its spec shards over ``model``, or None (None: no
+    cache layout, :func:`with_cache`)."""
 
     mesh: Any
     rules: dict
@@ -268,6 +301,7 @@ class TensorParallel:
     vocab_parallel: bool
     partial: frozenset = frozenset()
     enc_seq_parallel: Optional[bool] = None
+    cache: Optional[dict] = None
 
     @property
     def size(self) -> int:
@@ -276,6 +310,21 @@ class TensorParallel:
     @property
     def index(self) -> int:
         return self.group.index
+
+    @property
+    def kv_layout(self) -> Optional[str]:
+        """The k/v ring's layout (:data:`KV_LAYOUTS`), None without one."""
+        if self.cache is None or "k" not in self.cache:
+            return None
+        return KV_LAYOUTS[self.cache["k"]]
+
+    @property
+    def cache_layout(self) -> dict:
+        """``{"kv": ..., "ssm": ...}``: the k/v ring's and the SSM
+        state's layouts, None where the arch has no such cache."""
+        ssm = (None if self.cache is None or "h" not in self.cache
+               else SSM_LAYOUTS[self.cache["h"]])
+        return {"kv": self.kv_layout, "ssm": ssm}
 
     @property
     def expert_parallel(self) -> bool:
@@ -313,6 +362,10 @@ MOE_DIMS = {("experts", "wi"): -3, ("experts", "wg"): -3,
 # and the down-projections whole
 MLA_COLUMNS = ("q_b", "wq", "k_up", "v_up")
 MLA_WHOLE = ("w_dkv", "c_scale", "w_kr", "q_a", "q_scale")
+# a cache leaf's dim over model (from the end of (B, C, KV, hd) and of
+# (B, di, N)) -> its layout
+KV_LAYOUTS = {-2: "heads", -3: "slots", -1: "head_dim", None: "replicated"}
+SSM_LAYOUTS = {-2: "channels", None: "replicated"}
 
 
 def tensor_parallel_supported(cfg) -> bool:
@@ -325,6 +378,18 @@ def tensor_parallel_supported(cfg) -> bool:
     with cross attention, absolute positions and biased MLPs
     (whisper-large-v3)."""
     return cfg.mixer in ("attn", "ssm", "hybrid")
+
+
+def serving_tensor_parallel_supported(cfg) -> bool:
+    """Whether the port runs ``cfg``'s prefill and decode with the
+    ``model`` axis tensor-parallel and the cache laid out by
+    ``cache_pspecs``: the decoder-only text archs with GQA attention, SSM
+    or both and no MoE (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b,
+    deepseek-7b, falcon-mamba-7b, hymba-1.5b).  The others keep the whole
+    model and cache on every rank of ``model``."""
+    return (tensor_parallel_supported(cfg) and not cfg.moe_experts
+            and not cfg.enc_dec and not cfg.frontend
+            and (cfg.mixer == "ssm" or cfg.attention != "mla"))
 
 
 def _paths(tree, prefix=()):
@@ -478,6 +543,73 @@ def gather_flat(flat, spec, tp: TensorParallel):
     from ..core.paramvec import make_ravel_spec, ravel, unravel
     whole = gather_tree(unravel(spec, flat), tp)
     return ravel(make_ravel_spec(whole, dtype=spec.dtype), whole)
+
+
+def with_cache(tp: TensorParallel, cache, *,
+               seq_shard: bool = True) -> TensorParallel:
+    """``tp`` with the layout of the decode cache ``cache`` (a whole cache
+    of ``models.transformer.init_cache``; meta tensors will do): each
+    leaf's dim over ``model`` from ``launch.shardings.cache_pspecs(cache,
+    mesh, (), seq_shard=seq_shard)`` (the batch rows are the caller's,
+    outside the model group).  Raises where the port does not run the
+    layout: a sharded leaf other than the k/v ring and the SSM state
+    (MLA's latent), a ring by heads beside a gathered attention block or
+    any other ring beside a column-parallel one, an SSM state by
+    channels beside a gathered Mamba block or a whole one beside a block
+    on channels.  The caller checks the arch
+    (:func:`serving_tensor_parallel_supported`)."""
+    from ..launch import shardings as sh
+    specs = sh.cache_pspecs(cache["layers"], tp.mesh, (),
+                            seq_shard=seq_shard)
+    dims = {}
+    for path, spec in _paths(specs):
+        leaf = path[-1]
+        spec = tuple(spec)
+        axes = [i - len(spec) for i, ax in enumerate(spec) if ax == "model"]
+        dims[leaf] = axes[0] if axes else None
+    bad = [k for k in dims if k not in ("k", "v", "conv", "h")]
+    if bad or len({dims.get("k"), dims.get("v")} - {None}) > 1:
+        raise ValueError(f"the port lays out no {bad or 'k / v'} cache "
+                         "leaf over 'model'")
+    out = dataclasses.replace(tp, cache=dims)
+    attn, ssm = ("layers", "attn"), ("layers", "ssm")
+    kv, st = out.kv_layout, out.cache_layout["ssm"]
+    if kv is not None and (kv == "heads") == (attn in tp.gathered):
+        block = "gathered" if attn in tp.gathered else "column-parallel"
+        raise ValueError(f"a k/v ring by {kv} beside a {block} attention "
+                         "block")
+    if st is not None and (st == "channels") == (ssm in tp.gathered):
+        block = "gathered" if ssm in tp.gathered else "channel"
+        raise ValueError(f"an SSM state {st} beside a {block} Mamba block")
+    return out
+
+
+def _cache_dim(tp: TensorParallel, path: tuple):
+    return tp.cache.get(path[-1]) if path[0] == "layers" else None
+
+
+def gather_cache(cache, tp: TensorParallel):
+    """The whole decode cache from every rank's block (one gather over
+    the model group a sharded leaf): for checks and tests."""
+    from ..core.runtime_sharded import all_gather_seq
+    return _leaf_map(lambda path, leaf: leaf if _cache_dim(tp, path) is None
+                     else all_gather_seq(leaf, tp.group,
+                                         _cache_dim(tp, path)), cache)
+
+
+def zeros_cache(layers, tp: TensorParallel, device):
+    """Zero blocks on ``device`` of the whole cache leaves ``layers`` (a
+    ``layers`` subtree, meta tensors will do), in their dtypes: nothing
+    whole is allocated."""
+    import torch
+
+    def block(path, leaf):
+        shape = list(leaf.shape)
+        dim = _cache_dim(tp, ("layers",) + path)
+        if dim is not None:
+            shape[dim] //= tp.size
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return _leaf_map(block, layers)
 
 
 def current_tensor_parallel() -> TensorParallel | None:
@@ -711,6 +843,108 @@ def to_head(x):
     if tp.seq_parallel:
         return rs.gather_from_seq(x, tp.group, 1)
     return rs.copy_to_model(x, tp.group)
+
+
+def last_position(x):
+    """The residual stream's last position ``(B, 1, d)``, ready for the
+    head: the sequence's last row on every rank.  With sequence
+    parallelism it is the last rank's, so each rank's last row is
+    gathered and the last kept (the gradient back as ``to_head``'s
+    rule: summed over the ranks of a vocab-parallel head, which
+    differentiate it in part, this rank's own of a replicated one); the
+    whole stream's last row otherwise, its gradient all-reduced before a
+    vocab-parallel head."""
+    from ..core import runtime_sharded as rs
+    tp = current_tensor_parallel()
+    last = x[:, -1:]
+    if tp is None or not (tp.seq_parallel or tp.vocab_parallel):
+        return last
+    g = tp.group
+    if not tp.seq_parallel:
+        return rs.copy_to_model(last, g)
+    gather = rs.gather_from_seq if tp.vocab_parallel else rs.gather_from_model
+    return gather(last, g, 1)[:, -1:]
+
+
+def ring_block(kv):
+    """This rank's block of the k or v rows ``kv`` (B, C, KV, hd) that a
+    prefill places in the ring: a gathered attention block's are whole,
+    of which a ring by slots keeps the rank's ``C / M`` slots and one by
+    head dim its ``hd / M`` slice; a column-parallel block's are already
+    the rank's heads, and a replicated ring keeps them whole."""
+    from ..core.runtime_sharded import rank_block
+    tp = current_tensor_parallel()
+    layout = None if tp is None else tp.kv_layout
+    if layout not in ("slots", "head_dim"):
+        return kv
+    return rank_block(kv, tp.group, tp.cache["k"])
+
+
+def ring_write(ring, new, slot) -> None:
+    """Write each row's new k or v ``new`` (B, KV, hd) at its ring slot
+    ``slot`` (B,) of ``ring`` (B, C, KV, hd), in place.  Under a ring by
+    slots ``ring`` is this rank's ``C / M`` slots and only the owner of a
+    row's slot writes it (the others write back what they hold); under a
+    ring by head dim the rank writes its ``hd / M`` slice."""
+    import torch
+
+    from ..core.runtime_sharded import rank_block
+    tp = current_tensor_parallel()
+    layout = None if tp is None else tp.kv_layout
+    rows = torch.arange(ring.shape[0], device=ring.device)
+    new = new.to(ring.dtype)
+    if layout == "slots":
+        n = ring.shape[1]
+        local = slot - tp.index * n
+        mine = ((local >= 0) & (local < n)).reshape(-1, 1, 1)
+        local = local.clamp(0, n - 1)
+        new = torch.where(mine, new, ring[rows, local])
+        slot = local
+    elif layout == "head_dim":
+        new = rank_block(new, tp.group, -1)
+    ring[rows, slot] = new
+
+
+def ring_attend(q, k, v, valid, scale, sdpa):
+    """One-token attention of ``q`` (B, 1, KV, R, hd) over the ring ``k``,
+    ``v`` (B, C, KV, hd) where ``valid`` (B, C) (the whole ring's mask):
+    ``sdpa(q, k, v, mask, scale)`` on a whole ring or a rank's heads.
+    On this rank's slots, the masked scores' row max is all-reduced
+    (max), and each rank's sum of exponentials and unnormalized ``p·v``
+    are all-reduced together (one sum), O(B·H·hd); a rank whose slots
+    are all masked adds zeros.  On this rank's head-dim slice, the
+    scores' partial sums are all-reduced (O(B·H·C)), the softmax is
+    whole, and the rank's slice of ``p·v`` is gathered.  What crosses
+    the ranks is fp32 whatever the ring's dtype: the partial scores of a
+    head-dim slice, and a rank's ``p·v`` before the merge."""
+    import torch
+
+    from ..core import runtime_sharded as rs
+    tp = current_tensor_parallel()
+    layout = None if tp is None else tp.kv_layout
+    if layout not in ("slots", "head_dim"):
+        return sdpa(q, k, v, valid[:, None, None, None, :], scale)
+    g = tp.group
+    f32 = torch.float32
+    neg = torch.tensor(-1e30, dtype=f32, device=q.device)
+    if layout == "head_dim":
+        s = torch.einsum("bqgrd,bkgd->bgrqk",
+                         rs.rank_block(q, g, -1).to(f32), k.to(f32))
+        s = rs.all_reduce_sum(s, g) * scale
+        s = torch.where(valid[:, None, None, None, :], s, neg)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return rs.all_gather_seq(torch.einsum("bgrqk,bkgd->bqgrd", p, v),
+                                 g, -1)
+    n = k.shape[1]
+    mask = valid[:, tp.index * n:(tp.index + 1) * n]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q, k) * scale
+    s = torch.where(mask[:, None, None, None, :], s.to(f32), neg)
+    m = rs.all_reduce_max(s.amax(-1, keepdim=True), g)
+    p = torch.exp(s - m)
+    pv = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
+    se = p.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4)     # (B,1,KV,R,1)
+    red = rs.all_reduce_sum(torch.cat([pv, se], -1), g)
+    return (red[..., :-1] / red[..., -1:]).to(v.dtype)
 
 
 def vocab_parallel_ce(logits, labels, ce: str, tp: TensorParallel):

@@ -19,7 +19,10 @@ on this rank's blocks of the leaves, the reference's ``ssm_inner`` →
 ``model`` layout: x and z on this rank's ``d_inner / M`` channels
 (``sharding.ssm_channels``), the conv, the gate and both scan kernels on
 them, ``x_proj`` row-parallel (``sharding.ssm_proj``) and ``out_proj``'s
-partial sum left to the caller's ``sharding.parallel_block``.
+partial sum left to the caller's ``sharding.parallel_block``.  Prefill
+and decode run so too: the decode state (the conv window of the conv's
+input and h) is that of the rank's channels, the reference's
+``cache_pspecs`` layout of ``conv`` and ``h``.
 
 Decode (``ssm_cache``, ``ssm_decode``, counterparts of the reference's)
 carries the conv window and the fp32 state h, and takes one step from h
@@ -100,11 +103,13 @@ def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn,
     the scan is :class:`SelectiveScanFn` (the kernel on the card); from a
     decode state it is :func:`selective_scan_ref`.  On a rank's blocks
     of the leaves, x and z are its channels and ``x_proj``'s partial
-    sums are all-reduced."""
+    sums are all-reduced.  Returns ``(y, h, x)``: x the conv's input at
+    those channels (after the exchange), of which the decode cache keeps
+    the last K − 1 rows."""
     from ..kernels.ssm_scan.ops import SelectiveScanFn
     di = cfg.d_inner
-    x, z = msh.ssm_channels(xz, di)
-    x = F.silu(conv_fn(x))
+    raw, z = msh.ssm_channels(xz, di)
+    x = F.silu(conv_fn(raw))
     proj = msh.ssm_proj(x @ p["x_proj"], di, x.shape[-1])
     dtr, N = cfg.dt_rank, cfg.ssm_state
     dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + p["dt_bias"])
@@ -118,23 +123,23 @@ def _ssm_inner(cfg: ModelConfig, p: dict, xz: torch.Tensor, conv_fn,
     else:
         y, h = selective_scan_ref(x, dt, A, Bc, Cc, p["D"], h0)
     y = (y * F.silu(z.to(torch.float32))).to(xz.dtype)
-    return y, h, x
+    return y, h, raw
 
 
 def ssm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
               return_state: bool = False):
     """Full-sequence mamba block: x (B,S,D) -> (B,S,D).
-    ``return_state`` also returns the decode cache (conv window, h)."""
+    ``return_state`` also returns the decode cache (conv window, h) of
+    the block's channels (a rank's, under tensor parallelism)."""
     xz = x @ p["in_proj"]
-    y, h, _ = _ssm_inner(
+    y, h, raw = _ssm_inner(
         cfg, p, xz, lambda u: _conv_causal(u, p["conv_w"], p["conv_b"]))
     out = y @ p["out_proj"]
     if return_state:
-        K, di = cfg.ssm_conv, cfg.d_inner
-        raw = xz[..., :di]
+        K = cfg.ssm_conv
         pad = F.pad(raw, (0, 0, max(0, K - 1 - raw.shape[1]), 0))
         conv = (pad[:, -(K - 1):, :] if K > 1 else
-                xz.new_zeros((x.shape[0], 0, di)))
+                raw.new_zeros((x.shape[0], 0, raw.shape[-1])))
         return out, {"conv": conv, "h": h}
     return out
 
@@ -153,8 +158,11 @@ def ssm_cache(cfg: ModelConfig, batch: int, dtype, *, lead: tuple = (),
 
 
 def ssm_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
-    """One-token decode: x (B,1,D) -> (out (B,1,D), new {"conv", "h"})."""
-    di, K = cfg.d_inner, cfg.ssm_conv
+    """One-token decode: x (B,1,D) -> (out (B,1,D), new {"conv", "h"}).
+    The state is the block's channels' (a rank's, under tensor
+    parallelism: ``out`` is then its partial sum of ``out_proj``'s
+    rows)."""
+    K = cfg.ssm_conv
     xz = x @ p["in_proj"]
 
     def conv_fn(u):                                   # u (B,1,di)
@@ -162,7 +170,7 @@ def ssm_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
         y = torch.einsum("bkd,kd->bd", win, p["conv_w"]) + p["conv_b"]
         return y[:, None, :]
 
-    y, h, _ = _ssm_inner(cfg, p, xz, conv_fn, cache["h"])
-    conv = (torch.cat([cache["conv"][:, 1:], xz[..., :di]], dim=1)
+    y, h, raw = _ssm_inner(cfg, p, xz, conv_fn, cache["h"])
+    conv = (torch.cat([cache["conv"][:, 1:], raw], dim=1)
             if K > 1 else cache["conv"])
     return y @ p["out_proj"], {"conv": conv, "h": h}

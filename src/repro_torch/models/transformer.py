@@ -40,7 +40,11 @@ token, as under the vmap).  ``decode_step`` and ``prefill_cache``, like
 the reference's, route all B·S tokens together.  As in the reference,
 ``decode_step_slots`` refuses enc-dec archs and ``prefill_rows`` both
 enc-dec and frontend archs; an enc-dec arch given no frontend raises a
-``ValueError`` (the reference fails there with a ``TypeError``).
+``ValueError`` (the reference fails there with a ``TypeError``).  Under
+tensor parallelism (``models/sharding.py``) ``forward``, ``init_cache``,
+``prefill_cache``, ``decode_step`` and ``decode_step_slots`` run on a
+rank's blocks of the weights and of the cache (the decoder-only text
+archs, ``sharding.with_cache``).
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -49,6 +53,7 @@ package means the same weights.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -360,8 +365,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     last position only with ``last_only``; the MoE layers' router loss
     summed, 0 without MoE).  ``remat`` recomputes each layer's
     activations in the backward.  Under tensor parallelism the logits
-    are this rank's vocab block, and under expert parallelism the
-    ranks' router losses are summed (``models.sharding.router_loss``)."""
+    are this rank's vocab block (``last_only``: of the sequence's last
+    position on every rank, ``models.sharding.last_position``), and
+    under expert parallelism the ranks' router losses are summed
+    (``models.sharding.router_loss``)."""
     x, positions, n_front, enc = _embed(cfg, params, tokens, frontend,
                                         remat)
     aux = torch.zeros((), device=x.device)
@@ -370,11 +377,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x, a = _run(remat, _layer, cfg, lp, x, positions, enc, tp)
         aux = aux + a
     aux = msh.router_loss(aux)
-    x = msh.to_head(norm_apply(cfg, params["final_norm"], x))
+    x = norm_apply(cfg, params["final_norm"], x)
     if last_only:
-        x = x[:, -1:]
-    elif n_front:
-        x = x[:, n_front:]
+        x = msh.last_position(x)
+    else:
+        x = msh.to_head(x)
+        if n_front:
+            x = x[:, n_front:]
     return _head(params, x), aux
 
 
@@ -444,14 +453,22 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     An enc-dec arch runs its encoder over ``frontend`` here and keeps
     ``cross_k`` / ``cross_v`` (L, batch, F, KV, hd) beside the ring; a
     decoder-only arch ignores ``frontend`` (its patch rows enter through
-    :func:`prefill_cache`)."""
+    :func:`prefill_cache`).  Under tensor parallelism the ``layers``
+    leaves are this rank's zero blocks of the layout
+    (``models.sharding.with_cache``), nothing whole allocated."""
     dev = params["embed"].device
     C = cache_capacity(cfg, max_len)
+    tp = msh.current_tensor_parallel()
+    if tp is not None and tp.cache is None:
+        raise ValueError("the tensor-parallel layout has no cache layout "
+                         "(models.sharding.with_cache)")
+    layers = _mixer_cache(cfg, batch, C, dtype, lead=(cfg.n_layers,),
+                          device=dev if tp is None else "meta")
     cache = {"idx": torch.zeros((), dtype=torch.int32, device=dev),
              "slot_pos": torch.full((C,), -1, dtype=torch.int32,
                                     device=dev),
-             "layers": _mixer_cache(cfg, batch, C, dtype,
-                                    lead=(cfg.n_layers,), device=dev)}
+             "layers": layers if tp is None
+             else msh.zeros_cache(layers, tp, dev)}
     if cfg.enc_dec:
         cache["cross_k"], cache["cross_v"] = _cross_caches(
             cfg, params, _run_encoder(cfg, params, frontend))
@@ -459,21 +476,25 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
 
 
 def _ssm_step(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor):
-    y, new = ssm_mod.ssm_decode(cfg, lp["ssm"], h, lc["ssm"])
-    for k, t in new.items():
-        lc["ssm"][k].copy_(t)
-    return y
+    def step(p, y):
+        out, new = ssm_mod.ssm_decode(cfg, p, y, lc["ssm"])
+        for k, t in new.items():
+            lc["ssm"][k].copy_(t)
+        return out
+    return msh.parallel_block(("layers", "ssm"), lp["ssm"], h, step)
 
 
 def _mixer_decode(cfg: ModelConfig, lp: dict, lc: dict, h: torch.Tensor,
                   pos: torch.Tensor, slot_pos: torch.Tensor) -> torch.Tensor:
     """One token through the layer's mixer; ``lc`` (the layer's cache
-    views) is written in place."""
+    views) is written in place.  Under tensor parallelism each block
+    runs in ``parallel_block``'s frame on the local leaves and this
+    rank's block of the cache."""
     if cfg.mixer == "ssm":
         return _ssm_step(cfg, lp, lc, h)
     dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
-    a, _ = dec(cfg, lp["attn"], h, lc["attn"], pos, slot_pos,
-               window=cfg.attn_window)
+    a = msh.parallel_block(("layers", "attn"), lp["attn"], h, lambda p, y: dec(
+        cfg, p, y, lc["attn"], pos, slot_pos, window=cfg.attn_window)[0])
     if cfg.mixer == "hybrid":
         a = 0.5 * (a + _ssm_step(cfg, lp, lc, h))
     return a
@@ -486,18 +507,29 @@ def _decode(cfg: ModelConfig, params: dict, layers: dict,
     """tokens (B, 1) at positions ``pos`` (B,) over ``slot_pos`` (B, C)
     -> logits (B, 1, V); the layer caches are written in place.
     ``rows`` routes each row's MoE alone (the slots step); ``cross``
-    holds an enc-dec arch's (cross_k, cross_v)."""
-    x = params["embed"][tokens]
-    if not cfg.use_rope:
-        x = x + sinusoidal_positions(pos, cfg.d_model)[:, None].to(x.dtype)
-    for li in range(cfg.n_layers):
-        lp = _index(params["layers"], li)
-        h = norm_apply(cfg, lp["ln1"], x)
-        x = x + _mixer_decode(cfg, lp, _index(layers, li), h, pos, slot_pos)
-        if cross is not None:
-            x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
-        x, _ = _mlp(cfg, lp, x, rows=rows)
-    return _head(params, norm_apply(cfg, params["final_norm"], x))
+    holds an enc-dec arch's (cross_k, cross_v).  Under tensor
+    parallelism the step runs on the local leaves and cache blocks, its
+    one-token stream whole on every rank (no sequence parallelism), and
+    the logits are this rank's vocab block where the head is
+    vocab-parallel."""
+    tp = msh.current_tensor_parallel()
+    if tp is not None and tp.seq_parallel:
+        tp = dataclasses.replace(tp, seq_parallel=False)
+    with msh.use_tensor_parallel(tp):
+        x = msh.embed_lookup(params["embed"], tokens)
+        if not cfg.use_rope:
+            x = x + sinusoidal_positions(pos, cfg.d_model)[:, None].to(
+                x.dtype)
+        for li in range(cfg.n_layers):
+            lp = _index(params["layers"], li)
+            h = norm_apply(cfg, lp["ln1"], x)
+            x = x + _mixer_decode(cfg, lp, _index(layers, li), h, pos,
+                                  slot_pos)
+            if cross is not None:
+                x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
+            x, _ = _mlp(cfg, lp, x, rows=rows)
+        x = msh.to_head(norm_apply(cfg, params["final_norm"], x))
+        return _head(params, x)
 
 
 @torch.no_grad()
@@ -584,9 +616,19 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     S_text; token-wise prefill cannot take them); an enc-dec frontend
     feeds the encoder, whose cross k and v the cache keeps.  The SSM
     layers' scans run the ``ssm_scan`` kernel on the card, which returns
-    each layer's h_last."""
+    each layer's h_last.  Under tensor parallelism each block runs in
+    ``parallel_block``'s frame (with sequence parallelism on the whole
+    prompt, which the model group must divide) and the cache is this
+    rank's block of the layout (``models.sharding.with_cache``): a
+    column-parallel attention block's k/v are its heads, a gathered
+    one's whole (``models.sharding.ring_block`` keeps the rank's slots
+    or head-dim slice), the Mamba block's state its channels'."""
+    tp = msh.current_tensor_parallel()
+    if tp is not None and tp.cache is None:
+        raise ValueError("the tensor-parallel layout has no cache layout "
+                         "(models.sharding.with_cache)")
     x, positions, _, enc = _embed(cfg, params, tokens, frontend)
-    S = x.shape[1]
+    S = positions.shape[0]
     C = cache_capacity(cfg, max_len)
     slot_pos, place = _ring(S, S, C, x.device)
     cross = _cross_caches(cfg, params, enc) if enc is not None else None
@@ -595,22 +637,24 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         lp = _index(params["layers"], li)
         h = norm_apply(cfg, lp["ln1"], x)
         lc: dict[str, Any] = {}
-        if cfg.mixer == "ssm":
-            y, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
-                                             return_state=True)
-        else:
-            y, kv = _attn_full(cfg, lp, h, positions, return_kv=True)
-            lc["attn"] = {k: place(t, dtype) for k, t in kv.items()}
-            if cfg.mixer == "hybrid":
-                sy, lc["ssm"] = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
-                                                  return_state=True)
-                y = 0.5 * (y + sy)
+        if cfg.mixer != "ssm":
+            y, kv = msh.parallel_block(
+                ("layers", "attn"), lp["attn"], h, lambda p, u: _attn_full(
+                    cfg, {"attn": p}, u, positions, return_kv=True))
+            lc["attn"] = {k: msh.ring_block(place(t, dtype))
+                          for k, t in kv.items()}
+        if cfg.mixer != "attn":
+            sy, lc["ssm"] = msh.parallel_block(
+                ("layers", "ssm"), lp["ssm"], h, lambda p, u:
+                ssm_mod.ssm_apply(cfg, p, u, return_state=True))
+            y = sy if cfg.mixer == "ssm" else 0.5 * (y + sy)
         x = x + y
         if cross is not None:
             x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
         x, _ = _mlp(cfg, lp, x)
         caches.append(lc)
-    logits = _head(params, norm_apply(cfg, params["final_norm"], x[:, -1:]))
+    logits = _head(params, norm_apply(cfg, params["final_norm"],
+                                      msh.last_position(x)))
 
     cache = {"idx": torch.tensor(S, dtype=torch.int32, device=x.device),
              "slot_pos": slot_pos, "layers": _stack(caches)}

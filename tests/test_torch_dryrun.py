@@ -73,7 +73,9 @@ def test_record_has_the_reference_schema():
     assert set(rec["cost_scanned"]) == {"flops", "bytes"}
     assert set(rec["fit"]) == REF_FIT | PORT_FIT
     assert rec["mesh"] == "32x8" and rec["chips"] == 256
-    assert rec["model_axis"] == "replicated" and rec["dtype"] == "bfloat16"
+    # decode runs the model axis tensor-parallel (the ring by slots)
+    assert rec["model_axis"] == "tensor" and rec["dtype"] == "bfloat16"
+    assert rec["case"]["cache_layout"] == {"kv": "slots", "ssm": None}
     skip = dryrun.run_case("whisper-large-v3", "long_500k", verbose=False)
     assert set(skip) == {"arch", "shape", "mesh", "chips", "rules", "ok",
                          "skipped"}
@@ -251,20 +253,22 @@ def test_model_and_scan_flops_against_the_reference():
             assert roofline.ssm_correction_flops(cfg, shape, info["kind"]) \
                 == jroof.ssm_correction_flops(jcfg, shape, info["kind"])
     # the scan wrappers count (6N+3)·d_inner a token and layer forward
-    # where the reference's correction counts 8N·d_inner; per card, with
-    # the model axis replicating the rank's rows
+    # where the reference's correction counts 8N·d_inner; per card, on the
+    # rank's rows and its d_inner / 8 channels (the model axis
+    # tensor-parallel)
     for arch in ("falcon-mamba-7b", "hymba-1.5b"):
         cfg = get_config(arch)
         rec = dryrun.run_case(arch, "prefill_32k", fit=False, verbose=False)
         N, di, L = cfg.ssm_state, cfg.d_inner, cfg.n_layers
         rows = rec["case"]["rows"]
+        assert rec["case"]["cache_layout"]["ssm"] == "channels"
         assert rec["kernels"]["ssm_scan"]["launches"] == L
         assert rec["ssm_scan_flops"] == L * sfwd.ssm_scan_ops(
-            rows, 32768, di, N)[0]
+            rows, 32768, di // 8, N)[0]
         ref_global = jroof.ssm_correction_flops(jget(arch), "prefill_32k",
                                                 "prefill")
         shards = 32 // rows
-        assert rec["ssm_scan_flops"] * shards * 8 * N == pytest.approx(
+        assert rec["ssm_scan_flops"] * shards * 8 * 8 * N == pytest.approx(
             ref_global * (6 * N + 3), rel=1e-12)
 
 
