@@ -413,14 +413,28 @@ run.  Phases:
    (c) and (d) on model index 0 held to the plain twin; (e) rfast-100m at full width and
    depth on (2, 4), B 4 (its rows over ``data``, heads at M 4), and
    ``build_prefill`` / ``build_decode`` live on the card with argument
-   bytes equal to the meta case's.  A decode step's collectives are the
-   layout's count (heads: 1 + 2L sums; slots: 7L gathers, L maxes, 1 +
-   2L sums; head dim: 8L gathers, 1 + 2L sums; hymba: 4L gathers, L
-   maxes, 4L sums, L all-to-alls; falcon: 1 + 2L sums, L all-to-alls);
-   each rank's cache bytes are 1 / M of its rows'; emitted beside them a
-   rank's weight bytes, the collectives of a prefill and a decode step
-   (calls, bytes, staged bytes), the seconds of each (gloo's host path)
-   and the card's memory.
+   bytes equal to the meta case's; (f4) whisper-large-v3 at full width
+   cut to 2 + 2 of its 32 + 32 layers, B 2, its 1500 frames (drawn
+   after the tokens from the seeded CUDA generator) and a prompt of 256,
+   max_len 512, on M 4: the self ring and the cross caches by KV heads
+   (5 a rank), the encoder's stream sequence-parallel, the head
+   replicated; (f8) the same on M 8: the ring by slots, the cross caches
+   by head dim (8 of 64), the three attention blocks gathered, the
+   encoder's stream replicated; both hold the cross caches too and
+   ``init_cache(frontend=)``'s cross blocks to the prefill's, and their
+   replicated logits bitwise across the group; (g) pixtral-12b at 2 of
+   40 layers on M 8, its 256 patch rows before a prompt of 256, the
+   ring by KV heads (one a rank), vocab-parallel, max_len 1024.  A
+   decode step's collectives are the layout's count (heads: 1 + 2L
+   sums; slots: 7L gathers, L maxes, 1 + 2L sums; head dim: 8L gathers,
+   1 + 2L sums; hymba: 4L gathers, L maxes, 4L sums, L all-to-alls;
+   falcon: 1 + 2L sums, L all-to-alls; whisper by heads: 3L sums; by
+   slots and head dim: 11L gathers, L maxes, 3L sums); each rank's
+   cache bytes (the ring's, and the cross caches' apart) are 1 / M of
+   its rows'; emitted beside them a rank's weight bytes, the
+   collectives of a prefill and a decode step (calls, bytes, staged
+   bytes), the seconds of each (gloo's host path) and the card's
+   memory.
 
 Each of phases 17–36 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
@@ -714,11 +728,16 @@ TP_SERVE_STEPS = 16
 
 
 def _serve_case(case, arch, layers, mesh, batch, prompt, max_len,
-                seq_shard, kv, ssm, gathered, vocab_parallel, calls):
+                seq_shard, kv, ssm, gathered, vocab_parallel, calls,
+                cross=None):
+    """``cross``: the enc-dec arch's cross caches' layout (None: no
+    encoder).  A frontend arch's frames or patches come with the prompt."""
     return dict(case=case, arch=arch, layers=layers, mesh=mesh,
                 batch=batch, prompt=prompt, max_len=max_len,
                 seq_shard=seq_shard, kv=kv, ssm=ssm, gathered=gathered,
-                vocab_parallel=vocab_parallel, decode_calls=calls)
+                vocab_parallel=vocab_parallel, decode_calls=calls,
+                cross=cross)
+
 
 
 TP_SERVE = [
@@ -741,7 +760,25 @@ TP_SERVE = [
                 "channels", [], True, {"all_reduce_sum": 5,
                                        "all_to_all": 2}),
     _serve_case("e", "rfast-100m", None, (2, 4), 4, 256, 512, True,
-                "heads", None, [], True, {"all_reduce_sum": 25})]
+                "heads", None, [], True, {"all_reduce_sum": 25}),
+    # whisper-large-v3 at 2 + 2 layers over its 1500 frames: on M 4 self
+    # and cross by heads, the encoder's stream sequence-parallel, 3L sums;
+    # on M 8 the self ring by slots, the cross caches by head dim, the
+    # three attention blocks gathered (self 7 leaves, cross wq, bq, wo and
+    # its p·v slice: 11L gathers; L maxes; the ring's merge, the cross
+    # scores and the MLP: 3L sums)
+    _serve_case("f4", "whisper-large-v3", 2, (1, 4), 2, 256, 512, True,
+                "heads", None, [], False, {"all_reduce_sum": 6},
+                cross="heads"),
+    _serve_case("f8", "whisper-large-v3", 2, (1, 8), 2, 256, 512, True,
+                "slots", None, ["enc_layers/attn", "layers/attn",
+                                "layers/cross"], False,
+                {"all_gather_seq": 22, "all_reduce_max": 2,
+                 "all_reduce_sum": 6}, cross="head_dim"),
+    # pixtral-12b at 2 of 40 layers, 256 patch rows before a prompt of
+    # 256 tokens: one KV head a rank, vocab-parallel, 1 + 2L sums
+    _serve_case("g", "pixtral-12b", 2, (1, 8), 2, 256, 1024, True,
+                "heads", None, [], True, {"all_reduce_sum": 5})]
 # 36(e)'s build functions materialized on the card, on its mesh
 TP_SERVE_LIVE = {"mesh": (2, 4), "prefill": dict(seq=256, global_batch=4),
                  "decode": dict(seq=512, global_batch=4)}
@@ -3715,8 +3752,9 @@ def phase_tensor_parallel_front(name: str, smi: str, outs: list) -> dict:
 # --------------------------------------------------------------------- #
 # phase 36: prefill and decode with the model axis tensor-parallel
 # --------------------------------------------------------------------- #
-def tp_serve_reference(cfg, full, toks, case: dict) -> dict:
-    """The unsharded ``prefill_cache`` of ``toks``' prompt and
+def tp_serve_reference(cfg, full, toks, fr, case: dict) -> dict:
+    """The unsharded ``prefill_cache`` of ``toks``' prompt (with the
+    frames or patches ``fr``, None without a frontend) and
     ``TP_SERVE_STEPS`` teacher-forced ``decode_step``s on the whole tree
     ``full``: each step's logits and the final cache, on the card."""
     import torch
@@ -3724,7 +3762,8 @@ def tp_serve_reference(cfg, full, toks, case: dict) -> dict:
     P = case["prompt"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, lg = prefill_cache(cfg, full, toks[:, :P], case["max_len"])
+    cache, lg = prefill_cache(cfg, full, toks[:, :P], case["max_len"],
+                              frontend=fr)
     logits = [lg]
     for i in range(TP_SERVE_STEPS):
         lg, cache = decode_step(cfg, full, cache, toks[:, P + i:P + i + 1])
@@ -3744,7 +3783,10 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     ``TP_SERVE_STEPS`` ``decode_step``s on the blocks, each timed, with
     the collectives of the prefill and of one decode step, the kernel
     launches and scan shapes of the prefill, the logits and the cache
-    gathered whole and, on model index 0, held to the reference."""
+    gathered whole and, on model index 0, held to the reference.  A
+    frontend arch's frames or patches are drawn after the tokens from
+    the same seeded CUDA generator; an enc-dec arch's cross blocks also
+    come from ``init_cache(..., frontend=)``, held to the prefill's."""
     import hashlib
 
     import torch
@@ -3775,6 +3817,9 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         toks = torch.randint(0, cfg.vocab, (case["batch"], P + steps),
                              generator=gen, device="cuda")[node * b:
                                                            (node + 1) * b]
+        fr = None if not cfg.frontend else torch.randn(
+            (case["batch"], cfg.frontend_seq, cfg.frontend_dim),
+            generator=gen, device="cuda")[node * b:(node + 1) * b]
         key = (case["arch"], cfg.n_layers, node, b, P, C_len)
     out = {"case": case["case"]}
     t0 = time.perf_counter()
@@ -3785,7 +3830,7 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         local = msh.local_tree(full, tp)
         if m == 0 and key not in refs:
-            refs[key] = tp_serve_reference(cfg, full, toks, case)
+            refs[key] = tp_serve_reference(cfg, full, toks, fr, case)
             out["reference_s"] = refs[key]["seconds"]
         del full
         torch.cuda.empty_cache()
@@ -3810,7 +3855,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
             dispatch.clear()
             clear_collectives()
             t0 = time.perf_counter()
-            cache, lg = prefill_cache(cfg, local, toks[:, :P], C_len)
+            cache, lg = prefill_cache(cfg, local, toks[:, :P], C_len,
+                                      frontend=fr)
             torch.cuda.synchronize()
             out["prefill_s"] = time.perf_counter() - t0
             out["prefill_collectives"] = collective_stats()
@@ -3833,7 +3879,19 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     free, total = torch.cuda.mem_get_info()
     out["card_used_gb"] = (total - free) / 1e9
+    cross = {k: cache[k] for k in ("cross_k", "cross_v") if k in cache}
+    if cross:
+        with msh.use_tensor_parallel(tp):
+            init = init_cache(cfg, local, b, C_len, frontend=fr)
+        out["init_cross_rel_err"] = max(
+            float((init[k] - t).abs().max() / t.abs().max())
+            for k, t in cross.items())
+        out["init_cross_bitwise"] = all(torch.equal(init[k], t)
+                                        for k, t in cross.items())
+        del init
     own = torch.stack(own)
+    whole_cache = specs.whole_cache(cfg, case["batch"], C_len,
+                                    torch.float32)
     out.update(
         info=dict(model_axis="tensor", cache_layout=tp.cache_layout,
                   gathered=sorted("/".join(k) for k in tp.gathered),
@@ -3843,27 +3901,31 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         logits_digest=hashlib.sha256(own.cpu().numpy().tobytes())
         .hexdigest(),
         cache_bytes=_distinct_bytes(specs.tensors_of(cache["layers"])),
+        cross_bytes=_distinct_bytes(specs.tensors_of(cross)),
         weight_bytes=_distinct_bytes(specs.tensors_of(local)),
         whole_weight_bytes=sum(t.numel() * 4 for t in specs.tensors_of(
             param_shapes(cfg))),
         whole_cache_bytes=sum(t.numel() * t.element_size() for t in
-                              specs.tensors_of(init_cache(
-                                  cfg, param_shapes(cfg), case["batch"],
-                                  C_len)["layers"])))
+                              specs.tensors_of(whole_cache["layers"])),
+        whole_cross_bytes=sum(
+            t.numel() * t.element_size() for k, t in whole_cache.items()
+            if k in ("cross_k", "cross_v")))
     if m == 0 and case["ssm"] and captured:
         out["scan_args"] = captured[0]
     whole = all_gather_seq(own, tp.group, -1) if tp.vocab_parallel else own
     gathered = msh.gather_cache(cache, tp)
-    del own, cache, local
+    del own, cache, cross, local
     if m == 0:
         ref = refs[key]
         rel = lambda g, w: float((g - w).abs().max() / w.abs().max())
         out["logits_rel_err"] = max(rel(g, w) for g, w in
                                     zip(whole, ref["logits"]))
+        # the ring's and SSM state's leaves and the cross caches
+        leaves = lambda c: msh._paths({k: v for k, v in c.items()
+                                       if k not in ("idx", "slot_pos")})
         out["cache_rel_err"] = {
             "/".join(path): rel(t, w) for (path, t), (_, w) in zip(
-                msh._paths(gathered["layers"]),
-                msh._paths(ref["cache"]["layers"]))}
+                leaves(gathered), leaves(ref["cache"]))}
         out["idx_equal"] = bool(torch.equal(gathered["idx"],
                                             ref["cache"]["idx"]))
         out["slot_pos_equal"] = bool(torch.equal(gathered["slot_pos"],
@@ -3962,8 +4024,10 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
         tag = f"36({key}) {case['arch']} ({case['layers'] or 'all'} " \
             f"layers, ({D}, {M}))"
         check(len(rs) == D * M, f"{tag}: every rank ran")
-        want_info = {"model_axis": "tensor",
-                     "cache_layout": {"kv": case["kv"], "ssm": case["ssm"]},
+        layout = {"kv": case["kv"], "ssm": case["ssm"]}
+        if case["cross"]:
+            layout["cross"] = case["cross"]
+        want_info = {"model_axis": "tensor", "cache_layout": layout,
                      "gathered": case["gathered"],
                      "vocab_parallel": case["vocab_parallel"],
                      "seq_parallel": True}
@@ -3983,10 +4047,18 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
             check(got == case["decode_calls"], f"{tag}: a decode step's "
                   f"collectives {got} are {case['decode_calls']}")
             check(r["cache_bytes"] * M == r["whole_cache_bytes"] // D
+                  and r["cross_bytes"] * M == r["whole_cross_bytes"] // D
                   and r["weight_bytes"] < r["whole_weight_bytes"],
                   f"{tag}: a rank holds 1 / {M} of its rows' cache "
-                  f"({r['cache_bytes']} of {r['whole_cache_bytes']} B) and "
-                  "its blocks of the weights")
+                  f"(ring {r['cache_bytes']} of {r['whole_cache_bytes']} B, "
+                  f"cross {r['cross_bytes']} of {r['whole_cross_bytes']} B)"
+                  " and its blocks of the weights")
+            if case["cross"]:
+                check(r["init_cross_rel_err"] <= TP_SERVE_TOL,
+                      f"{tag}: init_cache(frontend=)'s cross blocks within "
+                      f"{TP_SERVE_TOL} of the prefill's "
+                      f"({r['init_cross_rel_err']}, bitwise "
+                      f"{r['init_cross_bitwise']})")
         if not case["vocab_parallel"]:
             check(len({r["logits_digest"] for r in rs}) == 1,
                   f"{tag}: the replicated head's logits bitwise equal "

@@ -157,7 +157,7 @@ def _free_port() -> int:
 
 
 def _rank_main(fn, args, rank: int, world: int, port: int, backend: str,
-               timeout_s: float, results) -> None:
+               timeout_s: float, results, done) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -167,6 +167,9 @@ def _rank_main(fn, args, rank: int, world: int, port: int, backend: str,
         initialize_distributed(backend, timeout_s=timeout_s)
         out = fn(*args)
         results.put((rank, True, out))
+        # a CPU tensor of the result goes by file descriptor, which the
+        # parent fetches from this process: stay until it has read them
+        done.wait()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -185,11 +188,11 @@ def spawn_local(fn, world: int, *args, backend: str | None = "gloo",
     not finish within ``join_s`` seconds; no rank outlives the call.  ``fn`` must be importable by
     name (a module-level function)."""
     ctx = _mp.get_context("spawn")
-    results = ctx.Queue()
+    results, done = ctx.Queue(), ctx.Event()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, args, r, world, port, backend, timeout_s,
-                               results), daemon=True)
+                               results, done), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -219,9 +222,11 @@ def spawn_local(fn, world: int, *args, backend: str | None = "gloo",
         if failed:
             raise RuntimeError("rank(s) failed:\n" + "\n".join(
                 f"--- rank {r} ---\n{msg}" for r, msg in failed))
+        done.set()
         for p in procs:
             p.join(min(60.0, max(1.0, deadline - time.monotonic())))
     finally:
+        done.set()
         for p in procs:
             if p.is_alive():
                 p.kill()

@@ -40,22 +40,27 @@ nothing allocated; another device materializes the same case from
   remat=True, ce=ce)``.
 * **prefill / decode** — ``forward(..., last_only=True)`` and
   ``decode_step`` on this rank's batch rows (:func:`~.shardings.
-  batch_pspec`'s divisibility rule).  For the decoder-only text archs
+  batch_pspec`'s divisibility rule).  For the archs without MoE or MLA
   (``models.sharding.serving_tensor_parallel_supported``: the dense
-  decoders, falcon-mamba-7b and hymba-1.5b) on a ``model`` axis of M > 1
-  ranks, the axis runs tensor-parallel (:func:`serving_layout`): a
+  decoders, falcon-mamba-7b, hymba-1.5b, pixtral-12b's patch prefix and
+  whisper-large-v3's encoder and cross caches) on a ``model`` axis of
+  M > 1 ranks, the axis runs tensor-parallel (:func:`serving_layout`): a
   rank holds its blocks of the parameter tree laid out without lead
   axes, as the reference's ``tree_shardings(params, mesh, rules)``
   lays them out, and its block of every decode cache leaf, as
   ``cache_pspecs(cache, mesh, batch_axes, seq_shard=cache_seq_shard)``
-  lays it out (``idx`` and ``slot_pos`` whole); ``seq_parallel``
-  shards the prefill's residual stream over the sequence where M
-  divides it.  ``step_fn.info`` says ``"model_axis": "tensor"``, the
-  blocks that run gathered, ``vocab_parallel`` and ``cache_layout``
-  (the k/v ring by ``heads``, ``slots``, ``head_dim`` or
-  ``replicated``, the SSM state by ``channels`` or ``replicated``).
-  The other archs hold the whole model and cache on every rank
-  (``"model_axis": "replicated"``, ``cache_layout`` None).
+  lays it out (the cross caches ``cross_k`` / ``cross_v`` included;
+  ``idx`` and ``slot_pos`` whole); ``seq_parallel`` shards the prefill's
+  residual stream over the sequence (a frontend's prefix included)
+  where M divides it, and whisper's encoder stream over the frames
+  where M divides them too.  ``step_fn.info`` says ``"model_axis":
+  "tensor"``, the blocks that run gathered, ``vocab_parallel`` and
+  ``cache_layout`` (the k/v ring by ``heads``, ``slots``, ``head_dim``
+  or ``replicated``, the SSM state by ``channels`` or ``replicated``,
+  and for the enc-dec arch the cross caches, ``"cross"``, by ``heads``,
+  ``head_dim`` or ``replicated``).  The MoE and MLA archs hold the whole
+  model and cache on every rank (``"model_axis": "replicated"``,
+  ``cache_layout`` None).
 
 ``dtype`` defaults to the reference's bf16.  Parameter trees follow the
 reference's dtypes (:func:`~repro_torch.models.transformer.param_shapes`:
@@ -93,9 +98,9 @@ from ..models.transformer import (cast_params, decode_step, forward,
 from . import shardings as sh
 
 __all__ = ["SHAPES", "LONG_WINDOW", "SEQ_PARALLEL_OPT_OUT",
-           "shape_supported", "act_rules", "build_train", "serving_layout",
-           "build_prefill", "build_decode", "build_case", "input_specs",
-           "tensors_of"]
+           "shape_supported", "act_rules", "build_train", "whole_cache",
+           "serving_layout", "build_prefill", "build_decode", "build_case",
+           "input_specs", "tensors_of"]
 
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -321,6 +326,17 @@ def build_train(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
 # ------------------------------------------------------------------ #
 # prefill / decode: the model axis tensor-parallel
 # ------------------------------------------------------------------ #
+def whole_cache(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16) -> dict:
+    """The whole decode cache of ``batch`` rows and ``max_len`` positions
+    as meta tensors, an enc-dec arch's cross caches from a meta frontend
+    (nothing run but shapes), the same on every rank."""
+    with msh.use_tensor_parallel(None):
+        return init_cache(cfg, param_shapes(cfg, dtype), batch, max_len,
+                          dtype, _frontend(cfg, (batch,), dtype, "meta",
+                                           None))
+
+
 def serving_layout(cfg: ModelConfig, tree, mesh, *, max_len: int,
                    cache_seq_shard: bool = True, seq_parallel: bool = False,
                    rules=None, dtype=torch.bfloat16):
@@ -342,9 +358,8 @@ def serving_layout(cfg: ModelConfig, tree, mesh, *, max_len: int,
              for k, v in (rules or sh.RULES_BASE).items()}
     tp = msh.tensor_parallel(cfg, tree, mesh, rules=rules, node_axes=(),
                              seq_parallel=seq_parallel)
-    with msh.use_tensor_parallel(None):
-        whole = init_cache(cfg, param_shapes(cfg, dtype), 1, max_len, dtype)
-    return msh.with_cache(tp, whole, seq_shard=cache_seq_shard)
+    return msh.with_cache(tp, whole_cache(cfg, 1, max_len, dtype),
+                          seq_shard=cache_seq_shard)
 
 
 def _serving_info(tp) -> dict:

@@ -300,25 +300,41 @@ def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
     return k, v
 
 
-def cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) queries over the fixed encoder k/v (no positions: the
-    absolute embeddings were added upstream; every key unmasked).  The
-    head counts come from ``wq``'s width and k's heads, as in
-    :func:`cross_kv`."""
+def _cross_attend(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, attend) -> torch.Tensor:
+    """x (B, S, d) queries over the encoder's k/v through ``attend(q, k,
+    v, scale)``; the head counts from ``wq``'s width and k's heads."""
     B, S, _ = x.shape
     hd = cfg.hd
     H, KV = p["wq"].shape[-1] // hd, k.shape[2]
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, S, KV, H // KV, hd)
-    mask = torch.ones((1, 1, 1, S, k.shape[1]), dtype=torch.bool,
-                      device=x.device)
-    o = _sdpa(q, k, v, mask, hd ** -0.5)
+    o = attend(q.reshape(B, S, KV, H // KV, hd), k, v, hd ** -0.5)
     return o.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) queries over the fixed encoder k/v (no positions: the
+    absolute embeddings were added upstream; every key unmasked).  The
+    head counts come from ``wq``'s width and k's heads, as in
+    :func:`cross_kv`."""
+    mask = torch.ones((1, 1, 1, x.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return _cross_attend(cfg, p, x, k, v, lambda q, k, v, scale:
+                         _sdpa(q, k, v, mask, scale))
 
 
 def cross_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return cross_apply(cfg, p, x, k, v)
+    """:func:`cross_apply` of decode's ``x`` over the cache's cross k/v.
+    Under tensor parallelism ``k``, ``v`` are this rank's block of the
+    cross caches: its heads, on which a rank's column blocks run, or its
+    head-dim slice, attended as ``models.sharding.ring_attend`` attends
+    a ring by head dim (every key valid) with the block's leaves
+    gathered."""
+    valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
+    return _cross_attend(cfg, p, x, k, v, lambda q, k, v, scale:
+                         msh.ring_attend(q, k, v, valid, scale, _sdpa,
+                                         leaf="cross_k"))

@@ -99,9 +99,9 @@ Every arch of the repo trains so (:func:`tensor_parallel_supported`).
 Prefill and decode run the same blocks on parameters laid out without
 lead axes (``node_axes=()``), and a rank holds its block of the decode
 cache as the reference's ``launch/shardings.cache_pspecs`` lays it out
-(:func:`with_cache`; ``TensorParallel.cache``), for the decoder-only text
-archs with GQA attention or SSM and no MoE
-(:func:`serving_tensor_parallel_supported`):
+(:func:`with_cache`; ``TensorParallel.cache``), for the archs with GQA
+attention or SSM and no MoE, the patch prefix and the enc-dec arch
+included (:func:`serving_tensor_parallel_supported`):
 
 * the k/v ring by KV heads (``"heads"``): the attention block is
   column-parallel on whole heads and its rank's ring holds those heads;
@@ -116,12 +116,20 @@ archs with GQA attention or SSM and no MoE
   sums all-reduced, and its ``p·v`` slice of the output is gathered;
 * ``"replicated"``: the block is gathered and the ring whole;
 * the SSM state by channels (``"channels"``): the conv window and h of
-  the Mamba block's ``d_inner / M`` channels, which the block runs on.
+  the Mamba block's ``d_inner / M`` channels, which the block runs on;
+* the enc-dec arch's cross caches ``cross_k`` / ``cross_v`` (top-level
+  leaves beside ``layers``) by KV heads beside a column-parallel cross
+  attention block, whose rank runs its heads on them; or, beside a
+  gathered one, by head dim (its ``hd / M`` slice of every head, the
+  scores' partial sums all-reduced and the ``p·v`` slice gathered, as
+  the ring's) or whole.  A decode step's cross attention gathers only
+  the query and output leaves (its k and v are cached).
 
 ``idx`` and ``slot_pos`` are whole on every rank.  A gathered block's
-prefill k/v are whole, of which :func:`ring_block` keeps the rank's
-block; :func:`last_position` gives the head the sequence's last row on
-every rank.
+prefill k/v (the ring's and the cross caches') are whole, of which
+:func:`ring_block` keeps the rank's block; :func:`last_position` gives
+the head the sequence's last row on every rank.  A decoder-only
+frontend's prefix enters the ring as any other rows.
 """
 from __future__ import annotations
 
@@ -141,8 +149,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "expert_offset", "router_loss", "to_head", "vocab_parallel_ce",
            "seq_parallel_mean", "tensor_parallel_grad",
            "serving_tensor_parallel_supported", "with_cache",
-           "gather_cache", "zeros_cache", "ring_block", "ring_write",
-           "ring_attend", "last_position"]
+           "gather_cache", "zeros_cache", "block_params", "ring_block",
+           "ring_write", "ring_attend", "last_position"]
 
 
 class PartitionSpec(tuple):
@@ -288,9 +296,10 @@ class TensorParallel:
     down-projections of a column-parallel MLA block);
     ``enc_seq_parallel`` whether the encoder's stream is sharded over
     the frames (None: the arch has no encoder); ``cache`` maps each
-    decode cache leaf's name (``k``, ``v``, ``conv``, ``h``) to the dim,
-    from the end, that its spec shards over ``model``, or None (None: no
-    cache layout, :func:`with_cache`)."""
+    decode cache leaf's name (``k``, ``v``, ``conv``, ``h``, ``cross_k``,
+    ``cross_v``, ``idx``, ``slot_pos``) to the dim, from the end, that
+    its spec shards over ``model``, or None (None: no cache layout,
+    :func:`with_cache`)."""
 
     mesh: Any
     rules: dict
@@ -311,20 +320,28 @@ class TensorParallel:
     def index(self) -> int:
         return self.group.index
 
+    def leaf_layout(self, leaf: str) -> Optional[str]:
+        """The layout of the cache leaf ``leaf`` (``"k"``: the k/v ring's,
+        ``"cross_k"``: the cross caches', :data:`KV_LAYOUTS`; ``"h"``: the
+        SSM state's, :data:`SSM_LAYOUTS`), None without one."""
+        if self.cache is None or leaf not in self.cache:
+            return None
+        return (SSM_LAYOUTS if leaf == "h" else KV_LAYOUTS)[self.cache[leaf]]
+
     @property
     def kv_layout(self) -> Optional[str]:
         """The k/v ring's layout (:data:`KV_LAYOUTS`), None without one."""
-        if self.cache is None or "k" not in self.cache:
-            return None
-        return KV_LAYOUTS[self.cache["k"]]
+        return self.leaf_layout("k")
 
     @property
     def cache_layout(self) -> dict:
         """``{"kv": ..., "ssm": ...}``: the k/v ring's and the SSM
-        state's layouts, None where the arch has no such cache."""
-        ssm = (None if self.cache is None or "h" not in self.cache
-               else SSM_LAYOUTS[self.cache["h"]])
-        return {"kv": self.kv_layout, "ssm": ssm}
+        state's layouts, None where the arch has no such cache; an enc-dec
+        arch's also ``"cross"``, the cross caches'."""
+        out = {"kv": self.kv_layout, "ssm": self.leaf_layout("h")}
+        if self.cache is not None and "cross_k" in self.cache:
+            out["cross"] = self.leaf_layout("cross_k")
+        return out
 
     @property
     def expert_parallel(self) -> bool:
@@ -362,8 +379,8 @@ MOE_DIMS = {("experts", "wi"): -3, ("experts", "wg"): -3,
 # and the down-projections whole
 MLA_COLUMNS = ("q_b", "wq", "k_up", "v_up")
 MLA_WHOLE = ("w_dkv", "c_scale", "w_kr", "q_a", "q_scale")
-# a cache leaf's dim over model (from the end of (B, C, KV, hd) and of
-# (B, di, N)) -> its layout
+# a cache leaf's dim over model (from the end of (B, C, KV, hd), of the
+# cross caches' (B, F, KV, hd) and of (B, di, N)) -> its layout
 KV_LAYOUTS = {-2: "heads", -3: "slots", -1: "head_dim", None: "replicated"}
 SSM_LAYOUTS = {-2: "channels", None: "replicated"}
 
@@ -383,12 +400,13 @@ def tensor_parallel_supported(cfg) -> bool:
 def serving_tensor_parallel_supported(cfg) -> bool:
     """Whether the port runs ``cfg``'s prefill and decode with the
     ``model`` axis tensor-parallel and the cache laid out by
-    ``cache_pspecs``: the decoder-only text archs with GQA attention, SSM
-    or both and no MoE (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b,
-    deepseek-7b, falcon-mamba-7b, hymba-1.5b).  The others keep the whole
-    model and cache on every rank of ``model``."""
+    ``cache_pspecs``: the archs with GQA attention, SSM or both and no
+    MoE (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b, deepseek-7b,
+    falcon-mamba-7b, hymba-1.5b, the patch prefix of pixtral-12b and the
+    encoder and cross caches of whisper-large-v3).  The others (the MoE
+    and MLA archs) keep the whole model and cache on every rank of
+    ``model``."""
     return (tensor_parallel_supported(cfg) and not cfg.moe_experts
-            and not cfg.enc_dec and not cfg.frontend
             and (cfg.mixer == "ssm" or cfg.attention != "mla"))
 
 
@@ -548,68 +566,79 @@ def gather_flat(flat, spec, tp: TensorParallel):
 def with_cache(tp: TensorParallel, cache, *,
                seq_shard: bool = True) -> TensorParallel:
     """``tp`` with the layout of the decode cache ``cache`` (a whole cache
-    of ``models.transformer.init_cache``; meta tensors will do): each
-    leaf's dim over ``model`` from ``launch.shardings.cache_pspecs(cache,
-    mesh, (), seq_shard=seq_shard)`` (the batch rows are the caller's,
-    outside the model group).  Raises where the port does not run the
-    layout: a sharded leaf other than the k/v ring and the SSM state
-    (MLA's latent), a ring by heads beside a gathered attention block or
-    any other ring beside a column-parallel one, an SSM state by
-    channels beside a gathered Mamba block or a whole one beside a block
-    on channels.  The caller checks the arch
+    of ``models.transformer.init_cache``, an enc-dec arch's cross caches
+    included; meta tensors will do): each leaf's dim over ``model`` from
+    ``launch.shardings.cache_pspecs(cache, mesh, (), seq_shard=seq_shard)``
+    (the batch rows are the caller's, outside the model group).  Raises
+    where the port does not run the layout: a sharded leaf other than the
+    k/v ring, the SSM state and the cross caches (MLA's latent), a ring
+    or cross caches by heads beside a gathered attention block or any
+    other layout beside a column-parallel one, an SSM state by channels
+    beside a gathered Mamba block or a whole one beside a block on
+    channels.  The caller checks the arch
     (:func:`serving_tensor_parallel_supported`)."""
     from ..launch import shardings as sh
-    specs = sh.cache_pspecs(cache["layers"], tp.mesh, (),
-                            seq_shard=seq_shard)
+    specs = sh.cache_pspecs(cache, tp.mesh, (), seq_shard=seq_shard)
     dims = {}
     for path, spec in _paths(specs):
-        leaf = path[-1]
         spec = tuple(spec)
         axes = [i - len(spec) for i, ax in enumerate(spec) if ax == "model"]
-        dims[leaf] = axes[0] if axes else None
-    bad = [k for k in dims if k not in ("k", "v", "conv", "h")]
+        dims[path[-1]] = axes[0] if axes else None
+    bad = [k for k in dims if k not in CACHE_LEAVES]
     if bad or len({dims.get("k"), dims.get("v")} - {None}) > 1:
         raise ValueError(f"the port lays out no {bad or 'k / v'} cache "
                          "leaf over 'model'")
     out = dataclasses.replace(tp, cache=dims)
-    attn, ssm = ("layers", "attn"), ("layers", "ssm")
-    kv, st = out.kv_layout, out.cache_layout["ssm"]
-    if kv is not None and (kv == "heads") == (attn in tp.gathered):
-        block = "gathered" if attn in tp.gathered else "column-parallel"
-        raise ValueError(f"a k/v ring by {kv} beside a {block} attention "
-                         "block")
+    for leaf, block in (("k", ("layers", "attn")), ("cross_k", CROSS)):
+        lay = out.leaf_layout(leaf)
+        if lay is not None and (lay == "heads") == (block in tp.gathered):
+            kind = "gathered" if block in tp.gathered else "column-parallel"
+            what = "a k/v ring" if leaf == "k" else "cross caches"
+            raise ValueError(f"{what} by {lay} beside a {kind} "
+                             f"{'/'.join(block)} block")
+    ssm, st = ("layers", "ssm"), out.leaf_layout("h")
     if st is not None and (st == "channels") == (ssm in tp.gathered):
         block = "gathered" if ssm in tp.gathered else "channel"
         raise ValueError(f"an SSM state {st} beside a {block} Mamba block")
     return out
 
 
+# the decode cache's leaves whose layout the port runs
+CACHE_LEAVES = ("k", "v", "conv", "h", "cross_k", "cross_v", "idx",
+                "slot_pos")
+
+
 def _cache_dim(tp: TensorParallel, path: tuple):
-    return tp.cache.get(path[-1]) if path[0] == "layers" else None
+    """The dim over ``model`` of the cache leaf at ``path`` (from the
+    cache's root): a ``layers`` leaf's or a top-level cross cache's."""
+    if path[0] == "layers" or path[0] in ("cross_k", "cross_v"):
+        return tp.cache.get(path[-1])
+    return None
 
 
 def gather_cache(cache, tp: TensorParallel):
     """The whole decode cache from every rank's block (one gather over
-    the model group a sharded leaf): for checks and tests."""
+    the model group a sharded leaf, the cross caches included): for
+    checks and tests."""
     from ..core.runtime_sharded import all_gather_seq
     return _leaf_map(lambda path, leaf: leaf if _cache_dim(tp, path) is None
                      else all_gather_seq(leaf, tp.group,
                                          _cache_dim(tp, path)), cache)
 
 
-def zeros_cache(layers, tp: TensorParallel, device):
-    """Zero blocks on ``device`` of the whole cache leaves ``layers`` (a
-    ``layers`` subtree, meta tensors will do), in their dtypes: nothing
-    whole is allocated."""
+def zeros_cache(cache, tp: TensorParallel, device):
+    """Zero blocks on ``device`` of the whole cache leaves ``cache`` (a
+    tree from the cache's root, such as ``{"layers": ...}``; meta tensors
+    will do), in their dtypes: nothing whole is allocated."""
     import torch
 
     def block(path, leaf):
         shape = list(leaf.shape)
-        dim = _cache_dim(tp, ("layers",) + path)
+        dim = _cache_dim(tp, path)
         if dim is not None:
             shape[dim] //= tp.size
         return torch.zeros(shape, dtype=leaf.dtype, device=device)
-    return _leaf_map(block, layers)
+    return _leaf_map(block, cache)
 
 
 def current_tensor_parallel() -> TensorParallel | None:
@@ -724,6 +753,25 @@ def _first(out, f):
     return (f(out[0]), *out[1:]) if isinstance(out, tuple) else f(out)
 
 
+def _gather_leaves(tp: TensorParallel, key: tuple, params: dict, gather):
+    """Block ``key``'s leaves ``params`` with each sharded one gathered
+    whole by ``gather`` (its rule for the gradient)."""
+    return _leaf_map(lambda path, v: v if tp.dims[key + path] is None
+                     else gather(v, tp.group, tp.dims[key + path]), params)
+
+
+def block_params(key: tuple, params: dict) -> dict:
+    """The leaves ``params`` of block ``key`` as the block runs them, for
+    a computation outside :func:`parallel_block`'s frame (no gradient):
+    a gathered block's sharded leaves gathered whole, else as they are
+    (whole outside tensor parallelism, the rank's blocks otherwise)."""
+    from ..core.runtime_sharded import gather_from_model
+    tp = current_tensor_parallel()
+    if tp is None or key not in tp.gathered:
+        return params
+    return _gather_leaves(tp, key, params, gather_from_model)
+
+
 def parallel_block(key: tuple, params: dict, x, fn):
     """``fn(params, x)`` of a residual block (attention, cross attention,
     MLP, MoE) whose input ``x`` is the residual stream (the decoder's,
@@ -745,9 +793,8 @@ def parallel_block(key: tuple, params: dict, x, fn):
     g = tp.group
     sp = tp.stream_seq_parallel(key)
     if key in tp.gathered:
-        gather = rs.gather_from_seq if sp else rs.gather_from_model
-        full = _leaf_map(lambda path, v: v if tp.dims[key + path] is None
-                         else gather(v, g, tp.dims[key + path]), params)
+        full = _gather_leaves(tp, key, params, rs.gather_from_seq if sp
+                              else rs.gather_from_model)
         if not sp:
             return fn(full, x)
         out = fn(full, rs.gather_from_seq(x, g, 1))
@@ -866,18 +913,20 @@ def last_position(x):
     return gather(last, g, 1)[:, -1:]
 
 
-def ring_block(kv):
+def ring_block(kv, leaf: str = "k"):
     """This rank's block of the k or v rows ``kv`` (B, C, KV, hd) that a
-    prefill places in the ring: a gathered attention block's are whole,
-    of which a ring by slots keeps the rank's ``C / M`` slots and one by
-    head dim its ``hd / M`` slice; a column-parallel block's are already
-    the rank's heads, and a replicated ring keeps them whole."""
+    prefill places in the ring (``leaf`` ``"k"``), or of a layer's cross
+    k or v (B, F, KV, hd) (``"cross_k"``): a gathered attention block's
+    are whole, of which a layout by slots keeps the rank's ``C / M``
+    slots and one by head dim its ``hd / M`` slice; a column-parallel
+    block's are already the rank's heads, and a replicated leaf keeps
+    them whole."""
     from ..core.runtime_sharded import rank_block
     tp = current_tensor_parallel()
-    layout = None if tp is None else tp.kv_layout
+    layout = None if tp is None else tp.leaf_layout(leaf)
     if layout not in ("slots", "head_dim"):
         return kv
-    return rank_block(kv, tp.group, tp.cache["k"])
+    return rank_block(kv, tp.group, tp.cache[leaf])
 
 
 def ring_write(ring, new, slot) -> None:
@@ -905,23 +954,25 @@ def ring_write(ring, new, slot) -> None:
     ring[rows, slot] = new
 
 
-def ring_attend(q, k, v, valid, scale, sdpa):
-    """One-token attention of ``q`` (B, 1, KV, R, hd) over the ring ``k``,
-    ``v`` (B, C, KV, hd) where ``valid`` (B, C) (the whole ring's mask):
-    ``sdpa(q, k, v, mask, scale)`` on a whole ring or a rank's heads.
-    On this rank's slots, the masked scores' row max is all-reduced
-    (max), and each rank's sum of exponentials and unnormalized ``p·v``
-    are all-reduced together (one sum), O(B·H·hd); a rank whose slots
-    are all masked adds zeros.  On this rank's head-dim slice, the
-    scores' partial sums are all-reduced (O(B·H·C)), the softmax is
-    whole, and the rank's slice of ``p·v`` is gathered.  What crosses
-    the ranks is fp32 whatever the ring's dtype: the partial scores of a
-    head-dim slice, and a rank's ``p·v`` before the merge."""
+def ring_attend(q, k, v, valid, scale, sdpa, leaf: str = "k"):
+    """Attention of ``q`` (B, Sq, KV, R, hd) over the cache leaves ``k``,
+    ``v`` (B, C, KV, hd) laid out as ``leaf`` (``"k"``: the ring,
+    ``"cross_k"``: the cross caches) where ``valid`` (B, C) (the whole
+    leaf's mask): ``sdpa(q, k, v, mask, scale)`` on a whole leaf or a
+    rank's heads.  On this rank's slots, the masked scores' row max is
+    all-reduced (max), and each rank's sum of exponentials and
+    unnormalized ``p·v`` are all-reduced together (one sum), O(B·H·hd);
+    a rank whose slots are all masked adds zeros.  On this rank's
+    head-dim slice, the scores' partial sums are all-reduced (O(B·H·C)),
+    the softmax is whole, and the rank's slice of ``p·v`` is gathered.
+    What crosses the ranks is fp32 whatever the cache's dtype: the
+    partial scores of a head-dim slice, and a rank's ``p·v`` before the
+    merge."""
     import torch
 
     from ..core import runtime_sharded as rs
     tp = current_tensor_parallel()
-    layout = None if tp is None else tp.kv_layout
+    layout = None if tp is None else tp.leaf_layout(leaf)
     if layout not in ("slots", "head_dim"):
         return sdpa(q, k, v, valid[:, None, None, None, :], scale)
     g = tp.group
@@ -942,7 +993,7 @@ def ring_attend(q, k, v, valid, scale, sdpa):
     m = rs.all_reduce_max(s.amax(-1, keepdim=True), g)
     p = torch.exp(s - m)
     pv = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
-    se = p.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4)     # (B,1,KV,R,1)
+    se = p.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4)     # (B,Sq,KV,R,1)
     red = rs.all_reduce_sum(torch.cat([pv, se], -1), g)
     return (red[..., :-1] / red[..., -1:]).to(v.dtype)
 

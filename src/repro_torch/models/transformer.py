@@ -43,8 +43,8 @@ enc-dec and frontend archs; an enc-dec arch given no frontend raises a
 ``ValueError`` (the reference fails there with a ``TypeError``).  Under
 tensor parallelism (``models/sharding.py``) ``forward``, ``init_cache``,
 ``prefill_cache``, ``decode_step`` and ``decode_step_slots`` run on a
-rank's blocks of the weights and of the cache (the decoder-only text
-archs, ``sharding.with_cache``).
+rank's blocks of the weights and of the cache (``sharding.with_cache``;
+an enc-dec arch's cross caches too).
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -262,11 +262,36 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     return x + y, aux
 
 
+# the cross attention's leaves that make its k and v (cached in decode)
+CROSS_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
 def _cross(cfg: ModelConfig, lp: dict, x: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor) -> torch.Tensor:
-    """The residual cross attention of ``x`` over the encoder's k, v."""
+    """The residual cross attention of decode's ``x`` over the cache's
+    cross k, v; under tensor parallelism in the cross block's
+    ``parallel_block`` frame on this rank's block of the caches (its
+    heads, or its head-dim slice beside the gathered query and output
+    leaves: the block's k and v leaves are not needed)."""
     hc = norm_apply(cfg, lp["ln_cross"], x)
-    return x + attn.cross_apply(cfg, lp["cross"], hc, k, v)
+    p = {n: t for n, t in lp["cross"].items() if n not in CROSS_KV_LEAVES}
+    return x + msh.parallel_block(msh.CROSS, p, hc, lambda p, y:
+                                  attn.cross_decode(cfg, p, y, k, v))
+
+
+def _cross_full(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                enc: torch.Tensor):
+    """``(x', (k, v))``: the residual cross attention of ``x`` over the
+    encoder output ``enc``, in the cross block's ``parallel_block`` frame
+    on the leaves it runs on, and the k and v it made of ``enc`` (B, F,
+    KV, hd): the rank's heads of a column-parallel block, whole in a
+    gathered one."""
+    def block(p, y):
+        k, v = attn.cross_kv(cfg, p, enc)
+        return attn.cross_apply(cfg, p, y, k, v), (k, v)
+    y, kv = msh.parallel_block(msh.CROSS, lp["cross"],
+                               norm_apply(cfg, lp["ln_cross"], x), block)
+    return x + y, kv
 
 
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -275,15 +300,12 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     an argument so that a recompute under ``remat`` (which runs in the
     autograd engine's thread) runs on it too.  The cross attention takes
     its k and v from the encoder output ``enc`` with the block's own
-    (local) leaves."""
+    leaves (:func:`_cross_full`)."""
     with msh.use_tensor_parallel(tp):
         x = x + _mixer_full(cfg, lp, norm_apply(cfg, lp["ln1"], x),
                             positions)
         if enc is not None:
-            hc = norm_apply(cfg, lp["ln_cross"], x)
-            x = x + msh.parallel_block(
-                ("layers", "cross"), lp["cross"], hc, lambda p, y:
-                attn.cross_apply(cfg, p, y, *attn.cross_kv(cfg, p, enc)))
+            x, _ = _cross_full(cfg, lp, x, enc)
         return _mlp(cfg, lp, x)
 
 
@@ -437,12 +459,13 @@ def _mixer_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
     return c
 
 
-def _cross_caches(cfg: ModelConfig, params: dict, enc: torch.Tensor):
-    """Every decoder layer's cross k and v of the encoder output ``enc``:
-    ``(cross_k, cross_v)``, (L, B, F, KV, hd) each."""
-    kvs = [attn.cross_kv(cfg, _index(params["layers"]["cross"], li), enc)
-           for li in range(cfg.n_layers)]
-    return tuple(torch.stack(t) for t in zip(*kvs))
+def _cross_caches(kvs: list) -> tuple:
+    """``(cross_k, cross_v)``, (L, B, F, KV, hd) each, of every decoder
+    layer's cross ``(k, v)`` ``kvs``; under tensor parallelism this
+    rank's blocks (``models.sharding.ring_block``: a gathered block's
+    whole k and v cut to the rank's head-dim slice)."""
+    return tuple(torch.stack([msh.ring_block(t, "cross_k") for t in ts])
+                 for ts in zip(*kvs))
 
 
 @torch.no_grad()
@@ -455,7 +478,10 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     decoder-only arch ignores ``frontend`` (its patch rows enter through
     :func:`prefill_cache`).  Under tensor parallelism the ``layers``
     leaves are this rank's zero blocks of the layout
-    (``models.sharding.with_cache``), nothing whole allocated."""
+    (``models.sharding.with_cache``), nothing whole allocated, and the
+    cross caches its blocks, made from the whole encoder output
+    (``models.sharding.enter_decoder``) with the cross block's leaves as
+    the block runs them (``models.sharding.block_params``)."""
     dev = params["embed"].device
     C = cache_capacity(cfg, max_len)
     tp = msh.current_tensor_parallel()
@@ -468,10 +494,15 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
              "slot_pos": torch.full((C,), -1, dtype=torch.int32,
                                     device=dev),
              "layers": layers if tp is None
-             else msh.zeros_cache(layers, tp, dev)}
+             else msh.zeros_cache({"layers": layers}, tp, dev)["layers"]}
     if cfg.enc_dec:
+        enc = msh.enter_decoder(_run_encoder(cfg, params, frontend))
+        cross = msh.block_params(msh.CROSS, {
+            n: t for n, t in params["layers"]["cross"].items()
+            if n in CROSS_KV_LEAVES})
         cache["cross_k"], cache["cross_v"] = _cross_caches(
-            cfg, params, _run_encoder(cfg, params, frontend))
+            [attn.cross_kv(cfg, _index(cross, li), enc)
+             for li in range(cfg.n_layers)])
     return cache
 
 
@@ -622,7 +653,11 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     rank's block of the layout (``models.sharding.with_cache``): a
     column-parallel attention block's k/v are its heads, a gathered
     one's whole (``models.sharding.ring_block`` keeps the rank's slots
-    or head-dim slice), the Mamba block's state its channels'."""
+    or head-dim slice), the Mamba block's state its channels'.  The
+    cross k and v of an enc-dec arch come from each layer's cross block
+    in its frame, so kept as the block's heads or, of a gathered block's
+    whole k and v, as the rank's head-dim slice; a decoder-only
+    frontend's prefix fills the ring's first F slots as the text does."""
     tp = msh.current_tensor_parallel()
     if tp is not None and tp.cache is None:
         raise ValueError("the tensor-parallel layout has no cache layout "
@@ -631,8 +666,7 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     S = positions.shape[0]
     C = cache_capacity(cfg, max_len)
     slot_pos, place = _ring(S, S, C, x.device)
-    cross = _cross_caches(cfg, params, enc) if enc is not None else None
-    caches = []
+    caches, crosses = [], []
     for li in range(cfg.n_layers):
         lp = _index(params["layers"], li)
         h = norm_apply(cfg, lp["ln1"], x)
@@ -649,8 +683,9 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 ssm_mod.ssm_apply(cfg, p, u, return_state=True))
             y = sy if cfg.mixer == "ssm" else 0.5 * (y + sy)
         x = x + y
-        if cross is not None:
-            x = _cross(cfg, lp, x, cross[0][li], cross[1][li])
+        if enc is not None:
+            x, kv = _cross_full(cfg, lp, x, enc)
+            crosses.append(kv)
         x, _ = _mlp(cfg, lp, x)
         caches.append(lc)
     logits = _head(params, norm_apply(cfg, params["final_norm"],
@@ -658,8 +693,8 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     cache = {"idx": torch.tensor(S, dtype=torch.int32, device=x.device),
              "slot_pos": slot_pos, "layers": _stack(caches)}
-    if cross is not None:
-        cache["cross_k"], cache["cross_v"] = cross
+    if crosses:
+        cache["cross_k"], cache["cross_v"] = _cross_caches(crosses)
     return cache, logits
 
 

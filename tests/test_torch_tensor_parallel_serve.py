@@ -634,7 +634,15 @@ TABLE = [("rfast-100m", (32, 8), True, "slots", None),
          ("rfast-100m", (64, 4), True, "heads", None),
          ("olmo-1b", (32, 8), True, "heads", None),
          ("deepseek-7b", (32, 8), True, "heads", None),
-         ("hymba-1.5b", (32, 8), False, "head_dim", "channels")]
+         ("hymba-1.5b", (32, 8), False, "head_dim", "channels"),
+         ("whisper-large-v3", (32, 8), True, "slots", None),
+         ("whisper-large-v3", (32, 8), False, "head_dim", None),
+         ("whisper-large-v3", (64, 4), True, "heads", None),
+         ("pixtral-12b", (32, 8), True, "heads", None),
+         ("pixtral-12b", (64, 4), True, "heads", None)]
+# the enc-dec arch's cross caches by mesh: by head dim where its 20 KV
+# heads do not divide over model (64 does), by heads where they do
+CROSS_LAYOUT = {"whisper-large-v3": {(32, 8): "head_dim", (64, 4): "heads"}}
 
 
 @pytest.mark.parametrize("arch,mesh,seq_shard,kv,ssm", TABLE)
@@ -644,7 +652,10 @@ def test_layout_table_at_full_width(arch, mesh, seq_shard, kv, ssm):
                                   seq=32768, global_batch=128,
                                   cache_seq_shard=seq_shard)
     assert fn.info["model_axis"] == "tensor"
-    assert fn.info["cache_layout"] == {"kv": kv, "ssm": ssm}
+    want = {"kv": kv, "ssm": ssm}
+    if arch in CROSS_LAYOUT:
+        want["cross"] = CROSS_LAYOUT[arch][mesh]
+    assert fn.info["cache_layout"] == want
 
 
 def test_a_ring_that_nothing_divides_stays_whole():
@@ -674,11 +685,11 @@ def test_llama_decode_32k_rank_holds_its_blocks():
 
 
 def test_other_archs_keep_prefill_and_decode_replicated():
-    """phi3.5-moe, deepseek-v2, pixtral-12b and whisper-large-v3 keep the
-    whole model and cache on every rank of ``model``."""
+    """phi3.5-moe and deepseek-v2 (MoE, MLA) keep the whole model and
+    cache on every rank of ``model``; the other nine archs serve
+    tensor-parallel (pixtral-12b and whisper-large-v3 too)."""
     mesh = describe_mesh((2, 2), ("data", "model"))
-    for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "pixtral-12b",
-                 "whisper-large-v3"):
+    for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"):
         cfg = get_config(arch).reduced()
         assert not msh.serving_tensor_parallel_supported(cfg)
         for build in (specs.build_prefill, specs.build_decode):
@@ -686,7 +697,8 @@ def test_other_archs_keep_prefill_and_decode_replicated():
             assert fn.info["model_axis"] == "replicated"
             assert fn.info["cache_layout"] is None
     for arch in ("rfast-100m", "llama3-8b", "olmo-1b", "qwen2.5-3b",
-                 "deepseek-7b", "falcon-mamba-7b", "hymba-1.5b"):
+                 "deepseek-7b", "falcon-mamba-7b", "hymba-1.5b",
+                 "pixtral-12b", "whisper-large-v3"):
         assert msh.serving_tensor_parallel_supported(get_config(arch))
 
 
