@@ -393,8 +393,9 @@ run.  Phases:
    function ``phase_tensor_parallel_serve``; phase 32's eight ranks; the
    cache laid out by the reference's ``cache_pspecs``,
    ``launch.specs.serving_layout``) — fp32, weights from seed 0, each
-   case's prompt prefilled by ``prefill_cache`` (sequence-parallel) and
-   16 teacher-forced ``decode_step``s, every step's logits (gathered
+   case's prompt prefilled by ``prefill_cache`` (sequence-parallel but
+   for deepseek-v2) and 16 teacher-forced ``decode_step``s (8 for (h)–
+   (j)), every step's logits (gathered
    over the vocab) within 1e-5 of the largest |logit| of the unsharded
    run on the card and the cache, gathered, within 1e-5 of its after the
    last step (the unsharded run on each node's model index 0, in its
@@ -424,16 +425,30 @@ run.  Phases:
    ``init_cache(frontend=)``'s cross blocks to the prefill's, and their
    replicated logits bitwise across the group; (g) pixtral-12b at 2 of
    40 layers on M 8, its 256 patch rows before a prompt of 256, the
-   ring by KV heads (one a rank), vocab-parallel, max_len 1024.  A
-   decode step's collectives are the layout's count (heads: 1 + 2L
-   sums; slots: 7L gathers, L maxes, 1 + 2L sums; head dim: 8L gathers,
-   1 + 2L sums; hymba: 4L gathers, L maxes, 4L sums, L all-to-alls;
-   falcon: 1 + 2L sums, L all-to-alls; whisper by heads: 3L sums; by
-   slots and head dim: 11L gathers, L maxes, 3L sums); each rank's
-   cache bytes (the ring's, and the cross caches' apart) are 1 / M of
-   its rows'; emitted beside them a rank's weight bytes, the
-   collectives of a prefill and a decode step (calls, bytes, staged
-   bytes), the seconds of each (gloo's host path) and the card's
+   ring by KV heads (one a rank), vocab-parallel, max_len 1024; (h)
+   phi3.5-moe-42b-a6.6b at 2 of 32 layers on M 8, B 2, prompt 256,
+   max_len 512: the ring by KV heads (one a rank), 2 of 16 experts a
+   rank, the prefill sequence-parallel, then 4 ``decode_step_slots``
+   from an empty cache with the rows at positions 5 and 0 (each row
+   routed alone) held to the unsharded ones; (i) deepseek-v2-236b at 1
+   of 60 layers on M 8 (16 MLA heads and 20 of 160 experts a rank, the
+   prefill not sequence-parallel, as the reference opts out): MLA's
+   latent ``c`` by slots (64 of 512 a rank), ``kr`` whole, decoded in
+   the absorbed form (``models.sharding.latent_attend``); (j) the same
+   with ``cache_seq_shard=False``: ``c`` by latent dim (64 of 512).  The
+   MoE cases' routes and drops (each ``moe._slots`` call's experts and
+   kept choices, at the prefill and every step) equal the unsharded
+   run's on every rank.  A decode step's collectives are the layout's
+   count (heads: 1 + 2L sums; slots: 7L gathers, L maxes, 1 + 2L sums;
+   head dim: 8L gathers, 1 + 2L sums; hymba: 4L gathers, L maxes, 4L
+   sums, L all-to-alls; falcon: 1 + 2L sums, L all-to-alls; whisper by
+   heads: 3L sums; by slots and head dim: 11L gathers, L maxes, 3L sums;
+   deepseek-v2 by slots: L gathers, L maxes, 1 + 3L sums; by latent
+   dim: 2L gathers, 1 + 3L sums); each rank's cache bytes (the ring's
+   or ``c``'s, and the cross caches' apart) are 1 / M of its rows', and
+   its ``kr`` all of its rows'; emitted beside them a rank's weight
+   bytes, the collectives of a prefill and a decode step (calls, bytes,
+   staged bytes), the seconds of each (gloo's host path) and the card's
    memory.
 
 Each of phases 17–36 prints its wall seconds, peak memory or
@@ -717,26 +732,35 @@ TP_FRONT_FULL = [("whisper-large-v3", 2, 4, 5, True, False, 226_245_120),
 
 # phase 36: prefill and decode with the model axis tensor-parallel, ranks
 # of this card over gloo, fp32, weights from seed 0: each case's prompt
-# prefilled (sequence-parallel) and TP_SERVE_STEPS teacher-forced decode
-# steps, held to the unsharded run.  A case: its arch cut to ``layers``
+# prefilled (sequence-parallel but where the arch opts out) and its
+# decode steps (TP_SERVE_STEPS teacher-forced ones unless the case says
+# otherwise), held to the unsharded run.  A case: its arch cut to ``layers``
 # (None: all), its (nodes, model ranks) mesh of the first ranks, the
 # global batch, prompt and max_len, cache_seq_shard, the layouts
 # expected, the blocks gathered, whether the head is vocab-parallel, and
 # the collectives of one decode step (L layers: module docstring)
 TP_SERVE_TOL = 1e-5          # of the largest |logit| / cache entry
 TP_SERVE_STEPS = 16
+# a case's decode_step_slots run: from an empty cache, the rows at these
+# positions, TP_SERVE_SLOT_STEPS steps
+TP_SERVE_SLOT_POS, TP_SERVE_SLOT_STEPS = (5, 0), 4
 
 
 def _serve_case(case, arch, layers, mesh, batch, prompt, max_len,
                 seq_shard, kv, ssm, gathered, vocab_parallel, calls,
-                cross=None):
+                cross=None, latent=None, seq_parallel=True, slots=False,
+                steps=TP_SERVE_STEPS):
     """``cross``: the enc-dec arch's cross caches' layout (None: no
-    encoder).  A frontend arch's frames or patches come with the prompt."""
+    encoder); ``latent``: the MLA arch's latent's (None: no MLA);
+    ``seq_parallel``: the prefill's; ``slots``: also a
+    ``decode_step_slots`` run; ``steps``: the decode steps.  A frontend
+    arch's frames or patches come with the prompt."""
     return dict(case=case, arch=arch, layers=layers, mesh=mesh,
                 batch=batch, prompt=prompt, max_len=max_len,
                 seq_shard=seq_shard, kv=kv, ssm=ssm, gathered=gathered,
                 vocab_parallel=vocab_parallel, decode_calls=calls,
-                cross=cross)
+                cross=cross, latent=latent, seq_parallel=seq_parallel,
+                slots=slots, steps=steps)
 
 
 
@@ -778,7 +802,28 @@ TP_SERVE = [
     # pixtral-12b at 2 of 40 layers, 256 patch rows before a prompt of
     # 256 tokens: one KV head a rank, vocab-parallel, 1 + 2L sums
     _serve_case("g", "pixtral-12b", 2, (1, 8), 2, 256, 1024, True,
-                "heads", None, [], True, {"all_reduce_sum": 5})]
+                "heads", None, [], True, {"all_reduce_sum": 5}),
+    # phi3.5-moe-42b-a6.6b at 2 of 32 layers: one KV head and 2 of 16
+    # experts a rank, the prefill sequence-parallel, 1 + 2L sums; then
+    # decode_step_slots, each row routed alone.  (h)-(j) take 8 decode
+    # steps (the script's time limit)
+    _serve_case("h", "phi3.5-moe-42b-a6.6b", 2, (1, 8), 2, 256, 512, True,
+                "heads", None, [], True, {"all_reduce_sum": 5}, slots=True,
+                steps=8),
+    # deepseek-v2-236b at 1 of 60 layers, 16 MLA heads and 20 of 160
+    # experts a rank, the prefill not sequence-parallel (the reference's
+    # opt-out): c by slots (64 of 512) and kr whole, a layer's gather of
+    # [q̃ | qr], the merge's max and sum, the MLA and MoE blocks' sums (L
+    # gathers, L maxes, 1 + 3L sums); (j) c by latent dim (64 of 512): the
+    # gather, the partial scores' sum, the gather of p·c (2L gathers, 1 +
+    # 3L sums)
+    _serve_case("i", "deepseek-v2-236b", 1, (1, 8), 2, 256, 512, True, None,
+                None, [], True, {"all_gather_seq": 1, "all_reduce_max": 1,
+                                 "all_reduce_sum": 4},
+                latent="slots", seq_parallel=False, steps=8),
+    _serve_case("j", "deepseek-v2-236b", 1, (1, 8), 2, 256, 512, False, None,
+                None, [], True, {"all_gather_seq": 2, "all_reduce_sum": 4},
+                latent="latent_dim", seq_parallel=False, steps=8)]
 # 36(e)'s build functions materialized on the card, on its mesh
 TP_SERVE_LIVE = {"mesh": (2, 4), "prefill": dict(seq=256, global_batch=4),
                  "decode": dict(seq=512, global_batch=4)}
@@ -3048,6 +3093,30 @@ def tp_cell(mesh, ref: dict, cfg, rounds: int) -> dict:
     return out
 
 
+def routed(fn):
+    """``(fn(), routes)``: each ``moe._slots`` call's (experts, kept) in
+    ``fn``, on the host (none without MoE)."""
+    from repro_torch.models import moe as moe_mod
+    seen, slots = [], moe_mod._slots
+
+    def rec(c, expert_idx, C):
+        pos, keep = slots(c, expert_idx, C)
+        seen.append((expert_idx.cpu(), keep.cpu()))
+        return pos, keep
+    moe_mod._slots = rec
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._slots = slots
+
+
+def routes_digest(routes) -> str:
+    """A digest of :func:`routed`'s routes, for equality across ranks."""
+    import hashlib
+    return hashlib.sha256(b"".join(t.numpy().tobytes() for r in routes
+                                   for t in r)).hexdigest()
+
+
 def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
             remat: bool) -> dict:
     """32(c), 33(a), 34(a)/(b), 35(a)/(b) on one rank of a model group:
@@ -3061,8 +3130,6 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
     MoE routes (each ``moe._slots`` call's experts and kept choices;
     none without MoE) and the card's memory in use (all ranks) after
     each."""
-    import hashlib
-
     import torch
     import torch.distributed as dist
     from repro_torch.core.paramvec import (make_ravel_spec, ravel,
@@ -3071,7 +3138,6 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
                                                   collective_stats)
     from repro_torch.kernels.rfast_update import dispatch
     from repro_torch.kernels.ssm_scan import ops as scan_ops
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding as msh
     from repro_torch.models.transformer import (init_params, loss_fn,
                                                 param_shapes)
@@ -3084,21 +3150,7 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
         toks += (torch.randn((batch, cfg.frontend_seq, cfg.frontend_dim),
                              generator=gen, device="cuda"),)
     lf = lambda p, b, k: loss_fn(cfg, p, *b, remat=remat)
-    slots = moe_mod._slots
     used = lambda: (lambda f, t: (t - f) / 1e9)(*torch.cuda.mem_get_info())
-
-    def routed(fn):             # fn() and each _slots call's (experts, kept)
-        seen = []
-
-        def rec(c, expert_idx, C):
-            pos, keep = slots(c, expert_idx, C)
-            seen.append((expert_idx.cpu(), keep.cpu()))
-            return pos, keep
-        moe_mod._slots = rec
-        try:
-            return fn(), seen
-        finally:
-            moe_mod._slots = slots
     out = {"arch": cfg.name, "layers": cfg.n_layers,
            "seq_parallel": tp.seq_parallel,
            "vocab_parallel": tp.vocab_parallel,
@@ -3177,9 +3229,7 @@ def tp_grad(mesh, cfg, *, batch: int, seq: int, seq_parallel: bool,
                        for (a, b), (c, d) in zip(routes, whole_routes)),
                route_calls=len(routes),
                drops=[int((~k).sum()) for _, k in routes],
-               routes_digest=hashlib.sha256(b"".join(
-                   t.numpy().tobytes() for r in routes for t in r))
-               .hexdigest())
+               routes_digest=routes_digest(routes))
     del g, want_host
     torch.cuda.empty_cache()
     dist.barrier(group=tp.group.pg)
@@ -3752,25 +3802,68 @@ def phase_tensor_parallel_front(name: str, smi: str, outs: list) -> dict:
 # --------------------------------------------------------------------- #
 # phase 36: prefill and decode with the model axis tensor-parallel
 # --------------------------------------------------------------------- #
-def tp_serve_reference(cfg, full, toks, fr, case: dict) -> dict:
-    """The unsharded ``prefill_cache`` of ``toks``' prompt (with the
-    frames or patches ``fr``, None without a frontend) and
-    ``TP_SERVE_STEPS`` teacher-forced ``decode_step``s on the whole tree
-    ``full``: each step's logits and the final cache, on the card."""
+def tp_serve_run(cfg, params, toks, fr, case: dict):
+    """``prefill_cache`` of ``toks``' prompt (with the frames or patches
+    ``fr``, None without a frontend) and the case's teacher-forced
+    ``decode_step``s on ``params`` under the caller's layout: ``(logits of
+    each, final cache, their MoE routes)``."""
     import torch
     from repro_torch.models.transformer import decode_step, prefill_cache
     P = case["prompt"]
+
+    def run():
+        cache, lg = prefill_cache(cfg, params, toks[:, :P], case["max_len"],
+                                  frontend=fr)
+        logits = [lg]
+        for i in range(case["steps"]):
+            lg, cache = decode_step(cfg, params, cache,
+                                    toks[:, P + i:P + i + 1])
+            logits.append(lg)
+        return torch.stack(logits), cache
+    (logits, cache), routes = routed(run)
+    return logits, cache, routes
+
+
+def tp_serve_slots(cfg, params, toks, case: dict):
+    """``TP_SERVE_SLOT_STEPS`` ``decode_step_slots`` on ``params`` under
+    the caller's layout, from an empty cache whose rows start at
+    ``TP_SERVE_SLOT_POS``, teacher-forced by the tokens after ``toks``'
+    prompt: ``(logits of each, their MoE routes)``."""
+    import torch
+    from repro_torch.models.transformer import decode_step_slots, init_cache
+    P, b = case["prompt"], toks.shape[0]
+    cache = init_cache(cfg, params, b, case["max_len"])
+    cache["slot_pos"] = cache["slot_pos"].expand(b, -1).clone()
+    cache["idx"] = torch.tensor(TP_SERVE_SLOT_POS, dtype=torch.int32,
+                                device=toks.device)
+
+    def run():
+        logits = []
+        for i in range(TP_SERVE_SLOT_STEPS):
+            lg, _ = decode_step_slots(cfg, params, cache,
+                                      toks[:, P + i:P + i + 1])
+            logits.append(lg)
+        return torch.stack(logits)
+    return routed(run)
+
+
+def tp_serve_reference(cfg, full, toks, fr, case: dict) -> dict:
+    """The unsharded run of :func:`tp_serve_run` on the whole tree
+    ``full`` (and of :func:`tp_serve_slots` for a case with ``slots``):
+    each step's logits, the final cache and a digest of the routes, on
+    the card."""
+    import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, lg = prefill_cache(cfg, full, toks[:, :P], case["max_len"],
-                              frontend=fr)
-    logits = [lg]
-    for i in range(TP_SERVE_STEPS):
-        lg, cache = decode_step(cfg, full, cache, toks[:, P + i:P + i + 1])
-        logits.append(lg)
+    logits, cache, routes = tp_serve_run(cfg, full, toks, fr, case)
+    out = {"logits": logits, "cache": cache,
+           "routes_digest": routes_digest(routes)}
+    if case["slots"]:
+        lg, routes = tp_serve_slots(cfg, full, toks, case)
+        out.update(slots_logits=lg, slots_routes_digest=routes_digest(
+            routes))
     torch.cuda.synchronize()
-    return {"logits": torch.stack(logits), "cache": cache,
-            "seconds": time.perf_counter() - t0}
+    return dict(out, seconds=time.perf_counter() - t0)
 
 
 def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
@@ -3780,7 +3873,7 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     the group's model index 0 running the unsharded reference on its
     node's rows (``refs``, kept for a later case of the same cut); then
     ``prefill_cache`` of the prompt (sequence-parallel) and
-    ``TP_SERVE_STEPS`` ``decode_step``s on the blocks, each timed, with
+    its ``decode_step``s on the blocks, each timed, with
     the collectives of the prefill and of one decode step, the kernel
     launches and scan shapes of the prefill, the logits and the cache
     gathered whole and, on model index 0, held to the reference.  A
@@ -3804,7 +3897,7 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
                                                 prefill_cache)
     cfg = tp_config(case["arch"], case["layers"])
     inside = mesh.coords is not None
-    P, C_len, steps = case["prompt"], case["max_len"], TP_SERVE_STEPS
+    P, C_len, steps = case["prompt"], case["max_len"], case["steps"]
     if inside:
         D, M = mesh.shape["data"], mesh.shape["model"]
         node, m = mesh.coords["data"], mesh.coords["model"]
@@ -3812,7 +3905,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         tp = specs.serving_layout(cfg, param_shapes(cfg), mesh,
                                   max_len=C_len,
                                   cache_seq_shard=case["seq_shard"],
-                                  seq_parallel=True, dtype=torch.float32)
+                                  seq_parallel=case["seq_parallel"],
+                                  dtype=torch.float32)
         gen = torch.Generator(device="cuda").manual_seed(1)
         toks = torch.randint(0, cfg.vocab, (case["batch"], P + steps),
                              generator=gen, device="cuda")[node * b:
@@ -3849,8 +3943,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     own, step_s = [], []
-    try:
-        scan_ops.ssm_scan = seen
+
+    def run():
         with msh.use_tensor_parallel(tp):
             dispatch.clear()
             clear_collectives()
@@ -3874,9 +3968,22 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
                     out["decode_collectives"] = collective_stats()
                 own.append(lg)
             out["decode_launches"] = dispatch.stats()["by_kernel"]
+        return cache
+    try:
+        scan_ops.ssm_scan = seen
+        cache, routes = routed(run)
     finally:
         scan_ops.ssm_scan = scan_call
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(routes_digest=routes_digest(routes), route_calls=len(routes),
+               drops=sum(int((~k).sum()) for _, k in routes))
+    if case["slots"]:
+        with msh.use_tensor_parallel(tp):
+            slots_own, routes = tp_serve_slots(cfg, local, toks, case)
+        out["slots_routes_digest"] = routes_digest(routes)
+        slots_whole = (all_gather_seq(slots_own, tp.group, -1)
+                       if tp.vocab_parallel else slots_own)
+        del slots_own
     free, total = torch.cuda.mem_get_info()
     out["card_used_gb"] = (total - free) / 1e9
     cross = {k: cache[k] for k in ("cross_k", "cross_v") if k in cache}
@@ -3892,6 +3999,12 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     own = torch.stack(own)
     whole_cache = specs.whole_cache(cfg, case["batch"], C_len,
                                     torch.float32)
+    # the layers' leaves laid out over model, and those whole by design
+    # (MLA's kr)
+    leaves = lambda layers, whole: [t for path, t in msh._paths(layers)
+                                    if (path[-1] in msh.WHOLE_LEAVES)
+                                    == whole]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     out.update(
         info=dict(model_axis="tensor", cache_layout=tp.cache_layout,
                   gathered=sorted("/".join(k) for k in tp.gathered),
@@ -3900,15 +4013,16 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         node=node, model=m, decode_s=step_s, scan_calls=shapes,
         logits_digest=hashlib.sha256(own.cpu().numpy().tobytes())
         .hexdigest(),
-        cache_bytes=_distinct_bytes(specs.tensors_of(cache["layers"])),
+        cache_bytes=_distinct_bytes(leaves(cache["layers"], False)),
+        kr_bytes=_distinct_bytes(leaves(cache["layers"], True)),
         cross_bytes=_distinct_bytes(specs.tensors_of(cross)),
         weight_bytes=_distinct_bytes(specs.tensors_of(local)),
         whole_weight_bytes=sum(t.numel() * 4 for t in specs.tensors_of(
             param_shapes(cfg))),
-        whole_cache_bytes=sum(t.numel() * t.element_size() for t in
-                              specs.tensors_of(whole_cache["layers"])),
-        whole_cross_bytes=sum(
-            t.numel() * t.element_size() for k, t in whole_cache.items()
+        whole_cache_bytes=nbytes(leaves(whole_cache["layers"], False)),
+        whole_kr_bytes=nbytes(leaves(whole_cache["layers"], True)),
+        whole_cross_bytes=nbytes(
+            t for k, t in whole_cache.items()
             if k in ("cross_k", "cross_v")))
     if m == 0 and case["ssm"] and captured:
         out["scan_args"] = captured[0]
@@ -3930,6 +4044,13 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
                                             ref["cache"]["idx"]))
         out["slot_pos_equal"] = bool(torch.equal(gathered["slot_pos"],
                                                  ref["cache"]["slot_pos"]))
+        out["ref_routes_digest"] = ref["routes_digest"]
+        if case["slots"]:
+            out["slots_rel_err"] = max(rel(g, w) for g, w in zip(
+                slots_whole, ref["slots_logits"]))
+            out["ref_slots_routes_digest"] = ref["slots_routes_digest"]
+    if case["slots"]:
+        del slots_whole
     del whole, gathered
     torch.cuda.empty_cache()
     return out
@@ -4027,13 +4148,16 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
         layout = {"kv": case["kv"], "ssm": case["ssm"]}
         if case["cross"]:
             layout["cross"] = case["cross"]
+        if case["latent"]:
+            layout["latent"] = case["latent"]
         want_info = {"model_axis": "tensor", "cache_layout": layout,
                      "gathered": case["gathered"],
                      "vocab_parallel": case["vocab_parallel"],
-                     "seq_parallel": True}
+                     "seq_parallel": case["seq_parallel"]}
         check(all(r["info"] == want_info for r in rs),
               f"{tag}: {want_info}")
         refs = [r for r in rs if r["model"] == 0]
+        L = case["layers"]
         check(len(refs) == D and all(
             r["logits_rel_err"] <= TP_SERVE_TOL
             and max(r["cache_rel_err"].values()) <= TP_SERVE_TOL
@@ -4048,22 +4172,40 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
                   f"collectives {got} are {case['decode_calls']}")
             check(r["cache_bytes"] * M == r["whole_cache_bytes"] // D
                   and r["cross_bytes"] * M == r["whole_cross_bytes"] // D
+                  and r["kr_bytes"] == r["whole_kr_bytes"] // D
                   and r["weight_bytes"] < r["whole_weight_bytes"],
                   f"{tag}: a rank holds 1 / {M} of its rows' cache "
-                  f"(ring {r['cache_bytes']} of {r['whole_cache_bytes']} B, "
-                  f"cross {r['cross_bytes']} of {r['whole_cross_bytes']} B)"
-                  " and its blocks of the weights")
+                  f"(ring or c {r['cache_bytes']} of "
+                  f"{r['whole_cache_bytes']} B, cross {r['cross_bytes']} of "
+                  f"{r['whole_cross_bytes']} B), all of its rows' kr "
+                  f"({r['kr_bytes']} of {r['whole_kr_bytes']} B) and its "
+                  "blocks of the weights")
+            ref = next(q for q in refs if q["node"] == r["node"])
+            if r["route_calls"]:
+                check(r["route_calls"] == (1 + case["steps"]) * L
+                      and r["routes_digest"] == ref["ref_routes_digest"],
+                      f"{tag}: the prefill's and every step's MoE routes "
+                      "and drops equal the unsharded run's")
+            if case["slots"]:
+                check(r["slots_routes_digest"]
+                      == ref["ref_slots_routes_digest"],
+                      f"{tag}: decode_step_slots' routes (each row alone) "
+                      "equal the unsharded run's")
             if case["cross"]:
                 check(r["init_cross_rel_err"] <= TP_SERVE_TOL,
                       f"{tag}: init_cache(frontend=)'s cross blocks within "
                       f"{TP_SERVE_TOL} of the prefill's "
                       f"({r['init_cross_rel_err']}, bitwise "
                       f"{r['init_cross_bitwise']})")
+        if case["slots"]:
+            check(all(r["slots_rel_err"] <= TP_SERVE_TOL for r in refs),
+                  f"{tag}: {TP_SERVE_SLOT_STEPS} decode_step_slots from "
+                  f"positions {TP_SERVE_SLOT_POS} within {TP_SERVE_TOL} of "
+                  f"the unsharded run ({[r['slots_rel_err'] for r in refs]})")
         if not case["vocab_parallel"]:
             check(len({r["logits_digest"] for r in rs}) == 1,
                   f"{tag}: the replicated head's logits bitwise equal "
                   "across the model group")
-        L = case["layers"]
         if case["ssm"]:
             di = tp_config(case["arch"]).d_inner // M
             want = [[case["batch"] // D, case["prompt"], di, 16]] * L

@@ -40,12 +40,12 @@ reference's linear fit in L (``fit``, at L = 2 and 4) is kept so that
 direct count.  ``--rules fsdp`` changes the GSPMD layout the record
 reports (``gspmd``: the bytes a rank would hold under the reference's
 specs) beside what the port's rank holds (the same blocks for a
-tensor-parallel case, ``model_axis: "tensor"``: every arch's train case,
-and the prefill and decode cases of every arch but the MoE and MLA ones,
-whose arguments are a rank's blocks of the weights and of the cache as
-``cache_pspecs`` lays it out, an enc-dec arch's cross caches included;
-the record's ``case.cache_layout`` names the ring's, the SSM state's
-and the cross caches' layouts).
+tensor-parallel case, ``model_axis: "tensor"``: every arch's train,
+prefill and decode cases, whose serving arguments are a rank's blocks
+of the weights and of the cache as ``cache_pspecs`` lays it out, an
+enc-dec arch's cross caches and MLA's latent included; the record's
+``case.cache_layout`` names the ring's, the SSM state's, the cross
+caches' and the latent's layouts).
 
 Artifacts: ``<out>/<arch>__<shape>__<mesh>[__<rules>].json``.
 

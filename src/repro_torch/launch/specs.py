@@ -40,27 +40,26 @@ nothing allocated; another device materializes the same case from
   remat=True, ce=ce)``.
 * **prefill / decode** — ``forward(..., last_only=True)`` and
   ``decode_step`` on this rank's batch rows (:func:`~.shardings.
-  batch_pspec`'s divisibility rule).  For the archs without MoE or MLA
-  (``models.sharding.serving_tensor_parallel_supported``: the dense
-  decoders, falcon-mamba-7b, hymba-1.5b, pixtral-12b's patch prefix and
-  whisper-large-v3's encoder and cross caches) on a ``model`` axis of
-  M > 1 ranks, the axis runs tensor-parallel (:func:`serving_layout`): a
-  rank holds its blocks of the parameter tree laid out without lead
+  batch_pspec`'s divisibility rule).  For every arch on a ``model`` axis
+  of M > 1 ranks, the axis runs tensor-parallel (:func:`serving_layout`):
+  a rank holds its blocks of the parameter tree laid out without lead
   axes, as the reference's ``tree_shardings(params, mesh, rules)``
-  lays them out, and its block of every decode cache leaf, as
+  lays them out (an MoE block's ``E / M`` experts, MLA's ``H / M``
+  heads), and its block of every decode cache leaf, as
   ``cache_pspecs(cache, mesh, batch_axes, seq_shard=cache_seq_shard)``
-  lays it out (the cross caches ``cross_k`` / ``cross_v`` included;
-  ``idx`` and ``slot_pos`` whole); ``seq_parallel`` shards the prefill's
-  residual stream over the sequence (a frontend's prefix included)
-  where M divides it, and whisper's encoder stream over the frames
-  where M divides them too.  ``step_fn.info`` says ``"model_axis":
-  "tensor"``, the blocks that run gathered, ``vocab_parallel`` and
-  ``cache_layout`` (the k/v ring by ``heads``, ``slots``, ``head_dim``
-  or ``replicated``, the SSM state by ``channels`` or ``replicated``,
-  and for the enc-dec arch the cross caches, ``"cross"``, by ``heads``,
-  ``head_dim`` or ``replicated``).  The MoE and MLA archs hold the whole
-  model and cache on every rank (``"model_axis": "replicated"``,
-  ``cache_layout`` None).
+  lays it out (the cross caches ``cross_k`` / ``cross_v`` and MLA's
+  latent ``c`` included; MLA's ``kr``, ``idx`` and ``slot_pos`` whole);
+  ``seq_parallel`` shards the prefill's residual stream over the
+  sequence (a frontend's prefix included) where M divides it, and
+  whisper's encoder stream over the frames where M divides them too.
+  ``step_fn.info`` says ``"model_axis": "tensor"``, the blocks that run
+  gathered, ``vocab_parallel`` and ``cache_layout`` (the k/v ring by
+  ``heads``, ``slots``, ``head_dim`` or ``replicated``, the SSM state by
+  ``channels`` or ``replicated``, for the enc-dec arch the cross caches,
+  ``"cross"``, by ``heads``, ``head_dim`` or ``replicated``, and for the
+  MLA arch its latent, ``"latent"``, by ``slots``, ``latent_dim`` or
+  ``replicated``).  At M = 1 every rank holds the whole model and cache
+  (``"model_axis": "replicated"``, ``cache_layout`` None).
 
 ``dtype`` defaults to the reference's bf16.  Parameter trees follow the
 reference's dtypes (:func:`~repro_torch.models.transformer.param_shapes`:
@@ -343,16 +342,15 @@ def serving_layout(cfg: ModelConfig, tree, mesh, *, max_len: int,
     """This rank's :class:`~repro_torch.models.sharding.TensorParallel`
     for prefill and decode of ``cfg`` on ``mesh`` (``tree`` the whole
     parameter tree; meta tensors will do), or None where the ``model``
-    axis stays replicated (M = 1, or an arch that
-    ``serving_tensor_parallel_supported`` refuses): the parameters laid
-    out without lead axes by the ``model`` axis of ``rules``, the
+    axis stays replicated (M = 1): the parameters laid out without lead
+    axes by the ``model`` axis of ``rules``, the
     decode cache of ``max_len`` positions by ``cache_pspecs(...,
     seq_shard=cache_seq_shard)`` (``models.sharding.with_cache``), the
     prefill's stream sequence-parallel with ``seq_parallel``.  Every rank
     of the mesh calls it with the same arguments."""
     M = sh.mesh_axis_size(mesh, "model") if "model" in mesh.axis_names \
         else 1
-    if M <= 1 or not msh.serving_tensor_parallel_supported(cfg):
+    if M <= 1:
         return None
     rules = {k: (v if v == "model" else None)
              for k, v in (rules or sh.RULES_BASE).items()}

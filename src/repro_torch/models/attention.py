@@ -257,22 +257,26 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     """One-token MLA decode of ``x`` (B, 1, d), a position per row as
     :func:`gqa_decode` takes it: writes the new c and kr at slot
     ``pos % C`` of each row of ``cache`` in place and returns
-    ``(out (B, 1, d), cache)``."""
-    B = x.shape[0]
+    ``(out (B, 1, d), cache)``.  Under tensor parallelism ``cache`` is
+    this rank's block of ``c`` and the whole ``kr``
+    (``models.sharding.ring_write`` / ``latent_attend``; C is
+    ``slot_pos``'s), and on a rank's heads ``out`` is its partial sum of
+    ``wo``'s rows."""
     cos, sin = rope_cos_sin(pos, cfg.qk_rope_dim, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]                 # (B, 1, rd/2)
     qn, qr = _mla_q(cfg, p, x, cos, sin)
     c_new, kr_new = _mla_compress(cfg, p, x, cos, sin)
     c, kr = cache["c"], cache["kr"]
-    rows = torch.arange(B, device=x.device)
-    slot = pos % c.shape[1]
-    c[rows, slot] = c_new[:, 0].to(c.dtype)
-    kr[rows, slot] = kr_new[:, 0].to(kr.dtype)
+    slot = pos % slot_pos.shape[-1]
+    msh.ring_write(c, c_new[:, 0], slot, "c")
+    msh.ring_write(kr, kr_new[:, 0], slot, "kr")
     pos = pos[:, None]
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         valid &= slot_pos > pos - window
-    o = _mla_attend(cfg, p, qn, qr, c, kr, valid[:, None, None, :])
+    o = msh.latent_attend(qn, qr, c, kr, p, valid,
+                          (cfg.hd + cfg.qk_rope_dim) ** -0.5,
+                          lambda *a: _mla_attend(cfg, p, *a))
     return o, cache
 
 

@@ -99,9 +99,9 @@ Every arch of the repo trains so (:func:`tensor_parallel_supported`).
 Prefill and decode run the same blocks on parameters laid out without
 lead axes (``node_axes=()``), and a rank holds its block of the decode
 cache as the reference's ``launch/shardings.cache_pspecs`` lays it out
-(:func:`with_cache`; ``TensorParallel.cache``), for the archs with GQA
-attention or SSM and no MoE, the patch prefix and the enc-dec arch
-included (:func:`serving_tensor_parallel_supported`):
+(:func:`with_cache`; ``TensorParallel.cache``), for every arch that
+trains so; the MoE block runs on a rank's experts in decode as in the
+forward, every rank routing the step's tokens with the whole router:
 
 * the k/v ring by KV heads (``"heads"``): the attention block is
   column-parallel on whole heads and its rank's ring holds those heads;
@@ -123,13 +123,25 @@ included (:func:`serving_tensor_parallel_supported`):
   gathered one, by head dim (its ``hd / M`` slice of every head, the
   scores' partial sums all-reduced and the ``p·v`` slice gathered, as
   the ring's) or whole.  A decode step's cross attention gathers only
-  the query and output leaves (its k and v are cached).
+  the query and output leaves (its k and v are cached);
+* MLA's latent ``c`` (B, C, r) by ring slots (``"slots"``) or by latent
+  dim (``"latent_dim"``), beside the roped key part ``kr`` (B, C, rd),
+  whole on every rank: decode attends in the absorbed form
+  (:func:`latent_attend`), ``q̃ = qn · k_upᵀ`` per head, so that the
+  scores ``q̃ · c + qr · kr`` and the values ``(p · c) · v_up`` need no
+  whole ``c``; a column-parallel block gathers every head's q̃ and qr, the
+  ranks merge their slots' softmax as the ring's slots do, or sum their
+  latent slices' partial scores and gather their slices of ``p · c``, and
+  each rank keeps its heads.  ``c`` whole (``"replicated"``) runs the
+  forward's attention on it.
 
 ``idx`` and ``slot_pos`` are whole on every rank.  A gathered block's
-prefill k/v (the ring's and the cross caches') are whole, of which
-:func:`ring_block` keeps the rank's block; :func:`last_position` gives
-the head the sequence's last row on every rank.  A decoder-only
-frontend's prefix enters the ring as any other rows.
+prefill k/v (the ring's and the cross caches') are whole, and so are
+MLA's ``c`` and ``kr`` (its down-projections are whole), of which
+:func:`ring_block` keeps the rank's block by the leaf's own layout;
+:func:`last_position` gives the head the sequence's last row on every
+rank.  A decoder-only frontend's prefix enters the ring as any other
+rows.
 """
 from __future__ import annotations
 
@@ -148,9 +160,9 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "ssm_channels", "ssm_proj",
            "expert_offset", "router_loss", "to_head", "vocab_parallel_ce",
            "seq_parallel_mean", "tensor_parallel_grad",
-           "serving_tensor_parallel_supported", "with_cache",
-           "gather_cache", "zeros_cache", "block_params", "ring_block",
-           "ring_write", "ring_attend", "last_position"]
+           "with_cache", "gather_cache", "zeros_cache", "block_params",
+           "ring_block", "ring_write", "ring_attend", "latent_attend",
+           "last_position"]
 
 
 class PartitionSpec(tuple):
@@ -296,10 +308,10 @@ class TensorParallel:
     down-projections of a column-parallel MLA block);
     ``enc_seq_parallel`` whether the encoder's stream is sharded over
     the frames (None: the arch has no encoder); ``cache`` maps each
-    decode cache leaf's name (``k``, ``v``, ``conv``, ``h``, ``cross_k``,
-    ``cross_v``, ``idx``, ``slot_pos``) to the dim, from the end, that
-    its spec shards over ``model``, or None (None: no cache layout,
-    :func:`with_cache`)."""
+    decode cache leaf's name (``k``, ``v``, ``c``, ``kr``, ``conv``,
+    ``h``, ``cross_k``, ``cross_v``, ``idx``, ``slot_pos``) to the dim,
+    from the end, that its spec shards over ``model``, or None (None: no
+    cache layout, :func:`with_cache`)."""
 
     mesh: Any
     rules: dict
@@ -321,12 +333,13 @@ class TensorParallel:
         return self.group.index
 
     def leaf_layout(self, leaf: str) -> Optional[str]:
-        """The layout of the cache leaf ``leaf`` (``"k"``: the k/v ring's,
-        ``"cross_k"``: the cross caches', :data:`KV_LAYOUTS`; ``"h"``: the
-        SSM state's, :data:`SSM_LAYOUTS`), None without one."""
+        """The layout of the cache leaf ``leaf`` by its own dims
+        (:data:`LEAF_LAYOUTS`; ``"k"``: the k/v ring's, ``"cross_k"``: the
+        cross caches', ``"h"``: the SSM state's, ``"c"``: MLA's latent's),
+        None without one."""
         if self.cache is None or leaf not in self.cache:
             return None
-        return (SSM_LAYOUTS if leaf == "h" else KV_LAYOUTS)[self.cache[leaf]]
+        return LEAF_LAYOUTS.get(leaf, KV_LAYOUTS)[self.cache[leaf]]
 
     @property
     def kv_layout(self) -> Optional[str]:
@@ -337,10 +350,12 @@ class TensorParallel:
     def cache_layout(self) -> dict:
         """``{"kv": ..., "ssm": ...}``: the k/v ring's and the SSM
         state's layouts, None where the arch has no such cache; an enc-dec
-        arch's also ``"cross"``, the cross caches'."""
+        arch's also ``"cross"``, the cross caches', and an MLA arch's
+        ``"latent"``, its latent ``c``'s."""
         out = {"kv": self.kv_layout, "ssm": self.leaf_layout("h")}
-        if self.cache is not None and "cross_k" in self.cache:
-            out["cross"] = self.leaf_layout("cross_k")
+        for leaf, key in (("cross_k", "cross"), ("c", "latent")):
+            if self.cache is not None and leaf in self.cache:
+                out[key] = self.leaf_layout(leaf)
         return out
 
     @property
@@ -380,9 +395,15 @@ MOE_DIMS = {("experts", "wi"): -3, ("experts", "wg"): -3,
 MLA_COLUMNS = ("q_b", "wq", "k_up", "v_up")
 MLA_WHOLE = ("w_dkv", "c_scale", "w_kr", "q_a", "q_scale")
 # a cache leaf's dim over model (from the end of (B, C, KV, hd), of the
-# cross caches' (B, F, KV, hd) and of (B, di, N)) -> its layout
+# cross caches' (B, F, KV, hd), of (B, di, N) and of MLA's (B, C, r))
+# -> its layout
 KV_LAYOUTS = {-2: "heads", -3: "slots", -1: "head_dim", None: "replicated"}
 SSM_LAYOUTS = {-2: "channels", None: "replicated"}
+LATENT_LAYOUTS = {-2: "slots", -1: "latent_dim", None: "replicated"}
+# the leaves laid out by a map of their own (the others: KV_LAYOUTS)
+LEAF_LAYOUTS = {"h": SSM_LAYOUTS, "c": LATENT_LAYOUTS, "kr": LATENT_LAYOUTS}
+ATTN = ("layers", "attn")
+NEG = -1e30                 # a masked score (the models' own)
 
 
 def tensor_parallel_supported(cfg) -> bool:
@@ -395,19 +416,6 @@ def tensor_parallel_supported(cfg) -> bool:
     with cross attention, absolute positions and biased MLPs
     (whisper-large-v3)."""
     return cfg.mixer in ("attn", "ssm", "hybrid")
-
-
-def serving_tensor_parallel_supported(cfg) -> bool:
-    """Whether the port runs ``cfg``'s prefill and decode with the
-    ``model`` axis tensor-parallel and the cache laid out by
-    ``cache_pspecs``: the archs with GQA attention, SSM or both and no
-    MoE (rfast-100m, llama3-8b, olmo-1b, qwen2.5-3b, deepseek-7b,
-    falcon-mamba-7b, hymba-1.5b, the patch prefix of pixtral-12b and the
-    encoder and cross caches of whisper-large-v3).  The others (the MoE
-    and MLA archs) keep the whole model and cache on every rank of
-    ``model``."""
-    return (tensor_parallel_supported(cfg) and not cfg.moe_experts
-            and (cfg.mixer == "ssm" or cfg.attention != "mla"))
 
 
 def _paths(tree, prefix=()):
@@ -495,7 +503,7 @@ def tensor_parallel(cfg, tree, mesh, *, rules=None, node_axes=None,
                          if key + (k,) in dims)
                 and dims[key + ("wo",)] == -2)
     blocks, partial = [], []
-    attn = ("layers", "attn")
+    attn = ATTN
     if cfg.mixer in ("attn", "hybrid") and cfg.attention == "mla":
         whole = [attn + (k,) for k in MLA_WHOLE if attn + (k,) in dims]
         ok = (all(dims[attn + (k,)] == -1 for k in MLA_COLUMNS
@@ -571,12 +579,14 @@ def with_cache(tp: TensorParallel, cache, *,
     ``launch.shardings.cache_pspecs(cache, mesh, (), seq_shard=seq_shard)``
     (the batch rows are the caller's, outside the model group).  Raises
     where the port does not run the layout: a sharded leaf other than the
-    k/v ring, the SSM state and the cross caches (MLA's latent), a ring
-    or cross caches by heads beside a gathered attention block or any
-    other layout beside a column-parallel one, an SSM state by channels
-    beside a gathered Mamba block or a whole one beside a block on
-    channels.  The caller checks the arch
-    (:func:`serving_tensor_parallel_supported`)."""
+    k/v ring, MLA's latent ``c``, the SSM state and the cross caches (so
+    MLA's ``kr``, which every rank's heads score against at every slot),
+    a ring or cross caches by heads beside a gathered attention block or
+    any other layout beside a column-parallel one, an SSM state by
+    channels beside a gathered Mamba block or a whole one beside a block
+    on channels.  ``c`` by slots or latent dim runs beside a
+    column-parallel MLA block and a gathered one
+    (:func:`latent_attend`)."""
     from ..launch import shardings as sh
     specs = sh.cache_pspecs(cache, tp.mesh, (), seq_shard=seq_shard)
     dims = {}
@@ -584,12 +594,13 @@ def with_cache(tp: TensorParallel, cache, *,
         spec = tuple(spec)
         axes = [i - len(spec) for i, ax in enumerate(spec) if ax == "model"]
         dims[path[-1]] = axes[0] if axes else None
-    bad = [k for k in dims if k not in CACHE_LEAVES]
+    bad = [k for k, d in dims.items() if k not in CACHE_LEAVES
+           or (k in WHOLE_LEAVES and d is not None)]
     if bad or len({dims.get("k"), dims.get("v")} - {None}) > 1:
         raise ValueError(f"the port lays out no {bad or 'k / v'} cache "
                          "leaf over 'model'")
     out = dataclasses.replace(tp, cache=dims)
-    for leaf, block in (("k", ("layers", "attn")), ("cross_k", CROSS)):
+    for leaf, block in (("k", ATTN), ("cross_k", CROSS)):
         lay = out.leaf_layout(leaf)
         if lay is not None and (lay == "heads") == (block in tp.gathered):
             kind = "gathered" if block in tp.gathered else "column-parallel"
@@ -603,9 +614,11 @@ def with_cache(tp: TensorParallel, cache, *,
     return out
 
 
-# the decode cache's leaves whose layout the port runs
-CACHE_LEAVES = ("k", "v", "conv", "h", "cross_k", "cross_v", "idx",
-                "slot_pos")
+# the decode cache's leaves whose layout the port runs, and those of them
+# it runs whole only
+CACHE_LEAVES = ("k", "v", "c", "kr", "conv", "h", "cross_k", "cross_v",
+                "idx", "slot_pos")
+WHOLE_LEAVES = ("kr", "idx", "slot_pos")
 
 
 def _cache_dim(tp: TensorParallel, path: tuple):
@@ -914,42 +927,47 @@ def last_position(x):
 
 
 def ring_block(kv, leaf: str = "k"):
-    """This rank's block of the k or v rows ``kv`` (B, C, KV, hd) that a
-    prefill places in the ring (``leaf`` ``"k"``), or of a layer's cross
-    k or v (B, F, KV, hd) (``"cross_k"``): a gathered attention block's
-    are whole, of which a layout by slots keeps the rank's ``C / M``
-    slots and one by head dim its ``hd / M`` slice; a column-parallel
-    block's are already the rank's heads, and a replicated leaf keeps
-    them whole."""
+    """This rank's block of the rows ``kv`` that a prefill places in the
+    cache leaf ``leaf``: the ring's k or v (B, C, KV, hd) (``"k"``,
+    ``"v"``), a layer's cross k or v (B, F, KV, hd) (``"cross_k"``), or
+    MLA's ``c`` (B, C, r) or ``kr`` (B, C, rd).  A gathered attention
+    block's k and v are whole, and so are MLA's ``c`` and ``kr``, of
+    which a layout by slots keeps the rank's ``C / M`` slots and one by
+    head dim or latent dim its slice of the last dim; a column-parallel
+    block's k and v are already the rank's heads, and a replicated leaf
+    keeps them whole."""
     from ..core.runtime_sharded import rank_block
     tp = current_tensor_parallel()
     layout = None if tp is None else tp.leaf_layout(leaf)
-    if layout not in ("slots", "head_dim"):
+    if layout not in ("slots", "head_dim", "latent_dim"):
         return kv
     return rank_block(kv, tp.group, tp.cache[leaf])
 
 
-def ring_write(ring, new, slot) -> None:
-    """Write each row's new k or v ``new`` (B, KV, hd) at its ring slot
-    ``slot`` (B,) of ``ring`` (B, C, KV, hd), in place.  Under a ring by
-    slots ``ring`` is this rank's ``C / M`` slots and only the owner of a
-    row's slot writes it (the others write back what they hold); under a
-    ring by head dim the rank writes its ``hd / M`` slice."""
+def ring_write(ring, new, slot, leaf: str = "k") -> None:
+    """Write each row's new entry ``new`` (B, ...) of the cache leaf
+    ``leaf`` (the ring's ``"k"`` or ``"v"``, MLA's ``"c"`` or ``"kr"``)
+    at its ring slot ``slot`` (B,) of ``ring`` (B, C, ...), in place.
+    Under a layout by slots ``ring`` is this rank's ``C / M`` slots and
+    only the owner of a row's slot writes it (the others write back what
+    they hold); under one by head dim or latent dim the rank writes its
+    slice of the last dim; a whole leaf is written whole."""
     import torch
 
     from ..core.runtime_sharded import rank_block
     tp = current_tensor_parallel()
-    layout = None if tp is None else tp.kv_layout
+    layout = None if tp is None else tp.leaf_layout(leaf)
     rows = torch.arange(ring.shape[0], device=ring.device)
     new = new.to(ring.dtype)
     if layout == "slots":
         n = ring.shape[1]
         local = slot - tp.index * n
-        mine = ((local >= 0) & (local < n)).reshape(-1, 1, 1)
+        mine = ((local >= 0) & (local < n)).reshape(
+            (-1,) + (1,) * (new.dim() - 1))
         local = local.clamp(0, n - 1)
         new = torch.where(mine, new, ring[rows, local])
         slot = local
-    elif layout == "head_dim":
+    elif layout in ("head_dim", "latent_dim"):
         new = rank_block(new, tp.group, -1)
     ring[rows, slot] = new
 
@@ -977,25 +995,98 @@ def ring_attend(q, k, v, valid, scale, sdpa, leaf: str = "k"):
         return sdpa(q, k, v, valid[:, None, None, None, :], scale)
     g = tp.group
     f32 = torch.float32
-    neg = torch.tensor(-1e30, dtype=f32, device=q.device)
     if layout == "head_dim":
         s = torch.einsum("bqgrd,bkgd->bgrqk",
                          rs.rank_block(q, g, -1).to(f32), k.to(f32))
-        s = rs.all_reduce_sum(s, g) * scale
-        s = torch.where(valid[:, None, None, None, :], s, neg)
+        s = (rs.all_reduce_sum(s, g) * scale).masked_fill(
+            ~valid[:, None, None, None, :], NEG)
         p = torch.softmax(s, dim=-1).to(v.dtype)
         return rs.all_gather_seq(torch.einsum("bgrqk,bkgd->bqgrd", p, v),
                                  g, -1)
     n = k.shape[1]
     mask = valid[:, tp.index * n:(tp.index + 1) * n]
     s = torch.einsum("bqgrd,bkgd->bgrqk", q, k) * scale
-    s = torch.where(mask[:, None, None, None, :], s.to(f32), neg)
-    m = rs.all_reduce_max(s.amax(-1, keepdim=True), g)
-    p = torch.exp(s - m)
-    pv = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
-    se = p.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4)     # (B,Sq,KV,R,1)
-    red = rs.all_reduce_sum(torch.cat([pv, se], -1), g)
-    return (red[..., :-1] / red[..., -1:]).to(v.dtype)
+    s = s.to(f32).masked_fill(~mask[:, None, None, None, :], NEG)
+    return _merge_slots(s, v.to(f32), "bgrqk,bkgd->bqgrd", g).to(v.dtype)
+
+
+def _merge_slots(s, v, spec: str, g):
+    """The softmax over every rank's slots, applied to the values: ``s``
+    this rank's masked fp32 scores (its slots the last dim), contracted
+    with its fp32 values ``v`` by the einsum ``spec``.  The scores' row
+    max is all-reduced (max), and each rank's unnormalized output and
+    its sum of exponentials (the same contraction with a column of ones
+    beside ``v``) are all-reduced together (one sum); a rank whose slots
+    are all masked adds zeros."""
+    import torch
+
+    from ..core import runtime_sharded as rs
+    e = torch.exp(s - rs.all_reduce_max(s.amax(-1, keepdim=True), g))
+    red = rs.all_reduce_sum(torch.einsum(spec, e, torch.cat(
+        [v, v.new_ones(v.shape[:-1] + (1,))], -1)), g)
+    return red[..., :-1] / red[..., -1:]
+
+
+def latent_attend(qn, qr, c, kr, p, valid, scale, attend):
+    """MLA's decode attention of ``qn`` (B, 1, H, hd) and ``qr`` (B, 1, H,
+    rd) over the latent ``c`` (B, C, r) and the roped key part ``kr`` (B,
+    C, rd) where ``valid`` (B, C) (the whole ring's mask), through the
+    block's leaves ``p`` (H of the heads: ``k_up``'s columns), projected
+    by ``wo``: ``attend(qn, qr, c, kr, mask)`` on a whole ``c``.
+
+    On this rank's block of ``c`` it attends in the absorbed form: with
+    ``q̃ = qn · k_upᵀ`` (B, 1, H, r) a head's scores are ``q̃ · c + qr ·
+    kr`` and its output ``(p · c) · v_up``.  Beside a column-parallel
+    block the ranks gather every head's ``[q̃ | qr]`` (one gather), and
+    every rank attends every head.  By slots, the masked scores of this
+    rank's ``C / M`` slots (against the same slots of ``kr``) have their
+    row max all-reduced (max), and the sums of exponentials and
+    ``u = Σ p · c`` (B, 1, H, r) are all-reduced together (one sum),
+    the ring's slots merge (:func:`_merge_slots`); by latent dim, the
+    partial scores
+    of this rank's ``r / M`` slice are all-reduced (one sum), ``qr · kr``
+    is added once, the softmax is whole and the slices of ``u`` are
+    gathered.  Each rank then keeps its heads' ``u`` for its ``v_up``
+    columns and ``wo`` rows.  What crosses the ranks is fp32 whatever
+    the cache's dtype."""
+    import torch
+
+    from ..core import runtime_sharded as rs
+    tp = current_tensor_parallel()
+    layout = None if tp is None else tp.leaf_layout("c")
+    if layout not in ("slots", "latent_dim"):
+        return attend(qn, qr, c, kr, valid[:, None, None, :])
+    g, f32 = tp.group, torch.float32
+    B, _, H, hd = qn.shape
+    r = p["k_up"].shape[0]
+    qt = torch.einsum("bqhd,rhd->bqhr", qn.to(f32),
+                      p["k_up"].reshape(r, H, hd).to(f32))
+    q = torch.cat([qt, qr.to(f32)], -1)
+    column = ATTN not in tp.gathered
+    if column:
+        q = rs.all_gather_seq(q, g, 2)
+    qt, qr = q[..., :r], q[..., r:]
+    cf = c.to(f32)
+    if layout == "latent_dim":
+        s = torch.einsum("bqhr,bkr->bhqk", rs.rank_block(qt, g, -1), cf)
+        s = rs.all_reduce_sum(s, g) + torch.einsum(
+            "bqhd,bkd->bhqk", qr, kr.to(f32))
+        s = (s * scale).masked_fill(~valid[:, None, None, :], NEG)
+        u = rs.all_gather_seq(torch.einsum(
+            "bhqk,bkr->bqhr", torch.softmax(s, dim=-1), cf), g, -1)
+    else:
+        n = c.shape[1]
+        mine = slice(tp.index * n, (tp.index + 1) * n)
+        s = torch.einsum("bqhr,bkr->bhqk", qt, cf) + torch.einsum(
+            "bqhd,bkd->bhqk", qr, kr[:, mine].to(f32))
+        s = (s * scale).masked_fill(~valid[:, None, None, mine], NEG)
+        u = _merge_slots(s, cf, "bhqk,bkr->bqhr", g)
+    if column:
+        u = rs.rank_block(u, g, 2)
+    vd = p["v_up"].shape[-1] // H
+    o = torch.einsum("bqhr,rhd->bqhd", u, p["v_up"].reshape(r, H, vd)
+                     .to(f32))
+    return o.reshape(B, 1, H * vd).to(qn.dtype) @ p["wo"]
 
 
 def vocab_parallel_ce(logits, labels, ce: str, tp: TensorParallel):

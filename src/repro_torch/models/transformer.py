@@ -44,7 +44,8 @@ enc-dec and frontend archs; an enc-dec arch given no frontend raises a
 tensor parallelism (``models/sharding.py``) ``forward``, ``init_cache``,
 ``prefill_cache``, ``decode_step`` and ``decode_step_slots`` run on a
 rank's blocks of the weights and of the cache (``sharding.with_cache``;
-an enc-dec arch's cross caches too).
+an enc-dec arch's cross caches and MLA's latent too), the MoE layers on
+a rank's experts.
 
 :func:`params_from_jax` takes the JAX ``init_params`` tree (as nested
 dicts of numpy arrays) and returns the port's parameters as views into
@@ -652,8 +653,10 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     prompt, which the model group must divide) and the cache is this
     rank's block of the layout (``models.sharding.with_cache``): a
     column-parallel attention block's k/v are its heads, a gathered
-    one's whole (``models.sharding.ring_block`` keeps the rank's slots
-    or head-dim slice), the Mamba block's state its channels'.  The
+    one's whole, and so are MLA's ``c`` and ``kr`` (its down-projections
+    are whole), of which ``models.sharding.ring_block`` keeps the rank's
+    block by the leaf's own layout (slots, head dim or latent dim; ``kr``
+    whole); the Mamba block's state is its channels'.  The
     cross k and v of an enc-dec arch come from each layer's cross block
     in its frame, so kept as the block's heads or, of a gathered block's
     whole k and v, as the rank's head-dim slice; a decoder-only
@@ -675,7 +678,7 @@ def prefill_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             y, kv = msh.parallel_block(
                 ("layers", "attn"), lp["attn"], h, lambda p, u: _attn_full(
                     cfg, {"attn": p}, u, positions, return_kv=True))
-            lc["attn"] = {k: msh.ring_block(place(t, dtype))
+            lc["attn"] = {k: msh.ring_block(place(t, dtype), k)
                           for k, t in kv.items()}
         if cfg.mixer != "attn":
             sy, lc["ssm"] = msh.parallel_block(

@@ -76,7 +76,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.paramvec import tree_map
 from repro_torch.core.runtime_sharded import all_gather_seq
 from repro_torch.launch import specs
@@ -639,10 +639,18 @@ TABLE = [("rfast-100m", (32, 8), True, "slots", None),
          ("whisper-large-v3", (32, 8), False, "head_dim", None),
          ("whisper-large-v3", (64, 4), True, "heads", None),
          ("pixtral-12b", (32, 8), True, "heads", None),
-         ("pixtral-12b", (64, 4), True, "heads", None)]
+         ("pixtral-12b", (64, 4), True, "heads", None),
+         ("phi3.5-moe-42b-a6.6b", (32, 8), True, "heads", None),
+         ("phi3.5-moe-42b-a6.6b", (64, 4), True, "heads", None),
+         ("deepseek-v2-236b", (32, 8), True, None, None),
+         ("deepseek-v2-236b", (32, 8), False, None, None),
+         ("deepseek-v2-236b", (64, 4), True, None, None)]
 # the enc-dec arch's cross caches by mesh: by head dim where its 20 KV
 # heads do not divide over model (64 does), by heads where they do
 CROSS_LAYOUT = {"whisper-large-v3": {(32, 8): "head_dim", (64, 4): "heads"}}
+# the MLA arch's latent c by cache_seq_shard: by slots where it is on (M
+# divides the 32768 slots), else by latent dim (M divides 512)
+LATENT_LAYOUT = {"deepseek-v2-236b": {True: "slots", False: "latent_dim"}}
 
 
 @pytest.mark.parametrize("arch,mesh,seq_shard,kv,ssm", TABLE)
@@ -655,6 +663,8 @@ def test_layout_table_at_full_width(arch, mesh, seq_shard, kv, ssm):
     want = {"kv": kv, "ssm": ssm}
     if arch in CROSS_LAYOUT:
         want["cross"] = CROSS_LAYOUT[arch][mesh]
+    if arch in LATENT_LAYOUT:
+        want["latent"] = LATENT_LAYOUT[arch][seq_shard]
     assert fn.info["cache_layout"] == want
 
 
@@ -685,21 +695,23 @@ def test_llama_decode_32k_rank_holds_its_blocks():
 
 
 def test_other_archs_keep_prefill_and_decode_replicated():
-    """phi3.5-moe and deepseek-v2 (MoE, MLA) keep the whole model and
-    cache on every rank of ``model``; the other nine archs serve
-    tensor-parallel (pixtral-12b and whisper-large-v3 too)."""
-    mesh = describe_mesh((2, 2), ("data", "model"))
-    for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"):
+    """Every one of the eleven archs (phi3.5-moe and deepseek-v2, the MoE
+    and MLA ones, too) serves tensor-parallel on a ``model`` axis of M >
+    1, with its cache laid out; at M = 1 every arch keeps the whole model
+    and cache on its rank (``"replicated"``, no cache layout)."""
+    assert len(ARCHS) == 11
+    for arch in ARCHS:
         cfg = get_config(arch).reduced()
-        assert not msh.serving_tensor_parallel_supported(cfg)
-        for build in (specs.build_prefill, specs.build_decode):
-            fn, _ = build(cfg, mesh, seq=32, global_batch=4)
-            assert fn.info["model_axis"] == "replicated"
-            assert fn.info["cache_layout"] is None
-    for arch in ("rfast-100m", "llama3-8b", "olmo-1b", "qwen2.5-3b",
-                 "deepseek-7b", "falcon-mamba-7b", "hymba-1.5b",
-                 "pixtral-12b", "whisper-large-v3"):
-        assert msh.serving_tensor_parallel_supported(get_config(arch))
+        for mesh, axis in (((2, 2), "tensor"), ((4, 1), "replicated")):
+            for build in (specs.build_prefill, specs.build_decode):
+                fn, _ = build(cfg, describe_mesh(mesh, ("data", "model")),
+                              seq=32, global_batch=4)
+                assert fn.info["model_axis"] == axis, (arch, mesh)
+                assert (fn.info["cache_layout"] is None) == (
+                    axis == "replicated"), (arch, mesh)
+                assert ("latent" in (fn.info["cache_layout"] or {})) == (
+                    axis == "tensor" and cfg.attention == "mla"
+                    and cfg.mixer != "ssm")
 
 
 def test_a_layout_the_blocks_do_not_run_is_refused():
