@@ -155,7 +155,7 @@ run.  Phases:
    asynchronous train (``uniform``, K 32 in chunks of 16) run to the
    end, its step-16 file alone (with a manifest) resumed to a bitwise
    equal step-32 file, and a rerun with nothing to redo; each file's
-   bytes and its write and read GB/s.
+   bytes, and the sync file's write and read GB/s.
 
 22. serving, publish and hot swap — phase 4's run with ``--log-every 2
    --publish-dir`` (the consensus average published at k 8 and 16, one
@@ -394,12 +394,13 @@ run.  Phases:
    cache laid out by the reference's ``cache_pspecs``,
    ``launch.specs.serving_layout``) — fp32, weights from seed 0, each
    case's prompt prefilled by ``prefill_cache`` (sequence-parallel but
-   for deepseek-v2) and 16 teacher-forced ``decode_step``s (8 for (h)–
-   (j)), every step's logits (gathered
+   for deepseek-v2) and 8 teacher-forced ``decode_step``s (16 for (c),
+   whose steps wrap its ring), every step's logits (gathered
    over the vocab) within 1e-5 of the largest |logit| of the unsharded
    run on the card and the cache, gathered, within 1e-5 of its after the
-   last step (the unsharded run on each node's model index 0, in its
-   turn: the ranks draw the tree in turns and keep their blocks): (a)
+   last step (the unsharded run of the whole batch, cut to the node's
+   rows, on each node's model index 0, in its turn: the ranks draw the
+   tree in turns and keep their blocks): (a)
    llama3-8b at full width cut to 2 of 32 layers on M 8 (the ring by
    KV heads, one a rank) and M 4, B 2, prompt 256, max_len 512; (b)
    qwen2.5-3b at 2 of 36 layers on M 8, the ring by slots (ranks 4-7
@@ -435,16 +436,26 @@ run.  Phases:
    prefill not sequence-parallel, as the reference opts out): MLA's
    latent ``c`` by slots (64 of 512 a rank), ``kr`` whole, decoded in
    the absorbed form (``models.sharding.latent_attend``); (j) the same
-   with ``cache_seq_shard=False``: ``c`` by latent dim (64 of 512).  The
-   MoE cases' routes and drops (each ``moe._slots`` call's experts and
-   kept choices, at the prefill and every step) equal the unsharded
-   run's on every rank.  A decode step's collectives are the layout's
+   with ``cache_seq_shard=False``: ``c`` by latent dim (64 of 512); (k)
+   deepseek-v2-236b at 1 of 60 layers on (2, 4), B 4 (2 rows a node),
+   ``c`` by slots (128 of 512 a rank), 40 of 160 experts a rank, at the
+   published ``capacity_factor`` 1.25: the steps run inside the data
+   group's ``use_batch_group``, so the MoE layer keeps and drops the
+   choices the whole batch's routing does (one gather of the experts'
+   counts over the 2 data ranks a layer); the whole batch's dropped
+   choices, each node's and how many choices routing a node's rows alone
+   would keep or drop otherwise are printed, and the nodes' drops must
+   sum to the whole batch's.  The MoE cases' routes and drops (each
+   ``moe._slots`` call's experts and kept choices, at the prefill and
+   every step) equal the unsharded run's on the rank's rows.  A decode
+   step's collectives are the layout's
    count (heads: 1 + 2L sums; slots: 7L gathers, L maxes, 1 + 2L sums;
    head dim: 8L gathers, 1 + 2L sums; hymba: 4L gathers, L maxes, 4L
    sums, L all-to-alls; falcon: 1 + 2L sums, L all-to-alls; whisper by
    heads: 3L sums; by slots and head dim: 11L gathers, L maxes, 3L sums;
    deepseek-v2 by slots: L gathers, L maxes, 1 + 3L sums; by latent
-   dim: 2L gathers, 1 + 3L sums); each rank's cache bytes (the ring's
+   dim: 2L gathers, 1 + 3L sums; (k) also L gathers over the data
+   group, each counted by its group's size); each rank's cache bytes (the ring's
    or ``c``'s, and the cross caches' apart) are 1 / M of its rows', and
    its ``kr`` all of its rows'; emitted beside them a rank's weight
    bytes, the collectives of a prefill and a decode step (calls, bytes,
@@ -453,7 +464,9 @@ run.  Phases:
 
 Each of phases 17–36 prints its wall seconds, peak memory or
 ``commit_grid`` launches (counters zeroed just before a run and read
-just after).  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
+just after).  Every JSON line carries ``t_s``, the seconds since the
+script started, so a phase's seconds are the gap to the next phase's
+first line.  Then one ``{"kernels": [...]}`` line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -547,7 +560,7 @@ LOGISTIC_N = 7               # the paper's §VI-A experiment: 7 nodes,
 LOGISTIC_GAMMA = 1e-3        # make_logistic_problem's defaults (m 12000,
 FLEET_K = 7000               # d 784, batch 32), label-sorted shards
 FLEET_EVAL = 1000
-TRACE_K = 500                # events a lane of the traced short fleet
+TRACE_K = 200                # events a lane of the traced short fleet
 FLEET_LANES = [(sc, seed) for sc in ("straggler", "packet_loss")
                for seed in range(4)]
 LOSS_TARGET = 2e-3           # mean loss that time-to-target reads
@@ -740,7 +753,7 @@ TP_FRONT_FULL = [("whisper-large-v3", 2, 4, 5, True, False, 226_245_120),
 # expected, the blocks gathered, whether the head is vocab-parallel, and
 # the collectives of one decode step (L layers: module docstring)
 TP_SERVE_TOL = 1e-5          # of the largest |logit| / cache entry
-TP_SERVE_STEPS = 16
+TP_SERVE_STEPS = 8           # (c)'s 16 wrap its ring across the ranks
 # a case's decode_step_slots run: from an empty cache, the rows at these
 # positions, TP_SERVE_SLOT_STEPS steps
 TP_SERVE_SLOT_POS, TP_SERVE_SLOT_STEPS = (5, 0), 4
@@ -749,18 +762,22 @@ TP_SERVE_SLOT_POS, TP_SERVE_SLOT_STEPS = (5, 0), 4
 def _serve_case(case, arch, layers, mesh, batch, prompt, max_len,
                 seq_shard, kv, ssm, gathered, vocab_parallel, calls,
                 cross=None, latent=None, seq_parallel=True, slots=False,
-                steps=TP_SERVE_STEPS):
-    """``cross``: the enc-dec arch's cross caches' layout (None: no
+                steps=TP_SERVE_STEPS, data_calls=None):
+    """``calls``: a decode step's collectives over the model group;
+    ``cross``: the enc-dec arch's cross caches' layout (None: no
     encoder); ``latent``: the MLA arch's latent's (None: no MLA);
     ``seq_parallel``: the prefill's; ``slots``: also a
-    ``decode_step_slots`` run; ``steps``: the decode steps.  A frontend
-    arch's frames or patches come with the prompt."""
+    ``decode_step_slots`` run; ``steps``: the decode steps;
+    ``data_calls``: a decode step's collectives over the data group
+    (the batch rows split over nodes: an MoE layer's gather of the
+    experts' counts).  A frontend arch's frames or patches come with the
+    prompt."""
     return dict(case=case, arch=arch, layers=layers, mesh=mesh,
                 batch=batch, prompt=prompt, max_len=max_len,
                 seq_shard=seq_shard, kv=kv, ssm=ssm, gathered=gathered,
                 vocab_parallel=vocab_parallel, decode_calls=calls,
                 cross=cross, latent=latent, seq_parallel=seq_parallel,
-                slots=slots, steps=steps)
+                slots=slots, steps=steps, data_calls=data_calls or {})
 
 
 
@@ -779,7 +796,7 @@ TP_SERVE = [
     _serve_case("c", "hymba-1.5b", 2, (1, 8), 2, 1016, 2048, True, "slots",
                 "channels", ["layers/attn"], False,
                 {"all_gather_seq": 8, "all_reduce_max": 2,
-                 "all_reduce_sum": 8, "all_to_all": 2}),
+                 "all_reduce_sum": 8, "all_to_all": 2}, steps=16),
     _serve_case("d", "falcon-mamba-7b", 2, (1, 8), 2, 256, 512, True, None,
                 "channels", [], True, {"all_reduce_sum": 5,
                                        "all_to_all": 2}),
@@ -805,11 +822,9 @@ TP_SERVE = [
                 "heads", None, [], True, {"all_reduce_sum": 5}),
     # phi3.5-moe-42b-a6.6b at 2 of 32 layers: one KV head and 2 of 16
     # experts a rank, the prefill sequence-parallel, 1 + 2L sums; then
-    # decode_step_slots, each row routed alone.  (h)-(j) take 8 decode
-    # steps (the script's time limit)
+    # decode_step_slots, each row routed alone
     _serve_case("h", "phi3.5-moe-42b-a6.6b", 2, (1, 8), 2, 256, 512, True,
-                "heads", None, [], True, {"all_reduce_sum": 5}, slots=True,
-                steps=8),
+                "heads", None, [], True, {"all_reduce_sum": 5}, slots=True),
     # deepseek-v2-236b at 1 of 60 layers, 16 MLA heads and 20 of 160
     # experts a rank, the prefill not sequence-parallel (the reference's
     # opt-out): c by slots (64 of 512) and kr whole, a layer's gather of
@@ -820,17 +835,35 @@ TP_SERVE = [
     _serve_case("i", "deepseek-v2-236b", 1, (1, 8), 2, 256, 512, True, None,
                 None, [], True, {"all_gather_seq": 1, "all_reduce_max": 1,
                                  "all_reduce_sum": 4},
-                latent="slots", seq_parallel=False, steps=8),
+                latent="slots", seq_parallel=False),
     _serve_case("j", "deepseek-v2-236b", 1, (1, 8), 2, 256, 512, False, None,
                 None, [], True, {"all_gather_seq": 2, "all_reduce_sum": 4},
-                latent="latent_dim", seq_parallel=False, steps=8)]
+                latent="latent_dim", seq_parallel=False),
+    # (k) deepseek-v2-236b at 1 of 60 layers on (2, 4), the batch of 4
+    # rows over data (2 a node), c by slots (128 of 512 a rank), 40 of 160
+    # experts a rank at the published capacity_factor 1.25: the MoE layer
+    # routes the whole batch's tokens, as the reference's one program
+    # does.  Over the model group (i)'s calls at M 4; over the data group
+    # one gather of the experts' counts a layer
+    _serve_case("k", "deepseek-v2-236b", 1, (2, 4), 4, 256, 512, True, None,
+                None, [], True, {"all_gather_seq": 1, "all_reduce_max": 1,
+                                 "all_reduce_sum": 4},
+                latent="slots", seq_parallel=False,
+                data_calls={"all_gather_flat": 1})]
 # 36(e)'s build functions materialized on the card, on its mesh
 TP_SERVE_LIVE = {"mesh": (2, 4), "prefill": dict(seq=256, global_batch=4),
                  "decode": dict(seq=512, global_batch=4)}
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase's record, ``t_s`` the seconds since the
+    script started (each phase's seconds are the gaps between them)."""
+    print(json.dumps({"phase": phase,
+                      "t_s": round(time.perf_counter() - T_START, 1),
+                      **kw}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3099,8 +3132,8 @@ def routed(fn):
     from repro_torch.models import moe as moe_mod
     seen, slots = [], moe_mod._slots
 
-    def rec(c, expert_idx, C):
-        pos, keep = slots(c, expert_idx, C)
+    def rec(c, expert_idx, C, *offset):
+        pos, keep = slots(c, expert_idx, C, *offset)
         seen.append((expert_idx.cpu(), keep.cpu()))
         return pos, keep
     moe_mod._slots = rec
@@ -3847,19 +3880,50 @@ def tp_serve_slots(cfg, params, toks, case: dict):
     return routed(run)
 
 
-def tp_serve_reference(cfg, full, toks, fr, case: dict) -> dict:
-    """The unsharded run of :func:`tp_serve_run` on the whole tree
-    ``full`` (and of :func:`tp_serve_slots` for a case with ``slots``):
-    each step's logits, the final cache and a digest of the routes, on
-    the card."""
+def rows_routes(routes, rows: slice, batch: int, K: int) -> list:
+    """:func:`routed`'s routes of a batch of ``batch`` rows (experts (1,
+    batch·s, K), kept (1, batch·s·K)) cut to the tokens of ``rows``."""
+    out = []
+    for experts, kept in routes:
+        s = experts.shape[1] // batch
+        out.append((experts[:, rows.start * s:rows.stop * s],
+                    kept[:, rows.start * s * K:rows.stop * s * K]))
+    return out
+
+
+def tp_serve_reference(cfg, full, toks, fr, case: dict, rows: slice) -> dict:
+    """The unsharded run of :func:`tp_serve_run` of the case's whole
+    batch ``toks`` on the whole tree ``full`` (and of
+    :func:`tp_serve_slots` on the rows ``rows`` for a case with
+    ``slots``), on the card: each step's logits, the final cache and a
+    digest of the routes, cut to ``rows``; the whole batch's dropped
+    choices, and how many of its choices' keep differ from routing each
+    node's rows alone (the batch split as the case's mesh splits it)."""
     import torch
+    from repro_torch.models import moe as moe_mod
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache, routes = tp_serve_run(cfg, full, toks, fr, case)
-    out = {"logits": logits, "cache": cache,
-           "routes_digest": routes_digest(routes)}
+    Bw, D = toks.shape[0], case["mesh"][0]
+    cut = lambda t: (t[:, rows] if isinstance(t, torch.Tensor)
+                     else {k: cut(v) for k, v in t.items()})
+    K = cfg.moe_top_k
+    differs = 0
+    for experts, kept in routes:
+        for n in range(D):
+            (e, k), = rows_routes([(experts, kept)], slice(
+                n * Bw // D, (n + 1) * Bw // D), Bw, K)
+            alone = moe_mod._slots(cfg, e, moe_mod._capacity(
+                cfg, e.shape[1]))[1]
+            differs += int((alone != k).sum())
+    out = {"logits": logits[:, rows],
+           "cache": {k: v if k in ("idx", "slot_pos") else cut(v)
+                     for k, v in cache.items()},
+           "routes_digest": routes_digest(rows_routes(routes, rows, Bw, K)),
+           "whole_drops": sum(int((~k).sum()) for _, k in routes),
+           "per_node_differs": differs}
     if case["slots"]:
-        lg, routes = tp_serve_slots(cfg, full, toks, case)
+        lg, routes = tp_serve_slots(cfg, full, toks[rows], case)
         out.update(slots_logits=lg, slots_routes_digest=routes_digest(
             routes))
     torch.cuda.synchronize()
@@ -3870,11 +3934,14 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     """36 on one rank (None outside ``mesh``; every rank of the world
     takes part in the turns' barriers): the ranks of ``mesh`` in turn
     draw the case's tree on the card from seed 0 and keep their blocks,
-    the group's model index 0 running the unsharded reference on its
-    node's rows (``refs``, kept for a later case of the same cut); then
-    ``prefill_cache`` of the prompt (sequence-parallel) and
-    its ``decode_step``s on the blocks, each timed, with
-    the collectives of the prefill and of one decode step, the kernel
+    the group's model index 0 running the unsharded reference on the
+    whole batch, cut to its node's rows (``refs``, kept for a later case
+    of the same cut); then ``prefill_cache`` of the prompt
+    (sequence-parallel) and its ``decode_step``s on the blocks, each
+    timed, inside the data group's ``use_batch_group`` where the rows
+    are split over nodes (an MoE layer routes the whole batch), with
+    the collectives of the prefill and of one decode step (by group
+    size), the kernel
     launches and scan shapes of the prefill, the logits and the cache
     gathered whole and, on model index 0, held to the reference.  A
     frontend arch's frames or patches are drawn after the tokens from
@@ -3886,7 +3953,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     import torch.distributed as dist
     from repro_torch.core.runtime_sharded import (all_gather_seq,
                                                   clear_collectives,
-                                                  collective_stats)
+                                                  collective_stats,
+                                                  record_collectives)
     from repro_torch.kernels.rfast_update import dispatch
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.launch import specs
@@ -3908,13 +3976,17 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
                                   seq_parallel=case["seq_parallel"],
                                   dtype=torch.float32)
         gen = torch.Generator(device="cuda").manual_seed(1)
-        toks = torch.randint(0, cfg.vocab, (case["batch"], P + steps),
-                             generator=gen, device="cuda")[node * b:
-                                                           (node + 1) * b]
-        fr = None if not cfg.frontend else torch.randn(
+        every = torch.randint(0, cfg.vocab, (case["batch"], P + steps),
+                              generator=gen, device="cuda")
+        fr_all = None if not cfg.frontend else torch.randn(
             (case["batch"], cfg.frontend_seq, cfg.frontend_dim),
-            generator=gen, device="cuda")[node * b:(node + 1) * b]
-        key = (case["arch"], cfg.n_layers, node, b, P, C_len)
+            generator=gen, device="cuda")
+        rows = slice(node * b, (node + 1) * b)
+        toks = every[rows]
+        fr = None if fr_all is None else fr_all[rows]
+        bgroup = mesh.group("data") if D > 1 else None
+        key = (case["arch"], cfg.n_layers, node, D, case["batch"], P,
+               C_len, steps)
     out = {"case": case["case"]}
     t0 = time.perf_counter()
     for turn in range(TP_WORLD):
@@ -3924,7 +3996,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         local = msh.local_tree(full, tp)
         if m == 0 and key not in refs:
-            refs[key] = tp_serve_reference(cfg, full, toks, fr, case)
+            refs[key] = tp_serve_reference(cfg, full, every, fr_all, case,
+                                           rows)
             out["reference_s"] = refs[key]["seconds"]
         del full
         torch.cuda.empty_cache()
@@ -3945,7 +4018,7 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
     own, step_s = [], []
 
     def run():
-        with msh.use_tensor_parallel(tp):
+        with msh.use_tensor_parallel(tp), msh.use_batch_group(bgroup):
             dispatch.clear()
             clear_collectives()
             t0 = time.perf_counter()
@@ -3960,12 +4033,16 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
             for i in range(steps):
                 clear_collectives()
                 t0 = time.perf_counter()
-                lg, cache = decode_step(cfg, local, cache,
-                                        toks[:, P + i:P + i + 1])
+                with record_collectives() as calls:
+                    lg, cache = decode_step(cfg, local, cache,
+                                            toks[:, P + i:P + i + 1])
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t0)
                 if i == 0:
                     out["decode_collectives"] = collective_stats()
+                    out["decode_groups"] = dict(collections.Counter(
+                        f"{c['name']}@{c['group_size']}" for c in calls
+                        if c["group_size"] > 1))
                 own.append(lg)
             out["decode_launches"] = dispatch.stats()["by_kernel"]
         return cache
@@ -4045,6 +4122,8 @@ def tp_serve_case(mesh, case: dict, refs: dict) -> dict | None:
         out["slot_pos_equal"] = bool(torch.equal(gathered["slot_pos"],
                                                  ref["cache"]["slot_pos"]))
         out["ref_routes_digest"] = ref["routes_digest"]
+        out["whole_drops"] = ref["whole_drops"]
+        out["per_node_differs"] = ref["per_node_differs"]
         if case["slots"]:
             out["slots_rel_err"] = max(rel(g, w) for g, w in zip(
                 slots_whole, ref["slots_logits"]))
@@ -4165,11 +4244,21 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
             f"{tag}: every step's logits and the gathered cache within "
             f"{TP_SERVE_TOL} of the unsharded run "
             f"({[(r['logits_rel_err'], r['cache_rel_err']) for r in refs]})")
+        # a decode step's collectives over the model group and, the rows
+        # split over nodes, an MoE layer's gather over the data group
+        want_calls = dict(case["decode_calls"], **case["data_calls"])
+        want_groups = {f"{k}@{M}": v for k, v in case["decode_calls"].items()}
+        want_groups.update({f"{k}@{D}": v
+                            for k, v in case["data_calls"].items()})
+        check(not case["data_calls"] or D != M,
+              f"{tag}: the data and model groups differ in size")
         for r in rs:
             got = {k: v["calls"] for k, v in
                    r["decode_collectives"]["by_name"].items()}
-            check(got == case["decode_calls"], f"{tag}: a decode step's "
-                  f"collectives {got} are {case['decode_calls']}")
+            check(got == want_calls and r["decode_groups"] == want_groups,
+                  f"{tag}: a decode step's collectives {got} "
+                  f"({r['decode_groups']} by group size) are "
+                  f"{want_calls} ({want_groups})")
             check(r["cache_bytes"] * M == r["whole_cache_bytes"] // D
                   and r["cross_bytes"] * M == r["whole_cross_bytes"] // D
                   and r["kr_bytes"] == r["whole_kr_bytes"] // D
@@ -4197,6 +4286,16 @@ def phase_tensor_parallel_serve(name: str, smi: str, outs: list) -> dict:
                       f"{TP_SERVE_TOL} of the prefill's "
                       f"({r['init_cross_rel_err']}, bitwise "
                       f"{r['init_cross_bitwise']})")
+        if case["data_calls"]:
+            # the nodes' rows keep and drop what the whole batch does
+            drops = sum(r["drops"] for r in refs)
+            emit("tp_serve_batch_routes", case=key,
+                 whole_drops=refs[0]["whole_drops"],
+                 node_drops=[r["drops"] for r in refs],
+                 per_node_differs=refs[0]["per_node_differs"])
+            check(all(r["whole_drops"] == drops for r in refs),
+                  f"{tag}: the nodes' dropped choices ({drops}) are the "
+                  f"whole batch's ({refs[0]['whole_drops']})")
         if case["slots"]:
             check(all(r["slots_rel_err"] <= TP_SERVE_TOL for r in refs),
                   f"{tag}: {TP_SERVE_SLOT_STEPS} decode_step_slots from "
@@ -5750,7 +5849,6 @@ def main() -> int:
                                         save_checkpoint)
     from repro_torch.core.protocol import ProtocolState
     from repro_torch.core.runtime import edge_arrays
-    from repro_torch.core.simulator import zeros_state
     ck_root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ck_root, ignore_errors=True)
     ck_root.mkdir(parents=True)
@@ -5834,11 +5932,9 @@ def main() -> int:
     ar3 = run_async(ab)
     async_resume_launches = dispatch.launches("commit_grid")
     shutil.rmtree(ab)
-    sched_a = get_scenario("uniform", 2).realize(
-        get_topology("binary_tree", 2), 32, seed=0).schedule
-    async_io = ckpt_io(aa, zeros_state(get_topology("binary_tree", 2),
-                                       ar1["p"], int(sched_a.D) + 2,
-                                       device="cuda"), ck_root / "async_io")
+    # the checkpoint I/O rates are the sync file's (ckpt_sync): timing the
+    # async state's file once more re-times the same save / load path
+    async_bytes = (aa / step32).stat().st_size
     shutil.rmtree(ck_root)
     torch.cuda.empty_cache()
     emit("ckpt_async", p=ar1["p"], events=32, chunk=16,
@@ -5847,7 +5943,7 @@ def main() -> int:
          resumed_from=[ar2["start"], ar3["start"]],
          bitwise_step32=async_equal,
          waves=[ar1["waves"], ar2["waves"], ar3["waves"]],
-         commit_grid_launches=async_resume_launches, **async_io,
+         commit_grid_launches=async_resume_launches, file_bytes=async_bytes,
          device=name, nvidia_smi=smi)
     check(ar2["start"] == 16 and async_equal,
           "an async run resumed at k 16 is bitwise the uninterrupted one")

@@ -30,7 +30,14 @@ the kernel wrappers and the collectives record themselves
   ``reduce-scatter`` and ``all-to-all`` over the ``model`` group) with
   their count and output bytes, split into those whose group stays
   within one host (``nvlink_bytes``: the ``model`` axis of the
-  production mesh) and those that cross hosts (``ib_bytes``).
+  production mesh) and those that cross hosts (``ib_bytes``).  A
+  serving case whose batch rows the ``data`` axes split
+  (``case.batch_ranks``: ``decode_32k``, and ``prefill_32k`` on (32,
+  8)) adds, for each MoE layer, one ``all-gather`` of the experts'
+  choice counts over the batch group (``models/moe.py``): G × E × 8 B,
+  across hosts on the production mesh (40,960 B a layer for
+  deepseek-v2 at (32, 8)).  Where every rank holds every row
+  (``long_500k``, ``prefill_32k`` on (2, 32, 8)) there is none.
 
 ``lower_s`` is the seconds spent building the case and ``compile_s``
 those of the meta run that takes the compile's place.  The port runs

@@ -59,7 +59,14 @@ nothing allocated; another device materializes the same case from
   ``"cross"``, by ``heads``, ``head_dim`` or ``replicated``, and for the
   MLA arch its latent, ``"latent"``, by ``slots``, ``latent_dim`` or
   ``replicated``).  At M = 1 every rank holds the whole model and cache
-  (``"model_axis": "replicated"``, ``cache_layout`` None).
+  (``"model_axis": "replicated"``, ``cache_layout`` None).  Where the
+  batch axes split the rows (fewer rows a rank than ``global_batch``),
+  the step runs inside ``models.sharding.use_batch_group`` of those
+  axes' group, at M = 1 too: an MoE layer then routes the whole batch's
+  tokens as the reference's one program does (one gather of the
+  experts' choice counts over the group a layer, ``models/moe.py``);
+  ``step_fn.info["batch_ranks"]`` is the group's size, or None where
+  every rank holds every row (nothing is gathered).
 
 ``dtype`` defaults to the reference's bf16.  Parameter trees follow the
 reference's dtypes (:func:`~repro_torch.models.transformer.param_shapes`:
@@ -360,11 +367,18 @@ def serving_layout(cfg: ModelConfig, tree, mesh, *, max_len: int,
                           seq_shard=cache_seq_shard)
 
 
-def _serving_info(tp) -> dict:
+def _batch_group(mesh, batch_axes, rows: int, global_batch: int):
+    """The group of the batch axes where they split the rows (this rank
+    holds ``rows`` of ``global_batch``), else None."""
+    return mesh.group(batch_axes) if rows < global_batch else None
+
+
+def _serving_info(tp, group) -> dict:
+    out = dict(batch_ranks=None if group is None else group.size)
     if tp is None:
-        return dict(model_axis="replicated", tensor_parallel=None,
+        return dict(out, model_axis="replicated", tensor_parallel=None,
                     cache_layout=None)
-    return dict(model_axis="tensor", tensor_parallel=dict(
+    return dict(out, model_axis="tensor", tensor_parallel=dict(
         ranks=tp.size, gathered=sorted("/".join(b) for b in tp.gathered),
         vocab_parallel=tp.vocab_parallel), cache_layout=tp.cache_layout)
 
@@ -402,10 +416,12 @@ def build_prefill(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
                         seq_parallel=seq_parallel and seq % M == 0)
     if tp is not None:
         params = msh.local_tree(params, tp)
+    group = _batch_group(mesh, batch_axes, b, global_batch)
 
     @torch.no_grad()
     def prefill_step(params, tokens, frontend=None):
-        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp):
+        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp), \
+                msh.use_batch_group(group):
             logits, _ = forward(cfg, params, tokens, frontend, remat=True,
                                 last_only=True)
         return logits
@@ -417,7 +433,8 @@ def build_prefill(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
     prefill_step.info = dict(kind="prefill", seq=seq, s_text=s_text,
                              rows=b, dtype=_dtype_name(dtype),
                              seq_parallel=seq_parallel if tp is None
-                             else tp.seq_parallel, **_serving_info(tp))
+                             else tp.seq_parallel,
+                             **_serving_info(tp, group))
     prefill_step.tensor_parallel = tp
     return prefill_step, tuple(args)
 
@@ -447,9 +464,11 @@ def build_decode(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
                         cache_seq_shard=cache_seq_shard, dtype=dtype)
     if tp is not None:
         params = msh.local_tree(params, tp)
+    group = _batch_group(mesh, batch_axes, b, global_batch)
 
     def serve_step(params, cache, token):
-        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp):
+        with msh.mesh_rules(mesh, arules), msh.use_tensor_parallel(tp), \
+                msh.use_batch_group(group):
             return decode_step(cfg, params, cache, token)
 
     with msh.use_tensor_parallel(tp):
@@ -459,7 +478,7 @@ def build_decode(cfg: ModelConfig, mesh, *, seq: int, global_batch: int,
                            attn_window=cfg.attn_window,
                            dtype=_dtype_name(dtype),
                            cache_seq_shard=cache_seq_shard,
-                           **_serving_info(tp))
+                           **_serving_info(tp, group))
     return serve_step, (params, cache,
                         _tokens((b, 1), cfg.vocab, device, gen))
 

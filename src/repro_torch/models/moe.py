@@ -32,6 +32,29 @@ rank's expert adds nothing here.  Its ``y`` is then a partial sum
 (its experts' outputs plus its shared block's), which
 ``sharding.parallel_block`` all-reduces, and its router loss the terms
 of its own experts (``sharding.router_loss`` sums them).
+
+Where a served batch's rows are split over the ``data`` axes, the
+reference's ``prefill_step`` and ``serve_step`` still route the whole
+batch in one ``moe_apply`` (GSPMD runs one program): T = B·S tokens,
+capacity ``_capacity(cfg, B·S)``, a choice's slot its rank among all
+earlier choices of its expert in the whole batch's (row, position,
+choice) order.  The port's ranks each hold their rows, so
+:func:`moe_apply` inside ``sharding.use_batch_group`` of G ranks (this
+rank at index g, its rows after those of ranks 0 … g − 1) counts each
+expert's choices on this rank, gathers the counts over the group (one
+``all_gather_flat`` of E int64 a layer, on the device) and adds the
+counts of ranks 0 … g − 1 to a choice's slot among this rank's tokens:
+that is its slot in the whole batch, and it is kept when below the
+whole batch's capacity ``C = _capacity(cfg, G·T)``.  The keep and drop
+decisions are then exactly the reference's.  An expert's output for a
+kept choice does not depend on its slot, so the rank's buffer holds its
+kept choices at their slots among its own tokens: ``min(T, C)`` slots
+an expert (at most T of a rank's choices go to one expert), a static
+size, no host read.  Without a group (a batch that is not split, and
+``moe_apply_rows``) C and the buffer are ``_capacity(cfg, T)`` as
+before.  The load-balance loss stays the rank's own terms
+(``_balance_loss`` of its tokens): neither package's ``prefill_step``
+nor ``serve_step`` returns it.
 """
 from __future__ import annotations
 
@@ -61,11 +84,15 @@ def _capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8
 
 
-def _slots(cfg: ModelConfig, expert_idx: torch.Tensor, C: int):
+def _slots(cfg: ModelConfig, expert_idx: torch.Tensor, C: int,
+           offset: torch.Tensor | None = None):
     """expert_idx (R, T, K) -> (pos, keep), (R, T·K) each: a (token,
     choice)'s slot in its expert, its rank among the (row, expert)
     pair's tokens in token order (a stable sort of the pair keys), and
-    whether it is inside the capacity ``C``."""
+    whether it is inside the capacity ``C``.  ``offset`` (E,) (R = 1
+    only): the choices of each expert that come before this rank's in
+    the whole batch, which a choice's slot in the whole batch adds to
+    ``pos``; ``keep`` is then the whole batch's."""
     R, T, K = expert_idx.shape
     E, dev = cfg.moe_experts, expert_idx.device
     flat_e = expert_idx.reshape(R, T * K)
@@ -77,7 +104,22 @@ def _slots(cfg: ModelConfig, expert_idx: torch.Tensor, C: int):
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
     pos = pos.reshape(R, T * K)
-    return pos, pos < C
+    if offset is None:
+        return pos, pos < C
+    return pos, pos + offset[flat_e] < C
+
+
+def _offsets(cfg: ModelConfig, expert_idx: torch.Tensor, group):
+    """(E,) int64: each expert's choices on the ranks before this one in
+    ``group``, from one gather of every rank's counts (on the device: no
+    host read)."""
+    from ..core.runtime_sharded import all_gather_flat
+    E = cfg.moe_experts
+    flat = expert_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device
+                         ).index_add_(0, flat, torch.ones_like(flat))
+    every = all_gather_flat(counts, group).reshape(group.size, E)
+    return every[:group.index].sum(dim=0)
 
 
 def _balance_loss(cfg: ModelConfig, probs: torch.Tensor,
@@ -93,11 +135,14 @@ def _balance_loss(cfg: ModelConfig, probs: torch.Tensor,
                                                dim=-1)
 
 
-def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def _route(cfg: ModelConfig, p: dict, x: torch.Tensor, group=None):
     """x (R, T, d): each of the R rows routes its T tokens alone, with
     capacity ``_capacity(cfg, T)``, to the experts ``p`` holds (all E, or
-    a rank's block of them).  Returns (y (R, T, d) in fp32 of those
-    experts, aux (R,) of their terms)."""
+    a rank's block of them); under a batch ``group`` (R = 1) the row is
+    this rank's part of the whole batch's G·T tokens, routed as the
+    whole batch routes them, with capacity ``_capacity(cfg, G·T)``.
+    Returns (y (R, T, d) in fp32 of those experts, aux (R,) of their
+    terms)."""
     R, T, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     dev = x.device
@@ -112,8 +157,16 @@ def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
     aux = _balance_loss(cfg, probs, expert_idx[..., 0],
                         slice(lo, lo + n_local))
-    C = _capacity(cfg, T)
-    pos, keep = _slots(cfg, expert_idx, C)
+    if group is None:
+        C = slots = _capacity(cfg, T)
+        pos, keep = _slots(cfg, expert_idx, C)
+    else:
+        # a kept choice's slot in the whole batch is below C, its slot
+        # among this rank's T tokens below T: min(T, C) slots hold them
+        C = _capacity(cfg, group.size * T)
+        slots = min(T, C)
+        pos, keep = _slots(cfg, expert_idx, C,
+                           _offsets(cfg, expert_idx, group))
     flat_e = expert_idx.reshape(R, T * K)
     # kept and routed to one of the experts held here
     mine = keep & (flat_e >= lo) & (flat_e < lo + n_local)
@@ -121,9 +174,9 @@ def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
     rows = torch.arange(R, device=dev)[:, None].expand(R, T * K)
     safe_e = torch.where(mine, flat_e - lo, 0)
-    safe_p = torch.where(mine, pos, C - 1)
+    safe_p = torch.where(mine, pos, slots - 1)
     xk = torch.repeat_interleave(x, K, dim=1)                # (R, T*K, D)
-    buf = torch.zeros(R, n_local, C, D, dtype=x.dtype,
+    buf = torch.zeros(R, n_local, slots, D, dtype=x.dtype,
                       device=dev).index_put(
         (rows, safe_e, safe_p), torch.where(mine[..., None], xk, 0)
         .to(x.dtype), accumulate=True)
@@ -150,9 +203,11 @@ def _shared(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x (B, S, d) -> (y (B, S, d), aux ()): all B·S tokens routed
-    together."""
+    together, as a part of the whole batch inside
+    ``sharding.use_batch_group`` (aux this rank's terms)."""
     B, S, D = x.shape
-    y, aux = _route(cfg, p, x.reshape(1, B * S, D))
+    y, aux = _route(cfg, p, x.reshape(1, B * S, D),
+                    msh.current_batch_group())
     return _shared(cfg, p, x, y.reshape(B, S, D)), aux[0]
 
 

@@ -142,6 +142,16 @@ MLA's ``c`` and ``kr`` (its down-projections are whole), of which
 :func:`last_position` gives the head the sequence's last row on every
 rank.  A decoder-only frontend's prefix enters the ring as any other
 rows.
+
+Where a served batch's rows are split over the ``data`` axes
+(``launch/specs.build_prefill`` / ``build_decode``), the model code runs
+inside :func:`use_batch_group`: the group of the ranks that hold the
+batch's rows, in the order ``batch_pspec`` lays them out
+(:func:`current_batch_group`).  The MoE block routes by the whole batch
+there (``models/moe.py``: one gather of each expert's choice count over
+the group), as the reference's GSPMD program does.  So the port keeps
+three thread-local contexts: ``(mesh, rules)``, the tensor-parallel
+layout and the batch group.
 """
 from __future__ import annotations
 
@@ -154,7 +164,8 @@ __all__ = ["PartitionSpec", "NamedSharding", "shard", "logical_to_spec",
            "mesh_rules", "named_sharding", "DEFAULT_RULES", "FSDP_RULES",
            "current_rules", "TensorParallel", "tensor_parallel",
            "tensor_parallel_supported", "use_tensor_parallel",
-           "current_tensor_parallel", "local_tree", "gather_tree",
+           "current_tensor_parallel", "use_batch_group",
+           "current_batch_group", "local_tree", "gather_tree",
            "gather_flat",
            "embed_lookup", "local_rows", "enter_decoder", "parallel_block",
            "ssm_channels", "ssm_proj",
@@ -668,6 +679,24 @@ def use_tensor_parallel(tp: TensorParallel | None):
         yield
     finally:
         _local.tp = prev
+
+
+def current_batch_group():
+    return getattr(_local, "batch", None)
+
+
+@contextlib.contextmanager
+def use_batch_group(group):
+    """Run the model code inside the block on this rank's rows of a batch
+    whose rows ``group`` (an ``AxisGroup`` of the batch axes, this rank
+    at its place in the rows' order) splits; None: the rows are the whole
+    batch, as outside any block."""
+    prev = current_batch_group()
+    _local.batch = group
+    try:
+        yield
+    finally:
+        _local.batch = prev
 
 
 def _check_seq(tp: TensorParallel, S: int,

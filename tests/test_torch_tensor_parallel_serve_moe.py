@@ -25,16 +25,28 @@ phi3.5-moe and not for deepseek-v2 (the reference's
   or with ``cache_seq_shard=False`` by latent dim (8 of 32); on (2, 2)
   by slots with the batch rows over ``data``; on (1, 3), where 4 heads
   and 4 experts do not divide, by slots (16 a rank) beside the gathered
-  MLA and MoE blocks; ``dsv2_w8`` and ``dsv2_drop`` on (1, 4) by slots.
+  MLA and MoE blocks; ``dsv2_w8`` and ``dsv2_drop`` on (1, 4) by slots;
+* the batch rows over ``data``, where every MoE layer routes the whole
+  batch (``sharding.use_batch_group``: one gather of the experts' choice
+  counts over the data group a layer): ``dsv2_drop`` on (2, 2), ``c`` by
+  slots, and on (2, 1) with no tensor parallelism; ``phi_drop``
+  (``capacity_factor`` 0.25) on (2, 2), the ring by heads, its prefill
+  sequence-parallel; ``dsv2_drop_b16``, ``dsv2_drop`` at B 16 and 4
+  decode steps on (2, 2), where a decode step's 16 tokens overflow an
+  expert.  The whole batch drops choices at the prefill (``dsv2_drop``,
+  ``phi_drop``) or at a decode step (``dsv2_drop_b16``) that no rank's
+  own rows would drop.
 
 Every step's logits (gathered over the vocab) are held within 1e-5 of
 the largest |logit| to JAX's unsharded ``prefill_cache`` +
-``decode_step``; the gathered cache (``k`` / ``v``, or ``c`` and
-``kr``), ``idx`` and ``slot_pos`` to JAX's final cache; each local cache
-leaf has the shape of ``NamedSharding(mesh, spec).shard_shape`` of JAX's
-own ``cache_pspecs``; every rank's routes (each token's experts and
-whether it was kept) at the prefill and at each step equal the
-unsharded model's on the same rows, and ``dsv2_drop``'s prefill drops.
+``decode_step`` of the whole batch, on the rank's rows; the gathered
+cache (``k`` / ``v``, or ``c`` and ``kr``), ``idx`` and ``slot_pos`` to
+JAX's final cache; each local cache leaf has the shape of
+``NamedSharding(mesh, spec).shard_shape`` of JAX's own ``cache_pspecs``;
+every rank's routes (each token's experts and whether it was kept) at
+the prefill and at each step equal the unsharded model's on the whole
+batch, cut to the rank's rows, and the whole batch drops where
+``DROPS`` says.
 deepseek-v2 by slots and by latent dim runs once more in bf16, held to
 JAX's bf16 run within ``BF16_TOL``.  ``decode_step_slots`` (rows at
 positions 5 and 0, each row routed alone) of phi and dsv2 on (1, 4) is
@@ -43,8 +55,11 @@ held to JAX's ``forward(..., last_only=True)``, and
 ``build_decode(device="cpu")``'s argument bytes a rank to the meta
 case's.
 
-The four faults of this path, on ranks 0-3 (dsv2 on (1, 4), ``c`` by
-slots), each beside the repaired code:
+The fault of the batch rows over ``data``, beside the repaired code:
+each data rank routing its own rows alone (``dsv2_drop`` on (2, 2) with
+no batch group) misses 1e-5 on node 1.  The four faults of the model
+axis, on ranks 0-3 (dsv2 on (1, 4), ``c`` by slots), each beside the
+repaired code:
 
 1. ``mla_decode`` writing every rank's block at the position's slot
    within the block (``pos % (C / M)``): from position 12 on, ranks 1-3
@@ -62,7 +77,9 @@ On meta, the production meshes: phi3.5-moe and deepseek-v2
 ``decode_32k`` on (64, 4) say ``"model_axis": "tensor"`` and the
 layouts of ``cache_pspecs``, a rank's cache and parameter leaves have
 JAX's ``shard_shape``, and one decode step issues exactly these
-collectives over the model group (L layers):
+collectives over the model group (L layers), and over the data group
+(across hosts) one gather of the experts' counts a layer at
+``decode_32k``, none at ``long_500k``'s batch of 1:
 
 * phi3.5-moe (32 layers, the ring by KV heads, the attention and MoE
   blocks column / row-parallel, vocab-parallel): the embedding's sum and
@@ -101,7 +118,17 @@ B, S, STEPS, MAX_LEN = 2, 8, 16, 48
 CFGS = {"phi": ("phi3.5-moe-42b-a6.6b", dict(n_kv_heads=2)),
         "dsv2": ("deepseek-v2-236b", {}),
         "dsv2_w8": ("deepseek-v2-236b", dict(attn_window=8)),
-        "dsv2_drop": ("deepseek-v2-236b", dict(capacity_factor=0.25))}
+        "dsv2_drop": ("deepseek-v2-236b", dict(capacity_factor=0.25)),
+        "phi_drop": ("phi3.5-moe-42b-a6.6b", dict(n_kv_heads=2,
+                                                  capacity_factor=0.25)),
+        "dsv2_drop_b16": ("deepseek-v2-236b", dict(capacity_factor=0.25))}
+# the configs whose batch (B unless listed) and decode steps (STEPS unless
+# listed) differ: at B 16 a decode step's 16 tokens overflow an expert
+BATCH = {"dsv2_drop_b16": 16}
+STEPS_OF = {"dsv2_drop_b16": 4}
+# where the whole batch drops choices: at its prefill or a decode step
+DROPS = {"dsv2_drop": "prefill", "phi_drop": "prefill",
+         "dsv2_drop_b16": "decode"}
 PHI = lambda kv: {"kv": kv, "ssm": None}
 MLA = lambda c: {"kv": None, "ssm": None, "latent": c}
 # (config, mesh (nodes, model ranks), cache_seq_shard, cache_layout,
@@ -114,7 +141,13 @@ CASES = [("phi", (1, 2), True, PHI("heads"), []),
          ("dsv2", (1, 3), True, MLA("slots"), ["layers/attn",
                                                "layers/mlp"]),
          ("dsv2_w8", (1, 4), True, MLA("slots"), []),
-         ("dsv2_drop", (1, 4), True, MLA("slots"), [])]
+         ("dsv2_drop", (1, 4), True, MLA("slots"), []),
+         # the batch rows over data: every MoE layer routes the whole
+         # batch (one gather of the experts' counts over the data group)
+         ("dsv2_drop", (2, 2), True, MLA("slots"), []),
+         ("dsv2_drop", (2, 1), True, None, []),
+         ("phi_drop", (2, 2), True, PHI("heads"), []),
+         ("dsv2_drop_b16", (2, 2), True, MLA("slots"), [])]
 # the production dtype: deepseek-v2's weights and cache in bf16 on (1, 4),
 # c by slots and by latent dim, held to JAX's bf16 run within BF16_TOL of
 # the largest |logit| / cache entry (8 ulps of bf16's 2^-8)
@@ -132,15 +165,25 @@ def _cfg(key, get=get_config):
     return dc.replace(get(name).reduced(max_d_model=64, vocab=256), **kw)
 
 
+def _batch(key) -> int:
+    return BATCH.get(key, B)
+
+
+def _steps(key) -> int:
+    return STEPS_OF.get(key, STEPS)
+
+
 def _seq_parallel(key) -> bool:
     """The prefill's sequence parallelism: the reference's opt-out."""
     return CFGS[key][0] not in specs.SEQ_PARALLEL_OPT_OUT
 
 
 def _tokens(key):
-    """(B, S + STEPS) int32: the prompt, then the decode steps' tokens."""
+    """(batch, S + steps) int32: the prompt, then the decode steps'
+    tokens."""
     rng = np.random.default_rng(200 + list(CFGS).index(key))
-    return rng.integers(0, _cfg(key).vocab, (B, S + STEPS)).astype(np.int32)
+    return rng.integers(0, _cfg(key).vocab,
+                        (_batch(key), S + _steps(key))).astype(np.int32)
 
 
 def _whole_logits(lg, tp):
@@ -151,11 +194,12 @@ def _whole_logits(lg, tp):
 
 def _routes(fn):
     """``(fn(), routes)``: every ``moe._slots`` call's (experts, kept) as
-    numpy arrays, in order."""
+    numpy arrays, in order (kept: the whole batch's decision, under a
+    batch group too)."""
     seen, slots = [], moe_mod._slots
 
-    def rec(cfg, expert_idx, C):
-        pos, keep = slots(cfg, expert_idx, C)
+    def rec(cfg, expert_idx, C, *offset):
+        pos, keep = slots(cfg, expert_idx, C, *offset)
         seen.append((expert_idx.numpy().copy(), keep.numpy().copy()))
         return pos, keep
     moe_mod._slots = rec
@@ -169,14 +213,14 @@ def _shapes(tree):
     return {"/".join(p): tuple(t.shape) for p, t in msh._paths(tree)}
 
 
-def _run(cfg, tp, params, toks, dtype=torch.float32):
-    """prefill_cache + ``STEPS`` decode steps under ``tp``, the cache in
-    ``dtype``: the logits of each (whole vocab, as fp32), this rank's
-    own, and the final cache."""
+def _run(cfg, tp, params, toks, dtype=torch.float32, group=None):
+    """prefill_cache + the decode steps of ``toks`` under ``tp`` and the
+    batch ``group``, the cache in ``dtype``: the logits of each (whole
+    vocab, as fp32), this rank's own, and the final cache."""
     got, own = [], []
-    with msh.use_tensor_parallel(tp):
+    with msh.use_tensor_parallel(tp), msh.use_batch_group(group):
         cache, lg = prefill_cache(cfg, params, toks[:, :S], MAX_LEN, dtype)
-        for i in range(STEPS + 1):
+        for i in range(toks.shape[1] - S + 1):
             if i:
                 lg, cache = decode_step(cfg, params, cache,
                                         toks[:, S + i - 1:S + i])
@@ -191,34 +235,61 @@ def _layout(key, mesh, full, seq_shard=True, dtype=torch.float32):
                                 seq_parallel=_seq_parallel(key), dtype=dtype)
 
 
-def _case_rank(key, mesh, tree, seq_shard, dtype=torch.float32):
+def _rank_rows(routes, rows: slice, batch: int, K: int):
+    """The whole batch's routes (experts (1, batch·s, K), kept (1,
+    batch·s·K)) cut to the tokens of its rows ``rows``."""
+    out = []
+    for experts, kept in routes:
+        s = experts.shape[1] // batch
+        out.append((experts[:, rows.start * s:rows.stop * s],
+                    kept[:, rows.start * s * K:rows.stop * s * K]))
+    return out
+
+
+def _case_rank(key, mesh, tree, seq_shard, dtype=torch.float32,
+               group=True):
     """One case on this rank of ``mesh``, the weights and cache in
-    ``dtype``; in fp32 also the unsharded model's routes on the same
-    rows."""
+    ``dtype``, the batch rows over ``data`` inside its batch group (none
+    with ``group`` False: each rank routes its rows alone); in fp32 also
+    the unsharded model's routes on the whole batch, cut to this rank's
+    rows, and the whole batch's drops at the prefill and the steps."""
     if mesh.coords is None:
         return None
     cfg = _cfg(key)
     full = cast_params(params_from_jax(tree, device="cpu")[0], dtype)
     tp = _layout(key, mesh, full, seq_shard, dtype)
-    node = mesh.coords["data"]
-    rows = slice(node * B // mesh.shape["data"],
-                 (node + 1) * B // mesh.shape["data"])
-    toks = torch.from_numpy(_tokens(key))[rows]
+    D, node, Bk = mesh.shape["data"], mesh.coords["data"], _batch(key)
+    rows = slice(node * Bk // D, (node + 1) * Bk // D)
+    every = torch.from_numpy(_tokens(key))
+    bgroup = mesh.group("data") if D > 1 and group else None
     (got, own, cache), routes = _routes(lambda: _run(
-        cfg, tp, msh.local_tree(full, tp), toks, dtype))
-    whole_routes = (_routes(lambda: _run(cfg, None, full, toks))[1]
-                    if dtype == torch.float32 else None)
-    whole = msh.gather_cache(cache, tp)
-    return {"node": node, "model": tp.index, "logits": np.stack(got),
-            "layout": tp.cache_layout,
-            "gathered": sorted("/".join(b) for b in tp.gathered),
-            "vocab_parallel": tp.vocab_parallel,
-            "seq_parallel": tp.seq_parallel,
-            "shapes": _shapes(cache["layers"]),
-            "routes": routes, "whole_routes": whole_routes,
-            "idx": int(whole["idx"]), "slot_pos": whole["slot_pos"].numpy(),
-            "cache": {"/".join(p): t.float().numpy() for p, t in
-                      msh._paths(whole["layers"])}}
+        cfg, tp, full if tp is None else msh.local_tree(full, tp),
+        every[rows], dtype, bgroup))
+    out = {"node": node, "model": 0 if tp is None else tp.index,
+           "logits": np.stack(got)}
+    if not group:
+        return out
+    whole_routes = drops = None
+    if dtype == torch.float32:
+        whole_routes = _routes(lambda: _run(cfg, None, full, every))[1]
+        L = cfg.n_layers
+        drops = {"prefill": sum(int((~k).sum())
+                                for _, k in whole_routes[:L]),
+                 "decode": sum(int((~k).sum())
+                               for _, k in whole_routes[L:])}
+        whole_routes = _rank_rows(whole_routes, rows, Bk, cfg.moe_top_k)
+    whole = cache if tp is None else msh.gather_cache(cache, tp)
+    return dict(out, layout=None if tp is None else tp.cache_layout,
+                gathered=[] if tp is None else sorted(
+                    "/".join(b) for b in tp.gathered),
+                vocab_parallel=None if tp is None else tp.vocab_parallel,
+                seq_parallel=None if tp is None else tp.seq_parallel,
+                shapes=_shapes(cache["layers"]),
+                routes=routes, whole_routes=whole_routes,
+                whole_drops=drops, idx=int(whole["idx"]),
+                slot_pos=whole["slot_pos"].numpy(),
+                cache={"/".join(p): t.float().numpy() for p, t in
+                       msh._paths(whole["layers"])})
 
 
 def _slots_rank(key, tree):
@@ -364,7 +435,10 @@ def _serve_rank(trees):
     return {"cases": cases, "bf16": bf16,
             "slots": [_slots_rank(key, trees[key]) for key, _ in SLOTS],
             "live": [_live_rank(key, D, M) for key, (D, M) in LIVE],
-            "faults": _faults_rank(trees["dsv2"])}
+            "faults": _faults_rank(trees["dsv2"]),
+            # MUTATION: each data rank routes its own rows alone
+            "per_rank": _case_rank("dsv2_drop", meshes[(2, 2)],
+                                   trees["dsv2_drop"], True, group=False)}
 
 
 def _tree(key):
@@ -403,10 +477,10 @@ def _name(path):
 
 
 def _jax_side(key, tree, dtype="float32"):
-    """JAX's unsharded prefill_cache + 16 decode steps of one config, the
-    weights and cache in ``dtype`` (the router in fp32, as JAX's
-    ``init_params`` keeps it): the logits of each (as fp32) and the final
-    cache."""
+    """JAX's unsharded prefill_cache + the decode steps of one config on
+    its whole batch, the weights and cache in ``dtype`` (the router in
+    fp32, as JAX's ``init_params`` keeps it): the logits of each (as
+    fp32) and the final cache."""
     import jax
     import jax.numpy as jnp
 
@@ -422,7 +496,7 @@ def _jax_side(key, tree, dtype="float32"):
     step = jax.jit(lambda c, t: jt.decode_step(jcfg, params, c, t))
     f32 = lambda a: np.asarray(a, np.float32)
     logits = [f32(lg)]
-    for i in range(STEPS):
+    for i in range(_steps(key)):
         lg, cache = step(cache, toks[:, S + i:S + i + 1])
         logits.append(f32(lg))
     return {"logits": np.stack(logits), "idx": int(cache["idx"]),
@@ -475,29 +549,40 @@ def _same_routes(got, want) -> bool:
         for a, b in zip(g, w))
 
 
+def _rows_of(key, node, D) -> slice:
+    return slice(node * _batch(key) // D, (node + 1) * _batch(key) // D)
+
+
+def _logits_held(r, ref, key, D, tol):
+    assert r["logits"].shape[0] == _steps(key) + 1
+    for step, (got, w) in enumerate(zip(
+            r["logits"], ref["logits"][:, _rows_of(key, r["node"], D)])):
+        assert _rel(got, w) <= tol, (step, _rel(got, w))
+
+
 def _held(ranks, ref, key, D, M, layout, gathered, tol):
     """Every rank's logits of every step, gathered cache, ``idx`` and
-    ``slot_pos`` against JAX's unsharded run ``ref`` within ``tol``, and
-    its layout."""
+    ``slot_pos`` against JAX's unsharded run ``ref`` of the whole batch
+    within ``tol``, and its layout (None at M = 1: no tensor
+    parallelism)."""
     assert len(ranks) == D * M
     for r in ranks:
-        rows = slice(r["node"] * B // D, (r["node"] + 1) * B // D)
+        rows = _rows_of(key, r["node"], D)
         assert r["layout"] == layout
         assert r["gathered"] == gathered
-        assert r["vocab_parallel"] == (_cfg(key).vocab % M == 0)
-        assert r["seq_parallel"] == _seq_parallel(key)
-        assert r["logits"].shape[0] == STEPS + 1
-        for step, (got, w) in enumerate(zip(r["logits"],
-                                            ref["logits"][:, rows])):
-            assert _rel(got, w) <= tol, (step, _rel(got, w))
-        assert r["idx"] == ref["idx"] == S + STEPS
+        if M > 1:
+            assert r["vocab_parallel"] == (_cfg(key).vocab % M == 0)
+            assert r["seq_parallel"] == _seq_parallel(key)
+        _logits_held(r, ref, key, D, tol)
+        assert r["idx"] == ref["idx"] == S + _steps(key)
         assert np.array_equal(r["slot_pos"], ref["slot_pos"])
         assert set(r["cache"]) == set(ref["cache"])
         for name, w in ref["cache"].items():
             assert _rel(r["cache"][name], w[:, rows]) <= tol, name
 
 
-IDS = [f"{k}-{d}x{m}-{lay.get('latent') or lay['kv']}"
+IDS = [f"{k}-{d}x{m}-" + ("replicated" if lay is None
+                          else lay.get("latent") or lay["kv"])
        for k, (d, m), _, lay, _ in CASES]
 
 
@@ -510,14 +595,15 @@ def test_prefill_and_decode_match_jax_unsharded(spawned, i):
     cfg = _cfg(key)
     for r in ranks:
         # the prefill and every step, each MoE layer's routes: the same
-        # top-k and drops as the unsharded model's on the same rows
-        assert len(r["routes"]) == (STEPS + 1) * cfg.n_layers
+        # top-k and drops as the unsharded model's on the whole batch, on
+        # this rank's rows
+        assert len(r["routes"]) == (_steps(key) + 1) * cfg.n_layers
         assert _same_routes(r["routes"], r["whole_routes"])
         prefill_kept = [keep for _, keep in r["routes"][:cfg.n_layers]]
-        assert all(k.shape == (1, S * B // D * cfg.moe_top_k)
+        assert all(k.shape == (1, S * _batch(key) // D * cfg.moe_top_k)
                    for k in prefill_kept)
-        if key == "dsv2_drop":
-            assert sum(int((~k).sum()) for k in prefill_kept) > 0
+        if key in DROPS:
+            assert r["whole_drops"][DROPS[key]] > 0, r["whole_drops"]
 
 
 @pytest.mark.parametrize("i", range(len(BF16_CASES)), ids=[
@@ -541,7 +627,7 @@ def test_local_cache_leaves_have_the_reference_shard_shapes(spawned):
     for i, (key, (D, M), seq_shard, _, _) in enumerate(CASES):
         jcfg = _cfg(key, jget)
         cache = jax.eval_shape(lambda: jt.init_cache(
-            jcfg, None, B, MAX_LEN, jnp.float32))
+            jcfg, None, _batch(key), MAX_LEN, jnp.float32))
         mesh = AbstractMesh((D, M), ("data", "model"))
         specs_ = jsh.cache_pspecs(cache["layers"], mesh, ("data",),
                                   seq_shard=seq_shard)
@@ -580,6 +666,7 @@ def test_build_prefill_and_decode_live(spawned):
                 info = r[name]["info"]
                 assert info["model_axis"] == "tensor"
                 assert info["tensor_parallel"]["ranks"] == M
+                assert info["batch_ranks"] == (D if D > 1 else None)
                 assert r[name]["live_bytes"] == r[name]["meta_bytes"] > 0
             assert np.array_equal(r["tokens"], toks)
             assert _rel(r["logits"], np.asarray(want)) <= TOL
@@ -606,30 +693,54 @@ def test_four_faults_repaired_and_the_old_code_misses(spawned):
                for f in faults), faults
 
 
+def test_per_rank_routing_misses_the_whole_batch(spawned):
+    """The fault of the batch rows over ``data``: each data rank routing
+    its rows alone (the capacity and slots of its rows, no batch group),
+    ``dsv2_drop`` on (2, 2).  Node 1's logits miss ``TOL`` of JAX's run
+    of the whole batch, where the whole batch's routing holds."""
+    outs, want, _, _ = spawned
+    key, D = "dsv2_drop", 2
+    i = CASES.index((key, (D, 2), True, MLA("slots"), []))
+    right = [o["cases"][i] for o in outs if o["cases"][i] is not None]
+    old = [o["per_rank"] for o in outs if o["per_rank"] is not None]
+    assert len(right) == len(old) == 4
+    ref = want[key]["logits"]
+
+    def err(r):
+        return max(_rel(g, w) for g, w in zip(
+            r["logits"], ref[:, _rows_of(key, r["node"], D)]))
+    assert all(err(r) <= TOL for r in right)
+    missed = [err(r) for r in old if r["node"] == 1]
+    assert len(missed) == 2 and min(missed) > TOL, missed
+
+
 # (arch, shape, mesh, cache_seq_shard, cache_layout, the local cache
-# leaves' shapes, collectives a decode step by name: the module
-# docstring's counts)
+# leaves' shapes, collectives a decode step by name over the model group
+# and over the data group: the module docstring's counts; a MoE layer's
+# gather of the experts' counts where the batch rows are split, none at
+# long_500k's batch of 1)
 META = [("phi3.5-moe-42b-a6.6b", "decode_32k", (32, 8), True,
-         PHI("heads"), {"all_reduce_sum": 65}),
+         PHI("heads"), {"all_reduce_sum": 65}, {"all_gather_flat": 32}),
         ("phi3.5-moe-42b-a6.6b", "decode_32k", (64, 4), True,
-         PHI("heads"), {"all_reduce_sum": 65}),
+         PHI("heads"), {"all_reduce_sum": 65}, {"all_gather_flat": 32}),
         ("phi3.5-moe-42b-a6.6b", "long_500k", (32, 8), True,
-         PHI("heads"), {"all_reduce_sum": 65}),
+         PHI("heads"), {"all_reduce_sum": 65}, {}),
         ("phi3.5-moe-42b-a6.6b", "prefill_32k", (32, 8), True,
-         PHI("heads"), None),
+         PHI("heads"), None, None),
         ("deepseek-v2-236b", "decode_32k", (32, 8), True, MLA("slots"),
          {"all_gather_seq": 60, "all_reduce_max": 60,
-          "all_reduce_sum": 181}),
+          "all_reduce_sum": 181}, {"all_gather_flat": 60}),
         ("deepseek-v2-236b", "decode_32k", (32, 8), False,
-         MLA("latent_dim"), {"all_gather_seq": 120, "all_reduce_sum": 181}),
+         MLA("latent_dim"), {"all_gather_seq": 120, "all_reduce_sum": 181},
+         {"all_gather_flat": 60}),
         ("deepseek-v2-236b", "decode_32k", (64, 4), True, MLA("slots"),
          {"all_gather_seq": 60, "all_reduce_max": 60,
-          "all_reduce_sum": 181}),
+          "all_reduce_sum": 181}, {"all_gather_flat": 60}),
         ("deepseek-v2-236b", "long_500k", (32, 8), True, MLA("slots"),
          {"all_gather_seq": 60, "all_reduce_max": 60,
-          "all_reduce_sum": 181}),
+          "all_reduce_sum": 181}, {}),
         ("deepseek-v2-236b", "prefill_32k", (32, 8), True, MLA("slots"),
-         None)]
+         None, None)]
 
 
 def _jax_shard_shapes(arch, shape, mesh, seq_shard):
@@ -666,12 +777,13 @@ def _jax_shard_shapes(arch, shape, mesh, seq_shard):
     return out
 
 
-@pytest.mark.parametrize("arch,shape,mesh,seq_shard,layout,coll", META,
-                         ids=[f"{a}-{s}-{m[0]}x{m[1]}-{lay.get('latent') or lay['kv']}"
-                              for a, s, m, _, lay, _ in META])
+@pytest.mark.parametrize("arch,shape,mesh,seq_shard,layout,coll,data_coll",
+                         META, ids=[
+                             f"{a}-{s}-{m[0]}x{m[1]}-{lay.get('latent') or lay['kv']}"
+                             for a, s, m, _, lay, _, _ in META])
 def test_production_mesh_meta_layouts_and_collectives(arch, shape, mesh,
                                                       seq_shard, layout,
-                                                      coll):
+                                                      coll, data_coll):
     from repro_torch.core import runtime_sharded as rs
     kw = {} if coll is None else {"cache_seq_shard": seq_shard}
     fn, args = specs.build_case(get_config(arch),
@@ -689,14 +801,17 @@ def test_production_mesh_meta_layouts_and_collectives(arch, shape, mesh,
             "phi" if arch.startswith("phi") else "dsv2")
         return
     assert _shapes(args[1]) == want["cache"]
+    assert info["batch_ranks"] == (mesh[0] if data_coll else None)
     with rs.record_collectives() as calls:
         fn(*args)
-    counts: dict = {}
+    counts: dict = {mesh[0]: {}, mesh[1]: {}}
     for c in calls:
         if c["group_size"] > 1:
-            assert c["group_size"] == mesh[1]
-            counts[c["name"]] = counts.get(c["name"], 0) + 1
-    assert counts == coll
+            by = counts[c["group_size"]]
+            by[c["name"]] = by.get(c["name"], 0) + 1
+            # the model group within a host, the data group across hosts
+            assert c["intra_host"] == (c["group_size"] == mesh[1])
+    assert counts == {mesh[1]: coll, mesh[0]: data_coll}
 
 
 def test_deepseek_v2_decode_32k_rank_holds_its_blocks():
