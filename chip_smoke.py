@@ -75,9 +75,10 @@ run.  Phases:
    (y, h_last and the checkpoints at the autograd function's spacing;
    1e-4 fp32, 3e-2 bf16), unsplit and with its time axis split in 3, and
    ``ssm_scan_bwd`` against ``ssm_scan_bwd_plain`` (the six gradients,
-   with and without a gradient of h_last, within the same tolerances
-   relative to each gradient's largest entry) at tests/test_kernels.py's
-   scan cases, at ragged di (200, 3200), S (1, 100, 129) and N (4, 16),
+   with and without a gradient of h_last, unsplit and split in 3, within
+   the same tolerances relative to each gradient's largest entry) at
+   tests/test_kernels.py's scan cases, at ragged di (200, 3200), S (1,
+   100, 129) and N (4, 16),
    and at hymba-1.5b's train shape (B 4, S 128, di 3200, N 16), with dt
    drawn as the model feeds it and B, C as column slices of one
    projection; then ``SelectiveScanFn``'s gradients (both kernels)
@@ -93,8 +94,10 @@ run.  Phases:
    hymba-1.5b (S 4096, di 3200) and falcon-mamba-7b (S 4096, di 8192):
    the forward (without checkpoints, as before; with them, as the
    autograd function runs it; at the op widths unsplit and at the split
-   ``scan_segments`` chooses), the backward kernel, and their plain twins
-   (the backward's at the op widths once), median of CUDA-event times,
+   ``scan_segments`` chooses), the backward kernel (unsplit and at the
+   split ``scan_bwd_segments`` chooses, that split held to the output of
+   the plain twin's timed call), and their plain twins (the backward's
+   at the op widths once), median of CUDA-event times,
    beside the bounds (bytes at 3.35 TB/s; fp32 operations; exponentials
    at the MUFU rate of 16 per clock per SM at the card's maximum SM
    clock; the backward's with its checkpoints every
@@ -4868,8 +4871,10 @@ def scan_timing(sname, shape, dt_rank, clock_hz, sms, name, smi):
     """Phase 16's readings of both scan kernels at ``shape`` (B, S, di,
     N), fp32, B and C slices of a projection of ``dt_rank`` + 2N columns:
     the forward at the split ``scan_segments`` chooses (and unsplit),
-    with checkpoints and as one call, the backward, their plain twins,
-    both kernels through autograd, beside ``scan_bound`` /
+    with checkpoints and as one call, the backward at the split
+    ``scan_bwd_segments`` chooses (and unsplit; the rule's split held to
+    the output of the twin's timed call), their plain twins, both kernels
+    through autograd, beside ``scan_bound`` /
     ``scan_bwd_bound``; emits one ``scan_timing`` line a kernel and
     returns their rows ``(forward, backward)`` (ms, plain_ms, bound_ms,
     bound_by)."""
@@ -4903,13 +4908,24 @@ def scan_timing(sname, shape, dt_rank, clock_hz, sms, name, smi):
     bargs = (*sargs, torch.randn(Bsz, S, di, generator=gg, device="cuda"),
              torch.randn(Bsz, di, N, generator=gg, device="cuda"), ckpt)
     n_ck = scan_k.n_checkpoints(S, every)
+    brule = scan_k.scan_bwd_segments(Bsz, S, di, N, sms)
+    bsplit = {nseg: graph_ms(lambda: scan_b.ssm_scan_bwd(
+        *bargs, ckpt_every=every, segments=nseg))
+        for nseg in sorted({1, brule})}
+    plain = {}
     brow = dict(
-        ms=graph_ms(lambda: scan_b.ssm_scan_bwd(*bargs,
-                                                ckpt_every=every)),
-        # the twin once at the op widths (two Python loops over S)
-        plain_ms=cuda_ms(lambda: scan_b.ssm_scan_bwd_plain(
-            *bargs, ckpt_every=every), reps=1 if long else 3,
-            warmup=0 if long else 1))
+        ms=bsplit[brule],
+        # the twin once at the op widths (two Python loops over S); its
+        # output holds the kernel at the rule's split
+        plain_ms=cuda_ms(lambda: plain.update(want=scan_b.ssm_scan_bwd_plain(
+            *bargs, ckpt_every=every)), reps=1 if long else 3,
+            warmup=0 if long else 1),
+        segments=brule, ms_by_segments=bsplit)
+    brow["split_max_rel_err"], brow["split_max_abs_err"] = held_grads(
+        scan_b.ssm_scan_bwd(*bargs, ckpt_every=every, segments=brule),
+        plain["want"], sargs, SCAN_FP32_TOL,
+        f"ssm_scan_bwd {sname} ({brule} segments)")
+    del plain
     # the gradient's own bound, its checkpoints at the spacing the least
     # work needs; and as the kernel reads them, at CKPT_EVERY
     brow["bound_ms"], brow["bound_by"], bterms = scan_bwd_bound(
@@ -4959,12 +4975,14 @@ def compare_scan(args, tol, what, segments=(1, 3), fwd=None) -> float:
                    want, ("y", "h_last", "checkpoints")))
 
 
-def compare_scan_bwd(args, tol, what, seed=0, bwd=None):
+def compare_scan_bwd(args, tol, what, seed=0, bwd=None, segments=(1, 3)):
     """The backward kernel (``bwd``, by default the checkout's
     ``ssm_scan_bwd``) against its plain twin on ``args`` and random
-    cotangents, with and without a gradient of h_last: returns (the
-    largest error relative to each gradient's largest entry, the largest
-    absolute error); raises unless finite and within ``tol`` relative."""
+    cotangents, with and without a gradient of h_last, its time axis
+    unsplit and split (each of ``segments``) against the unsplit twin:
+    returns (the largest error relative to each gradient's largest entry,
+    the largest absolute error); raises unless finite and within ``tol``
+    relative."""
     import torch
     from repro_torch.kernels.ssm_scan import backward as sb
     from repro_torch.kernels.ssm_scan import kernel as sk
@@ -4977,20 +4995,32 @@ def compare_scan_bwd(args, tol, what, seed=0, bwd=None):
     gh = torch.randn(Bsz, di, N, generator=g, device="cuda")
     rel = absolute = 0.0
     for h in (gh, None):
-        got = bwd(*args, gy, h, ckpt, ckpt_every=sk.CKPT_EVERY)
         want = sb.ssm_scan_bwd_plain(*args, gy, h, ckpt,
                                      ckpt_every=sk.CKPT_EVERY)
-        for name, a, w, x in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got,
-                                 want, args):
-            check(a.dtype == w.dtype == x.dtype,
-                  f"{what} {name}: in its input's dtype {x.dtype}")
-            scale = max(1.0, float(w.float().abs().max()))
-            absolute = max(absolute, float((a.float() - w.float()).abs()
-                                           .max()))
-            err = held(a.float() / scale, w.float() / scale, tol,
-                       f"{what} {name} ({'with' if h is not None else 'no'}"
-                       f" gh)")
-            rel = max(rel, err)
+        for nseg in segments:
+            got = bwd(*args, gy, h, ckpt, ckpt_every=sk.CKPT_EVERY,
+                      segments=nseg)
+            r, a = held_grads(got, want, args, tol,
+                              f"{what} ({'with' if h is not None else 'no'}"
+                              f" gh, {nseg} segments)")
+            rel, absolute = max(rel, r), max(absolute, a)
+    return rel, absolute
+
+
+def held_grads(got, want, args, tol, what):
+    """The six scan gradients ``got`` against ``want``, each in its
+    input's dtype and within ``tol`` of the twin relative to that
+    gradient's largest entry: returns (that relative error, the largest
+    absolute error); raises otherwise."""
+    rel = absolute = 0.0
+    for name, a, w, x in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got,
+                             want, args):
+        check(a.dtype == w.dtype == x.dtype,
+              f"{what} {name}: in its input's dtype {x.dtype}")
+        scale = max(1.0, float(w.float().abs().max()))
+        absolute = max(absolute, float((a.float() - w.float()).abs().max()))
+        rel = max(rel, held(a.float() / scale, w.float() / scale, tol,
+                            f"{what} {name}"))
     return rel, absolute
 
 
@@ -5055,19 +5085,27 @@ def main() -> int:
               f"{kname} runs on the tensor cores (and the bf16 forward's "
               f"tiles arrive by TMA): {ops}")
     # the scan's two kernels: registers, spills, static shared memory per
-    # instantiation; the backward's dynamic shared memory per block
+    # instantiation (the backward's as bwd_smem_bytes counts it)
     for kname, src in (("ssm_scan", scan_k.KERNEL_SOURCE),
                        ("ssm_scan_bwd", scan_b.KERNEL_SOURCE)):
         entries = ptxas_entries(src)
         emit("build_scan", kernel=kname, ptxas=entries,
-             **({"dynamic_smem_bytes": {
-                 f"T={scan_k.CKPT_EVERY}, N={n}": scan_b.bwd_smem_bytes(
-                     scan_k.CKPT_EVERY, n) for n in (4, 8, 16)}}
+             **({"static_smem_bytes": {
+                 f"N={n}, {e}-byte inputs": scan_b.bwd_smem_bytes(n, e)
+                 for n in (4, 8, 16) for e in (4, 2)}}
                 if kname == "ssm_scan_bwd" else {}))
         check(len(entries) == 6 and all(
             e.get("spill_store_bytes", 0) == 0 for e in entries),
             f"{kname}: six instantiations (fp32, bf16 x 1, 2, 4 lanes), "
             f"none spilling: {entries}")
+        if kname == "ssm_scan_bwd":
+            import re
+            want_smem = [scan_b.bwd_smem_bytes(
+                4 * int(re.search(r"Li(\d)E", e["entry"]).group(1)),
+                2 if "bfloat16" in e["entry"] else 4) for e in entries]
+            check([e.get("smem_bytes") for e in entries] == want_smem,
+                  f"ssm_scan_bwd: static shared memory as bwd_smem_bytes "
+                  f"counts it, {want_smem}: {entries}")
 
     # 3. kernels vs plain --------------------------------------------------
     for P in (37, 100_001):

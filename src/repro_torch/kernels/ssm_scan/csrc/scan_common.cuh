@@ -1,7 +1,8 @@
 // Helpers shared by the selective scan's forward (ssm_scan.cu) and
 // backward (ssm_scan_bwd.cu): fp32 reads of fp32 or bf16 values, the
 // exponential as one ex2, cp.async staging of 2-D tiles into shared
-// memory, and the copy width a tile's pointers and strides allow.
+// memory (at a runtime copy width, or one fixed at compile time), and the
+// copy width a tile's pointers and strides allow.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,6 +102,44 @@ __device__ __forceinline__ void stage(T* s, const T* g, int64_t stride,
     } else {
       for (int k = 0; k < per; ++k) dst[k] = zero_of<T>();
     }
+  }
+}
+
+// stage() with the copy width V (16, 8 or 4 bytes) fixed at compile time,
+// so that an item's row and column are a shift and a mask where stage()
+// divides by a runtime count (the backward's staging: a fifth of its time;
+// the forward keeps stage(), whose bf16 instantiation spilled with this)
+template <typename T, int W, int V>
+__device__ __forceinline__ void stage_v(T* s, const T* g, int64_t stride,
+                                        int rows, int valid, int tid,
+                                        int nthreads) {
+  constexpr int per = V / static_cast<int>(sizeof(T));
+  constexpr int pieces = W / per;
+  for (int i = tid; i < rows * pieces; i += nthreads) {
+    const int r = i / pieces, col = (i % pieces) * per;
+    T* dst = s + r * W + col;
+    if (col < valid) {
+      cp_async(dst, g + r * stride + col, V);
+    } else {
+#pragma unroll
+      for (int k = 0; k < per; ++k) dst[k] = zero_of<T>();
+    }
+  }
+}
+
+// stage() dispatched once on the copy width to stage_v
+template <typename T, int W>
+__device__ __forceinline__ void stage_fixed(T* s, const T* g, int64_t stride,
+                                            int rows, int valid, int vec,
+                                            int tid, int nthreads) {
+  if (vec == 16) {
+    stage_v<T, W, 16>(s, g, stride, rows, valid, tid, nthreads);
+  } else if (vec == 8) {
+    stage_v<T, W, 8>(s, g, stride, rows, valid, tid, nthreads);
+  } else if (vec == 4) {
+    stage_v<T, W, 4>(s, g, stride, rows, valid, tid, nthreads);
+  } else {
+    stage<T, W>(s, g, stride, rows, valid, 0, tid, nthreads);
   }
 }
 

@@ -18,42 +18,66 @@
 // B, C (batch, S, N) strided, unit stride over N; A (di, N), D (di,)
 // fp32), gy (batch, S, di) fp32 contiguous, gh (batch, di, N) fp32 or
 // null, and the forward's checkpoints ckpt[b, k] = h_{k T} (batch,
-// ceil(S / T), di, N) fp32.  Outputs fp32: du, ddt (batch, S, di) written;
-// dA (di, N), dD (di,), dB, dC (batch, S, N) contiguous, zeroed by the
-// caller and added to with atomics.
+// ceil(S / T), di, N) fp32, T <= 8.  Outputs fp32: du, ddt (batch, S, di)
+// written; dA (di, N), dD (di,), dB, dC (batch, S, N) contiguous, zeroed
+// by the caller and added to with atomics.
 //
 // Bound.  Bytes: u, dt, gy and the checkpoints read, du and ddt written
 // (B, C, A, D, gh and their gradients are small); one exponential and ~19
 // fp32 operations per (b, t, d, n).  At hymba-1.5b's train shape the bytes
-// bound it.
+// bound it; what a warp issues per step (not the bytes) decides how near
+// the kernel comes: ~135 instructions a warp-step, four warps a block,
+// four blocks an SM (128 registers a thread).
 //
-// Design (simple and right first).  One block per (32-channel tile, batch
-// row), four states of a channel a thread as in the forward, walking the
-// checkpoint chunks from the last to the first:
-//  1. stage the chunk's u, dt, gy (T x 32) and B, C (T x N) in shared memory
-//     by cp.async, double-buffered: the chunk before loads while this one
-//     runs;
-//  2. from the chunk's checkpoint (loaded into registers a chunk ahead),
-//     rerun the forward over its T steps and keep h_t and dA_t (one
-//     exponential per (t, n), never a second) in a thread-private slice of
-//     shared memory, [t][thread] as float4;
-//  3. sweep the chunk backward: G, and dA in registers; the lane's parts
-//     of du and ddt (sums over its 4 states), and its per-(channel, state)
-//     terms of dB and dC, to shared memory (dB and dC over the step's h
-//     and dA slots, which the sweep no longer needs).  The rerun and the
-//     sweep load kGroup steps before they compute and store, as the
-//     forward does;
-//  4. write du, ddt for the chunk in 128-byte rows (the L lane parts
-//     summed, D gy added; dD summed per channel), sum dB and dC over the
-//     tile's channels in shared memory (one float4 of 4 states a thread
-//     per (t, lane)) and add them to the batch row's dB, dC with
-//     atomicAdd; the tiles of di add in an order that varies from run to
-//     run (fp32, so dB, dC vary in their last bits).
-// At the end dA and dD are added over batch rows by atomicAdd (same note).
-// Shared memory is T (32 L 40 + 2 (32 4 + 2 32 e + 2 16 e)) bytes for
-// inputs of e bytes: 49,152 at T = 8, N = 16, fp32, so four blocks fit an
-// SM and hymba-1.5b's train shape (400 blocks) runs in one wave.  Offsets
-// are int64; nothing is asserted about S or di.
+// Design.
+//  * A split time axis in one launch.  The backward's carry is linear and
+//    needs no h (G_t = gy_t C_t + carry, carry <- dA_t G_t), so S splits
+//    into nseg segments whose bounds fall on checkpoints (seg_ck chunks of
+//    T steps each).  Pass-A blocks (segments 1..nseg-1) run only that
+//    chain over their segment from a zero carry -- dt, gy and C read, one
+//    exponential and two fp32 operations per (b, t, d, n) -- and publish
+//    its carry-out and its decay exp(A sum dt).  Pass-B blocks combine the
+//    carries of the segments after theirs, from the last: c = out[s'] +
+//    P[s'] c, from gh or zero, then rerun and sweep their segment from that
+//    carry-in.  Blocks take a ticket from an atomic counter, pass A first,
+//    so a pass-B block waits only on blocks that are already running.
+//  * A chunk in registers.  One block per (segment, batch row, 32-channel
+//    tile), four states of a channel a thread (L = ceil(N / 4) lanes a
+//    channel).  A chunk of T <= 8 steps (a shorter one padded with dt = u
+//    = gy = B = C = 0, which leave h and the carry as they are and add
+//    nothing) is swept in two halves of 4 steps, the later first: each
+//    half reruns its steps from the state before it into registers (h_t
+//    and dA_t, 32 a thread), then sweeps them backward; the state before
+//    the later half comes from a rerun of the earlier one that keeps
+//    nothing.  Twelve reruns a chunk instead of eight, but 32 registers
+//    fewer than keeping all eight steps, which spilled at four blocks an
+//    SM (tools/scan_ab.py).  No store inside a step: a store keeps the
+//    compiler from moving the next step's shared loads above it; a half's
+//    outputs wait in registers and are stored after it.
+//  * Sums across threads by shuffles.  A channel's du and ddt parts are
+//    summed over its L lanes (two shuffles at L = 4) and written by the
+//    lanes that hold them.  A thread's 8 dB and dC terms of a step are
+//    summed over the warp's channels by a halving butterfly (each level
+//    sends half its values and keeps half: 7 shuffles for 8 values over 8
+//    channels; faster here than 16-byte stores to shared memory summed
+//    once a chunk), then over the block's warps through shared memory once
+//    a chunk, and added to dB, dC with one float4 atomicAdd per (step, four
+//    states): ceil(di / 32) adds an address, a quarter as many instructions
+//    as scalar adds (the adds cost 1-4 % of the time).  Their order varies
+//    from run to run, so dB, dC (and dA, dD, added once a block) are
+//    repeatable only to fp32 rounding.
+//  * Staging.  The chunk before this one (u, dt, gy, B, C and its
+//    checkpoint; pass A: dt, gy, C) loads by cp.async while this one runs,
+//    double-buffered in static shared memory (16 KB a block at fp32, N 16),
+//    with the copy width fixed at compile time once per tile
+//    (scan_common.cuh's stage_fixed: a division by a runtime width per
+//    copied piece cost a fifth of the time).  Bulk copies (cp.async.bulk
+//    on an mbarrier, a row a copy from one warp), a third buffer and
+//    rounds of two chunks were slower here.
+//  * Any S and di (ragged channel tiles and chunks masked), 1 <= N <= 16,
+//    int64 offsets.
+
+#include <type_traits>
 
 #include "scan_common.cuh"
 
@@ -64,101 +88,24 @@ using namespace scan;
 constexpr int kCh = 32;       // channels per block
 constexpr int kMaxN = 16;     // largest state size
 constexpr int kNS = 4;        // states per thread
-constexpr int kGroup = 2;     // steps a lane loads before it computes
-                              // (2 beat 4 and 8 here: tools/scan_ab.py)
-constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
+constexpr int kT = 8;         // a chunk's steps: the largest spacing taken
+constexpr int kHalf = kT / 2;  // steps a half-chunk holds in registers
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kFull = 0xffffffffu;
 
-// G steps of the rerun: every load first, then the exponentials, then the
-// h chain, then the stores of h_t and dA_t (see the note in ssm_scan.cu:
-// a shared store inside a step keeps the next step's loads behind it).
-template <typename T, int G>
-__device__ __forceinline__ void rerun_steps(const T* su, const T* sdt,
-                                            const T* sB, int r, int c,
-                                            int n0, const float* a2,
-                                            float* h, float4* s_h,
-                                            float4* s_a, int stride) {
-  float ut[G], dtv[G], bv[G][kNS], e[G][kNS], hs[G][kNS];
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    ut[q] = to_f32(su[(r + q) * kCh + c]);
-    dtv[q] = to_f32(sdt[(r + q) * kCh + c]);
-    load4(sB + (r + q) * kMaxN + n0, bv[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-#pragma unroll
-    for (int j = 0; j < kNS; ++j) e[q][j] = ex2(dtv[q] * a2[j]);
-  }
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const float dtu = dtv[q] * ut[q];
-#pragma unroll
-    for (int j = 0; j < kNS; ++j) {
-      h[j] = fmaf(e[q][j], h[j], dtu * bv[q][j]);
-      hs[q][j] = h[j];
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    s_h[(r + q) * stride] = make_float4(hs[q][0], hs[q][1], hs[q][2],
-                                        hs[q][3]);
-    s_a[(r + q) * stride] = make_float4(e[q][0], e[q][1], e[q][2], e[q][3]);
-  }
-}
-
-// G steps of the sweep, from step r down to r - G + 1: every load first
-// (h_{t-1} of each step is read before any step's slot is overwritten),
-// then the steps in order, then the stores of the lane's du, ddt parts and
-// its dB, dC terms over the steps' h and dA slots.
-template <typename T, int G>
-__device__ __forceinline__ void sweep_steps(
-    const T* su, const T* sdt, const float* sgy, const T* sB, const T* sC,
-    int r, int c, int n0, const float* a, const float* h0, float* h,
-    float* carry, float* dA_acc, float4* s_h, float4* s_a, float2* s_s,
-    int stride) {
-  float hp[G][kNS], ev[G][kNS], bv[G][kNS], cv[G][kNS], ut[G], dtv[G], g[G];
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const int rr = r - q;
-    const float4 pq = rr > 0 ? s_h[(rr - 1) * stride]
-                             : make_float4(h0[0], h0[1], h0[2], h0[3]);
-    const float4 eq = s_a[rr * stride];
-    hp[q][0] = pq.x; hp[q][1] = pq.y; hp[q][2] = pq.z; hp[q][3] = pq.w;
-    ev[q][0] = eq.x; ev[q][1] = eq.y; ev[q][2] = eq.z; ev[q][3] = eq.w;
-    load4(sB + rr * kMaxN + n0, bv[q]);
-    load4(sC + rr * kMaxN + n0, cv[q]);
-    ut[q] = to_f32(su[rr * kCh + c]);
-    dtv[q] = to_f32(sdt[rr * kCh + c]);
-    g[q] = sgy[rr * kCh + c];
-  }
-  float pB[G][kNS], pC[G][kNS], sBv[G], sAv[G];
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const float dtu = dtv[q] * ut[q];
-    float sB_ = 0.0f, sA = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kNS; ++j) {
-      const float Gj = fmaf(g[q], cv[q][j], carry[j]);
-      pC[q][j] = g[q] * h[j];
-      pB[q][j] = Gj * dtu;
-      sB_ = fmaf(Gj, bv[q][j], sB_);
-      const float w = Gj * (ev[q][j] * hp[q][j]);
-      sA = fmaf(w, a[j], sA);
-      dA_acc[j] = fmaf(w, dtv[q], dA_acc[j]);
-      carry[j] = ev[q][j] * Gj;
-      h[j] = hp[q][j];
-    }
-    sBv[q] = sB_;
-    sAv[q] = sA;
-  }
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const int rr = r - q;
-    s_s[rr * stride] = make_float2(sBv[q], sAv[q]);
-    s_h[rr * stride] = make_float4(pB[q][0], pB[q][1], pB[q][2], pB[q][3]);
-    s_a[rr * stride] = make_float4(pC[q][0], pC[q][1], pC[q][2], pC[q][3]);
-  }
-}
+template <typename T, int L>
+struct Smem {
+  struct Buf {
+    float gy[kT * kCh];
+    float ck[kCh * kMaxN];     // the chunk's checkpoint, [channel][state]
+    T u[kT * kCh];
+    T dt[kT * kCh];
+    T B[kT * kMaxN];
+    T C[kT * kMaxN];
+  };
+  Buf buf[2];
+  float red[kT][L][2 * kMaxN];   // [step][warp][dB states | dC states]
+};
 
 struct BwdParams {
   const void* u;
@@ -176,53 +123,77 @@ struct BwdParams {
   float* dB;
   float* dC;
   float* dD;
+  float* carry;        // split: decay then carry-out, each (nseg-1, batch,
+                       // di, N), segments 1..nseg-1
+  int* sync;           // split: [0] the ticket counter, then one flag per
+                       // (segment 1..nseg-1, batch row, tile); zeroed
   int64_t batch, S, di;
   int N;
   int64_t b_sb, b_st, c_sb, c_st;
-  int64_t T, n_ckpt;
-  int tiles;
-  int vec_ud, vec_gy, vec_b, vec_c;
+  int64_t T, n_ckpt, seg_ck;
+  int nseg, tiles;
+  int vec_ud, vec_gy, vec_b, vec_c, vec_ck, vec_dbc;
 };
 
-// Shared memory a step of a chunk takes: h and dA as a float4 a thread,
-// the lane's du, ddt sums as a float2 a thread, and two staging buffers of
-// u, dt (T), gy (fp32), B and C (T).
-template <typename T, int L>
-constexpr int smem_per_step() {
-  return 2 * kCh * L * 16 + kCh * L * 8
-         + 2 * (kCh * 4 + 2 * kCh * static_cast<int>(sizeof(T))
-                + 2 * kMaxN * static_cast<int>(sizeof(T)));
+// rows [from, kT) of a staged [kT][W] tile set to zero (a ragged chunk)
+template <typename T, int W>
+__device__ __forceinline__ void zero_rows(T* s, int from, int tid,
+                                          int nthreads) {
+  for (int i = from * W + tid; i < kT * W; i += nthreads) s[i] = zero_of<T>();
+}
+
+// The eight dB, dC terms v of a thread summed over the warp's channels
+// (lane bits 2..4 at L = 4; 1..4 at L = 2; 0..4 at L = 1).  Three halving
+// levels leave one value a thread: term (lane >> 2) & 7 of v, summed over
+// the channels that differ in lane bits 2..4; plain levels add the rest.
+template <int L>
+__device__ __forceinline__ float sum_channels(float v[8], int lane) {
+#pragma unroll
+  for (int lvl = 0; lvl < 3; ++lvl) {
+    const int m = 16 >> lvl;
+    const int k = 4 >> lvl;
+    const bool hi = (lane & m) != 0;
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const float send = hi ? v[i] : v[i + k];
+      const float keep = hi ? v[i + k] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, m);
+    }
+  }
+  float r = v[0];
+#pragma unroll
+  for (int m = 2; m >= L; m >>= 1) r += __shfl_xor_sync(kFull, r, m);
+  return r;
 }
 
 template <typename T, int L>
 __global__ void __launch_bounds__(kCh * L, 4)
     ssm_scan_bwd_kernel(BwdParams p) {
   constexpr int kThreads = kCh * L;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int64_t Tc = p.T;
-  float4* s_h = reinterpret_cast<float4*>(smem);            // [T][threads]
-  float4* s_a = s_h + Tc * kThreads;                        // [T][threads]
-  float2* s_s = reinterpret_cast<float2*>(s_a + Tc * kThreads);  // likewise
-  // two staging buffers, each gy (fp32), u, dt (T) [T][32], B, C (T) [T][16]
-  unsigned char* const stage0 =
-      reinterpret_cast<unsigned char*>(s_s + Tc * kThreads);
-  constexpr int64_t es = sizeof(T);
-  const int64_t buf_bytes = Tc * (kCh * 4 + 2 * kCh * es + 2 * kMaxN * es);
-  auto s_gy = [=](int buf) {
-    return reinterpret_cast<float*>(stage0 + buf * buf_bytes);
-  };
-  auto s_u = [=](int buf) {
-    return reinterpret_cast<T*>(stage0 + buf * buf_bytes + Tc * kCh * 4);
-  };
-  auto s_dt = [=](int buf) { return s_u(buf) + Tc * kCh; };
-  auto s_B = [=](int buf) { return s_u(buf) + 2 * Tc * kCh; };
-  auto s_C = [=](int buf) { return s_u(buf) + 2 * Tc * kCh + Tc * kMaxN; };
+  __shared__ __align__(16) Smem<T, L> sm;
+  __shared__ int s_ticket;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int c = tid / L;
   const int l = tid % L;
-  const int tile = static_cast<int>(blockIdx.x % p.tiles);
-  const int64_t b = blockIdx.x / p.tiles;
+  int64_t blk = blockIdx.x;
+  if (p.nseg > 1) {
+    if (tid == 0) s_ticket = atomicAdd(p.sync, 1);
+    __syncthreads();
+    blk = s_ticket;
+  }
+  // tickets: pass A (segments 1..nseg-1), then pass B from the last
+  // segment (which waits on nothing) to the first
+  const int64_t rows = p.batch * p.tiles;
+  const int64_t n_pass_a = static_cast<int64_t>(p.nseg - 1) * rows;
+  const bool pass_a = blk < n_pass_a;
+  const int64_t rest = pass_a ? blk : blk - n_pass_a;
+  const int seg = pass_a ? 1 + static_cast<int>(rest / rows)
+                         : p.nseg - 1 - static_cast<int>(rest / rows);
+  const int64_t b = (rest % rows) / p.tiles;
+  const int tile = static_cast<int>((rest % rows) % p.tiles);
   const int64_t d0 = static_cast<int64_t>(tile) * kCh;
   const int64_t d = d0 + c;
   const bool dlive = d < p.di;
@@ -230,162 +201,284 @@ __global__ void __launch_bounds__(kCh * L, 4)
   const int n0 = l * kNS;
   const int dvalid = p.di - d0 < kCh ? static_cast<int>(p.di - d0) : kCh;
 
-  float a[kNS], a2[kNS], carry[kNS], dA_acc[kNS];
+  float a2[kNS];
 #pragma unroll
   for (int j = 0; j < kNS; ++j) {
-    const bool live = dlive && n0 + j < N;
-    a[j] = live ? p.A[d * N + n0 + j] : 0.0f;
-    a2[j] = a[j] * kLog2e;
-    carry[j] = live && p.gh != nullptr ? p.gh[(b * p.di + d) * N + n0 + j]
-                                       : 0.0f;
-    dA_acc[j] = 0.0f;
+    a2[j] = dlive && n0 + j < N ? p.A[d * N + n0 + j] * kLog2e : 0.0f;
   }
-  // the lane's channel in the du, ddt pass: kThreads is a multiple of kCh
-  const int col = tid % kCh;
-  const float dcol = col < dvalid ? p.D[d0 + col] : 0.0f;
-  float dD_acc = 0.0f;
+  const int64_t plane = p.batch * p.di * N;   // one segment's carries
+  const int64_t hoff = (b * p.di + d) * N + n0;
+
   // kernel parameters the loops read, as locals: a lambda that captured
   // p by reference would put p on the stack and reload it every step
   const int64_t S = p.S, di = p.di, b_st = p.b_st, c_st = p.c_st;
-  const int64_t n_ckpt = p.n_ckpt;
+  const int64_t Tc = p.T, n_ckpt = p.n_ckpt;
   const int vec_ud = p.vec_ud, vec_gy = p.vec_gy, vec_b = p.vec_b,
-            vec_c = p.vec_c;
-  const float* const ckpt = p.ckpt;
-  float* const du = p.du;
-  float* const ddt = p.ddt;
-  float* const dB = p.dB;
-  float* const dC = p.dC;
+            vec_c = p.vec_c, vec_ck = p.vec_ck;
   const T* ub = static_cast<const T*>(p.u) + b * S * di + d0;
   const T* dtb = static_cast<const T*>(p.dt) + b * S * di + d0;
   const float* gyb = p.gy + b * S * di + d0;
   const T* Bb = static_cast<const T*>(p.Bm) + b * p.b_sb;
   const T* Cb = static_cast<const T*>(p.Cm) + b * p.c_sb;
+  const float* ckb = p.ckpt + (b * n_ckpt * di + d0) * N;
+  const int64_t k_lo = seg * p.seg_ck;
+  const int64_t k_hi = k_lo + p.seg_ck < n_ckpt ? k_lo + p.seg_ck : n_ckpt;
 
-  // 1. chunk k's u, dt, gy (T x 32) and B, C (T x N) into buffer k & 1
-  auto issue = [=](int64_t k) {
+  // chunk k's inputs into buffer `slot` (pass A: dt, gy and C only)
+  auto issue = [=](int64_t k, int slot) {
+    auto& bf = sm.buf[slot];
     const int64_t t0 = k * Tc;
     const int steps = static_cast<int>(S - t0 < Tc ? S - t0 : Tc);
-    const int buf = static_cast<int>(k & 1);
-    stage<T, kCh>(s_u(buf), ub + t0 * di, di, steps, dvalid, vec_ud, tid,
-                  kThreads);
-    stage<T, kCh>(s_dt(buf), dtb + t0 * di, di, steps, dvalid, vec_ud, tid,
-                  kThreads);
-    stage<float, kCh>(s_gy(buf), gyb + t0 * di, di, steps, dvalid, vec_gy,
-                      tid, kThreads);
-    stage<T, kMaxN>(s_B(buf), Bb + t0 * b_st, b_st, steps, N, vec_b, tid,
-                    kThreads);
-    stage<T, kMaxN>(s_C(buf), Cb + t0 * c_st, c_st, steps, N, vec_c, tid,
-                    kThreads);
+    stage_fixed<T, kCh>(bf.dt, dtb + t0 * di, di, steps, dvalid, vec_ud,
+                        tid, kThreads);
+    stage_fixed<float, kCh>(bf.gy, gyb + t0 * di, di, steps, dvalid, vec_gy,
+                            tid, kThreads);
+    stage_fixed<T, kMaxN>(bf.C, Cb + t0 * c_st, c_st, steps, N, vec_c, tid,
+                          kThreads);
+    if (!pass_a) {
+      stage_fixed<T, kCh>(bf.u, ub + t0 * di, di, steps, dvalid, vec_ud,
+                          tid, kThreads);
+      stage_fixed<T, kMaxN>(bf.B, Bb + t0 * b_st, b_st, steps, N, vec_b,
+                            tid, kThreads);
+      stage_fixed<float, kMaxN>(bf.ck, ckb + k * di * N, N, dvalid, N,
+                                vec_ck, tid, kThreads);
+    }
+    if (steps < kT) {
+      zero_rows<T, kCh>(bf.dt, steps, tid, kThreads);
+      zero_rows<float, kCh>(bf.gy, steps, tid, kThreads);
+      zero_rows<T, kMaxN>(bf.C, steps, tid, kThreads);
+      if (!pass_a) {
+        zero_rows<T, kCh>(bf.u, steps, tid, kThreads);
+        zero_rows<T, kMaxN>(bf.B, steps, tid, kThreads);
+      }
+    }
+  };
+  // the chunks of this segment walk down from k_hi - 1, alternating
+  // buffers; a chunk's copies start while the chunk after it runs, one
+  // commit group a chunk (empty past the segment's first chunk).  The
+  // loops start one pass early, a pass that only issues, so that `issue`
+  // is inlined once a loop (a second site cost a third of the kernel's
+  // build time)
+  auto ahead = [=](int64_t k, int slot) {
+    if (k >= k_lo) issue(k, slot);
     cp_commit();
   };
+  float carry[kNS] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  // the checkpoint of the chunk after next is loaded one chunk ahead too
-  auto load_ckpt = [=](int64_t k, float* out) {
-    const float* ck = ckpt + ((b * n_ckpt + k) * di + d) * N + n0;
+  if (pass_a) {
+    // the G chain of this segment from a zero carry at its end
+    float sum_dt = 0.0f;
+    int slot = 1;
+    for (int64_t k = k_hi; k >= k_lo; --k) {
+      ahead(k - 1, slot ^ 1);
+      slot ^= 1;
+      if (k == k_hi) continue;   // the first pass only issues
+      cp_wait_prev();
+      __syncthreads();
+      const auto& bf = sm.buf[slot ^ 1];
 #pragma unroll
-    for (int j = 0; j < kNS; ++j) {
-      out[j] = dlive && n0 + j < N ? ck[j] : 0.0f;
-    }
-  };
-  float ck_next[kNS] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (n_ckpt > 0) {
-    issue(n_ckpt - 1);
-    load_ckpt(n_ckpt - 1, ck_next);
-  }
-  for (int64_t k = n_ckpt - 1; k >= 0; --k) {
-    // the chunk before this one loads while this one runs
-    if (k > 0) {
-      issue(k - 1);
-    } else {
-      cp_commit();
-    }
-    cp_wait_prev();
-    __syncthreads();
-    const int64_t t0 = k * Tc;
-    const int steps = static_cast<int>(S - t0 < Tc ? S - t0 : Tc);
-    const int buf = static_cast<int>(k & 1);
-    const T* su = s_u(buf);
-    const T* sdt = s_dt(buf);
-    const float* sgy = s_gy(buf);
-    const T* sB = s_B(buf);
-    const T* sC = s_C(buf);
-
-    // 2. rerun the chunk's forward from its checkpoint
-    float h0[kNS], h[kNS];
+      for (int q = kT - 1; q >= 0; --q) {
+        const float g = bf.gy[q * kCh + c];
+        const float dtv = to_f32(bf.dt[q * kCh + c]);
+        float cv[kNS];
+        load4(bf.C + q * kMaxN + n0, cv);
 #pragma unroll
-    for (int j = 0; j < kNS; ++j) {
-      h0[j] = ck_next[j];
-      h[j] = h0[j];
-    }
-    if (k > 0) load_ckpt(k - 1, ck_next);
-    {
-      int r = 0;
-      for (; r + kGroup <= steps; r += kGroup) {
-        rerun_steps<T, kGroup>(su, sdt, sB, r, c, n0, a2, h, s_h + tid,
-                               s_a + tid, kThreads);
-      }
-      for (; r < steps; ++r) {
-        rerun_steps<T, 1>(su, sdt, sB, r, c, n0, a2, h, s_h + tid, s_a + tid,
-                          kThreads);
-      }
-    }
-
-    // 3. sweep the chunk backward
-    {
-      int r = steps - 1;
-      for (; r >= kGroup - 1; r -= kGroup) {
-        sweep_steps<T, kGroup>(su, sdt, sgy, sB, sC, r, c, n0, a, h0, h,
-                               carry, dA_acc, s_h + tid, s_a + tid,
-                               s_s + tid, kThreads);
-      }
-      for (; r >= 0; --r) {
-        sweep_steps<T, 1>(su, sdt, sgy, sB, sC, r, c, n0, a, h0, h, carry,
-                          dA_acc, s_h + tid, s_a + tid, s_s + tid, kThreads);
-      }
-    }
-    __syncthreads();
-
-    // du, ddt of the chunk: the channel's L lane sums, 128-byte rows
-    if (col < dvalid) {
-      const int64_t base = (b * S + t0) * di + d0 + col;
-      for (int r = tid / kCh; r < steps; r += kThreads / kCh) {
-        const float2* part = s_s + r * kThreads + col * L;
-        float sB_ = 0.0f, sA = 0.0f;
-#pragma unroll
-        for (int q = 0; q < L; ++q) {
-          sB_ += part[q].x;
-          sA += part[q].y;
+        for (int j = 0; j < kNS; ++j) {
+          carry[j] = ex2(dtv * a2[j]) * fmaf(g, cv[j], carry[j]);
         }
-        const float ut = to_f32(su[r * kCh + col]);
-        const float dtt = to_f32(sdt[r * kCh + col]);
-        const float g = sgy[r * kCh + col];
-        du[base + r * di] = fmaf(dtt, sB_, dcol * g);
-        ddt[base + r * di] = fmaf(ut, sB_, sA);
-        dD_acc = fmaf(g, ut, dD_acc);
+        sum_dt += dtv;
       }
+      __syncthreads();   // the next chunk's copies reuse the other buffer
     }
-
-    // 4. dB, dC: sum over the tile's channels, then over tiles by atomics
-    for (int i = tid; i < 2 * steps * L; i += kThreads) {
-      const int which = i / (steps * L);
-      const int r = (i / L) % steps;
-      const int li = i % L;
-      const float4* src = (which == 0 ? s_h : s_a) + r * kThreads + li;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-      for (int cc = 0; cc < kCh; ++cc) {
-        const float4 v = src[cc * L];
-        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-      }
-      float* dst = (which == 0 ? dB : dC) + (b * S + t0 + r) * N;
-      const float av[kNS] = {acc.x, acc.y, acc.z, acc.w};
+    // publish this segment's decay and carry-out, then its flag
+    if (dlive) {
+      float* P = p.carry + (seg - 1) * plane + hoff;
+      float* E = p.carry + (p.nseg - 1) * plane + (seg - 1) * plane + hoff;
 #pragma unroll
       for (int j = 0; j < kNS; ++j) {
-        const int n = li * kNS + j;
-        if (n < N) atomicAdd(dst + n, av[j]);
+        if (n0 + j < N) {
+          P[j] = ex2(a2[j] * sum_dt);
+          E[j] = carry[j];
+        }
       }
     }
-    __syncthreads();   // the next chunk overwrites h, dA and this buffer
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      int* flag = p.sync + 1 + (static_cast<int64_t>(seg - 1) * p.batch + b)
+                                   * p.tiles + tile;
+      asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(flag), "r"(1)
+                   : "memory");
+    }
+    return;
+  }
+
+  // pass B: the carry-in at this segment's end, from gh and the segments
+  // after this one, the last first
+#pragma unroll
+  for (int j = 0; j < kNS; ++j) {
+    carry[j] = dlive && n0 + j < N && p.gh != nullptr ? p.gh[hoff + j]
+                                                      : 0.0f;
+  }
+  for (int s2 = p.nseg - 1; s2 > seg; --s2) {
+    const int* flag = p.sync + 1 + (static_cast<int64_t>(s2 - 1) * p.batch
+                                    + b) * p.tiles + tile;
+    long long spins = 0;
+    while (ld_acquire(flag) == 0) {
+      __nanosleep(64);
+      if (++spins > (1LL << 26)) __trap();   // a pass-A block never came
+    }
+    if (dlive) {
+      const float* P = p.carry + (s2 - 1) * plane + hoff;
+      const float* E = p.carry + (p.nseg - 1) * plane + (s2 - 1) * plane
+                       + hoff;
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        if (n0 + j < N) {
+          carry[j] = fmaf(__ldcg(P + j), carry[j], __ldcg(E + j));
+        }
+      }
+    }
+  }
+
+  float dA_acc[kNS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dD_acc = 0.0f;
+  const float dcol = dlive ? p.D[d] : 0.0f;
+  float* const du = p.du;
+  float* const ddt = p.ddt;
+  float* const dB = p.dB;
+  float* const dC = p.dC;
+  const int vec_dbc = p.vec_dbc;
+  // the lane that writes du (l 0) or ddt (l 1) of its channel
+  float* const out_l = l == 0 ? du : ddt;
+  // the dB, dC term a thread holds after sum_channels: which (0 dB, 1 dC)
+  // and state, and whether it writes it (lanes that hold a copy do not)
+  const int vidx = (lane >> 2) & 7;
+  const int red_col = (vidx >> 2) * kMaxN + l * kNS + (vidx & 3);
+  const bool red_writer = (lane & 3 & ~(L - 1)) == 0;
+  const int ngroups = (N + kNS - 1) / kNS;   // groups of 4 states
+
+  int slot = 1;
+  for (int64_t k = k_hi; k >= k_lo; --k) {
+    ahead(k - 1, slot ^ 1);
+    slot ^= 1;
+    if (k == k_hi) continue;   // the first pass only issues
+    cp_wait_prev();
+    __syncthreads();
+    const auto& bf = sm.buf[slot ^ 1];
+    const int64_t t0 = k * Tc;
+    const int steps = static_cast<int>(S - t0 < Tc ? S - t0 : Tc);
+
+    // the chunk in two halves of kHalf steps, the later first: each half
+    // reruns its steps from the state before it into registers (h_t and
+    // dA_t), then sweeps them backward; the state before the later half
+    // comes from a rerun of the earlier one that keeps nothing
+    float h0[kNS];
+    load4(bf.ck + c * kMaxN + n0, h0);
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) h0[j] = dlive ? h0[j] : 0.0f;
+    const int64_t row0 = (b * S + t0) * di + d;
+    auto rerun = [&](int q, const float* hin, float* hout, float* eout) {
+      const float ut = to_f32(bf.u[q * kCh + c]);
+      const float dtv = to_f32(bf.dt[q * kCh + c]);
+      float bv[kNS];
+      load4(bf.B + q * kMaxN + n0, bv);
+      const float dtu = dtv * ut;
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        const float e = ex2(dtv * a2[j]);
+        if (eout != nullptr) eout[j] = e;
+        hout[j] = fmaf(e, hin[j], dtu * bv[j]);
+      }
+    };
+    auto half = [&](auto q0c, const float* hstart) {
+      constexpr int Q0 = decltype(q0c)::value;
+      float hs[kHalf][kNS], es[kHalf][kNS], outv[kHalf], redv[kHalf];
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        rerun(Q0 + i, i > 0 ? hs[i - 1] : hstart, hs[i], es[i]);
+      }
+#pragma unroll
+      for (int i = kHalf - 1; i >= 0; --i) {
+        const int q = Q0 + i;
+        const float g = bf.gy[q * kCh + c];
+        const float ut = to_f32(bf.u[q * kCh + c]);
+        const float dtv = to_f32(bf.dt[q * kCh + c]);
+        float bv[kNS], cv[kNS], v[8];
+        load4(bf.B + q * kMaxN + n0, bv);
+        load4(bf.C + q * kMaxN + n0, cv);
+        const float dtu = dtv * ut;
+        float sB = 0.0f, sA = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kNS; ++j) {
+          const float hp = i > 0 ? hs[i - 1][j] : hstart[j];
+          const float Gj = fmaf(g, cv[j], carry[j]);
+          v[j] = Gj * dtu;               // dB term
+          v[kNS + j] = g * hs[i][j];     // dC term
+          sB = fmaf(Gj, bv[j], sB);
+          const float w = Gj * (es[i][j] * hp);
+          sA = fmaf(w, a2[j], sA);
+          dA_acc[j] = fmaf(w, dtv, dA_acc[j]);
+          carry[j] = es[i][j] * Gj;
+        }
+        const float x = dtv * sB;                    // du's
+        const float y = fmaf(ut, sB, sA * kLn2);     // ddt's
+        if (L == 1) {
+          if (dlive && q < steps) {
+            du[row0 + q * di] = fmaf(dcol, g, x);
+            ddt[row0 + q * di] = y;
+          }
+          outv[i] = 0.0f;
+        } else {
+          const bool odd = (l & 1) != 0;
+          float keep = (odd ? y : x) + __shfl_xor_sync(kFull, odd ? x : y, 1);
+          if (L == 4) keep += __shfl_xor_sync(kFull, keep, 2);
+          outv[i] = l == 0 ? fmaf(dcol, g, keep) : keep;
+        }
+        if (l == 0) dD_acc = fmaf(g, ut, dD_acc);
+        redv[i] = sum_channels<L>(v, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const int q = Q0 + i;
+        if (L > 1 && dlive && q < steps && l < 2) {
+          out_l[row0 + q * di] = outv[i];
+        }
+        if (red_writer) sm.red[q][warp][red_col] = redv[i];
+      }
+    };
+    float hm[kNS];
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) hm[j] = h0[j];
+#pragma unroll
+    for (int q = 0; q < kHalf; ++q) rerun(q, hm, hm, nullptr);
+    half(std::integral_constant<int, kHalf>(), hm);
+    half(std::integral_constant<int, 0>(), h0);
+    __syncthreads();
+
+    // dB, dC of the chunk: the block's warps summed, added over tiles
+    for (int i = tid; i < steps * 2 * ngroups; i += kThreads) {
+      const int r = i / (2 * ngroups);
+      const int which = (i / ngroups) & 1;
+      const int l4 = i % ngroups;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int w = 0; w < L; ++w) {
+        const float4 v4 = *reinterpret_cast<const float4*>(
+            &sm.red[r][w][which * kMaxN + l4 * kNS]);
+        acc.x += v4.x; acc.y += v4.y; acc.z += v4.z; acc.w += v4.w;
+      }
+      float* dst = (which == 0 ? dB : dC) + (b * S + t0 + r) * N + l4 * kNS;
+      if (vec_dbc) {
+        atomicAdd(reinterpret_cast<float4*>(dst), acc);
+      } else {
+        const float av[kNS] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+        for (int j = 0; j < kNS; ++j) {
+          if (l4 * kNS + j < N) atomicAdd(dst + j, av[j]);
+        }
+      }
+    }
   }
 
   if (dlive) {
@@ -393,23 +486,8 @@ __global__ void __launch_bounds__(kCh * L, 4)
     for (int j = 0; j < kNS; ++j) {
       if (n0 + j < N) atomicAdd(p.dA + d * N + n0 + j, dA_acc[j]);
     }
+    if (l == 0) atomicAdd(p.dD + d, dD_acc);
   }
-  if (col < dvalid) atomicAdd(p.dD + d0 + col, dD_acc);
-}
-
-template <typename T, int L>
-int launch_one(const BwdParams& p, cudaStream_t s) {
-  const int64_t smem = p.T * smem_per_step<T, L>();
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_bwd_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = p.batch * p.tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ssm_scan_bwd_kernel<T, L><<<static_cast<unsigned>(blocks), kCh * L,
-                              static_cast<size_t>(smem), s>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -422,31 +500,48 @@ int launch(BwdParams p, cudaStream_t s) {
   p.vec_gy = copy_width(p.gy, p.di * 4, p.di * 4, p.S * p.di * 4);
   p.vec_b = copy_width(p.Bm, p.N * es, p.b_st * es, p.b_sb * es);
   p.vec_c = copy_width(p.Cm, p.N * es, p.c_st * es, p.c_sb * es);
+  p.vec_ck = copy_width(p.ckpt, p.N * 4, p.N * 4, p.di * p.N * 4);
+  const auto a16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  p.vec_dbc = p.N % kNS == 0 && a16(p.dB) && a16(p.dC);
+  const int64_t blocks =
+      static_cast<int64_t>(2 * p.nseg - 1) * p.batch * p.tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   int L = 1;
   while (L * kNS < p.N) L *= 2;
   switch (L) {
-    case 1: return launch_one<T, 1>(p, s);
-    case 2: return launch_one<T, 2>(p, s);
-    case 4: return launch_one<T, 4>(p, s);
+    case 1: ssm_scan_bwd_kernel<T, 1><<<grid, kCh * 1, 0, s>>>(p); break;
+    case 2: ssm_scan_bwd_kernel<T, 2><<<grid, kCh * 2, 0, s>>>(p); break;
+    case 4: ssm_scan_bwd_kernel<T, 4><<<grid, kCh * 4, 0, s>>>(p); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (u, dt, B and C).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (u, dt, B and C).  1 <= T <= 8; S split
+// into nseg segments of seg_len steps (a multiple of T; the last takes the
+// rest); with nseg > 1, carry holds 2 (nseg-1) batch di N floats and sync
+// 1 + (nseg-1) batch ceil(di/32) zeroed ints.  Returns cudaGetLastError()
+// after the launch (0 = launched).
 int ssm_scan_bwd_launch(int dtype, const void* u, const void* dt,
                         const void* A, const void* Bm, const void* Cm,
                         const void* D, const void* gy, const void* gh,
                         const void* ckpt, void* du, void* ddt, void* dA,
-                        void* dB, void* dC, void* dD, int64_t batch,
-                        int64_t S, int64_t di, int N, int64_t b_sb,
-                        int64_t b_st, int64_t c_sb, int64_t c_st, int64_t T,
+                        void* dB, void* dC, void* dD, void* carry, void* sync,
+                        int64_t batch, int64_t S, int64_t di, int N,
+                        int64_t b_sb, int64_t b_st, int64_t c_sb,
+                        int64_t c_st, int64_t T, int nseg, int64_t seg_len,
                         void* stream) {
-  if (N < 1 || N > kMaxN || batch < 1 || di < 1 || S < 0 || T < 1) {
+  if (N < 1 || N > kMaxN || batch < 1 || di < 1 || S < 0 || T < 1 ||
+      T > kT || nseg < 1 || seg_len < T || seg_len % T != 0 ||
+      static_cast<int64_t>(nseg) * seg_len < S ||
+      (nseg > 1 && (carry == nullptr || sync == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdParams p;
@@ -457,11 +552,13 @@ int ssm_scan_bwd_launch(int dtype, const void* u, const void* dt,
   p.du = static_cast<float*>(du); p.ddt = static_cast<float*>(ddt);
   p.dA = static_cast<float*>(dA); p.dB = static_cast<float*>(dB);
   p.dC = static_cast<float*>(dC); p.dD = static_cast<float*>(dD);
+  p.carry = static_cast<float*>(carry); p.sync = static_cast<int*>(sync);
   p.batch = batch; p.S = S; p.di = di; p.N = N;
   p.b_sb = b_sb; p.b_st = b_st; p.c_sb = c_sb; p.c_st = c_st;
-  p.T = T; p.n_ckpt = (S + T - 1) / T;
+  p.T = T; p.n_ckpt = (S + T - 1) / T; p.seg_ck = seg_len / T;
+  p.nseg = nseg;
   p.tiles = static_cast<int>((di + kCh - 1) / kCh);
-  p.vec_ud = p.vec_gy = p.vec_b = p.vec_c = 0;
+  p.vec_ud = p.vec_gy = p.vec_b = p.vec_c = p.vec_ck = p.vec_dbc = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);

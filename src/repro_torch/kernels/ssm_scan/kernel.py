@@ -45,9 +45,10 @@ from .. import meta
 from ..rfast_update import dispatch
 
 __all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_bytes", "ssm_scan_ops",
-           "scan_segments",
+           "scan_segments", "scan_bwd_segments", "bwd_segment_length",
            "segment_length", "n_checkpoints", "KERNEL_SOURCE", "SCAN_CHUNK",
-           "SCAN_STAGE", "SCAN_TILE", "MAX_STATE", "CKPT_EVERY"]
+           "SCAN_STAGE", "SCAN_TILE", "MAX_STATE", "CKPT_EVERY",
+           "BWD_MAX_CKPT_EVERY"]
 
 KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 SCAN_CHUNK = 64      # the twin's default staging depth
@@ -64,6 +65,11 @@ SPLIT_BELOW_WARPS_PER_SM = 4
 SPLIT_WARPS_PER_SM = 24
 MIN_SEGMENT = 512
 MIN_SEGMENTS = 4
+# the backward's (scan_bwd_segments): four of its blocks fit an SM (128
+# registers a thread); segments of at least BWD_MIN_SEGMENT steps
+BWD_BLOCKS_PER_SM = 4
+BWD_MIN_SEGMENT = 16
+BWD_MAX_CKPT_EVERY = 8   # the backward's chunk: kT in csrc/ssm_scan_bwd.cu
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -125,6 +131,44 @@ def scan_segments(Bsz: int, S: int, di: int, N: int, sms: int) -> int:
     want = math.ceil(SPLIT_WARPS_PER_SM * sms / max(1, warps))
     nseg = n_checkpoints(S, segment_length(S, min(want, S // MIN_SEGMENT)))
     return nseg if nseg >= MIN_SEGMENTS else 1
+
+
+def bwd_segment_length(S: int, segments: int, every: int) -> int:
+    """Steps a segment of the backward's split time axis covers:
+    ⌈S/segments⌉ rounded up to a multiple of the checkpoint spacing
+    ``every`` (a segment starts at a checkpoint; the last takes the
+    rest)."""
+    seg = -(-S // max(1, segments))
+    return max(every, -(-seg // every) * every)
+
+
+def scan_bwd_segments(Bsz: int, S: int, di: int, N: int, sms: int) -> int:
+    """How many segments the backward kernel splits S into on a card of
+    ``sms`` SMs.
+
+    Unsplit, the backward runs Bsz · ⌈di/32⌉ blocks ("rows"), each walking
+    all of S, and ``BWD_BLOCKS_PER_SM`` · sms fit the card at once
+    ("slots").  A split adds pass-A blocks (every segment but the first
+    runs its carry chain once more: one exponential and two fp32
+    operations per (b, t, d, n), against the rerun and sweep's one and
+    ~19) and keeps a pass-B block for each (segment, row).  Where the rows
+    fill half the slots or more it does not split.  Otherwise the segments
+    fill one wave of pass-B blocks (slots // rows of them), or two waves
+    where one holds fewer than four: a long pass A then keeps too many
+    pass-B blocks waiting; none is shorter than ``BWD_MIN_SEGMENT`` steps
+    (H100: ``tools/scan_ab.py --splits``).  Training hymba-1.5b at
+    ``--batch-per-node 1 --seq 4096`` gives (1, 4096, 3200, 16), 100 rows,
+    which a 132-SM card splits in 5; falcon-mamba-7b's (1, 4096, 8192,
+    16), 256 rows, in 4; the train shape's 400 rows not at all."""
+    rows = Bsz * -(-di // SCAN_TILE)
+    slots = BWD_BLOCKS_PER_SM * sms
+    if S == 0 or 2 * rows > slots:
+        return 1
+    one = slots // rows
+    want = min(one if one >= 4 else 2 * one, S // BWD_MIN_SEGMENT)
+    if want < 2:
+        return 1
+    return n_checkpoints(S, bwd_segment_length(S, want, CKPT_EVERY))
 
 
 @functools.lru_cache(maxsize=None)

@@ -227,8 +227,11 @@ def test_meta_path_runs_no_kernel_no_twin_no_collective(monkeypatch):
     assert c["ssm_scan"]["flops"] == sfwd.ssm_scan_ops(2, 40, 24, 16)[0]
     assert c["ssm_scan"]["bytes"] == (sfwd.ssm_scan_bytes(2, 40, 24, 16, 4)
                                       + 4 * 2 * 5 * 24 * 16)
-    assert c["ssm_scan_bwd"]["flops"] == sbwd.ssm_scan_bwd_ops(2, 40, 24,
-                                                               16)[0]
+    # the backward's own work at the split an H100 takes (pass A counted)
+    segments = sfwd.scan_bwd_segments(2, 40, 24, 16, sbwd.META_SMS)
+    assert segments > 1
+    assert c["ssm_scan_bwd"]["flops"] == sbwd.ssm_scan_bwd_ops(
+        2, 40, 24, 16, segments)[0]
     assert dispatch.stats()["launches"] == 0
     # the collectives over a described mesh: recorded, nothing sent
     mesh = describe_mesh((4, 8), ("data", "model"), rank=9)

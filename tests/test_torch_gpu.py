@@ -30,8 +30,10 @@ tolerances) at tests/test_kernels.py's cases and at ragged di, S and N,
 with B and C as strided column slices, with its checkpoints and with its
 time axis split; the ``ssm_scan_bwd`` kernel to its plain twin (the six
 gradients, with and without a gradient of h_last, at odd and ragged
-cases with strided B and C; 1e-4 fp32, 3e-2 bf16; dA, dB, dC and dD are
-summed by atomics, so only to a tolerance); ``SelectiveScanFn`` launches
+cases with strided B and C, its time axis unsplit, split in 2, 3 and as
+``scan_bwd_segments`` splits it, and at a long S the rule splits; 1e-4
+fp32, 3e-2 bf16; dA, dB, dC and dD are summed by atomics, so only to a
+tolerance); ``SelectiveScanFn`` launches
 one of each and its gradients match plain autograd of the ref at 1e-4;
 and a reduced hymba-1.5b sync train launches both once per layer per
 gradient.  The fleet sweep launches one ``commit_grid`` per fleet wave
@@ -79,8 +81,10 @@ from repro_torch.kernels.rfast_update.kernel import (
     rfast_update_node_plain)
 from repro_torch.kernels.ssm_scan.backward import (ssm_scan_bwd,
                                                    ssm_scan_bwd_plain)
-from repro_torch.kernels.ssm_scan.kernel import (CKPT_EVERY, scan_segments,
-                                                 ssm_scan, ssm_scan_plain)
+from repro_torch.kernels.ssm_scan.kernel import (CKPT_EVERY,
+                                                 scan_bwd_segments,
+                                                 scan_segments, ssm_scan,
+                                                 ssm_scan_plain)
 from repro_torch.kernels.ssm_scan.ops import SelectiveScanFn
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
@@ -689,9 +693,11 @@ def _bwd_case(case, dtype, seed, with_h, every=CKPT_EVERY):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("with_h", [True, False])
-def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype, tol, with_h):
+@pytest.mark.parametrize("segments", [1, 2, 3, None])   # None: the rule's
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype, tol, with_h,
+                                           segments):
     bargs = _bwd_case(case, dtype, 5, with_h)
-    got = ssm_scan_bwd(*bargs, ckpt_every=CKPT_EVERY)
+    got = ssm_scan_bwd(*bargs, ckpt_every=CKPT_EVERY, segments=segments)
     torch.cuda.synchronize()
     assert dispatch.launches("ssm_scan_bwd") == 1
     want = ssm_scan_bwd_plain(*bargs, ckpt_every=CKPT_EVERY)
@@ -704,7 +710,7 @@ def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype, tol, with_h):
                                    atol=tol * scale, msg=f"d{name}")
 
 
-@pytest.mark.parametrize("every", [1, 7, 32])
+@pytest.mark.parametrize("every", [1, 3, 7])
 def test_ssm_scan_bwd_kernel_at_other_checkpoint_spacings(cuda, every):
     bargs = _bwd_case((2, 100, 200, 16), torch.float32, 9, True, every)
     got = ssm_scan_bwd(*bargs, ckpt_every=every)
@@ -730,14 +736,41 @@ def test_ssm_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
         (ValueError, (u, dt, A, B, C, D, gy, gh, ck), 0),
         (ValueError, (u, dt, A, B, C, D, gy, gh,
                       ssm_scan_plain(u, dt, A, B, C, D, ckpt_every=100)[2]),
-         100),                       # more shared memory than a block has
+         100),                       # chunks longer than the kernel's 8
+        (ValueError, (u, dt, A, B, C, D, gy, gh,
+                      ssm_scan_plain(u, dt, A, B, C, D, ckpt_every=9)[2]), 9),
+        (ValueError, (u, dt, A, B, C, D, gy, gh, ck), CKPT_EVERY, 0),
         (ValueError, (u.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                       B, C, D, gy, gh, ck), CKPT_EVERY),
     ]
-    for err, args, every in bad:
+    for err, args, every, *segments in bad:
         with pytest.raises(err):
-            ssm_scan_bwd(*args, ckpt_every=every)
+            ssm_scan_bwd(*args, ckpt_every=every,
+                         segments=segments[0] if segments else None)
     assert dispatch.launches("ssm_scan_bwd") == 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_ssm_scan_bwd_kernel_splits_a_long_sequence(cuda, dtype, tol):
+    """A batch of one at a long S over few channel tiles, which the rule
+    splits (pass-B blocks of the first segments wait on many pass-A
+    blocks), and a split into segments of one checkpoint chunk each."""
+    case = (1, 2048, 256, 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = scan_bwd_segments(*case, sms)
+    assert rule > 1
+    bargs = _bwd_case(case, dtype, 11, True)
+    want = ssm_scan_bwd_plain(*bargs, ckpt_every=CKPT_EVERY)
+    for segments in (None, case[1] // CKPT_EVERY):
+        dispatch.clear()
+        got = ssm_scan_bwd(*bargs, ckpt_every=CKPT_EVERY, segments=segments)
+        torch.cuda.synchronize()
+        assert dispatch.launches("ssm_scan_bwd") == 1
+        for name, g, w in zip("u dt A B C D".split(), got, want):
+            scale = max(1.0, float(w.float().abs().max()))
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol * scale, msg=f"d{name}")
 
 
 @pytest.mark.parametrize("with_h", [True, False])

@@ -12,6 +12,14 @@ without a gradient of h_last, and do not depend on the checkpoint spacing
 (1e-4); bf16 inputs give bf16
 gradients within 3e-2 of the fp32 twin on the rounded inputs; and
 ``SelectiveScanFn`` runs both twins on CPU tensors and records no launch.
+The twin split as the kernel splits its time axis (2, 3 and 5 segments
+on checkpoint bounds, S not a multiple of the segment length in most
+cases: pass A from a zero carry, the combine, pass B) agrees with
+``jax.grad`` at 1e-4 and with the unsplit twin at 1e-5 of each gradient's
+largest entry (the combine rounds differently from the sequential
+chain: ~2e-7 of it), and in bf16 within 3e-2 of the fp32 twin; the
+backward's split rule and its counts of work and shared memory follow
+the kernel.
 """
 import functools
 
@@ -52,13 +60,13 @@ def _jax_grads(ci: int, with_h: bool):
     return tuple(np.asarray(a) for a in g)
 
 
-def _twin_grads(args, ci, with_h, every, dtype=torch.float32):
+def _twin_grads(args, ci, with_h, every, dtype=torch.float32, segments=1):
     gy, gh = _cotangents(ci)
     t = [a.to(dtype) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
     _, _, ckpt = sk.ssm_scan_plain(*t, ckpt_every=every)
     return sb.ssm_scan_bwd_plain(
         *t, torch.from_numpy(gy), torch.from_numpy(gh) if with_h else None,
-        ckpt, ckpt_every=every)
+        ckpt, ckpt_every=every, segments=segments)
 
 
 def _tensors(ci):
@@ -73,6 +81,51 @@ def test_bwd_twin_matches_jax_grad(ci, with_h):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
                                    err_msg=f"d{name}")
+
+
+SPLITS = [2, 3, 5]
+
+
+@pytest.mark.parametrize("segments", SPLITS)
+@pytest.mark.parametrize("with_h", [True, False])
+@pytest.mark.parametrize("ci", range(len(CASES)))
+def test_bwd_split_twin_matches_jax_grad(ci, with_h, segments):
+    grads = _twin_grads(_tensors(ci), ci, with_h, sk.CKPT_EVERY,
+                        segments=segments)
+    for name, g, w in zip(NAMES, grads, _jax_grads(ci, with_h)):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("segments", SPLITS)
+@pytest.mark.parametrize("with_h", [True, False])
+@pytest.mark.parametrize("ci", range(len(CASES)))
+def test_bwd_split_twin_matches_the_unsplit_twin(ci, with_h, segments):
+    S = CASES[ci][1]
+    seg = sk.bwd_segment_length(S, segments, sk.CKPT_EVERY)
+    assert seg % sk.CKPT_EVERY == 0 and -(-S // seg) > 1
+    args = _tensors(ci)
+    want = _twin_grads(args, ci, with_h, sk.CKPT_EVERY)
+    got = _twin_grads(args, ci, with_h, sk.CKPT_EVERY, segments=segments)
+    for name, g, w in zip(NAMES, got, want):
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("segments", SPLITS)
+@pytest.mark.parametrize("ci", range(len(CASES)))
+def test_bwd_split_twin_bf16_gradients_near_the_fp32_twin(ci, segments):
+    rounded = [torch.from_numpy(a) for a in _rounded(ci, "bfloat16")]
+    want = _twin_grads(rounded, ci, True, sk.CKPT_EVERY)
+    got = _twin_grads(rounded, ci, True, sk.CKPT_EVERY, torch.bfloat16,
+                      segments=segments)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == (torch.float32 if name in "AD" else
+                           torch.bfloat16), name
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=3e-2,
+                                   atol=3e-2, err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("every", [1, 7, 64, "S"])
@@ -240,6 +293,51 @@ def test_split_rule_fills_the_card_and_keeps_segments_long():
             assert nseg == 1
 
 
+def test_bwd_split_rule_splits_the_op_widths_on_checkpoint_bounds():
+    sms = 132
+    # hymba-1.5b's op width (100 rows of blocks): one wave of pass-B
+    # blocks, 5 segments; falcon-mamba-7b's (256 rows): two waves, 4; the
+    # tensor-parallel ranks' shapes (64 and 200 rows at S 128): 8 and 4
+    assert sk.scan_bwd_segments(1, 4096, 3200, 16, sms) == 5
+    assert sk.scan_bwd_segments(1, 4096, 8192, 16, sms) == 4
+    assert sk.scan_bwd_segments(1, 128, 2048, 16, sms) == 8
+    assert sk.scan_bwd_segments(4, 128, 1600, 16, sms) == 4
+    # the train shape's 400 rows fill the card: no split; nor a short S
+    assert sk.scan_bwd_segments(4, 128, 3200, 16, sms) == 1
+    assert sk.scan_bwd_segments(1, sk.BWD_MIN_SEGMENT, 64, 16, sms) == 1
+    assert sk.scan_bwd_segments(1, 0, 64, 16, sms) == 1
+    slots = sk.BWD_BLOCKS_PER_SM * sms
+    for Bsz, S, di, N in [(1, 4096, 64, 16), (2, 1000, 96, 16),
+                          (1, 2100, 32, 4), (1, 70_000, 32, 16),
+                          (1, 129, 3200, 16), (1, 70_000, 32 * 600, 8),
+                          (3, 333, 200, 5)]:
+        nseg = sk.scan_bwd_segments(Bsz, S, di, N, sms)
+        seg = sk.bwd_segment_length(S, nseg, sk.CKPT_EVERY)
+        rows = Bsz * -(-di // sk.SCAN_TILE)
+        # every bound on a checkpoint, every segment non-empty, at most
+        # two waves of pass-B blocks
+        assert seg % sk.CKPT_EVERY == 0 and nseg == -(-S // seg)
+        assert nseg == 1 or (seg >= sk.BWD_MIN_SEGMENT
+                             and nseg * rows <= 2 * slots)
+        if 2 * rows > slots:
+            assert nseg == 1
+
+
+def test_bwd_ops_count_the_split_kernels_work():
+    Bsz, S, di, N = 2, 100, 40, 16
+    base = sb.ssm_scan_bwd_ops(Bsz, S, di, N)
+    assert base == (Bsz * S * di * (19 * N + 9), Bsz * S * di * N)
+    assert sb.ssm_scan_bwd_ops(Bsz, S, di, N, segments=1) == base
+    # 3 segments of 40 steps (on the 8-step checkpoints): pass A runs the
+    # last 60 steps once more (4 operations and an exponential a state,
+    # Σ dt a channel), the two decays, and 3 · 2 / 2 combines of 2
+    ops, exps = sb.ssm_scan_bwd_ops(Bsz, S, di, N, segments=3)
+    planes = Bsz * di * N
+    assert ops - base[0] == (Bsz * 60 * di * (4 * N + 1) + 2 * planes
+                             + 6 * planes)
+    assert exps - base[1] == Bsz * 60 * di * N + 2 * planes
+
+
 def test_bwd_bytes_and_shared_memory_count_what_the_kernel_moves():
     # u, dt (2·3·5 bf16 each), B, C (2·3·4 bf16 each); gy (2·3·5), 2
     # checkpoints (2·2·5·4), gh (2·5·4), A (5·4), D (5) fp32 read; du, ddt
@@ -249,11 +347,13 @@ def test_bwd_bytes_and_shared_memory_count_what_the_kernel_moves():
         + 4 * (30 + 80 + 40 + 20 + 5) + 4 * (60 + 20 + 48 + 5))
     assert sb.ssm_scan_bwd_bytes(2, 3, 5, 4, 2, 2, with_h=False) == (
         sb.ssm_scan_bwd_bytes(2, 3, 5, 4, 2, 2) - 4 * 40)
-    # 8 steps of float4 h and dA and float2 du, ddt sums for 128 threads,
-    # two buffers of u, dt (4 bytes), gy (fp32), B, C (4 bytes): four
-    # blocks an SM
-    assert sb.bwd_smem_bytes(8, 16) == 8 * (2 * 128 * 16 + 128 * 8 + 2 * (
-        128 + 2 * 128 + 2 * 64)) == 49152
-    assert 4 * sb.bwd_smem_bytes(8, 16) <= 228 * 1024
-    assert sb.bwd_smem_bytes(8, 4, 2) == 8 * (2 * 32 * 16 + 32 * 8 + 2 * (
-        128 + 2 * 64 + 2 * 32))
+    # two staging buffers of 8 steps: gy (32 fp32), the checkpoint (32 ×
+    # 16 fp32), u, dt (32 of 4 bytes), B, C (16 of 4 bytes); the dB, dC
+    # partials of 8 steps × 4 warps × 32 floats; the ticket: 16 KB, so the
+    # shared memory leaves four blocks an SM (the registers decide)
+    assert sb.bwd_smem_bytes(16) == 2 * (8 * 128 + 32 * 64 + 2 * 8 * 128
+                                         + 2 * 8 * 64) + 8 * 4 * 128 + 4
+    assert sb.bwd_smem_bytes(16) == 16388
+    assert 4 * sb.bwd_smem_bytes(16) <= 228 * 1024
+    assert sb.bwd_smem_bytes(4, 2) == 2 * (8 * 128 + 32 * 64 + 2 * 8 * 64
+                                           + 2 * 8 * 32) + 8 * 1 * 128 + 4
