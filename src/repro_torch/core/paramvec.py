@@ -37,6 +37,8 @@ from typing import Any, Callable, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from ..spans import span
+
 __all__ = ["RavelSpec", "make_ravel_spec", "ravel", "unravel",
            "GradProvider", "ModelGradProvider", "as_grad_fn",
            "value_and_grad", "tree_map", "tree_leaves"]
@@ -180,8 +182,10 @@ def value_and_grad(spec: RavelSpec,
     def vg(x_flat, batch, key):
         lane = x_flat.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = loss_fn(unravel(spec, lane), batch, key)
-            (g,) = torch.autograd.grad(loss, lane)
+            with span("rfast.grad.fwd"):
+                loss = loss_fn(unravel(spec, lane), batch, key)
+            with span("rfast.grad.bwd"):
+                (g,) = torch.autograd.grad(loss, lane)
         return loss.detach(), g
 
     return vg

@@ -46,6 +46,7 @@ import torch
 
 from ..kernels.rfast_update.grid import commit_grid
 from ..kernels.rfast_update.kernel import one_dtype, rfast_commit_node
+from ..spans import span
 from .plan import CommPlan
 
 __all__ = [
@@ -288,34 +289,41 @@ def _mailbox(state: ProtocolState, pulled: torch.Tensor, mk: torch.Tensor):
 def _make_round_plain(plan, vgrads, tables, gamma, robust, momentum, donate):
 
     def round_fn(state: ProtocolState, batches, keys=None, masks=None):
-        t = tables(state.x.device)
-        v, m = _descent(state, _lr(gamma, state.step), momentum)
+        with span("rfast.round"):
+            return _round(state, batches, keys, masks)
 
-        # ---- (S2a) consensus pull over G(W) ------------------------------
-        if masks is None and not robust:
-            recv_w = v[t.src_w]
-            mail_v = state.mail_v
-        else:
-            recv_w = _mailbox(state, v[t.src_w], _masks(masks, v, t))
-            mail_v = recv_w
-        x_new = (t.w_diag[:, None] * v).index_add_(
-            0, t.dst_w, t.w_edge[:, None] * recv_w)
-        del v, recv_w
+    def _round(state, batches, keys, masks):
+        t = tables(state.x.device)
+        with span("rfast.mix"):
+            v, m = _descent(state, _lr(gamma, state.step), momentum)
+
+            # ---- (S2a) consensus pull over G(W) --------------------------
+            if masks is None and not robust:
+                recv_w = v[t.src_w]
+                mail_v = state.mail_v
+            else:
+                recv_w = _mailbox(state, v[t.src_w], _masks(masks, v, t))
+                mail_v = recv_w
+            x_new = (t.w_diag[:, None] * v).index_add_(
+                0, t.dst_w, t.w_edge[:, None] * recv_w)
+            del v, recv_w
 
         # ---- (S2b) new gradient sample + robust tracking ------------------
         losses, g_new = vgrads(x_new, batches, keys)
-        mk = _masks(masks, x_new, t)[:, None]
-        recv = torch.zeros_like(state.z).index_add_(
-            0, t.dst_a, mk * (state.rho - state.rho_buf))
-        z_half = tracking_step(state.z, recv, g_new, state.g_prev)
-        del recv
-        # (S2c) split mass; (S4) buffers take the consumed values
-        return _finish(
-            state, donate, losses, x=x_new,
-            z=t.a_diag[:, None] * z_half, g_prev=g_new,
-            rho=state.rho + t.a_edge[:, None] * z_half[t.src_a],
-            rho_buf=mailbox_merge(state.rho, state.rho_buf, mk),
-            mail_v=mail_v, m=m)
+        with span("rfast.commit"):
+            mk = _masks(masks, x_new, t)[:, None]
+            recv = torch.zeros_like(state.z).index_add_(
+                0, t.dst_a, mk * (state.rho - state.rho_buf))
+            z_half = tracking_step(state.z, recv, g_new, state.g_prev)
+            del recv
+            # (S2c) split mass; (S4) buffers take the consumed values
+            new = dict(
+                x=x_new, z=t.a_diag[:, None] * z_half, g_prev=g_new,
+                rho=state.rho + t.a_edge[:, None] * z_half[t.src_a],
+                rho_buf=mailbox_merge(state.rho, state.rho_buf, mk),
+                mail_v=mail_v, m=m)
+        with span("rfast.scatter"):
+            return _finish(state, donate, losses, **new)
 
     return round_fn
 
@@ -337,51 +345,59 @@ def _make_round_kernel(plan, vgrads, tables, gamma, robust, momentum, oracle,
                if plan.in_a_val[i, k] > 0]
 
     def round_fn(state: ProtocolState, batches, keys=None, masks=None):
+        with span("rfast.round"):
+            return _round(state, batches, keys, masks)
+
+    def _round(state, batches, keys, masks):
         t = tables(state.x.device)
         robust_path = robust or masks is not None
-        mk = _masks(masks, state.x, t)
-        v, m = _descent(state, _lr(gamma, state.step), momentum)
+        with span("rfast.mix"):
+            mk = _masks(masks, state.x, t)
+            v, m = _descent(state, _lr(gamma, state.step), momentum)
 
-        # ---- (S2a) mailbox merge + gathered consensus pull ----------------
-        if robust_path:
-            mail_v = _mailbox(state, v[t.src_w], mk)
-            v_in = mail_v[t.in_w_epos]                      # (N, kw, p)
-        else:
-            mail_v = state.mail_v
-            v_in = v[t.in_w_src]
-        x_new = consensus_mix(t.w_diag[:, None], v, t.in_w_wt.T[..., None],
-                              v_in.transpose(0, 1))
-        del v, v_in
+            # ---- (S2a) mailbox merge + gathered consensus pull ------------
+            if robust_path:
+                mail_v = _mailbox(state, v[t.src_w], mk)
+                v_in = mail_v[t.in_w_epos]                  # (N, kw, p)
+            else:
+                mail_v = state.mail_v
+                v_in = v[t.in_w_src]
+            x_new = consensus_mix(t.w_diag[:, None], v,
+                                  t.in_w_wt.T[..., None],
+                                  v_in.transpose(0, 1))
+            del v, v_in
 
         losses, g_new = vgrads(x_new, batches, keys)
 
         # ---- fused commit: S.2b/c + S.4 -----------------------------------
         rho, buf = state.rho, state.rho_buf
-        one_dtype("the kernel backend",
-                  (state.z, g_new, state.g_prev, rho, buf))
-        a = round_commit_args(t, state, g_new, mk)
-        if oracle:
-            outs = [rfast_commit_node(
-                a["z_src"][i], g_new[i], a["go_src"][i],
-                rho[a["idx_ri"][i]], buf[a["idx_rb"][i]], a["mask"][i],
-                rho[a["idx_ro"][i]], a["a_out"][i], a_self=a["a_self"][i])
-                for i in range(n)]
-            z_out, rout, rbuf = (torch.stack(o) for o in zip(*outs))
-            del outs
-        else:
-            z_out, rout, rbuf = commit_grid(**a)
-        del a
+        with span("rfast.commit"):
+            one_dtype("the kernel backend",
+                      (state.z, g_new, state.g_prev, rho, buf))
+            a = round_commit_args(t, state, g_new, mk)
+            if oracle:
+                outs = [rfast_commit_node(
+                    a["z_src"][i], g_new[i], a["go_src"][i],
+                    rho[a["idx_ri"][i]], buf[a["idx_rb"][i]], a["mask"][i],
+                    rho[a["idx_ro"][i]], a["a_out"][i],
+                    a_self=a["a_self"][i]) for i in range(n)]
+                z_out, rout, rbuf = (torch.stack(o) for o in zip(*outs))
+                del outs
+            else:
+                z_out, rout, rbuf = commit_grid(**a)
+            del a
         # scatter the slot results back to the edge-major rows, after
         # the launch (ρ was read as both ρ_in and ρ_out source)
-        rho_new = rho if donate else rho.clone()
-        buf_new = buf if donate else buf.clone()
-        for i, k, e in out_rows:
-            rho_new[e].copy_(rout[i, k])
-        for i, k, e in in_rows:
-            buf_new[e].copy_(rbuf[i, k])
-        del rout, rbuf
-        return _finish(state, donate, losses, x=x_new, z=z_out,
-                       g_prev=g_new, rho=rho_new, rho_buf=buf_new,
-                       mail_v=mail_v, m=m)
+        with span("rfast.scatter"):
+            rho_new = rho if donate else rho.clone()
+            buf_new = buf if donate else buf.clone()
+            for i, k, e in out_rows:
+                rho_new[e].copy_(rout[i, k])
+            for i, k, e in in_rows:
+                buf_new[e].copy_(rbuf[i, k])
+            del rout, rbuf
+            return _finish(state, donate, losses, x=x_new, z=z_out,
+                           g_prev=g_new, rho=rho_new, rho_buf=buf_new,
+                           mail_v=mail_v, m=m)
 
     return round_fn

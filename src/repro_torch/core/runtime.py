@@ -34,6 +34,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from ..spans import span
 from .plan import CommPlan, build_comm_plan
 from .protocol import (ProtocolState, init_protocol_state,
                        make_protocol_round, protocol_tracked_mass)
@@ -71,8 +72,9 @@ def _make_vgrads(grad_fn: GradFn):
         grads = torch.empty_like(x)
         losses = []
         for i in range(x.shape[0]):
-            loss, g = grad_fn(x[i], _node_slice(batches, i),
-                              None if keys is None else keys[i])
+            with span("rfast.grad"):
+                loss, g = grad_fn(x[i], _node_slice(batches, i),
+                                  None if keys is None else keys[i])
             grads[i] = g
             losses.append(torch.as_tensor(loss, device=x.device))
         return torch.stack(losses), grads

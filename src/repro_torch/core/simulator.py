@@ -98,6 +98,7 @@ import torch
 
 from ..kernels.rfast_update import dispatch
 from ..kernels.rfast_update.grid import commit_grid
+from ..spans import span
 from .paramvec import as_grad_fn
 from .plan import CommPlan, as_comm_plan, pad_comm_plan
 from .protocol import IMPLS, consensus_mix, descent_step, tracking_step
@@ -187,11 +188,13 @@ def _paper_init(nodes: torch.Tensor, grad_fn, seed: int, *,
     for i in range(nodes.shape[0]):
         gen = event_generator(seed, -1, i)
         if shard is None:
-            g = grad_fn(i, nodes[i, 0], gen)
+            with span("rfast.grad"):
+                g = grad_fn(i, nodes[i, 0], gen)
         else:
             g = torch.zeros_like(nodes[i, 0])
-            g[:shard.hi - shard.lo] = grad_fn(i, x_full[i], gen)[
-                shard.lo:shard.hi]
+            with span("rfast.grad"):
+                g[:shard.hi - shard.lo] = grad_fn(i, x_full[i], gen)[
+                    shard.lo:shard.hi]
         nodes[i, 2].copy_(g)
         nodes[i, 3].copy_(g)
 
@@ -437,74 +440,86 @@ def _wave_step(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
     :func:`~repro_torch.core.runtime_sharded.all_gather_flat` of the
     wave's mixed iterates over the param group, and the rank keeps its
     slice of each fresh gradient."""
+    with span("rfast.wave"):
+        _wave(state, w, grad_fn=grad_fn, gamma=gamma, ko=ko, impl=impl,
+              shard=shard)
+
+
+def _wave(state: PackedState, w: _WaveInputs, *, grad_fn, gamma: float,
+          ko: int, impl: str, shard) -> None:
+    """:func:`_wave_step`'s body."""
     nodes, rho2, v_hist, rho_hist = state
     p = nodes.shape[-1]
     s = w.agent.shape[0]
 
-    # (S.1) local descent ----------------------------------------------
-    v_new = descent_step(nodes[w.agent, 0], nodes[w.agent, 2],
-                         gamma)                            # (s, p)
+    with span("rfast.mix"):
+        # (S.1) local descent ------------------------------------------
+        v_new = descent_step(nodes[w.agent, 0], nodes[w.agent, 2],
+                             gamma)                        # (s, p)
 
-    # (S.2a) consensus pull, reads resolved to delta-history rows -------
-    vals_v = v_hist[w.rslot_v, w.src_v]                    # (s, kw, p)
-    x_a = consensus_mix(w.w_self[:, None], v_new,
-                        w.w_in.T[..., None], vals_v.transpose(0, 1))
-    del vals_v
+        # (S.2a) consensus pull, reads resolved to delta-history rows ---
+        vals_v = v_hist[w.rslot_v, w.src_v]                # (s, kw, p)
+        x_a = consensus_mix(w.w_self[:, None], v_new,
+                            w.w_in.T[..., None], vals_v.transpose(0, 1))
+        del vals_v
+        # a param shard's gradient needs the full iterates: the wave's
+        # one collective; the zero pad tail sits at the end of the flat
+        # axis, so the tiled gather is the global order
+        x_full = None if shard is None else \
+            all_gather_flat(x_a, shard.param)              # (s, p_pad)
 
     # (S.2b) gradient at the mixed point, one lane at a time ------------
-    if shard is None:
-        g_new = torch.empty_like(x_a)
-        for b in range(s):
-            node = int(w.node_h[b])
-            g_new[b] = grad_fn(node, x_a[b], event_generator(
-                int(w.seed_h[b]), int(w.k_h[b]), node))
-    else:
-        # the wave's one collective; the zero pad tail sits at the end of
-        # the flat axis, so the tiled gather is the global order
-        x_full = all_gather_flat(x_a, shard.param)         # (s, p_pad)
-        g_new = torch.zeros_like(x_a)
-        for b in range(s):
-            node = int(w.node_h[b])
-            g_new[b, :shard.hi - shard.lo] = grad_fn(
-                node, x_full[b, :shard.p], event_generator(
-                    int(w.seed_h[b]), int(w.k_h[b]), node))[
-                shard.lo:shard.hi]
-        del x_full
+    g_new = torch.empty_like(x_a) if shard is None else torch.zeros_like(x_a)
+    for b in range(s):
+        node = int(w.node_h[b])
+        gen = event_generator(int(w.seed_h[b]), int(w.k_h[b]), node)
+        with span("rfast.grad"):
+            g = grad_fn(node, x_a[b] if shard is None
+                        else x_full[b, :shard.p], gen)
+        if shard is None:
+            g_new[b] = g
+        else:
+            g_new[b, :shard.hi - shard.lo] = g[shard.lo:shard.hi]
+        del g                       # one lane's gradient alive at a time
+    del x_full
 
-    if impl == "kernel":
-        # one fused launch for the whole wave over the flat state rows
-        z_a, rho_new, buf_new = commit_grid(
-            *w.grid, w.a_self, w.a_val, w.out_wt,
-            nodes.view(-1, p), g_new, nodes.view(-1, p),
-            rho_hist.view(-1, p), rho2, rho2)
-    else:
-        vals_rho = rho_hist[w.rslot_rho, w.hist_epos]      # (s, ka, p)
-        rho_rows = rho2[w.rho_read]                        # (s, ko+ka, p)
-        recv = torch.sum(w.a_val[..., None]
-                         * (vals_rho - rho_rows[:, ko:]), dim=1)
-        z_half = tracking_step(nodes[w.agent, 2], recv, g_new,
-                               nodes[w.agent, 3])
-        # (S.2c) keep own share; push mass onto out-edges
-        z_a = w.a_self[:, None] * z_half
-        rho_new = rho_rows[:, :ko] + w.out_wt[..., None] * z_half[:, None]
-        buf_new = vals_rho        # (S.4) ρ̃ takes the consumed values
-        del rho_rows, recv, z_half
+    with span("rfast.commit"):
+        if impl == "kernel":
+            # one fused launch for the whole wave over the flat state rows
+            z_a, rho_new, buf_new = commit_grid(
+                *w.grid, w.a_self, w.a_val, w.out_wt,
+                nodes.view(-1, p), g_new, nodes.view(-1, p),
+                rho_hist.view(-1, p), rho2, rho2)
+        else:
+            vals_rho = rho_hist[w.rslot_rho, w.hist_epos]  # (s, ka, p)
+            rho_rows = rho2[w.rho_read]                    # (s, ko+ka, p)
+            recv = torch.sum(w.a_val[..., None]
+                             * (vals_rho - rho_rows[:, ko:]), dim=1)
+            z_half = tracking_step(nodes[w.agent, 2], recv, g_new,
+                                   nodes[w.agent, 3])
+            # (S.2c) keep own share; push mass onto out-edges
+            z_a = w.a_self[:, None] * z_half
+            rho_new = rho_rows[:, :ko] + w.out_wt[..., None] \
+                * z_half[:, None]
+            buf_new = vals_rho    # (S.4) ρ̃ takes the consumed values
+            del rho_rows, recv, z_half
 
     # commit: disjoint row copies; sentinel rows (2·e_a) are skipped
-    e2 = rho2.shape[0]
-    for b in range(s):
-        a, ws = int(w.agent_h[b]), int(w.wslot_h[b])
-        for r, val in enumerate((x_a[b], v_new[b], z_a[b], g_new[b])):
-            nodes[a, r].copy_(val)
-        v_hist[ws, a].copy_(v_new[b])
-        for j, row in enumerate(w.rho_gidx_h[b].tolist()):
-            if row >= e2:
-                continue
-            if j < ko:
-                rho2[row].copy_(rho_new[b, j])
-                rho_hist[ws, row].copy_(rho_new[b, j])
-            else:
-                rho2[row].copy_(buf_new[b, j - ko])
+    with span("rfast.scatter"):
+        e2 = rho2.shape[0]
+        for b in range(s):
+            a, ws = int(w.agent_h[b]), int(w.wslot_h[b])
+            for r, val in enumerate((x_a[b], v_new[b], z_a[b], g_new[b])):
+                nodes[a, r].copy_(val)
+            v_hist[ws, a].copy_(v_new[b])
+            for j, row in enumerate(w.rho_gidx_h[b].tolist()):
+                if row >= e2:
+                    continue
+                if j < ko:
+                    rho2[row].copy_(rho_new[b, j])
+                    rho_hist[ws, row].copy_(rho_new[b, j])
+                else:
+                    rho2[row].copy_(buf_new[b, j - ko])
 
 
 def _chunk_waves(wf: WavefrontPlan, K: int, eval_every: int) -> list[int]:
